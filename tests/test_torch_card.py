@@ -1,0 +1,169 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs an NVIDIA GPU (marker `cuda`) and skips without one.
+The file imports torch and numpy only, so it runs where JAX is absent:
+
+    python -m pytest tests/test_torch_card.py --noconftest -q
+
+Inputs come from the port's own CPU path (rollout, AD linearization) at a
+small size, then move to the card. Tolerances are those of chip_smoke.py:
+select J within rtol 1e-9 for T >= T_min; backward kappa/K within
+rtol 1e-9 / atol 1e-12 with identical ok; line search X, U, J within
+rtol 1e-10 / atol 1e-12 with identical acceptance. The kernels contract
+FMAs and use the device's sin/cos/tan, so they are not bitwise equal to the
+plain versions.
+
+Two inputs need more room, for reasons outside the kernels. On an iterate
+with noisy controls the select's plain version (explicit inverses, the JAX
+reference's algorithm) itself loses digits: against a long-double run of
+the same math it is off by up to 2.8e-8 where the kernel's solve-based
+compose is off by 2e-10, so there the bound is rtol 1e-7. A diverging
+rollout amplifies the last-bit differences without bound, so the line
+search compares trajectories only where an alpha improves on J_old.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from timeopt_tpu_torch.models import get_system
+from timeopt_tpu_torch.ops import cuda_backward, cuda_forward, cuda_lft
+from timeopt_tpu_torch.solver.augmented import build_fused_inputs
+from timeopt_tpu_torch.solver.backward import backward_inputs
+from timeopt_tpu_torch.solver.cost import argmin_T, cost_true, rollout
+from timeopt_tpu_torch.solver.forward import select_first_improving
+from timeopt_tpu_torch.solver.ilqr import SolveOptions, broadcast_problem, solve_batch
+from timeopt_tpu_torch.solver.linearize import linearize
+
+pytestmark = pytest.mark.cuda
+ALPHAS = (1.0, 0.5, 0.25, 0.1, 0.05)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA)")
+    return torch.device("cuda", 0)
+
+
+def _iterate(case, B=4, N=32, seed=0, noise=0.05):
+    """Problems and a nominal (u_ref plus noise) with its Jacobians, built on
+    the CPU."""
+    system, mk = get_system(case)
+    base = mk(N=N).replace(T_min=N // 4, T_max=N)
+    rng = np.random.default_rng(seed)
+    x0 = base.x0.numpy() + np.asarray(system.sigma_x0) * rng.standard_normal((B, system.n))
+    probs = broadcast_problem(base, B).replace(x0=torch.as_tensor(x0))
+    U = probs.u_ref[:, None] + noise * torch.as_tensor(rng.standard_normal((B, N, system.m)))
+    X = rollout(system, probs, probs.x0, U)
+    A, Bj = linearize(system.step, X, U)
+    return system, probs, X, U.contiguous(), A.contiguous(), Bj.contiguous()
+
+
+def _close(a, b, rtol, atol):
+    assert torch.equal(torch.isfinite(a), torch.isfinite(b))
+    f = torch.isfinite(a)
+    assert bool(((a - b).abs() <= atol + rtol * b.abs())[f].all()), (a - b).abs()[f].max().item()
+
+
+@pytest.mark.parametrize("case,noise,rtol", [("Quadrotor", 0.0, 1e-9), ("Quadrotor", 0.05, 1e-7),
+                                             ("DoubleIntegrator", 0.05, 1e-9)])
+def test_select_kernel_matches_plain(dev, case, noise, rtol):
+    system, probs, X, U, A, Bj = _iterate(case, noise=noise)
+    fi = build_fused_inputs(system, probs, X, U, A, Bj, psd_levels=1)
+    args = [t.contiguous().to(dev) for t in (fi.A, fi.B, fi.vecs, fi.scal, fi.Qq, fi.R_inv, fi.Lt)]
+    n0 = cuda_lft.LAUNCHES
+    J_k = cuda_lft.propagator_select_fused(*args, t_min=probs.T_min)
+    assert cuda_lft.LAUNCHES == n0 + 1
+    J_p = cuda_lft.select_fused_plain(*args)
+    t = probs.T_min - 1
+    assert torch.isinf(J_k[:, :t]).all()
+    _close(J_k[:, t:], J_p[:, t:], rtol, 0.0)
+    s0 = fi.s[:, :1].to(dev) ** 2
+    assert torch.equal(argmin_T(s0 * J_k, probs.T_min, probs.T_max), argmin_T(s0 * J_p, probs.T_min, probs.T_max))
+
+
+@pytest.mark.parametrize("variant", ["T1", "Tmid", "TN", "nonpd", "nonfinite_eT", "T0"])
+def test_backward_kernel_matches_plain(dev, variant):
+    system, probs, X, U, A, Bj = _iterate("Quadrotor")
+    N = U.shape[1]
+    Tst = {"T1": [1] * 4, "TN": [N] * 4, "T0": [0, 3, 5, 7]}.get(variant, [N // 2, 7, N - 3, 11])
+    lm = torch.full((4,), 1e-3, dtype=torch.float64)
+    if variant == "nonpd":
+        lm[0] = -1e4
+    if variant == "nonfinite_eT":
+        X = X.clone()
+        X[1, Tst[1], 2] = float("nan")
+    args = [A, Bj, *backward_inputs(system, probs, X, U), torch.tensor(Tst), lm]
+    args = [a.to(dev) for a in args]
+    kap_k, K_k, ok_k = cuda_backward.backward_truncated_core(*args)
+    kap_p, K_p, ok_p = cuda_backward.backward_plain(*args)
+    assert torch.equal(ok_k, ok_p)
+    _close(kap_k, kap_p, 1e-9, 1e-12)
+    _close(K_k, K_p, 1e-9, 1e-12)
+
+
+@pytest.mark.parametrize("case,kappa_scale", [("Quadrotor", 1.0), ("Quadrotor", 30.0), ("Quadrotor", 1e6),
+                                              ("DoubleIntegrator", 1.0)])
+def test_linesearch_kernel_matches_plain(dev, case, kappa_scale):
+    system, probs, X, U, A, Bj = _iterate(case)
+    N = U.shape[1]
+    Tst = torch.tensor([N // 2, 7, N - 3, 11])
+    lm = torch.full((4,), 1e-3, dtype=torch.float64)
+    kap, K, _ = cuda_backward.backward_plain(A, Bj, *backward_inputs(system, probs, X, U), Tst, lm)
+    p = probs.to(dev)
+    args = (system, p, X.to(dev), U.to(dev), K.to(dev), (kappa_scale * kap).to(dev), Tst.to(dev), ALPHAS)
+    Xs_k, Us_k, Js_k = cuda_forward.linesearch(*args)
+    Xs_p, Us_p, Js_p = cuda_forward.linesearch_plain(*args)
+    J_old = cost_true(system, p, args[2], args[3], args[6])
+    improving = Js_p < J_old[:, None]
+    assert torch.equal(Js_k < J_old[:, None], improving)
+    for k, q in ((Xs_k, Xs_p), (Us_k, Us_p), (Js_k, Js_p)):
+        _close(k[improving], q[improving], 1e-10, 1e-12)
+    sel_k = select_first_improving(args[2], args[3], Xs_k, Us_k, Js_k, J_old)
+    sel_p = select_first_improving(args[2], args[3], Xs_p, Us_p, Js_p, J_old)
+    assert torch.equal(sel_k.accepted, sel_p.accepted)
+    for k, q in zip(sel_k[:3], sel_p[:3]):
+        _close(k, q, 1e-10, 1e-12)
+
+
+def test_float32_on_the_card_raises(dev):
+    x = torch.zeros((1, 2, 2, 2), dtype=torch.float32, device=dev)
+    with pytest.raises(TypeError):
+        cuda_lft.propagator_select_fused(x, x, x, x, x, x, x, t_min=1)
+    with pytest.raises(TypeError):
+        cuda_backward.backward_truncated_core(*([x] * 12))
+
+
+def test_system_without_device_dynamics_raises(dev):
+    system, probs, X, U, A, Bj = _iterate("DoubleIntegrator", B=1)
+    nodev = dataclasses.replace(system, device_id=None)
+    z = torch.zeros_like(A[..., :1, :])
+    with pytest.raises(NotImplementedError):
+        cuda_forward.linesearch(nodev, probs.to(dev), X.to(dev), U.to(dev), z.to(dev),
+                                U.to(dev), torch.tensor([3], device=dev), ALPHAS)
+
+
+def test_argmin_T_on_the_card_matches_cpu(dev):
+    curves = torch.tensor([[3.0, float("nan"), 1.0, 1.0], [4.0, 2.0, 2.0, 5.0], [float("inf"), 1.0, 0.5, 0.5]],
+                          dtype=torch.float64)
+    for T_min, T_max in ((1, 4), (2, 4), (3, 4)):
+        assert torch.equal(argmin_T(curves.to(dev), T_min, T_max).cpu(), argmin_T(curves, T_min, T_max))
+
+
+def test_solve_on_the_card_matches_cpu(dev):
+    system, mk = get_system("DoubleIntegrator")
+    base = mk(N=24).replace(T_min=4, T_max=16)
+    rng = np.random.default_rng(1)
+    probs = broadcast_problem(base, 3).replace(x0=base.x0 + 0.2 * torch.as_tensor(rng.standard_normal((3, 2))))
+    opts = SolveOptions(max_iter=6, psd_levels=1)
+    counts = (cuda_lft.LAUNCHES, cuda_backward.LAUNCHES, cuda_forward.LAUNCHES)
+    got = solve_batch(system, probs.to(dev), options=opts)
+    assert all(c1 > c0 for c0, c1 in zip(counts, (cuda_lft.LAUNCHES, cuda_backward.LAUNCHES, cuda_forward.LAUNCHES)))
+    want = solve_batch(system, probs, options=opts)
+    assert torch.equal(got.T_star.cpu(), want.T_star) and torch.equal(got.n_accept.cpu(), want.n_accept)
+    _close(got.J_star.cpu(), want.J_star, 1e-8, 0.0)

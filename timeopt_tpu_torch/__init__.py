@@ -1,0 +1,23 @@
+"""timeopt_tpu_torch: the HOP-DDP horizon-optimal trajectory optimizer in
+PyTorch, with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
+
+A port of the JAX package `timeopt_tpu`, which stays the reference. The
+batch is an explicit leading axis everywhere and everything runs in
+float64. Each of the three phases that the JAX package ran as Pallas TPU
+kernels has one dispatch point: on a CPU tensor it runs its plain PyTorch
+version; on a CUDA float64 tensor it launches its kernel (csrc/, built with
+nvcc at first use); on a CUDA tensor of any other dtype it raises.
+
+- select:      ops/cuda_lft.py      (csrc/lft_select.cu)
+- backward:    ops/cuda_backward.py (csrc/backward.cu)
+- line search: ops/cuda_forward.py  (csrc/linesearch.cu)
+
+This package never imports jax.
+"""
+
+from timeopt_tpu_torch.models import SYSTEMS, get_system
+from timeopt_tpu_torch.solver.ilqr import SolveOptions, SolveResult, solve, solve_batch
+
+__version__ = "0.1.0"
+
+__all__ = ["solve", "solve_batch", "SolveOptions", "SolveResult", "get_system", "SYSTEMS"]

@@ -1,0 +1,76 @@
+"""The all-alphas line search: hand-written CUDA kernel and its plain version.
+
+Replaces timeopt_tpu/ops/pallas_forward.py::linesearch_lanes_df and
+::linesearch_dense_df (kernel body _fwd_kernel). Kernel: csrc/linesearch.cu,
+float64, sm_90a, with the dynamics of each system with a `device_id`
+compiled in; its header says what bounds it on the H100 and how the design
+answers that. The first-improving selection stays in torch
+(solver/forward.py::select_first_improving).
+
+`linesearch` returns the per-alpha rollouts Xs (B, A, N+1, n),
+Us (B, A, N, m) and costs Js (B, A). On a CPU tensor it runs the plain
+version; on a CUDA float64 tensor it launches the kernel; any other CUDA
+dtype, or a system without device dynamics, raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from timeopt_tpu_torch.ops import _build
+
+LAUNCHES = 0  # kernel launches since the last reset
+
+
+def linesearch_plain(system, prob, X, U, K, kappa, T_star, alphas):
+    """Plain PyTorch version of the kernel (solver/forward.py)."""
+    from timeopt_tpu_torch.solver.forward import linesearch_plain as plain
+
+    return plain(system, prob, X, U, K, kappa, T_star, alphas)
+
+
+def linesearch(system, prob, X, U, K, kappa, T_star, alphas):
+    """X (B, N+1, n), U (B, N, m), K (B, N, m, n), kappa (B, N, m),
+    T_star (B,) int64, problem data from `prob`, alphas a sequence of A
+    floats -> (Xs, Us, Js)."""
+    if not _build.on_card(X, "line search"):
+        return linesearch_plain(system, prob, X, U, K, kappa, T_star, alphas)
+    if system.device_id is None:
+        raise NotImplementedError(
+            f"{system.name} has no device-side xdot in csrc/linesearch.cu (ROADMAP.md)"
+        )
+    global LAUNCHES
+    Bsz, Np1, n = X.shape
+    N, m, A = Np1 - 1, U.shape[-1], len(alphas)
+    f64, dev = torch.float64, X.device
+    for t, shape, name in (
+        (X, (Bsz, N + 1, n), "X"), (U, (Bsz, N, m), "U"), (K, (Bsz, N, m, n), "K"),
+        (kappa, (Bsz, N, m), "kappa"), (prob.xg, (Bsz, n), "xg"), (prob.u_ref, (Bsz, m), "u_ref"),
+        (prob.Q, (Bsz, n, n), "Q"), (prob.R, (Bsz, m, m), "R"), (prob.Qf, (Bsz, n, n), "Qf"),
+        (prob.w, (Bsz,), "w"),
+    ):
+        _build.check(t, shape, f64, dev, name)
+    _build.check(T_star, (Bsz,), torch.int64, dev, "T_star")
+    _build.check(prob.wrap_mask, (Bsz, n), torch.bool, dev, "wrap_mask")
+    a_vec = torch.tensor([float(a) for a in alphas], dtype=f64, device=dev)
+    Xs = torch.empty((Bsz, A, N + 1, n), dtype=f64, device=dev)
+    Us = torch.empty((Bsz, A, N, m), dtype=f64, device=dev)
+    Js = torch.empty((Bsz, A), dtype=f64, device=dev)
+    wrap_bits = sum(1 << int(i) for i in system.wrap_idx)
+    fn = _build.bind(
+        _build.load("linesearch"), "linesearch_rollout", 16,
+        [ctypes.c_int] * 6 + [ctypes.c_double, ctypes.c_int],
+    )
+    rc = fn(
+        X.data_ptr(), U.data_ptr(), K.data_ptr(), kappa.data_ptr(), T_star.data_ptr(),
+        prob.xg.data_ptr(), prob.u_ref.data_ptr(), prob.Q.data_ptr(), prob.R.data_ptr(),
+        prob.Qf.data_ptr(), prob.w.data_ptr(), prob.wrap_mask.data_ptr(), a_vec.data_ptr(),
+        Xs.data_ptr(), Us.data_ptr(), Js.data_ptr(),
+        Bsz, N, n, m, A, int(system.device_id), float(system.dt), wrap_bits,
+        _build.stream_ptr(dev),
+    )
+    _build.raise_on_error(rc, "linesearch_rollout")
+    LAUNCHES += 1
+    return Xs, Us, Js

@@ -1,0 +1,66 @@
+"""The fused propagator select: hand-written CUDA kernel and its plain version.
+
+Replaces timeopt_tpu/ops/pallas_lft.py::propagator_select_lanes_df_fused and
+::propagator_select_dense_df_fused (kernel body _df_select_fused_kernel).
+Kernel: csrc/lft_select.cu, float64, sm_90a; its header says what bounds it
+on the H100 and how the design answers that.
+
+`propagator_select_fused` takes the FusedInputs of solver/augmented.py with
+a leading batch axis and returns J (B, N), unscaled (the caller multiplies
+by s_0^2). On a CPU tensor it runs the plain version (which evaluates every
+horizon); on a CUDA float64 tensor it launches the kernel, which writes
++inf below T_min; any other CUDA dtype raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from timeopt_tpu_torch.ops import _build
+from timeopt_tpu_torch.ops.linalg import gj_inv, sym
+
+LAUNCHES = 0  # kernel launches since the last reset
+
+
+def select_fused_plain(A, Bm, vecs, scal, Qq, R_inv, Lt) -> torch.Tensor:
+    """Plain PyTorch version of the kernel (solver/horizon.py)."""
+    from timeopt_tpu_torch.solver.horizon import select_fused_plain as plain
+
+    return plain(A, Bm, vecs, scal, Qq, R_inv, Lt)
+
+
+def propagator_select_fused(A, Bm, vecs, scal, Qq, R_inv, Lt, *, t_min: int, jitter: float = 1e-9):
+    """A (B, N, n, n), Bm (B, N, n, m), vecs (B, N, 4, n), scal (B, N, 4),
+    Qq/Lt (B, n, n), R_inv (B, m, m) -> J (B, N)."""
+    if not _build.on_card(A, "propagator select"):
+        return select_fused_plain(A, Bm, vecs, scal, Qq, R_inv, Lt)
+    global LAUNCHES
+    Bsz, N, n, _ = A.shape
+    m = Bm.shape[-1]
+    f64, dev = torch.float64, A.device
+    for t, shape, name in (
+        (A, (Bsz, N, n, n), "A"), (Bm, (Bsz, N, n, m), "Bm"), (vecs, (Bsz, N, 4, n), "vecs"),
+        (scal, (Bsz, N, 4), "scal"), (Qq, (Bsz, n, n), "Qq"), (R_inv, (Bsz, m, m), "R_inv"),
+        (Lt, (Bsz, n, n), "Lt"),
+    ):
+        _build.check(t, shape, f64, dev, name)
+    # k-constant inverses, computed once outside the kernel as the JAX
+    # wrapper does: iQq = (Qq + jitter I)^-1, W0 = (Lt' Lt)^-1 = (Qf + rho I)^-1
+    eye = torch.eye(n, dtype=f64, device=dev)
+    iQq = sym(gj_inv(Qq + jitter * eye)).contiguous()
+    W0 = sym(gj_inv(Lt.transpose(-1, -2) @ Lt)).contiguous()
+    J = torch.empty((Bsz, N), dtype=f64, device=dev)
+    fn = _build.bind(
+        _build.load("lft_select"), "lft_select_fused", 8,
+        [ctypes.c_int] * 5 + [ctypes.c_double],
+    )
+    rc = fn(
+        A.data_ptr(), Bm.data_ptr(), vecs.data_ptr(), scal.data_ptr(), iQq.data_ptr(),
+        R_inv.data_ptr(), W0.data_ptr(), J.data_ptr(),
+        Bsz, N, n, m, int(t_min), float(jitter), _build.stream_ptr(dev),
+    )
+    _build.raise_on_error(rc, "lft_select_fused")
+    LAUNCHES += 1
+    return J

@@ -1,0 +1,74 @@
+"""Objective evaluation (port of timeopt_tpu/solver/cost.py): rollout, stage
+costs, the true cost truncated at a per-problem T*, and the argmin over T.
+Every function takes a leading batch axis B."""
+
+from __future__ import annotations
+
+import torch
+
+from timeopt_tpu_torch.models.base import Problem, System
+from timeopt_tpu_torch.ops.wrap import wrap_error
+
+
+def rollout(system: System, prob: Problem, x0: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
+    """x0 (B, n), U (B, N, m) -> X (B, N+1, n) through `safe_step`: once a
+    state goes non-finite or exceeds the norm guard, every later state is NaN."""
+    xs = [x0]
+    for k in range(U.shape[1]):
+        xs.append(system.safe_step(xs[-1], U[:, k]))
+    return torch.stack(xs, dim=1)
+
+
+def extra_cost_terms(system: System, X: torch.Tensor, U: torch.Tensor):
+    """Per-step (c, cx, cxx) of the optional extra stage cost. The ported
+    systems have none; the full version comes with PointMass (ROADMAP.md)."""
+    if system.extra_cost is not None:
+        raise NotImplementedError("extra stage costs are not ported yet (ROADMAP.md)")
+    return None
+
+
+def _quad(e: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
+    """e' M e for e (B, K, d), M (B, d, d) -> (B, K)."""
+    return torch.einsum("bki,bij,bkj->bk", e, M, e)
+
+
+def stage_costs(system: System, prob: Problem, X: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
+    """l_k = 0.5 e_k'Q e_k + 0.5 du_k'R du_k + w, k = 0..N-1 -> (B, N)."""
+    extra_cost_terms(system, X, U)
+    e = wrap_error(X[:, :-1] - prob.xg[:, None], prob.wrap_mask[:, None])
+    du = U - prob.u_ref[:, None]
+    return 0.5 * _quad(e, prob.Q) + 0.5 * _quad(du, prob.R) + prob.w[:, None]
+
+
+def terminal_cost(prob: Problem, xT: torch.Tensor) -> torch.Tensor:
+    """0.5 eT' Qf eT for xT (B, n) -> (B,)."""
+    eT = wrap_error(xT - prob.xg, prob.wrap_mask)
+    return 0.5 * torch.einsum("bi,bij,bj->b", eT, prob.Qf, eT)
+
+
+def cost_true(
+    system: System, prob: Problem, X: torch.Tensor, U: torch.Tensor, T_star: torch.Tensor
+) -> torch.Tensor:
+    """Exact objective truncated at T* (B,): stage costs for k < T* plus the
+    terminal cost at X[T*]. A non-finite state in rows <= T*, a non-finite
+    control in the active window, T* == 0 or a non-finite total give +inf."""
+    N = prob.N
+    T = T_star.to(torch.int64)
+    active = torch.arange(N, device=X.device)[None] < T[:, None]
+    l = stage_costs(system, prob, X, U)
+    masked = torch.where(active, l, torch.zeros_like(l))
+    idx = T.clamp(0, N)
+    xT = X[torch.arange(X.shape[0], device=X.device), idx]
+    total = masked.sum(dim=1) + terminal_cost(prob, xT)
+
+    rows = torch.arange(N + 1, device=X.device)[None] <= T[:, None]
+    x_ok = torch.where(rows, torch.isfinite(X).all(dim=-1), True).all(dim=1)
+    u_ok = torch.where(active, torch.isfinite(U).all(dim=-1), True).all(dim=1)
+    ok = x_ok & u_ok & (T > 0) & torch.isfinite(total)
+    return torch.where(ok, total, torch.full_like(total, float("inf")))
+
+
+def argmin_T(J_curve: torch.Tensor, T_min: int, T_max: int) -> torch.Tensor:
+    """T* = argmin over T in [T_min, T_max] of J(T), the first minimum,
+    for J_curve (B, >= T_max) -> (B,) int64."""
+    return torch.argmin(J_curve[:, T_min - 1 : T_max], dim=1) + T_min

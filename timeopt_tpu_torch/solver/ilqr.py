@@ -1,0 +1,248 @@
+"""Outer time-optimal iLQR loop, batched (port of timeopt_tpu/solver/ilqr.py,
+propagator method).
+
+The loop runs the warm start as masked iteration 0 and then up to max_iter
+accept/reject iterations: Levenberg-Marquardt lambda /10 (floor 1e-12) on
+accept and x10 on reject, convergence when the relative cost change is below
+rel_tol and the last three accepted horizons agree. A converged problem
+freezes all its state; with early_exit the loop stops once every problem of
+the batch is done (one host check per iteration), which changes no result.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from timeopt_tpu_torch.models.base import PROBLEM_FIELDS, Problem, System
+from timeopt_tpu_torch.solver.augmented import build_fused_inputs
+from timeopt_tpu_torch.solver.backward import backward_truncated
+from timeopt_tpu_torch.solver.cost import argmin_T, rollout
+from timeopt_tpu_torch.solver.forward import forward_linesearch
+from timeopt_tpu_torch.solver.horizon import propagator_select_fused
+from timeopt_tpu_torch.solver.linearize import linearize
+
+_ROADMAP = "not ported yet (ROADMAP.md, Queue 1)"
+
+
+@dataclasses.dataclass(frozen=True)
+class SolveOptions:
+    """Solver configuration; the defaults are those of the JAX package.
+    Only the propagator method with the sequential scan and the factored
+    terminal query is ported; other values raise NotImplementedError."""
+
+    method: str = "propagator"
+    max_iter: int = 15
+    lm_init: float = 1e-3
+    linearize_mode: str = "ad"
+    alphas: tuple = (1.0, 0.5, 0.25, 0.1, 0.05)
+    scan_mode: str = "sequential"
+    terminal_mode: str = "factored"
+    psd_levels: int = 2
+    q_reg: Optional[float] = None  # None: 1e-9 in float64, 1e-5 otherwise
+    rel_tol: float = 1e-4
+    early_exit: bool = True
+
+    def check(self) -> None:
+        if self.method != "propagator":
+            raise NotImplementedError(f"method={self.method!r} is {_ROADMAP}")
+        if self.scan_mode != "sequential":
+            raise NotImplementedError(f"scan_mode={self.scan_mode!r} is {_ROADMAP}")
+        if self.terminal_mode != "factored":
+            raise NotImplementedError(f"terminal_mode={self.terminal_mode!r} is {_ROADMAP}")
+
+
+@dataclasses.dataclass
+class SolveResult:
+    X: torch.Tensor  # (B, N+1, n) final nominal trajectory
+    U: torch.Tensor  # (B, N, m) final controls
+    T_star: torch.Tensor  # (B,) int64 selected horizon
+    J_star: torch.Tensor  # (B,) final accepted cost (inf if never accepted)
+    J_curve: torch.Tensor  # (B, T_max) last selection curve
+    J_hist: torch.Tensor  # (B, max_iter+1) accepted costs, NaN-padded
+    T_hist: torch.Tensor  # (B, max_iter+1) accepted horizons, -1-padded
+    n_accept: torch.Tensor  # (B,) number of accepted updates
+    lm_final: torch.Tensor  # (B,) final LM lambda
+    T_ties: torch.Tensor  # (B, T_max) bool: horizons flat-tied with T*
+
+
+def flat_tie_set(J_curve: torch.Tensor, T_star: torch.Tensor, T_min: int, w: torch.Tensor) -> torch.Tensor:
+    """(B, T_max) bool: |J(t) - J(T*)| <= w (|t - T*| + 1) for t >= T_min
+    with finite curve entries (entry t-1 holds horizon t)."""
+    Bsz, T_max = J_curve.shape
+    t = torch.arange(1, T_max + 1, device=J_curve.device)[None]
+    J_at = J_curve[torch.arange(Bsz, device=J_curve.device), T_star - 1][:, None]
+    dT = (t - T_star[:, None]).abs().to(J_curve.dtype)
+    fin = torch.isfinite(J_curve) & torch.isfinite(J_at)
+    return (t >= T_min) & fin & ((J_curve - J_at).abs() <= w[:, None] * (dT + 1.0))
+
+
+def resolve_q_reg(opts: SolveOptions, dtype: torch.dtype) -> float:
+    """1e-9 in true float64 (the CPU and the H100 both have it), else 1e-5."""
+    if opts.q_reg is not None:
+        return opts.q_reg
+    return 1e-9 if dtype == torch.float64 else 1e-5
+
+
+def _select_curve(system, prob, opts, X, U, A, B) -> torch.Tensor:
+    """J(T) for T = 1..T_max through the fused select, scaled by s_0^2."""
+    Tm = prob.T_max
+    fi = build_fused_inputs(
+        system, prob, X[:, : Tm + 1], U[:, :Tm], A[:, :Tm], B[:, :Tm],
+        q_reg=resolve_q_reg(opts, X.dtype), psd_levels=opts.psd_levels,
+    )
+    c = lambda t: t.contiguous()  # noqa: E731
+    J = propagator_select_fused(
+        c(fi.A), c(fi.B), c(fi.vecs), c(fi.scal), c(fi.Qq), c(fi.R_inv), c(fi.Lt), prob.T_min
+    )
+    return fi.s[:, :1] ** 2 * J
+
+
+def _solve_curve_methods(system: System, opts: SolveOptions, prob: Problem, U_init: torch.Tensor) -> SolveResult:
+    opts.check()
+    dtype, dev = U_init.dtype, U_init.device
+    Bsz = prob.batch
+    rows = torch.arange(Bsz, device=dev)
+    hist_len = opts.max_iter + 1
+    i64 = torch.int64
+
+    s = dict(
+        X=rollout(system, prob, prob.x0, U_init),
+        U=U_init,
+        lm=torch.full((Bsz,), opts.lm_init, dtype=dtype, device=dev),
+        T_bar=torch.zeros(Bsz, dtype=i64, device=dev),
+        J_last=torch.full((Bsz,), float("inf"), dtype=dtype, device=dev),
+        J_prev=torch.full((Bsz,), float("inf"), dtype=dtype, device=dev),
+        n_acc=torch.zeros(Bsz, dtype=i64, device=dev),
+        T3=torch.tensor([-1, -2, -3], dtype=i64, device=dev).expand(Bsz, 3),
+        J_curve=torch.zeros((Bsz, prob.T_max), dtype=dtype, device=dev),
+        J_hist=torch.full((Bsz, hist_len), float("nan"), dtype=dtype, device=dev),
+        T_hist=torch.full((Bsz, hist_len), -1, dtype=i64, device=dev),
+    )
+    done = torch.zeros(Bsz, dtype=torch.bool, device=dev)
+
+    for it in range(opts.max_iter + 1):
+        if opts.early_exit and bool(done.all()):
+            break
+        warm = it == 0
+        A, B = linearize(system.step, s["X"], s["U"], opts.linearize_mode)
+        J_curve = _select_curve(system, prob, opts, s["X"], s["U"], A, B)
+        T_star = argmin_T(J_curve, prob.T_min, prob.T_max)
+        bw = backward_truncated(system, prob, A, B, s["X"], s["U"], T_star, s["lm"])
+        ls = forward_linesearch(system, prob, s["X"], s["U"], bw.K, bw.kappa, T_star, alphas=opts.alphas)
+        fin = torch.isfinite(ls.J)
+        acc = bw.ok & ls.accepted & fin
+        # the warm start records whenever the backward pass is healthy and
+        # the (possibly unimproved) line-search cost is finite
+        gate = (bw.ok & fin) if warm else acc
+
+        g1 = gate[:, None]
+        new = dict(
+            X=torch.where(gate[:, None, None], ls.X, s["X"]),
+            U=torch.where(gate[:, None, None], ls.U, s["U"]),
+            lm=s["lm"] if warm else torch.where(acc, torch.clamp(s["lm"] / 10.0, min=1e-12), s["lm"] * 10.0),
+            T_bar=T_star if warm else torch.where(acc, T_star, s["T_bar"]),
+            J_last=torch.where(gate, ls.J, s["J_last"]),
+            J_prev=torch.where(gate, s["J_last"], s["J_prev"]),
+            n_acc=s["n_acc"] + gate.to(i64),
+            T3=torch.where(g1, torch.cat([s["T3"][:, 1:], T_star[:, None]], dim=1), s["T3"]),
+            J_curve=J_curve,
+            J_hist=s["J_hist"].clone(),
+            T_hist=s["T_hist"].clone(),
+        )
+        slot = s["n_acc"]
+        new["J_hist"][rows, slot] = torch.where(gate, ls.J, s["J_hist"][rows, slot])
+        new["T_hist"][rows, slot] = torch.where(gate, T_star, s["T_hist"][rows, slot])
+
+        rel = (new["J_last"] - new["J_prev"]).abs() / (new["J_prev"].abs() + 1e-12)
+        conv = (
+            (new["n_acc"] >= 3)
+            & (rel < opts.rel_tol)
+            & (new["T3"] == new["T3"][:, 2:3]).all(dim=1)
+        )
+        # a converged problem freezes all its state
+        for key, v in new.items():
+            d = done.view((Bsz,) + (1,) * (v.dim() - 1))
+            s[key] = torch.where(d, s[key], v)
+        done = done | conv
+
+    T_star = torch.where(s["n_acc"] > 0, s["T3"][:, 2], s["T_bar"])
+    return SolveResult(
+        X=s["X"],
+        U=s["U"],
+        T_star=T_star,
+        J_star=s["J_last"],
+        J_curve=s["J_curve"],
+        J_hist=s["J_hist"],
+        T_hist=s["T_hist"],
+        n_accept=s["n_acc"],
+        lm_final=s["lm"],
+        T_ties=flat_tie_set(s["J_curve"], T_star, prob.T_min, prob.w),
+    )
+
+
+def default_U_init(prob: Problem) -> torch.Tensor:
+    """Nominal initial controls: u_ref tiled over the horizon, (B, N, m)."""
+    return prob.u_ref[:, None].expand(-1, prob.N, -1).contiguous()
+
+
+def _pad_U(U: torch.Tensor, N: int) -> torch.Tensor:
+    """Pad (tile the last row) or truncate U_init (steps, m) to N steps."""
+    if U.dim() == 1:
+        U = U[:, None]
+    if U.shape[0] < N:
+        U = torch.cat([U, U[-1:].expand(N - U.shape[0], -1)], dim=0)
+    return U[:N]
+
+
+def solve_batch(
+    system: System,
+    probs: Problem,
+    U_inits: Optional[torch.Tensor] = None,
+    options: Optional[SolveOptions] = None,
+) -> SolveResult:
+    """Solve a batch of problems (every Problem tensor has a leading batch
+    axis). Runs on the device of the problem's tensors."""
+    opts = options or SolveOptions()
+    probs = probs.replace(**{f: t.contiguous() for f, t in probs.tensors().items()})
+    if U_inits is None:
+        U_inits = default_U_init(probs)
+    return _solve_curve_methods(system, opts, probs, U_inits.to(probs.x0).contiguous())
+
+
+def solve(
+    system: System,
+    prob: Problem,
+    U_init: Optional[torch.Tensor] = None,
+    options: Optional[SolveOptions] = None,
+) -> SolveResult:
+    """Solve one problem (a Problem with batch 1) as a batch of one; the
+    result has the batch axis removed."""
+    if prob.batch != 1:
+        raise ValueError(f"solve() takes a batch-of-1 Problem, got batch {prob.batch}; use solve_batch")
+    U = None if U_init is None else _pad_U(torch.as_tensor(U_init, dtype=prob.x0.dtype, device=prob.x0.device), prob.N)[None]
+    res = solve_batch(system, prob, U, options)
+    return SolveResult(**{f.name: getattr(res, f.name)[0] for f in dataclasses.fields(res)})
+
+
+def stack_problems(problems: list) -> Problem:
+    """Concatenate Problems with equal N/T_min/T_max along the batch axis."""
+    first = problems[0]
+    for p in problems[1:]:
+        if (p.N, p.T_min, p.T_max) != (first.N, first.T_min, first.T_max):
+            raise ValueError("stack_problems: N, T_min and T_max must agree")
+    return first.replace(
+        **{f: torch.cat([getattr(p, f) for p in problems], dim=0) for f in PROBLEM_FIELDS}
+    )
+
+
+def broadcast_problem(prob: Problem, batch: int) -> Problem:
+    """Tile a batch-of-1 Problem into `batch` identical problems (copies, so
+    each can be edited, e.g. x0)."""
+    if prob.batch != 1:
+        raise ValueError(f"broadcast_problem takes a batch-of-1 Problem, got {prob.batch}")
+    return prob.replace(
+        **{f: t.expand((batch,) + t.shape[1:]).contiguous() for f, t in prob.tensors().items()}
+    )
