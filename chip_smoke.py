@@ -3,24 +3,34 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, the batched HOP-DDP propagator solve of the
-quadrotor (n=12, m=4, N=160, float64), on the card through its three
-hand-written CUDA kernels, in five phases; each prints its own lines and
-any failure raises (non-zero exit, no result line):
+Drives the port's batched HOP-DDP propagator solve in float64 on the card
+through its four hand-written CUDA kernels, for every system of the model
+registry, in five phases; each prints its own lines and any failure raises
+(non-zero exit, no result line):
 
 1. device: the card, CUDA and nvcc versions (no CPU fallback);
-2. build: the three kernels from timeopt_tpu_torch/csrc/ with nvcc;
+2. build: the four kernels from timeopt_tpu_torch/csrc/, one nvcc each, all
+   started together;
 3. kernels vs plain: each kernel against its plain PyTorch version on the
-   card, at B=1024, N=160, on inputs from a real iterate, with the stated
-   tolerances, and both timed (median of CUDA-event timings after warm-up);
-4. the solve of the 128 problems of results/oracle_f64.npz, scored against
-   that f64 brute-force oracle (exact and exact-or-tied T*), with the
-   launch count of every kernel in that run;
-5. throughput: one timed solve_batch at B=1024.
+   card, on inputs from a real iterate, with the stated tolerances, and
+   timed (median of CUDA-event timings after warm-up): the fused select,
+   backward and line search on the quadrotor at B=1024, N=160 (the main
+   path); the generic select on PointMass at B=1024, N=220; then per system,
+   at B=128 on its oracle problem set, its select kernel (the error printed,
+   gated by SELECT_BOUND) and the line search, and the generic select on
+   the quadrotor's assembled blocks (rtol 2e-9, the tight check of that
+   kernel);
+4. the solve of the 128 problems of each results/oracle_f64*.npz (six
+   systems), scored against that f64 brute-force oracle (exact and
+   exact-or-tied T*, every problem but REFERENCE_MISSES), with the launch
+   count of every kernel in each run;
+5. throughput: one timed solve_batch at B=1024 of the quadrotor and of
+   PointMass, after a warm-up.
 
 The line before the last is the card's name and power limit as nvidia-smi
-prints them; before that, one JSON line with each kernel's numbers. The
-last line is {"ok": true, "device": {...}}. Imports no JAX.
+prints them; before that, one JSON line with each kernel's numbers (its
+launches summed over the six oracle solves). The last line is
+{"ok": true, "device": {...}}. Imports no JAX.
 """
 
 from __future__ import annotations
@@ -38,14 +48,37 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 B_FULL = 1024
+B_ORACLE = 128
 MAX_ITER = 12
 SEED = 0
+CASES = ("DoubleIntegrator", "Cartpole_SwingUp", "Quadrotor", "Segway_Balance", "Ballbot_Balance",
+         "PointMass_Navigation")
 KERNELS = {
     # name: (route, source, replaces: the TPU kernel's pallas_call)
     "lft_select": ("cuda", "timeopt_tpu_torch/csrc/lft_select.cu", "timeopt_tpu/ops/pallas_lft.py:865"),
+    "lft_select_generic": ("cuda", "timeopt_tpu_torch/csrc/lft_select_generic.cu",
+                           "timeopt_tpu/ops/pallas_lft.py:537 (and :598)"),
     "backward": ("cuda", "timeopt_tpu_torch/csrc/backward.cu", "timeopt_tpu/ops/pallas_backward.py:235"),
     "linesearch": ("cuda", "timeopt_tpu_torch/csrc/linesearch.cu", "timeopt_tpu/ops/pallas_forward.py:308"),
 }
+# Select kernel vs plain on J(T), T >= T_min: ("rel", r) bounds the largest
+# elementwise relative error, ("norm", r) each problem's largest error
+# relative to its largest |J(T)|; both errors are printed. With a bound the
+# argmin T* must also be equal or tied within 1e-9 relative on every
+# problem; None prints the errors and the argmin agreement, and the gate is
+# the oracle score of phase 4. The kernels take solve-based eliminations
+# where the plain versions (the JAX reference's algorithm) form explicit
+# inverses; where Q has a zero weight (cartpole's theta, PointMass's
+# position) or a tiny time weight w (segway, ballbot) q_reg = 1e-9 lets
+# kappa(Q_aug) reach 1e9 and beyond, and the plain side loses digits
+# (against a long-double run of the same math, PERF.md section 6).
+SELECT_BOUND = {"DoubleIntegrator": ("rel", 1e-9), "Cartpole_SwingUp": None, "Quadrotor": ("rel", 1e-9),
+                "Segway_Balance": None, "Ballbot_Balance": None, "PointMass_Navigation": ("norm", 1e-2)}
+# Phase 4 requires every problem exact or tied, except the problems listed
+# here: on them the JAX f64 propagator itself (CPU, the same 128 problems
+# and options) is neither exact nor tied against the brute-force oracle
+# (it scores 122/128 on PointMass; PERF.md section 6, ROADMAP.md Queue 3).
+REFERENCE_MISSES = {"PointMass_Navigation": (39, 42, 57, 66, 81, 112)}
 
 
 def require(cond, msg: str) -> None:
@@ -103,16 +136,33 @@ def within(a, b, rtol: float, atol: float) -> bool:
     return ok_fin and max_err(a, b)[1]
 
 
-def bench_problems(system, mk, B: int, device):
-    """The bench distribution: default quadrotor, x0[:, :3] += 0.4 N(0, 1)."""
+def oracle_problems(system, mk, B: int, device):
+    """The problem sets of scripts/oracle_match.py, bit for bit: the default
+    problem with x0[:, :3] += 0.4 N(0, 1) for the quadrotor and
+    x0 += sigma_x0 N(0, 1) for every other system, default_rng(0)."""
     import torch
     from timeopt_tpu_torch.solver.ilqr import broadcast_problem
 
     base = mk(device=device)
     rng = np.random.default_rng(SEED)
     x0 = np.tile(base.x0.cpu().numpy(), (B, 1))
-    x0[:, :3] += 0.4 * rng.standard_normal((B, 3))
+    if system.name == "Quadrotor":
+        x0[:, :3] += 0.4 * rng.standard_normal((B, 3))
+    else:
+        x0 += np.asarray(system.sigma_x0, np.float64) * rng.standard_normal(x0.shape)
     return broadcast_problem(base, B).replace(x0=torch.as_tensor(x0, device=device))
+
+
+def first_iterate(system, probs):
+    """The solve's first iterate: U = u_ref, its rollout and Jacobians."""
+    from timeopt_tpu_torch.solver.cost import rollout
+    from timeopt_tpu_torch.solver.ilqr import default_U_init
+    from timeopt_tpu_torch.solver.linearize import linearize
+
+    U = default_U_init(probs)
+    X = rollout(system, probs, probs.x0, U)
+    A, Bj = linearize(system.step, X, U)
+    return X, U, A, Bj
 
 
 def phase_device():
@@ -133,57 +183,147 @@ def phase_device():
 def phase_build():
     from timeopt_tpu_torch.ops import _build
 
+    t0 = time.perf_counter()
+    _build.load_all(list(KERNELS))
+    log(f"[build] {len(KERNELS)} kernels in {time.perf_counter() - t0:.1f} s")
     for name in KERNELS:
-        t0 = time.perf_counter()
-        _build.load(name)
         secs, report = _build.build_info(name)
         lines = [ln.split("ptxas info    : ")[-1] for ln in report.splitlines() if "registers" in ln or "spill" in ln]
-        log(f"[build] {name}: {time.perf_counter() - t0:.1f} s (nvcc {secs:.1f} s) | " + " | ".join(lines))
+        log(f"[build] {name}: nvcc {secs:.1f} s | " + " | ".join(lines))
 
 
-def phase_kernels(system, mk, device) -> dict:
-    """Each kernel against its plain version on the card, at B=1024, N=160."""
+def check_select(J_k, J_p, s, probs, bound, label: str):
+    """J of kernel and plain for T >= T_min: +inf below T_min from the
+    kernel, the same non-finite pattern, and the errors and argmin T*
+    agreement gated by `bound` (see SELECT_BOUND). Returns (max abs err,
+    the plain version's T*)."""
     import torch
-    from timeopt_tpu_torch.ops import cuda_backward, cuda_forward, cuda_lft
-    from timeopt_tpu_torch.solver.augmented import build_fused_inputs
-    from timeopt_tpu_torch.solver.backward import backward_inputs
-    from timeopt_tpu_torch.solver.cost import argmin_T, cost_true, rollout
-    from timeopt_tpu_torch.solver.forward import select_first_improving
-    from timeopt_tpu_torch.solver.ilqr import SolveOptions, default_U_init
-    from timeopt_tpu_torch.solver.linearize import linearize
+    from timeopt_tpu_torch.solver.cost import argmin_T
 
-    probs = bench_problems(system, mk, B_FULL, device)
-    opts = SolveOptions(max_iter=MAX_ITER, psd_levels=1)
-    U = default_U_init(probs)
-    X = rollout(system, probs, probs.x0, U)
-    A, Bj = linearize(system.step, X, U)
-    fi = build_fused_inputs(system, probs, X, U, A, Bj, q_reg=1e-9, psd_levels=opts.psd_levels)
-    sel_args = [t.contiguous() for t in (fi.A, fi.B, fi.vecs, fi.scal, fi.Qq, fi.R_inv, fi.Lt)]
-    out = {}
-
-    # ---- select: J for t >= T_min within rtol 1e-9; argmin equal or tied
-    t_min = probs.T_min
-    J_k = cuda_lft.propagator_select_fused(*sel_args, t_min=t_min)
-    J_p = cuda_lft.select_fused_plain(*sel_args)
-    torch.cuda.synchronize()
-    s0 = fi.s[:, :1] ** 2
+    t_min, Bsz = probs.T_min, J_k.shape[0]
+    require(bool(torch.isinf(J_k[:, : t_min - 1]).all()), f"{label}: kernel J below T_min is not +inf")
     a, b = J_k[:, t_min - 1 :], J_p[:, t_min - 1 :]
     err, same = max_err(a, b)
-    rel = ((a - b).abs() / b.abs()).max().item()
-    require(same and rel <= 1e-9, f"select: J rel err {rel:.3e} > 1e-9 (or non-finite pattern differs)")
+    require(same, f"{label}: non-finite pattern of J differs")
+    d = (a - b).abs()
+    errs = {"rel": (d / b.abs()).max().item(), "norm": (d.amax(1) / b.abs().amax(1)).max().item()}
+    s0 = s[:, :1] ** 2
     T_k = argmin_T(s0 * J_k, t_min, probs.T_max)
     T_p = argmin_T(s0 * J_p, t_min, probs.T_max)
-    rows = torch.arange(B_FULL, device=device)
+    rows = torch.arange(Bsz, device=J_k.device)
     Jpk, Jpp = J_p[rows, T_k - 1], J_p[rows, T_p - 1]
     tied = (T_k == T_p) | ((Jpk - Jpp).abs() <= 1e-9 * Jpp.abs())
-    require(bool(tied.all()), f"select: argmin T differs beyond a 1e-9 tie on {int((~tied).sum())} problems")
-    ms = cuda_ms(lambda: cuda_lft.propagator_select_fused(*sel_args, t_min=t_min), reps=5)
-    pms = cuda_ms(lambda: cuda_lft.select_fused_plain(*sel_args), reps=3)
-    out["lft_select"] = dict(max_abs_err=err, ms=ms, plain_ms=pms)
-    log(f"[kernels] select: max abs err {err:.3e}, max rel err {rel:.3e} (t >= T_min), argmin equal "
-        f"{int((T_k == T_p).sum())}/{B_FULL}, tied {int(tied.sum())}/{B_FULL} | kernel {ms:.3f} ms, plain {pms:.3f} ms")
+    log(f"[kernels] {label}: max abs err {err:.3e}, max rel err {errs['rel']:.3e}, normwise {errs['norm']:.3e} "
+        f"(t >= T_min; bound {bound or 'none, the gate is the oracle'}), argmin equal {int((T_k == T_p).sum())}/{Bsz}, "
+        f"tied {int(tied.sum())}/{Bsz}")
+    if bound is not None:
+        kind, r = bound
+        require(errs[kind] <= r, f"{label}: J {kind} err {errs[kind]:.3e} > {r}")
+        require(bool(tied.all()), f"{label}: argmin T differs beyond a 1e-9 tie on {int((~tied).sum())} problems")
+    return err, T_p
 
-    # ---- backward at the plain select's T*: kappa, K rtol 1e-9 / atol 1e-12, ok identical
+
+def close_per_rollout(k, p, mask, rtol: float, atol: float) -> bool:
+    """Kernel and plain rollouts Xs or Us (B, A, rows, d) agree on the
+    masked rows of each (problem, alpha): the same non-finite pattern, and
+    max |k - p| <= atol + rtol max |p| over the rollout."""
+    import torch
+
+    m = mask[..., None].expand_as(p)
+    if not torch.equal(torch.isfinite(k) | ~m, torch.isfinite(p) | ~m):
+        return False
+    d = torch.where(m, (k - p).abs(), 0.0).nan_to_num(0.0).amax(dim=(2, 3))
+    ref = torch.where(m, p.abs(), 0.0).nan_to_num(0.0).amax(dim=(2, 3))
+    return bool((d <= atol + rtol * ref).all())
+
+
+def check_linesearch(system, probs, X, U, K, kap, T, alphas, label: str, gate_all: bool):
+    """Line-search kernel vs plain: X, U, J within rtol 1e-10 / atol 1e-12
+    and identical accepted flags. With gate_all, elementwise on every alpha
+    and row. Otherwise on the alphas that improve on J_old (a diverging
+    rollout amplifies last-bit differences without bound), X on the rows
+    k <= T* that the cost reads (beyond T* the rollout runs open loop on
+    the nominal controls: on the segway a 1-ulp change of x0 moves those
+    rows by 6.5e-6), and X and U relative to each rollout's largest entry
+    (a control near zero, as PointMass's with u_ref = 0, carries the
+    absolute error of the K dx terms that sum to it). Returns the max abs
+    error over all alphas and rows."""
+    import torch
+    from timeopt_tpu_torch.ops import cuda_forward
+    from timeopt_tpu_torch.solver.cost import cost_true
+    from timeopt_tpu_torch.solver.forward import select_first_improving
+
+    args = (system, probs, X, U, K, kap, T, alphas)
+    Xs_k, Us_k, Js_k = cuda_forward.linesearch(*args)
+    Xs_p, Us_p, Js_p = cuda_forward.linesearch_plain(*args)
+    torch.cuda.synchronize()
+    errs = [max_err(Xs_k, Xs_p)[0], max_err(Us_k, Us_p)[0], max_err(Js_k, Js_p)[0]]
+    J_old = cost_true(system, probs, X, U, T)
+    imp = Js_p < J_old[:, None]
+    require(bool(torch.equal(Js_k < J_old[:, None], imp)), f"{label}: improving alphas differ")
+    if gate_all:
+        ok = all(within(k, p, 1e-10, 1e-12) for k, p in ((Xs_k, Xs_p), (Us_k, Us_p), (Js_k, Js_p)))
+        gated = "all, elementwise"
+    else:
+        rows = torch.arange(probs.N + 1, device=X.device)[None, None] <= T[:, None, None]
+        ok = (close_per_rollout(Xs_k, Xs_p, imp[..., None] & rows, 1e-10, 1e-12)
+              and close_per_rollout(Us_k, Us_p, imp[..., None].expand(Us_p.shape[:3]), 1e-10, 1e-12)
+              and within(Js_k[imp], Js_p[imp], 1e-10, 1e-12))
+        gated = "the improving, X on rows <= T*, per rollout"
+    require(ok, f"{label}: X/U/J outside rtol 1e-10 atol 1e-12 (max abs over all {errs})")
+    acc_k = select_first_improving(X, U, Xs_k, Us_k, Js_k, J_old).accepted
+    acc_p = select_first_improving(X, U, Xs_p, Us_p, Js_p, J_old).accepted
+    require(bool(torch.equal(acc_k, acc_p)), f"{label}: accepted flags differ")
+    log(f"[kernels] {label}: max abs err X {errs[0]:.3e}, U {errs[1]:.3e}, J {errs[2]:.3e} (all alphas and rows; "
+        f"gated on {gated}), accepted identical ({int(acc_k.sum())}/{X.shape[0]})")
+    return max(errs)
+
+
+def select_pair(system, probs, opts, X, U, A, Bj):
+    """(kernel, plain, s): the path's select kernel and its plain version as
+    calls on the same inputs, and the homogeneous scales."""
+    from timeopt_tpu_torch.ops import cuda_lft, cuda_lft_generic
+    from timeopt_tpu_torch.solver.ilqr import select_inputs
+
+    generic, args, s = select_inputs(system, probs, opts, X, U, A, Bj)
+    if generic:
+        return (lambda: cuda_lft_generic.propagator_select_generic(*args, t_min=probs.T_min),
+                lambda: cuda_lft_generic.select_generic_plain(*args), s)
+    return (lambda: cuda_lft.propagator_select_fused(*args, t_min=probs.T_min),
+            lambda: cuda_lft.select_fused_plain(*args), s)
+
+
+def phase_kernels(device) -> dict:
+    """The main path's kernels at B=1024 (quadrotor N=160, PointMass
+    N = T_max = 220), then each system's select and line search at B=128."""
+    import torch
+    from timeopt_tpu_torch.models import get_system
+    from timeopt_tpu_torch.ops import cuda_backward, cuda_forward, cuda_lft_generic
+    from timeopt_tpu_torch.solver.augmented import build_augmented, build_terminal_factors
+    from timeopt_tpu_torch.solver.backward import backward_inputs, backward_truncated
+    from timeopt_tpu_torch.solver.ilqr import SolveOptions
+
+    opts = SolveOptions(max_iter=MAX_ITER, psd_levels=1)
+    out = {}
+
+    # ---- B=1024: quadrotor fused select (rtol 1e-9), PointMass generic select
+    for case, name in (("Quadrotor", "lft_select"), ("PointMass_Navigation", "lft_select_generic")):
+        system, mk = get_system(case)
+        probs = oracle_problems(system, mk, B_FULL, device)
+        X, U, A, Bj = first_iterate(system, probs)
+        kernel, plain, s = select_pair(system, probs, opts, X, U, A, Bj)
+        J_k, J_p = kernel(), plain()
+        torch.cuda.synchronize()
+        err, T_p = check_select(J_k, J_p, s, probs, SELECT_BOUND[case], f"{name} ({case} B={B_FULL})")
+        ms, pms = cuda_ms(kernel, reps=5), cuda_ms(plain, reps=3)
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=pms)
+        log(f"[kernels] {name}: kernel {ms:.3f} ms, plain {pms:.3f} ms")
+        if case == "Quadrotor":
+            quad = (system, probs, X, U, A, Bj, T_p)
+
+    # ---- quadrotor B=1024, at the plain select's T*: backward (kappa, K
+    # rtol 1e-9 / atol 1e-12, ok identical), then the line search
+    system, probs, X, U, A, Bj, T_p = quad
     lm = torch.full((B_FULL,), opts.lm_init, dtype=torch.float64, device=device)
     bw_args = [A.contiguous(), Bj.contiguous(), *backward_inputs(system, probs, X, U), T_p.contiguous(), lm]
     kap_k, K_k, ok_k = cuda_backward.backward_truncated_core(*bw_args)
@@ -200,48 +340,72 @@ def phase_kernels(system, mk, device) -> dict:
     log(f"[kernels] backward: max abs err kappa {e1:.3e}, K {e2:.3e}, ok identical "
         f"({int(ok_k.sum())}/{B_FULL} ok) | kernel {ms:.3f} ms, plain {pms:.3f} ms")
 
-    # ---- line search: X, U, J rtol 1e-10 / atol 1e-12, accepted identical
     ls_args = (system, probs, X, U, K_p, kap_p, T_p, opts.alphas)
-    Xs_k, Us_k, Js_k = cuda_forward.linesearch(*ls_args)
-    Xs_p, Us_p, Js_p = cuda_forward.linesearch_plain(*ls_args)
-    torch.cuda.synchronize()
-    errs = [max_err(Xs_k, Xs_p)[0], max_err(Us_k, Us_p)[0], max_err(Js_k, Js_p)[0]]
-    require(all(within(k, p, 1e-10, 1e-12) for k, p in ((Xs_k, Xs_p), (Us_k, Us_p), (Js_k, Js_p))),
-            f"line search: X/U/J outside rtol 1e-10 atol 1e-12 (max abs {errs})")
-    J_old = cost_true(system, probs, X, U, T_p)
-    acc_k = select_first_improving(X, U, Xs_k, Us_k, Js_k, J_old).accepted
-    acc_p = select_first_improving(X, U, Xs_p, Us_p, Js_p, J_old).accepted
-    require(bool(torch.equal(acc_k, acc_p)), "line search: accepted flags differ")
+    err = check_linesearch(*ls_args, f"line search (Quadrotor B={B_FULL})", gate_all=True)
     ms = cuda_ms(lambda: cuda_forward.linesearch(*ls_args), reps=5)
     pms = cuda_ms(lambda: cuda_forward.linesearch_plain(*ls_args), reps=3)
-    out["linesearch"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=pms)
-    log(f"[kernels] line search: max abs err X {errs[0]:.3e}, U {errs[1]:.3e}, J {errs[2]:.3e}, accepted "
-        f"identical ({int(acc_k.sum())}/{B_FULL}) | kernel {ms:.3f} ms, plain {pms:.3f} ms")
+    out["linesearch"] = dict(max_abs_err=err, ms=ms, plain_ms=pms)
+    log(f"[kernels] line search: kernel {ms:.3f} ms, plain {pms:.3f} ms")
+
+    # ---- B=128, each system's oracle set: its select kernel and the line
+    # search; on the quadrotor the generic select on its assembled blocks
+    for case in CASES:
+        system, mk = get_system(case)
+        probs = oracle_problems(system, mk, B_ORACLE, device)
+        X, U, A, Bj = first_iterate(system, probs)
+        if case == "Quadrotor":
+            blk = build_augmented(system, probs, X, U, A, Bj, q_reg=1e-9, psd_levels=opts.psd_levels)
+            args = [t.contiguous() for t in (blk.A_aug, blk.B_aug, blk.Q_aug, blk.R_inv,
+                                             build_terminal_factors(probs, X, s=blk.s))]
+            J_k = cuda_lft_generic.propagator_select_generic(*args, t_min=probs.T_min)
+            J_p = cuda_lft_generic.select_generic_plain(*args)
+            torch.cuda.synchronize()
+            # rtol 2e-9: against a long-double run of the same math the plain
+            # version is off by 7.9e-10 and the kernel's elimination order by
+            # 2.8e-10 (before FMA contraction) on these inputs
+            check_select(J_k, J_p, blk.s, probs, ("rel", 2e-9), f"lft_select_generic (Quadrotor blocks B={B_ORACLE})")
+            continue
+        kernel, plain, s = select_pair(system, probs, opts, X, U, A, Bj)
+        J_k, J_p = kernel(), plain()
+        torch.cuda.synchronize()
+        _, T = check_select(J_k, J_p, s, probs, SELECT_BOUND[case], f"select ({case} B={B_ORACLE})")
+        lm = torch.full((B_ORACLE,), opts.lm_init, dtype=torch.float64, device=device)
+        bw = backward_truncated(system, probs, A, Bj, X, U, T, lm)
+        ls_args = (system, probs, X, U, bw.K, bw.kappa, T, opts.alphas)
+        check_linesearch(*ls_args, f"line search ({case} B={B_ORACLE})", gate_all=False)
+        ms = cuda_ms(lambda: cuda_forward.linesearch(*ls_args), reps=3)
+        pms = cuda_ms(lambda: cuda_forward.linesearch_plain(*ls_args), reps=1)
+        log(f"[kernels] line search ({case} B={B_ORACLE} N={probs.N}): kernel {ms:.3f} ms, plain {pms:.3f} ms")
     return out
 
 
 def reset_launches() -> None:
-    from timeopt_tpu_torch.ops import cuda_backward, cuda_forward, cuda_lft
+    from timeopt_tpu_torch.ops import cuda_backward, cuda_forward, cuda_lft, cuda_lft_generic
 
-    cuda_lft.LAUNCHES = cuda_backward.LAUNCHES = cuda_forward.LAUNCHES = 0
+    cuda_lft.LAUNCHES = cuda_lft_generic.LAUNCHES = cuda_backward.LAUNCHES = cuda_forward.LAUNCHES = 0
 
 
 def launches() -> dict:
-    from timeopt_tpu_torch.ops import cuda_backward, cuda_forward, cuda_lft
+    from timeopt_tpu_torch.ops import cuda_backward, cuda_forward, cuda_lft, cuda_lft_generic
 
-    return {"lft_select": cuda_lft.LAUNCHES, "backward": cuda_backward.LAUNCHES, "linesearch": cuda_forward.LAUNCHES}
+    return {"lft_select": cuda_lft.LAUNCHES, "lft_select_generic": cuda_lft_generic.LAUNCHES,
+            "backward": cuda_backward.LAUNCHES, "linesearch": cuda_forward.LAUNCHES}
 
 
-def phase_oracle(system, mk, device) -> dict:
-    """The 128 problems of results/oracle_f64.npz, solved on the card."""
+def phase_oracle(case: str, device) -> dict:
+    """The 128 problems of the case's results/oracle_f64*.npz, solved on the
+    card and scored; returns the launch count of every kernel in the solve."""
     import torch
+    from timeopt_tpu_torch.models import get_system
     from timeopt_tpu_torch.ops.wrap import wrap_error
     from timeopt_tpu_torch.solver.ilqr import SolveOptions, solve_batch
 
-    orc = np.load(os.path.join(ROOT, "results", "oracle_f64.npz"))
+    system, mk = get_system(case)
+    suffix = "" if case == "Quadrotor" else f"_{case}"
+    orc = np.load(os.path.join(ROOT, "results", f"oracle_f64{suffix}.npz"))
     T_o, J_o, curve_o = orc["T"].astype(np.int64), orc["J"], orc["J_curve"]
     Bo = len(T_o)
-    probs = bench_problems(system, mk, Bo, device)
+    probs = oracle_problems(system, mk, Bo, device)
     opts = SolveOptions(method="propagator", max_iter=MAX_ITER, psd_levels=1)
 
     reset_launches()
@@ -250,13 +414,14 @@ def phase_oracle(system, mk, device) -> dict:
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = launches()
-    for name, c in counts.items():
-        require(c > 0, f"oracle solve: kernel {name} was never launched")
+    select = "lft_select" if system.extra_cost is None else "lft_select_generic"
+    for name in (select, "backward", "linesearch"):
+        require(counts[name] > 0, f"oracle solve {case}: kernel {name} was never launched")
 
     n, m, N = system.n, system.m, probs.N
-    require(tuple(res.X.shape) == (Bo, N + 1, n) and tuple(res.U.shape) == (Bo, N, m), "result shapes")
-    require(bool(torch.isfinite(res.X).all() and torch.isfinite(res.U).all()), "non-finite X or U")
-    require(bool(torch.isfinite(res.J_star).all()), "non-finite J*")
+    require(tuple(res.X.shape) == (Bo, N + 1, n) and tuple(res.U.shape) == (Bo, N, m), f"{case}: result shapes")
+    require(bool(torch.isfinite(res.X).all() and torch.isfinite(res.U).all()), f"{case}: non-finite X or U")
+    require(bool(torch.isfinite(res.J_star).all()), f"{case}: non-finite J*")
     T = res.T_star.cpu().numpy()
     J = res.J_star.cpu().numpy()
     w = float(probs.w[0])
@@ -266,19 +431,28 @@ def phase_oracle(system, mk, device) -> dict:
     gap = np.abs(J - J_o) / np.abs(J_o)
     eT = wrap_error(res.X[torch.arange(Bo, device=device), res.T_star] - probs.xg, probs.wrap_mask)
     succ = float((eT.norm(dim=-1) <= 0.5).double().mean())
-    log(f"[oracle] B={Bo}: T* exact {int(exact.sum())}/{Bo}, exact-or-tied {int((exact | tied).sum())}/{Bo} | "
+    log(f"[oracle] {case} B={Bo}: T* exact {int(exact.sum())}/{Bo}, exact-or-tied {int((exact | tied).sum())}/{Bo} | "
         f"J* rel gap median {np.median(gap):.3e} max {gap.max():.3e} | success@0.5 {succ:.3f} | "
         f"{secs:.2f} s | launches {counts}")
-    require(bool((exact | tied).all()), f"oracle: exact-or-tied {int((exact | tied).sum())}/{Bo} < {Bo}")
+    bad = np.nonzero(~(exact | tied))[0]
+    if len(bad):
+        log(f"[oracle] {case} not tied: idx {bad.tolist()} T* {T[bad].tolist()} oracle {T_o[bad].tolist()}")
+    allowed = set(REFERENCE_MISSES.get(case, ()))
+    require(set(bad.tolist()) <= allowed,
+            f"oracle {case}: exact-or-tied {int((exact | tied).sum())}/{Bo}, misses {sorted(set(bad.tolist()) - allowed)} "
+            "beyond the reference's own")
     return counts
 
 
-def phase_throughput(system, mk, device) -> None:
+def phase_throughput(case: str, device) -> None:
     import torch
+    from timeopt_tpu_torch.models import get_system
     from timeopt_tpu_torch.ops.wrap import wrap_error
+    from timeopt_tpu_torch.solver.cost import extra_cost_terms
     from timeopt_tpu_torch.solver.ilqr import SolveOptions, solve_batch
 
-    probs = bench_problems(system, mk, B_FULL, device)
+    system, mk = get_system(case)
+    probs = oracle_problems(system, mk, B_FULL, device)
     opts = SolveOptions(method="propagator", max_iter=MAX_ITER, psd_levels=1)
     solve_batch(system, probs, options=opts)  # warm-up
     torch.cuda.synchronize()
@@ -288,27 +462,33 @@ def phase_throughput(system, mk, device) -> None:
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = launches()
-    iters = counts["lft_select"]
+    iters = counts["backward"]
     eT = wrap_error(res.X[torch.arange(B_FULL, device=device), res.T_star] - probs.xg, probs.wrap_mask)
     succ = float((eT.norm(dim=-1) <= 0.5).double().mean())
-    require(bool(torch.isfinite(res.J_star).all()), "throughput: non-finite J*")
-    log(f"[throughput] B={B_FULL} max_iter={MAX_ITER} f64: {B_FULL / secs:.2f} solves/s | {secs:.3f} s | "
+    require(bool(torch.isfinite(res.J_star).all()), f"throughput {case}: non-finite J*")
+    extra = ""
+    if system.extra_cost is not None:
+        X, U = res.X[:, :-1].contiguous(), res.U
+        ems = cuda_ms(lambda: extra_cost_terms(system, X, U), reps=3)
+        extra = f" | extra_cost_terms (B*N={B_FULL * probs.N} steps) {ems:.2f} ms per call"
+    log(f"[throughput] {case} B={B_FULL} max_iter={MAX_ITER} f64: {B_FULL / secs:.2f} solves/s | {secs:.3f} s | "
         f"{iters} outer iterations, {1e3 * secs / iters:.2f} ms/iteration | T* median "
-        f"{float(res.T_star.double().median()):g} | success@0.5 {succ:.3f} | launches {counts} | {smi()}")
+        f"{float(res.T_star.double().median()):g} | success@0.5 {succ:.3f} | launches {counts}{extra} | {smi()}")
 
 
 def main() -> None:
     import torch
 
     phase_device()
-    from timeopt_tpu_torch.models import get_system
-
-    system, mk = get_system("Quadrotor")
     device = torch.device("cuda", 0)
     phase_build()
-    numbers = phase_kernels(system, mk, device)
-    counts = phase_oracle(system, mk, device)
-    phase_throughput(system, mk, device)
+    numbers = phase_kernels(device)
+    counts = {name: 0 for name in KERNELS}
+    for case in CASES:
+        for name, c in phase_oracle(case, device).items():
+            counts[name] += c
+    for case in ("Quadrotor", "PointMass_Navigation"):
+        phase_throughput(case, device)
 
     kernels = [
         dict(name=name, route=route, source=src, replaces=rep, launches=counts[name], **numbers[name])

@@ -1,7 +1,8 @@
 """Parity of the port's truncated backward pass (solver/backward.py, the plain
 version behind ops/cuda_backward.py) with the JAX reference in f64 on the
 CPU: T* at 1, mid-horizon and N, a lambda that makes Quu_reg indefinite,
-and a non-finite terminal error.
+a non-finite terminal error, and PointMass's extra stage cost (its
+gradient and Hessian enter lx and Qstage).
 
 Tolerance: kappa and K within rtol 1e-9 / atol 1e-12 (the Riccati recursion
 compounds the different operation order over up to N steps); the ok flags
@@ -30,6 +31,7 @@ N = 24
     [
         ("Quadrotor", "T1"), ("Quadrotor", "Tmid"), ("Quadrotor", "TN"),
         ("Quadrotor", "nonpd"), ("Quadrotor", "nonfinite_eT"), ("DoubleIntegrator", "Tmid"),
+        ("Cartpole_SwingUp", "Tmid"), ("PointMass_Navigation", "Tmid"),
     ],
 )
 def test_backward_matches_jax(case, variant):

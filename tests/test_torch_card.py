@@ -7,7 +7,7 @@ The file imports torch and numpy only, so it runs where JAX is absent:
 
 Inputs come from the port's own CPU path (rollout, AD linearization) at a
 small size, then move to the card. Tolerances are those of chip_smoke.py:
-select J within rtol 1e-9 for T >= T_min; backward kappa/K within
+select J (fused or generic) within rtol 1e-9 for T >= T_min; backward kappa/K within
 rtol 1e-9 / atol 1e-12 with identical ok; line search X, U, J within
 rtol 1e-10 / atol 1e-12 with identical acceptance. The kernels contract
 FMAs and use the device's sin/cos/tan, so they are not bitwise equal to the
@@ -31,8 +31,8 @@ import pytest
 import torch
 
 from timeopt_tpu_torch.models import get_system
-from timeopt_tpu_torch.ops import cuda_backward, cuda_forward, cuda_lft
-from timeopt_tpu_torch.solver.augmented import build_fused_inputs
+from timeopt_tpu_torch.ops import cuda_backward, cuda_forward, cuda_lft, cuda_lft_generic
+from timeopt_tpu_torch.solver.augmented import build_augmented, build_fused_inputs, build_terminal_factors
 from timeopt_tpu_torch.solver.backward import backward_inputs
 from timeopt_tpu_torch.solver.cost import argmin_T, cost_true, rollout
 from timeopt_tpu_torch.solver.forward import select_first_improving
@@ -87,6 +87,27 @@ def test_select_kernel_matches_plain(dev, case, noise, rtol):
     assert torch.equal(argmin_T(s0 * J_k, probs.T_min, probs.T_max), argmin_T(s0 * J_p, probs.T_min, probs.T_max))
 
 
+@pytest.mark.parametrize("case,noise", [("PointMass_Navigation", 0.0), ("PointMass_Navigation", 0.05),
+                                        ("Quadrotor", 0.0)])
+def test_generic_select_kernel_matches_plain(dev, case, noise):
+    """PointMass iterates (its obstacle Hessian makes Q_aug vary with k) and
+    the quadrotor's assembled blocks, which have no extra cost, exercise the
+    largest p = 13, m = 4."""
+    system, probs, X, U, A, Bj = _iterate(case, N=64 if case == "PointMass_Navigation" else 32, noise=noise)
+    blk = build_augmented(system, probs, X, U, A, Bj, psd_levels=1)
+    C = build_terminal_factors(probs, X, s=blk.s)
+    args = [t.contiguous().to(dev) for t in (blk.A_aug, blk.B_aug, blk.Q_aug, blk.R_inv, C)]
+    n0 = cuda_lft_generic.LAUNCHES
+    J_k = cuda_lft_generic.propagator_select_generic(*args, t_min=probs.T_min)
+    assert cuda_lft_generic.LAUNCHES == n0 + 1
+    J_p = cuda_lft_generic.select_generic_plain(*args)
+    t = probs.T_min - 1
+    assert torch.isinf(J_k[:, :t]).all()
+    _close(J_k[:, t:], J_p[:, t:], 1e-9, 0.0)
+    s0 = blk.s[:, :1].to(dev) ** 2
+    assert torch.equal(argmin_T(s0 * J_k, probs.T_min, probs.T_max), argmin_T(s0 * J_p, probs.T_min, probs.T_max))
+
+
 @pytest.mark.parametrize("variant", ["T1", "Tmid", "TN", "nonpd", "nonfinite_eT", "T0"])
 def test_backward_kernel_matches_plain(dev, variant):
     system, probs, X, U, A, Bj = _iterate("Quadrotor")
@@ -108,7 +129,9 @@ def test_backward_kernel_matches_plain(dev, variant):
 
 
 @pytest.mark.parametrize("case,kappa_scale", [("Quadrotor", 1.0), ("Quadrotor", 30.0), ("Quadrotor", 1e6),
-                                              ("DoubleIntegrator", 1.0)])
+                                              ("DoubleIntegrator", 1.0), ("Cartpole_SwingUp", 1.0),
+                                              ("Segway_Balance", 1.0), ("Ballbot_Balance", 1.0),
+                                              ("PointMass_Navigation", 1.0)])
 def test_linesearch_kernel_matches_plain(dev, case, kappa_scale):
     system, probs, X, U, A, Bj = _iterate(case)
     N = U.shape[1]
@@ -155,15 +178,18 @@ def test_argmin_T_on_the_card_matches_cpu(dev):
         assert torch.equal(argmin_T(curves.to(dev), T_min, T_max).cpu(), argmin_T(curves, T_min, T_max))
 
 
-def test_solve_on_the_card_matches_cpu(dev):
-    system, mk = get_system("DoubleIntegrator")
-    base = mk(N=24).replace(T_min=4, T_max=16)
+@pytest.mark.parametrize("case", ["DoubleIntegrator", "PointMass_Navigation"])
+def test_solve_on_the_card_matches_cpu(dev, case):
+    system, mk = get_system(case)
+    base = mk(N=24).replace(T_min=4, T_max=16) if case == "DoubleIntegrator" else mk(N=40).replace(T_min=10, T_max=40)
     rng = np.random.default_rng(1)
-    probs = broadcast_problem(base, 3).replace(x0=base.x0 + 0.2 * torch.as_tensor(rng.standard_normal((3, 2))))
+    sigma = torch.as_tensor(system.sigma_x0 if case != "DoubleIntegrator" else (0.2, 0.2))
+    probs = broadcast_problem(base, 3).replace(x0=base.x0 + sigma * torch.as_tensor(rng.standard_normal((3, system.n))))
     opts = SolveOptions(max_iter=6, psd_levels=1)
-    counts = (cuda_lft.LAUNCHES, cuda_backward.LAUNCHES, cuda_forward.LAUNCHES)
+    select = cuda_lft if system.extra_cost is None else cuda_lft_generic
+    counts = (select.LAUNCHES, cuda_backward.LAUNCHES, cuda_forward.LAUNCHES)
     got = solve_batch(system, probs.to(dev), options=opts)
-    assert all(c1 > c0 for c0, c1 in zip(counts, (cuda_lft.LAUNCHES, cuda_backward.LAUNCHES, cuda_forward.LAUNCHES)))
+    assert all(c1 > c0 for c0, c1 in zip(counts, (select.LAUNCHES, cuda_backward.LAUNCHES, cuda_forward.LAUNCHES)))
     want = solve_batch(system, probs, options=opts)
     assert torch.equal(got.T_star.cpu(), want.T_star) and torch.equal(got.n_accept.cpu(), want.n_accept)
     _close(got.J_star.cpu(), want.J_star, 1e-8, 0.0)

@@ -2,7 +2,8 @@
 version behind ops/cuda_forward.py) with the JAX reference in f64 on the
 CPU. Gains come from the JAX backward pass; scaling the feedforward gain
 makes the large alphas diverge (the quadrotor guard poisons them) so that
-only the last alpha improves, or no alpha improves at all.
+only the last alpha improves, or no alpha improves at all. PointMass's cost
+includes its extra stage cost.
 
 Tolerance: X, U and J within rtol 1e-10 (a rollout compounds rounding over
 N steps; both run the same float64 operations); `accepted` is identical.
@@ -29,8 +30,10 @@ ALPHAS = (1.0, 0.5, 0.25, 0.1, 0.05)
 
 @pytest.mark.parametrize(
     "case,kappa_scale",
-    [("Quadrotor", 1.0), ("Quadrotor", 30.0), ("Quadrotor", 1e6), ("DoubleIntegrator", 1.0)],
-    ids=["quadrotor", "quadrotor_diverging", "quadrotor_none_improves", "double_integrator"],
+    [("Quadrotor", 1.0), ("Quadrotor", 30.0), ("Quadrotor", 1e6), ("DoubleIntegrator", 1.0),
+     ("Cartpole_SwingUp", 1.0), ("PointMass_Navigation", 1.0)],
+    ids=["quadrotor", "quadrotor_diverging", "quadrotor_none_improves", "double_integrator", "cartpole",
+         "pointmass"],
 )
 def test_linesearch_matches_jax(case, kappa_scale):
     js, ts, jp, tp = problems(case, 3, N, 4, N, seed=30)

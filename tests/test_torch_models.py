@@ -133,7 +133,8 @@ def test_step_and_guard_match_jax(case):
     np.testing.assert_allclose(ts.xdot(T(x), T(u)).numpy()[ok], wx[ok], rtol=1e-12, atol=1e-15)
 
 
-@pytest.mark.parametrize("case", ["Quadrotor", "DoubleIntegrator"])
+@pytest.mark.parametrize("case", ["Quadrotor", "DoubleIntegrator", "Cartpole_SwingUp", "Segway_Balance",
+                                  "Ballbot_Balance", "PointMass_Navigation"])
 def test_ad_jacobians_match_jax(case):
     js, _ = jax_get_system(case)
     ts, _ = torch_get_system(case)
@@ -144,7 +145,7 @@ def test_ad_jacobians_match_jax(case):
         X = np.concatenate([x[keep], x[:1]], 0)[None]  # (1, N+1, n)
         U = u[keep][None]
     else:
-        X, U = rng.standard_normal((1, 8, 2)), rng.standard_normal((1, 7, 1))
+        X, U = rng.standard_normal((1, 8, js.n)), rng.standard_normal((1, 7, js.m))
     Aj, Bj = jax_linearize_ad(js.step, jnp.asarray(X[0]), jnp.asarray(U[0]))
     At, Bt = torch_linearize_ad(ts.step, T(X), T(U))
     assert torch.isfinite(At).all() and torch.isfinite(Bt).all()
@@ -152,7 +153,7 @@ def test_ad_jacobians_match_jax(case):
     np.testing.assert_allclose(Bt[0].numpy(), np.asarray(Bj), rtol=1e-10, atol=1e-13)
 
 
-@pytest.mark.parametrize("case", ["Quadrotor", "DoubleIntegrator"])
+@pytest.mark.parametrize("case", ["Quadrotor", "DoubleIntegrator", "Cartpole_SwingUp", "PointMass_Navigation"])
 def test_costs_match_jax(case):
     N = 24
     js, ts, jp, tp = problems(case, 4, N, 6, N, seed=5)
@@ -202,7 +203,8 @@ def test_fused_inputs_match_jax(case):
         )
 
 
-@pytest.mark.parametrize("case", ["Quadrotor", "DoubleIntegrator"])
+@pytest.mark.parametrize("case", ["Quadrotor", "DoubleIntegrator", "Cartpole_SwingUp", "Segway_Balance",
+                                  "Ballbot_Balance", "PointMass_Navigation"])
 def test_default_problem_matches_jax(case):
     _, jmk = jax_get_system(case)
     _, tmk = torch_get_system(case)
@@ -215,7 +217,7 @@ def test_default_problem_matches_jax(case):
 def test_port_never_imports_jax():
     code = (
         "import sys, timeopt_tpu_torch\n"
-        "import timeopt_tpu_torch.solver.ilqr, timeopt_tpu_torch.ops.cuda_lft\n"
+        "import timeopt_tpu_torch.solver.ilqr, timeopt_tpu_torch.ops.cuda_lft, timeopt_tpu_torch.ops.cuda_lft_generic\n"
         "import timeopt_tpu_torch.ops.cuda_backward, timeopt_tpu_torch.ops.cuda_forward\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
     )

@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from tests.helpers import tiny_double_integrator
-from tests.torch_helpers import T, problems, to_torch_problem
+from tests.torch_helpers import T, assert_results_match, problems, to_torch_problem
 from timeopt_tpu.solver import ilqr as jilqr
 from timeopt_tpu_torch.models import get_system
 from timeopt_tpu_torch.solver import ilqr as tilqr
@@ -32,21 +32,6 @@ def _tiny_di(B=3):
     return js, get_system("DoubleIntegrator")[0], jp, to_torch_problem(jp)
 
 
-def _assert_results_match(got, want, t_min):
-    for name in ("T_star", "n_accept", "T_hist"):
-        np.testing.assert_array_equal(getattr(got, name).numpy(), np.asarray(getattr(want, name)), err_msg=name)
-    np.testing.assert_allclose(got.J_star.numpy(), np.asarray(want.J_star), rtol=1e-8)
-    np.testing.assert_allclose(got.J_hist.numpy(), np.asarray(want.J_hist), rtol=1e-8)
-    np.testing.assert_allclose(got.lm_final.numpy(), np.asarray(want.lm_final), rtol=1e-12)
-    np.testing.assert_allclose(got.X.numpy(), np.asarray(want.X), rtol=0, atol=1e-7)
-    np.testing.assert_allclose(got.U.numpy(), np.asarray(want.U), rtol=0, atol=1e-7)
-    # the last selection curve is taken on the last iterate, which agrees to
-    # atol 1e-7; through the select's conditioning that is ~2e-8 relative
-    jc = got.J_curve.numpy()[..., t_min - 1 :]
-    np.testing.assert_allclose(jc, np.asarray(want.J_curve)[..., t_min - 1 :], rtol=1e-7)
-    np.testing.assert_array_equal(got.T_ties.numpy(), np.asarray(want.T_ties))
-
-
 @pytest.mark.parametrize("case", ["tiny_di", "quadrotor"])
 def test_solve_batch_matches_jax(case):
     if case == "tiny_di":
@@ -57,7 +42,7 @@ def test_solve_batch_matches_jax(case):
         max_iter = 3
     want = jilqr.solve_batch(js, jp, options=jilqr.SolveOptions(max_iter=max_iter, psd_levels=1))
     got = tilqr.solve_batch(ts, tp, options=tilqr.SolveOptions(max_iter=max_iter, psd_levels=1))
-    _assert_results_match(got, want, tp.T_min)
+    assert_results_match(got, want, tp.T_min)
     assert got.n_accept.min() >= 1
 
 
@@ -69,7 +54,7 @@ def test_solve_single_matches_jax():
     got = tilqr.solve(ts, to_torch_problem(jilqr.broadcast_problem(base, 1)), U_init=T(U0),
                       options=tilqr.SolveOptions(max_iter=5))
     assert got.X.shape == want.X.shape and got.T_ties.shape == want.T_ties.shape
-    _assert_results_match(got, want, base.T_min)
+    assert_results_match(got, want, base.T_min)
 
 
 def test_early_exit_changes_no_result():

@@ -56,3 +56,24 @@ def iterate(js, jp, seed: int, noise: float = 0.05):
     X = jax.vmap(lambda p, u: jax_rollout(js, p, p.x0, u))(jp, U)
     A, Bm = jax.vmap(lambda x, u: jax_linearize(js.step, x, u))(X, U)
     return tuple(np.asarray(a) for a in (X, U, A, Bm))
+
+
+def assert_results_match(got, want, t_min, curve: bool = True):
+    """A port SolveResult against a batched JAX SolveResult: T*, n_accept
+    and T_hist identical; J* and J_hist within rtol 1e-8; X, U within
+    atol 1e-7 (the phases' own ~1e-10 differences pass through up to
+    max_iter+1 accept decisions and rollouts); with `curve`, the last
+    selection curve for T >= T_min within rtol 1e-7 (it is taken on the last
+    iterate, which agrees to atol 1e-7; through the select's conditioning
+    that is ~2e-8 relative) and identical flat-tie sets."""
+    for name in ("T_star", "n_accept", "T_hist"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(), np.asarray(getattr(want, name)), err_msg=name)
+    np.testing.assert_allclose(got.J_star.numpy(), np.asarray(want.J_star), rtol=1e-8)
+    np.testing.assert_allclose(got.J_hist.numpy(), np.asarray(want.J_hist), rtol=1e-8)
+    np.testing.assert_allclose(got.lm_final.numpy(), np.asarray(want.lm_final), rtol=1e-12)
+    np.testing.assert_allclose(got.X.numpy(), np.asarray(want.X), rtol=0, atol=1e-7)
+    np.testing.assert_allclose(got.U.numpy(), np.asarray(want.U), rtol=0, atol=1e-7)
+    if curve:
+        jc = got.J_curve.numpy()[..., t_min - 1 :]
+        np.testing.assert_allclose(jc, np.asarray(want.J_curve)[..., t_min - 1 :], rtol=1e-7)
+        np.testing.assert_array_equal(got.T_ties.numpy(), np.asarray(want.T_ties))

@@ -3,14 +3,15 @@ PyTorch, with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 A port of the JAX package `timeopt_tpu`, which stays the reference. The
 batch is an explicit leading axis everywhere and everything runs in
-float64. Each of the three phases that the JAX package ran as Pallas TPU
-kernels has one dispatch point: on a CPU tensor it runs its plain PyTorch
+float64. Each phase that the JAX package ran as Pallas TPU kernels has a
+dispatch point per kernel: on a CPU tensor it runs its plain PyTorch
 version; on a CUDA float64 tensor it launches its kernel (csrc/, built with
 nvcc at first use); on a CUDA tensor of any other dtype it raises.
 
-- select:      ops/cuda_lft.py      (csrc/lft_select.cu)
-- backward:    ops/cuda_backward.py (csrc/backward.cu)
-- line search: ops/cuda_forward.py  (csrc/linesearch.cu)
+- select, stationary stage cost: ops/cuda_lft.py         (csrc/lft_select.cu)
+- select, extra stage cost:      ops/cuda_lft_generic.py (csrc/lft_select_generic.cu)
+- backward:                      ops/cuda_backward.py    (csrc/backward.cu)
+- line search:                   ops/cuda_forward.py     (csrc/linesearch.cu)
 
 This package never imports jax.
 """

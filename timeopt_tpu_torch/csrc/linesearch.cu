@@ -11,8 +11,8 @@
 //   u_k = U_k + [k < T*] (K_k wrap(x - X_k) + alpha kappa_k),
 //   x+  = x + dt xdot(x, u) (+ NaN where the system's guard holds on (x, u)),
 // the raw step of the system (no norm poisoning), and the cost of
-// solver/cost.py::cost_true accumulated inline: stage costs for k < T*, the
-// terminal cost at X[T*]. J is +inf unless X is finite on rows <= T*, U on
+// solver/cost.py::cost_true accumulated inline: stage costs for k < T*
+// (with the system's extra stage cost), the terminal cost at X[T*]. J is +inf unless X is finite on rows <= T*, U on
 // the active steps, T* > 0, the total is finite and the whole trajectory
 // is finite on [0, N].
 //
@@ -33,16 +33,23 @@ namespace {
 
 // ---- device-side dynamics; the same formulas as timeopt_tpu_torch/models
 
-struct DoubleIntegrator {
+// Each system gives xdot, its guard (true where the step is poisoned) and
+// its extra stage cost (0 for all but PointMass). NoExtras supplies the
+// defaults.
+struct NoExtras {
+  __device__ static bool guard(const double*, const double*) { return false; }
+  __device__ static double extra_cost(const double*, const double*) { return 0.0; }
+};
+
+struct DoubleIntegrator : NoExtras {
   static constexpr int n = 2, m = 1;
   __device__ static void xdot(const double* x, const double* u, double* xd) {
     xd[0] = x[1];
     xd[1] = u[0];
   }
-  __device__ static bool guard(const double*, const double*) { return false; }
 };
 
-struct Quadrotor {
+struct Quadrotor : NoExtras {
   static constexpr int n = 12, m = 4;
   static constexpr double MASS = 1.0, G = 9.81;
   static constexpr double IX = 0.02, IY = 0.02, IZ = 0.04;
@@ -92,6 +99,94 @@ struct Quadrotor {
 #pragma unroll
     for (int i = 9; i < 12; ++i) bad = bad || (fabs(x[i]) > 1e3);
     return bad;
+  }
+};
+
+struct Cartpole : NoExtras {
+  static constexpr int n = 4, m = 1;
+  static constexpr double G = 9.81, M_POLE = 0.1, LENGTH = 0.5;
+  static constexpr double POLEMASS_LENGTH = M_POLE * LENGTH;
+  static constexpr double INV_TOTAL_MASS = 1.0 / (1.0 + M_POLE);
+
+  __device__ static void xdot(const double* x, const double* u, double* xd) {
+    const double th_dot = x[3];
+    const double th_u = x[2] - 3.141592653589793;
+    const double costh = cos(th_u), sinth = sin(th_u);
+    const double temp = (u[0] + POLEMASS_LENGTH * th_dot * th_dot * sinth) * INV_TOTAL_MASS;
+    const double denom = LENGTH * (4.0 / 3.0 - M_POLE * costh * costh * INV_TOTAL_MASS);
+    const double th_acc = (G * sinth - costh * temp) / denom;
+    xd[0] = x[1];
+    xd[1] = temp - POLEMASS_LENGTH * th_acc * costh * INV_TOTAL_MASS;
+    xd[2] = th_dot;
+    xd[3] = th_acc;
+  }
+};
+
+struct Segway : NoExtras {
+  static constexpr int n = 4, m = 1;
+  static constexpr double G = 9.81, R_WHEEL = 0.15, M_BASE = 1.0, M_PEND = 2.0, L_PEND = 0.5;
+  static constexpr double I_PEND = (1.0 / 3.0) * M_PEND * L_PEND * L_PEND;
+  static constexpr double A1 = M_BASE + M_PEND, A2 = M_PEND * L_PEND;
+  static constexpr double A3 = I_PEND + M_PEND * L_PEND * L_PEND;
+  static constexpr double DEN = A1 * A3 - A2 * A2;
+  static constexpr double A_TAU = A3 / (R_WHEEL * DEN) - A2 / DEN;
+  static constexpr double A_TH = -(A2 * M_PEND * G * L_PEND) / DEN;
+  static constexpr double B_TAU = -A2 / (R_WHEEL * DEN) + A1 / DEN;
+  static constexpr double B_TH = (A1 * M_PEND * G * L_PEND) / DEN;
+
+  __device__ static void xdot(const double* x, const double* u, double* xd) {
+    xd[0] = x[1];
+    xd[1] = A_TAU * u[0] + A_TH * x[2];
+    xd[2] = x[3];
+    xd[3] = B_TAU * u[0] + B_TH * x[2];
+  }
+};
+
+struct Ballbot : NoExtras {
+  static constexpr int n = 4, m = 1;
+  static constexpr double G = 9.81, R_BALL = 0.12, M_BALL = 1.2, M_BODY = 2.0, L_BODY = 0.55;
+  static constexpr double I_BALL = (2.0 / 5.0) * M_BALL * R_BALL * R_BALL;
+  static constexpr double M_EFF = M_BALL + I_BALL / (R_BALL * R_BALL);
+  static constexpr double POLEMASS_LENGTH = M_BODY * L_BODY;
+  static constexpr double INV_TOTAL_MASS = 1.0 / (M_EFF + M_BODY);
+  static constexpr double INV_R_BALL = 1.0 / R_BALL;
+
+  __device__ static void xdot(const double* x, const double* u, double* xd) {
+    const double th_dot = x[3];
+    const double force = u[0] * INV_R_BALL;
+    const double s = sin(x[2]), c = cos(x[2]);
+    const double temp = (force + POLEMASS_LENGTH * th_dot * th_dot * s) * INV_TOTAL_MASS;
+    const double th_acc =
+        (G * s - c * temp) / (L_BODY * (4.0 / 3.0 - M_BODY * c * c * INV_TOTAL_MASS));
+    xd[0] = x[1];
+    xd[1] = temp - POLEMASS_LENGTH * th_acc * c * INV_TOTAL_MASS;
+    xd[2] = th_dot;
+    xd[3] = th_acc;
+  }
+};
+
+struct PointMass : NoExtras {
+  static constexpr int n = 4, m = 2;
+
+  __device__ static void xdot(const double* x, const double* u, double* xd) {
+    xd[0] = x[2];
+    xd[1] = x[3];
+    xd[2] = u[0];
+    xd[3] = u[1];
+  }
+
+  // soft obstacle penalty sum_i w_i exp(-||p - o_i||^2 / (2 r_i^2)),
+  // (cx, cy, r, w) as models/pointmass.py::OBSTACLES
+  __device__ static double extra_cost(const double* x, const double*) {
+    const double obs[3][4] = {{-1.0, -0.5, 0.65, 6.0}, {0.0, 0.2, 0.70, 6.0}, {1.0, 1.0, 0.65, 6.0}};
+    double c = 0.0;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const double dx = x[0] - obs[i][0], dy = x[1] - obs[i][1];
+      const double r = obs[i][2];
+      c += obs[i][3] * exp(-(dx * dx + dy * dy) / (2.0 * r * r));
+    }
+    return c;
   }
 };
 
@@ -178,7 +273,7 @@ __global__ void linesearch_kernel(const double* __restrict__ X, const double* __
         for (int j = 0; j < m; ++j) s += Rb[i * m + j] * (u[j] - urb[j]);
         rd += (u[i] - urb[i]) * s;
       }
-      run += (0.5 * qe + 0.5 * rd) + wb;
+      run += ((0.5 * qe + 0.5 * rd) + wb) + S::extra_cost(x, u);
     }
 
     S::xdot(x, u, xd);
@@ -250,7 +345,8 @@ int launch(const void* X, const void* U, const void* K, const void* kap, const v
 
 }  // namespace
 
-// system_id: 0 = DoubleIntegrator, 1 = Quadrotor (System.device_id).
+// system_id (System.device_id): 0 = DoubleIntegrator, 1 = Quadrotor,
+// 2 = Cartpole, 3 = Segway, 4 = Ballbot, 5 = PointMass.
 extern "C" int linesearch_rollout(const void* X, const void* U, const void* K, const void* kap,
                                   const void* T_star, const void* xg, const void* u_ref,
                                   const void* Q, const void* R, const void* Qf, const void* w,
@@ -264,6 +360,18 @@ extern "C" int linesearch_rollout(const void* X, const void* U, const void* K, c
                                       alphas, Xs, Us, Js, B, N, n, m, A, dt, state_wrap_bits, s);
     case 1:
       return launch<Quadrotor>(X, U, K, kap, T_star, xg, u_ref, Q, R, Qf, w, wrap_mask, alphas,
+                               Xs, Us, Js, B, N, n, m, A, dt, state_wrap_bits, s);
+    case 2:
+      return launch<Cartpole>(X, U, K, kap, T_star, xg, u_ref, Q, R, Qf, w, wrap_mask, alphas,
+                              Xs, Us, Js, B, N, n, m, A, dt, state_wrap_bits, s);
+    case 3:
+      return launch<Segway>(X, U, K, kap, T_star, xg, u_ref, Q, R, Qf, w, wrap_mask, alphas, Xs,
+                            Us, Js, B, N, n, m, A, dt, state_wrap_bits, s);
+    case 4:
+      return launch<Ballbot>(X, U, K, kap, T_star, xg, u_ref, Q, R, Qf, w, wrap_mask, alphas, Xs,
+                             Us, Js, B, N, n, m, A, dt, state_wrap_bits, s);
+    case 5:
+      return launch<PointMass>(X, U, K, kap, T_star, xg, u_ref, Q, R, Qf, w, wrap_mask, alphas,
                                Xs, Us, Js, B, N, n, m, A, dt, state_wrap_bits, s);
     default:
       return (int)cudaErrorInvalidValue;

@@ -1,10 +1,11 @@
-"""Model registry of the port: the quadrotor and the double integrator.
-The other models of timeopt_tpu/models are not ported yet (ROADMAP.md)."""
+"""Model registry of the port: the six systems of timeopt_tpu/models, in the
+same order. Each has a `device_id` naming its dynamics (and, for PointMass,
+its obstacle penalty) in the line-search kernel, csrc/linesearch.cu."""
 
-from timeopt_tpu_torch.models import double_integrator, quadrotor
+from timeopt_tpu_torch.models import ballbot, cartpole, double_integrator, pointmass, quadrotor, segway
 from timeopt_tpu_torch.models.base import Problem, System, make_problem, problem_from_numpy
 
-_MODULES = (double_integrator, quadrotor)
+_MODULES = (double_integrator, cartpole, quadrotor, segway, ballbot, pointmass)
 
 SYSTEMS = {mod.SYSTEM.name: mod for mod in _MODULES}
 
@@ -12,7 +13,7 @@ SYSTEMS = {mod.SYSTEM.name: mod for mod in _MODULES}
 def get_system(name: str):
     """Return (System, default_problem_factory) for a registered model."""
     if name not in SYSTEMS:
-        raise KeyError(f"unknown system {name!r}; available in the port: {sorted(SYSTEMS)}")
+        raise KeyError(f"unknown system {name!r}; available: {sorted(SYSTEMS)}")
     mod = SYSTEMS[name]
     return mod.SYSTEM, mod.default_problem
 

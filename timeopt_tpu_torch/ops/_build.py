@@ -15,6 +15,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -64,6 +65,13 @@ def load(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(out))
     _LOADED[name] = (lib, seconds, report)
     return lib
+
+
+def load_all(names) -> None:
+    """Build and load several kernels at once: one nvcc process per source,
+    all started together."""
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        list(pool.map(load, names))
 
 
 def build_info(name: str) -> tuple[float, str]:

@@ -2,8 +2,10 @@
 
 Replaces timeopt_tpu/ops/pallas_forward.py::linesearch_lanes_df and
 ::linesearch_dense_df (kernel body _fwd_kernel). Kernel: csrc/linesearch.cu,
-float64, sm_90a, with the dynamics of each system with a `device_id`
-compiled in; its header says what bounds it on the H100 and how the design
+float64, sm_90a, with the dynamics (and extra stage cost) of each system
+with a `device_id` compiled in; the JAX package kept PointMass off its TPU
+kernel for want of a layout twin of its xdot, which this kernel does not
+need. Its header says what bounds it on the H100 and how the design
 answers that. The first-improving selection stays in torch
 (solver/forward.py::select_first_improving).
 

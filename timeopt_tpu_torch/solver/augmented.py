@@ -1,6 +1,11 @@
 """Homogeneous-coordinate inputs of the propagator select (port of
-`homogeneous_scales`, `FusedInputs` and `build_fused_inputs` of
-timeopt_tpu/solver/augmented.py). Every tensor has a leading batch axis B."""
+timeopt_tpu/solver/augmented.py). Every tensor has a leading batch axis B.
+
+Two forms feed the two select kernels: `build_fused_inputs` gives the raw
+per-step ingredients that the fused kernel assembles itself (stationary
+stage cost), `build_augmented` + `build_terminal_factors` the assembled
+(n+1)-dimensional blocks of the generic kernel, whose Q_aug varies with k
+(an extra stage cost). The homogeneous scaling is always on."""
 
 from __future__ import annotations
 
@@ -11,6 +16,7 @@ import torch
 from timeopt_tpu_torch.models.base import Problem, System
 from timeopt_tpu_torch.ops.linalg import chol_lower, psd_inv, sym
 from timeopt_tpu_torch.ops.wrap import wrap_error
+from timeopt_tpu_torch.solver.cost import extra_cost_terms
 
 
 def homogeneous_scales(prob: Problem, X: torch.Tensor) -> torch.Tensor:
@@ -53,7 +59,7 @@ def build_fused_inputs(
     homogeneous scaling is always on (plain f32 would need it; f64 keeps it
     for the conditioning of Q_aug)."""
     if system.extra_cost is not None:
-        raise NotImplementedError("extra stage costs take the generic select, not ported yet")
+        raise ValueError("an extra stage cost makes Q_aug step-dependent: use build_augmented")
     N, n = U.shape[1], prob.n
     eye = torch.eye(n, dtype=X.dtype, device=X.device)
     mask = prob.wrap_mask[:, None]
@@ -74,3 +80,89 @@ def build_fused_inputs(
     scal = torch.stack([corner, 1.0 / s[:, :N], s[:, 1:], 1.0 / s[:, 1:]], dim=-1)
     vecs = torch.stack([e, en, atil, Qe], dim=2)
     return FusedInputs(A=A, B=B, vecs=vecs, scal=scal, Qq=Qq, R_inv=R_inv, Lt=Lt, s=s)
+
+
+class AugmentedBlocks(NamedTuple):
+    """Assembled, scaled blocks of the generic select (ops/cuda_lft_generic.py)."""
+
+    A_aug: torch.Tensor  # (B, N, n+1, n+1)
+    B_aug: torch.Tensor  # (B, N, n+1, m)
+    Q_aug: torch.Tensor  # (B, N, n+1, n+1)
+    R_inv: torch.Tensor  # (B, m, m)
+    s: torch.Tensor  # (B, N+1) homogeneous scales (J carries s_0^2)
+
+
+def build_augmented(
+    system: System,
+    prob: Problem,
+    X: torch.Tensor,
+    U: torch.Tensor,
+    A: torch.Tensor,
+    B: torch.Tensor,
+    *,
+    q_reg: float = 1e-9,
+    rho_reg: float = 1e-12,
+    psd_levels: int = 2,
+) -> AugmentedBlocks:
+    """Homogeneous blocks z_k = [dx; 1]: Q_aug = [[Q + q_reg I + cxx, Qe + cx],
+    [., e'Qe + 2w + rho + 2c]], A_aug = [[A, atil], [0, 1]], B_aug = [B; 0],
+    then scaled by D_k = diag(1..1, s_k): Q~ = D_k^-1 Q_aug D_k^-1,
+    A~ = D_{k+1} A_aug D_k^-1. X (B, N+1, n), U (B, N, m), A (B, N, n, n),
+    B (B, N, n, m)."""
+    Bsz, N, m = U.shape
+    n = prob.n
+    z = dict(dtype=X.dtype, device=X.device)
+    mask = prob.wrap_mask[:, None]
+
+    e = wrap_error(X[:, :-1] - prob.xg[:, None], mask)
+    du = U - prob.u_ref[:, None]
+    a = system.step(X[:, :-1], U) - X[:, 1:]
+    atil = a - torch.einsum("bknm,bkm->bkn", B, du)
+    Qe = torch.einsum("bki,bji->bkj", e, prob.Q)
+    corner = torch.einsum("bki,bkj,bij->bk", e, e, prob.Q) + 2.0 * prob.w[:, None] + rho_reg
+    Qblock = (sym(prob.Q) + q_reg * torch.eye(n, **z))[:, None].expand(Bsz, N, n, n)
+
+    extra = extra_cost_terms(system, X[:, :-1], U)
+    if extra is not None:
+        c, cx, cxx = extra
+        Qblock = Qblock + sym(cxx)
+        Qe = Qe + cx
+        corner = corner + 2.0 * c
+
+    Q_aug = torch.zeros((Bsz, N, n + 1, n + 1), **z)
+    Q_aug[:, :, :n, :n] = Qblock
+    Q_aug[:, :, :n, n] = Qe
+    Q_aug[:, :, n, :n] = Qe
+    Q_aug[:, :, n, n] = corner
+    Q_aug = sym(Q_aug)
+
+    A_aug = torch.zeros((Bsz, N, n + 1, n + 1), **z)
+    A_aug[:, :, :n, :n] = A
+    A_aug[:, :, :n, n] = atil
+    A_aug[:, :, n, n] = 1.0
+
+    B_aug = torch.zeros((Bsz, N, n + 1, m), **z)
+    B_aug[:, :, :n, :] = B
+
+    s = homogeneous_scales(prob, X)
+    ones = torch.ones((Bsz, N, n), **z)
+    d_col = torch.cat([ones, (1.0 / s)[:, :N, None]], dim=-1)  # D_k^-1
+    d_row = torch.cat([ones, s[:, 1:, None]], dim=-1)  # D_{k+1}
+    Q_aug = Q_aug * d_col[..., :, None] * d_col[..., None, :]
+    A_aug = A_aug * d_row[..., :, None] * d_col[..., None, :]
+    R_inv = psd_inv(prob.R, levels=psd_levels)
+    return AugmentedBlocks(A_aug=A_aug, B_aug=B_aug, Q_aug=Q_aug, R_inv=R_inv, s=s)
+
+
+def build_terminal_factors(prob: Problem, X: torch.Tensor, *, s: torch.Tensor, rho_reg: float = 1e-12) -> torch.Tensor:
+    """Factored terminal data C_t = L'[I e_t] D_t^-1 (B, N, n, n+1) for the
+    arrival steps t = 1..N, with Qf + rho I = L L' and the last column
+    divided by s_t, so that QT_t = C_t'C_t is never inverted."""
+    n = prob.n
+    Lt = chol_lower(sym(prob.Qf) + rho_reg * torch.eye(n, dtype=X.dtype, device=X.device)).transpose(-1, -2)
+    e = wrap_error(X[:, 1:] - prob.xg[:, None], prob.wrap_mask[:, None])
+    Le = torch.einsum("bki,bji->bkj", e, Lt)  # L' e_t
+    Bsz, N = e.shape[:2]
+    C = torch.cat([Lt[:, None].expand(Bsz, N, n, n), Le[..., None]], dim=-1)
+    C[:, :, :, n] = C[:, :, :, n] * (1.0 / s[:, 1:, None])
+    return C

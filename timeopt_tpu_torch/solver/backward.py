@@ -28,8 +28,8 @@ class BackwardResult(NamedTuple):
 
 def stage_expansion(system: System, prob: Problem, X: torch.Tensor, U: torch.Tensor):
     """Per-step cost expansion along the trajectory: e, du, lx, lu, l0,
-    Qstage, each with leading axes (B, N)."""
-    extra_cost_terms(system, X, U)
+    Qstage, each with leading axes (B, N); an extra stage cost adds its
+    value, gradient and Hessian."""
     e = wrap_error(X[:, :-1] - prob.xg[:, None], prob.wrap_mask[:, None])
     du = U - prob.u_ref[:, None]
     lx = torch.einsum("bki,bji->bkj", e, prob.Q)
@@ -40,6 +40,13 @@ def stage_expansion(system: System, prob: Problem, X: torch.Tensor, U: torch.Ten
         + prob.w[:, None]
     )
     Qstage = prob.Q[:, None].expand(-1, U.shape[1], -1, -1)
+
+    extra = extra_cost_terms(system, X[:, :-1], U)
+    if extra is not None:
+        c, cx, cxx = extra
+        l0 = l0 + c
+        lx = lx + cx
+        Qstage = sym(Qstage + cxx)
     return e, du, lx, lu, l0, Qstage
 
 

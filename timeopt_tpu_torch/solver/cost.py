@@ -20,11 +20,19 @@ def rollout(system: System, prob: Problem, x0: torch.Tensor, U: torch.Tensor) ->
 
 
 def extra_cost_terms(system: System, X: torch.Tensor, U: torch.Tensor):
-    """Per-step (c, cx, cxx) of the optional extra stage cost. The ported
-    systems have none; the full version comes with PointMass (ROADMAP.md)."""
-    if system.extra_cost is not None:
-        raise NotImplementedError("extra stage costs are not ported yet (ROADMAP.md)")
-    return None
+    """Per-step (c, cx, cxx) of the optional extra stage cost, or None if
+    the system has none. X (B, N, n) are the steps' states, U (B, N, m).
+    The scalar cost's exact gradient and Hessian come from torch.func,
+    vmapped over all B*N steps: c (B, N), cx (B, N, n), cxx (B, N, n, n)."""
+    if system.extra_cost is None:
+        return None
+    fn = system.extra_cost
+    Bsz, N, n = X.shape
+    x, u = X.reshape(Bsz * N, n), U.reshape(Bsz * N, -1)
+    c = fn(x, u)
+    cx = torch.func.vmap(torch.func.grad(fn, argnums=0))(x, u)
+    cxx = torch.func.vmap(torch.func.hessian(fn, argnums=0))(x, u)
+    return c.reshape(Bsz, N), cx.reshape(Bsz, N, n), cxx.reshape(Bsz, N, n, n)
 
 
 def _quad(e: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
@@ -33,11 +41,13 @@ def _quad(e: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
 
 
 def stage_costs(system: System, prob: Problem, X: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
-    """l_k = 0.5 e_k'Q e_k + 0.5 du_k'R du_k + w, k = 0..N-1 -> (B, N)."""
-    extra_cost_terms(system, X, U)
+    """l_k = 0.5 e_k'Q e_k + 0.5 du_k'R du_k + w (+ extra), k = 0..N-1 -> (B, N)."""
     e = wrap_error(X[:, :-1] - prob.xg[:, None], prob.wrap_mask[:, None])
     du = U - prob.u_ref[:, None]
-    return 0.5 * _quad(e, prob.Q) + 0.5 * _quad(du, prob.R) + prob.w[:, None]
+    l = 0.5 * _quad(e, prob.Q) + 0.5 * _quad(du, prob.R) + prob.w[:, None]
+    if system.extra_cost is not None:
+        l = l + system.extra_cost(X[:, :-1], U)
+    return l
 
 
 def terminal_cost(prob: Problem, xT: torch.Tensor) -> torch.Tensor:

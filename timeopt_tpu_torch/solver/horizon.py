@@ -4,9 +4,11 @@ propagator half of timeopt_tpu/solver/horizon.py.
 Each step contributes an information-form LFT element (E, F, G); prefix
 composition of the elements is a sequential loop over the steps here, and
 the factored terminal query gives J(T) for every candidate horizon at once.
-All functions take a leading batch axis B. `propagator_select_fused` is the
-one dispatch point of the phase: the plain version below on the CPU, the
-hand-written kernel of ops/cuda_lft.py on the card.
+All functions take a leading batch axis B. The phase has two dispatch
+points, each the plain version below on the CPU and a hand-written kernel
+on the card: `propagator_select_fused` (ops/cuda_lft.py) for a stationary
+stage cost, `propagator_select_generic` (ops/cuda_lft_generic.py) for the
+assembled blocks of an extra stage cost.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from typing import NamedTuple
 
 import torch
 
-from timeopt_tpu_torch.ops import cuda_lft
+from timeopt_tpu_torch.ops import cuda_lft, cuda_lft_generic
 from timeopt_tpu_torch.ops.linalg import psd_inv, psd_solve, sym
 
 
@@ -75,7 +77,10 @@ def propagator_J_curve_factored(prefixes: LFTElements, C: torch.Tensor, *, psd_l
     return 0.5 * y[..., -1]
 
 
-def _select_impl(A_aug, B_aug, Q_aug, R_inv, C) -> torch.Tensor:
+def select_generic_plain(A_aug, B_aug, Q_aug, R_inv, C) -> torch.Tensor:
+    """Plain version of the generic select: J (B, N), unscaled, every horizon
+    evaluated (the kernel writes +inf below T_min instead). A_aug, Q_aug
+    (B, N, p, p), B_aug (B, N, p, m), R_inv (B, m, m), C (B, N, n, p)."""
     elems = lft_elements(A_aug, B_aug, Q_aug, R_inv, psd_levels=1)
     pre = lft_prefix_scan(elems, psd_levels=1)
     return propagator_J_curve_factored(pre, C, psd_levels=1)
@@ -115,9 +120,14 @@ def select_fused_plain(A, Bm, vecs, scal, Qq, R_inv, Lt) -> torch.Tensor:
     """Plain version of the fused select: J (B, N), unscaled, every horizon
     evaluated (the kernel writes +inf below T_min instead)."""
     A_aug, B_aug, Q_aug, C = _assemble_from_fused(A, Bm, vecs, scal, Qq, R_inv, Lt)
-    return _select_impl(A_aug, B_aug, Q_aug, R_inv, C)
+    return select_generic_plain(A_aug, B_aug, Q_aug, R_inv, C)
 
 
 def propagator_select_fused(A, Bm, vecs, scal, Qq, R_inv, Lt, t_min: int) -> torch.Tensor:
     """The select phase's dispatch point: J (B, N) of the fused inputs."""
     return cuda_lft.propagator_select_fused(A, Bm, vecs, scal, Qq, R_inv, Lt, t_min=t_min)
+
+
+def propagator_select_generic(A_aug, B_aug, Q_aug, R_inv, C, t_min: int) -> torch.Tensor:
+    """The select phase's dispatch point for assembled blocks: J (B, N)."""
+    return cuda_lft_generic.propagator_select_generic(A_aug, B_aug, Q_aug, R_inv, C, t_min=t_min)

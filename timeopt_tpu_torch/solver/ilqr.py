@@ -17,11 +17,11 @@ from typing import Optional
 import torch
 
 from timeopt_tpu_torch.models.base import PROBLEM_FIELDS, Problem, System
-from timeopt_tpu_torch.solver.augmented import build_fused_inputs
+from timeopt_tpu_torch.solver.augmented import build_augmented, build_fused_inputs, build_terminal_factors
 from timeopt_tpu_torch.solver.backward import backward_truncated
 from timeopt_tpu_torch.solver.cost import argmin_T, rollout
 from timeopt_tpu_torch.solver.forward import forward_linesearch
-from timeopt_tpu_torch.solver.horizon import propagator_select_fused
+from timeopt_tpu_torch.solver.horizon import propagator_select_fused, propagator_select_generic
 from timeopt_tpu_torch.solver.linearize import linearize
 
 _ROADMAP = "not ported yet (ROADMAP.md, Queue 1)"
@@ -86,18 +86,32 @@ def resolve_q_reg(opts: SolveOptions, dtype: torch.dtype) -> float:
     return 1e-9 if dtype == torch.float64 else 1e-5
 
 
-def _select_curve(system, prob, opts, X, U, A, B) -> torch.Tensor:
-    """J(T) for T = 1..T_max through the fused select, scaled by s_0^2."""
+def select_inputs(system, prob, opts, X, U, A, B):
+    """(generic, args, s): the contiguous inputs of the select for
+    T = 1..T_max and the homogeneous scales s (B, T_max+1). A stationary
+    stage cost takes the fused select (args: the FusedInputs A, B, vecs,
+    scal, Qq, R_inv, Lt); an extra stage cost makes Q_aug step-dependent and
+    takes the generic select (generic=True; args: A_aug, B_aug, Q_aug,
+    R_inv, C)."""
     Tm = prob.T_max
-    fi = build_fused_inputs(
-        system, prob, X[:, : Tm + 1], U[:, :Tm], A[:, :Tm], B[:, :Tm],
-        q_reg=resolve_q_reg(opts, X.dtype), psd_levels=opts.psd_levels,
-    )
-    c = lambda t: t.contiguous()  # noqa: E731
-    J = propagator_select_fused(
-        c(fi.A), c(fi.B), c(fi.vecs), c(fi.scal), c(fi.Qq), c(fi.R_inv), c(fi.Lt), prob.T_min
-    )
-    return fi.s[:, :1] ** 2 * J
+    Xh, Uh, Ah, Bh = X[:, : Tm + 1], U[:, :Tm], A[:, :Tm], B[:, :Tm]
+    q_reg = resolve_q_reg(opts, X.dtype)
+    if system.extra_cost is None:
+        fi = build_fused_inputs(system, prob, Xh, Uh, Ah, Bh, q_reg=q_reg, psd_levels=opts.psd_levels)
+        args = (fi.A, fi.B, fi.vecs, fi.scal, fi.Qq, fi.R_inv, fi.Lt)
+        return False, [t.contiguous() for t in args], fi.s
+    blk = build_augmented(system, prob, Xh, Uh, Ah, Bh, q_reg=q_reg, psd_levels=opts.psd_levels)
+    C = build_terminal_factors(prob, Xh, s=blk.s)
+    args = (blk.A_aug, blk.B_aug, blk.Q_aug, blk.R_inv, C)
+    return True, [t.contiguous() for t in args], blk.s
+
+
+def _select_curve(system, prob, opts, X, U, A, B) -> torch.Tensor:
+    """J(T) for T = 1..T_max through the fused or the generic select,
+    scaled by s_0^2."""
+    generic, args, s = select_inputs(system, prob, opts, X, U, A, B)
+    select = propagator_select_generic if generic else propagator_select_fused
+    return s[:, :1] ** 2 * select(*args, prob.T_min)
 
 
 def _solve_curve_methods(system: System, opts: SolveOptions, prob: Problem, U_init: torch.Tensor) -> SolveResult:
