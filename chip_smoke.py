@@ -3,13 +3,13 @@
 
     python3 chip_smoke.py
 
-Drives the port's batched HOP-DDP propagator solve in float64 on the card
-through its four hand-written CUDA kernels, for every system of the model
-registry, in five phases; each prints its own lines and any failure raises
-(non-zero exit, no result line):
+Drives the port's batched HOP-DDP solves in float64 on the card through
+its six hand-written CUDA kernels, for every system of the model registry,
+in seven phases; each prints its own lines and any failure raises (non-zero
+exit, no result line):
 
 1. device: the card, CUDA and nvcc versions (no CPU fallback);
-2. build: the four kernels from timeopt_tpu_torch/csrc/, one nvcc each, all
+2. build: the six kernels from timeopt_tpu_torch/csrc/, one nvcc each, all
    started together;
 3. kernels vs plain: each kernel against its plain PyTorch version on the
    card, on inputs from a real iterate, with the stated tolerances, and
@@ -19,17 +19,39 @@ registry, in five phases; each prints its own lines and any failure raises
    at B=128 on its oracle problem set, its select kernel (the error printed,
    gated by SELECT_BOUND) and the line search, and the generic select on
    the quadrotor's assembled blocks (rtol 2e-9, the tight check of that
-   kernel);
+   kernel); then the unfused select's prefix-scan and terminal-query
+   kernels on the quadrotor's first-iterate blocks at B=1024, N=160, timed,
+   and per system at B=128 on the oracle's own final (X, U): E, F, G
+   printed; on every system the query kernel alone (QUERY_BOUND) and the
+   chain against the generic select kernel (CHAIN_BOUND); the chain against
+   the plain chain where that holds (SCAN_QUERY_FIRST_BOUND,
+   SCAN_QUERY_BOUND);
 4. the solve of the 128 problems of each results/oracle_f64*.npz (six
    systems), scored against that f64 brute-force oracle (exact and
    exact-or-tied T*, every problem but REFERENCE_MISSES), with the launch
    count of every kernel in each run;
-5. throughput: one timed solve_batch at B=1024 of the quadrotor and of
+5. brute force: the oracle's own computation, solve_batch(method=
+   "bruteforce", max_iter=12, psd_levels=1), on each of the six oracle
+   problem sets, exact-or-tied 128/128 with no exception, the J* and J(T)
+   gaps printed; then consistency_check (the scan and query kernels against
+   the plain brute force) on each result, its argmin tied to the brute
+   force's on every problem and its curve within CC_NORM_BOUND of it; and
+   one quadrotor solve with terminal_mode="inverse" (the scan kernel inside
+   a solve);
+6. the port's suite runner (timeopt_tpu_torch.runner.run_suite) in-process
+   on all six cases, 25 trials, ourmethod and baseline1, with --consistency
+   --save-jt --save-trajectories, against results/cpu_f64_25: T* identical
+   on every DoubleIntegrator and Quadrotor row, their trial-0
+   consistency_max_abs within RUNNER_CC_RTOL of the committed value; the
+   other cases' mismatches printed;
+7. throughput: one timed solve_batch at B=1024 of the quadrotor and of
    PointMass, after a warm-up.
 
-The line before the last is the card's name and power limit as nvidia-smi
+Each path resets the kernels' launch counts just before it runs and reads
+them just after; a kernel of the path that was not launched fails it. The
+line before the last is the card's name and power limit as nvidia-smi
 prints them; before that, one JSON line with each kernel's numbers (its
-launches summed over the six oracle solves). The last line is
+launches summed over the paths of phases 4-6). The last line is
 {"ok": true, "device": {...}}. Imports no JAX.
 """
 
@@ -60,6 +82,8 @@ KERNELS = {
                            "timeopt_tpu/ops/pallas_lft.py:537 (and :598)"),
     "backward": ("cuda", "timeopt_tpu_torch/csrc/backward.cu", "timeopt_tpu/ops/pallas_backward.py:235"),
     "linesearch": ("cuda", "timeopt_tpu_torch/csrc/linesearch.cu", "timeopt_tpu/ops/pallas_forward.py:308"),
+    "lft_scan": ("cuda", "timeopt_tpu_torch/csrc/lft_scan.cu", "timeopt_tpu/ops/pallas_lft.py:161"),
+    "lft_query": ("cuda", "timeopt_tpu_torch/csrc/lft_query.cu", "timeopt_tpu/ops/pallas_lft.py:232"),
 }
 # Select kernel vs plain on J(T), T >= T_min: ("rel", r) bounds the largest
 # elementwise relative error, ("norm", r) each problem's largest error
@@ -79,6 +103,54 @@ SELECT_BOUND = {"DoubleIntegrator": ("rel", 1e-9), "Cartpole_SwingUp": None, "Qu
 # and options) is neither exact nor tied against the brute-force oracle
 # (it scores 122/128 on PointMass; PERF.md section 6, ROADMAP.md Queue 3).
 REFERENCE_MISSES = {"PointMass_Navigation": (39, 42, 57, 66, 81, 112)}
+# The unfused select (prefix-scan kernel, then query kernel), J(T) for
+# T >= T_min, read as SELECT_BOUND, on every system three ways:
+# - the query kernel alone on the plain prefixes against the plain query,
+#   QUERY_BOUND (readings <= 1.6e-10 relative, PointMass; <= 6.2e-13 on the
+#   other five);
+# - the chain against the generic select kernel (csrc/lft_select_generic.cu,
+#   gated on its own above and by phase 4) on the same blocks, CHAIN_BOUND:
+#   the scan takes that kernel's element and compose sweeps in the same
+#   order and its J the same last-pivot value, so the two agree bitwise
+#   (reading 0 on all six systems at levels 1 and 2); a change of either
+#   kernel's operation order must re-read this bound against long double;
+# - the chain against the chain of plain versions, SCAN_QUERY_BOUND, where
+#   that holds: the scan kernel eliminates where the plain scan (the JAX
+#   algorithm) forms explicit inverses. On the quadrotor's first iterate the
+#   chain is the generic select's math on the same blocks, hence its rtol
+#   2e-9. At the oracle's final (X, U) the plain chain is the side that
+#   loses digits: against a long-double run of the same math on the 128
+#   problems it is off by 2.7e-7 relative (quadrotor) and 0.18 normwise
+#   (PointMass), the kernels' elimination order by 1.6e-10 and 3.6e-4
+#   (PERF.md section 6); cartpole, segway and ballbot are printed only.
+QUERY_BOUND = ("rel", 1e-9)
+CHAIN_BOUND = ("rel", 1e-12)
+SCAN_QUERY_FIRST_BOUND = ("rel", 2e-9)
+SCAN_QUERY_BOUND = {"DoubleIntegrator": ("rel", 1e-9), "Cartpole_SwingUp": None, "Quadrotor": ("rel", 1e-6),
+                    "Segway_Balance": None, "Ballbot_Balance": None, "PointMass_Navigation": None}
+# Phase 5 holds consistency_check's two curves on each brute-force result to
+# each other: the kernels' J_prop(T) against the plain brute force's J_bf(T)
+# (an independent algorithm), every problem's argmin T* tied to J_bf's by
+# the oracle's rule, and each problem's max |J_prop - J_bf| over its max
+# |J_bf| within CC_NORM_BOUND. The readings (PERF.md section 6) are 2.2e-5
+# (DI, about lm_lambda), 1.6e-4, 8.8e-6, 0.80 (segway: J_bf and the
+# propagator's q_reg disagree there at lm_lambda 0 too), 2.1e-2 and 0.22
+# (PointMass, 1.3e-2 at lm_lambda 0). Scan outputs off by 1e-3 relative (E,
+# F or G), shifted by one horizon or taken at jitter 1e-6 read 3.4 to 2e4
+# times higher on the five others, and leave 4 to 121 of the segway's 128
+# argmins tied.
+CC_NORM_BOUND = {"DoubleIntegrator": 5e-5, "Cartpole_SwingUp": 3e-4, "Quadrotor": 2e-5, "Segway_Balance": 1.0,
+                 "Ballbot_Balance": 4e-2, "PointMass_Navigation": 0.5}
+# Phase 6 holds these cases' rows to the committed results/cpu_f64_25 CSV:
+# T* identical, and trial-0 consistency_max_abs within RUNNER_CC_RTOL of the
+# committed value. That value, the largest |J_prop(T) - J_bf(T)|, carries
+# the propagator's rounding at the longest horizon: the card reads DI
+# 1.8e-9 and the quadrotor 1.15e-2 off the committed value, the port's
+# plain chain on the CPU 2.2e-2, and the JAX package recomputes its own
+# committed quadrotor trajectory 1.46e-2 off (PERF.md section 6).
+RUNNER_GATED = ("DoubleIntegrator", "Quadrotor")
+RUNNER_CC_RTOL = {"DoubleIntegrator": 1e-3, "Quadrotor": 3e-2}
+COMMITTED_CSV = os.path.join(ROOT, "results", "cpu_f64_25", "summary_all.csv")
 
 
 def require(cond, msg: str) -> None:
@@ -192,16 +264,20 @@ def phase_build():
         log(f"[build] {name}: nvcc {secs:.1f} s | " + " | ".join(lines))
 
 
-def check_select(J_k, J_p, s, probs, bound, label: str):
+def check_select(J_k, J_p, s, probs, bound, label: str, inf_below: bool = True,
+                 ungated: str = "the gate is the oracle score of phase 4"):
     """J of kernel and plain for T >= T_min: +inf below T_min from the
-    kernel, the same non-finite pattern, and the errors and argmin T*
-    agreement gated by `bound` (see SELECT_BOUND). Returns (max abs err,
-    the plain version's T*)."""
+    kernel (with inf_below: the select kernels skip those queries), the same
+    non-finite pattern, and the errors and argmin T* agreement gated by
+    `bound` (see SELECT_BOUND); with no bound the log names the gate that
+    holds instead (`ungated`). Returns (max abs err, the plain version's
+    T*)."""
     import torch
     from timeopt_tpu_torch.solver.cost import argmin_T
 
     t_min, Bsz = probs.T_min, J_k.shape[0]
-    require(bool(torch.isinf(J_k[:, : t_min - 1]).all()), f"{label}: kernel J below T_min is not +inf")
+    if inf_below:
+        require(bool(torch.isinf(J_k[:, : t_min - 1]).all()), f"{label}: kernel J below T_min is not +inf")
     a, b = J_k[:, t_min - 1 :], J_p[:, t_min - 1 :]
     err, same = max_err(a, b)
     require(same, f"{label}: non-finite pattern of J differs")
@@ -214,7 +290,7 @@ def check_select(J_k, J_p, s, probs, bound, label: str):
     Jpk, Jpp = J_p[rows, T_k - 1], J_p[rows, T_p - 1]
     tied = (T_k == T_p) | ((Jpk - Jpp).abs() <= 1e-9 * Jpp.abs())
     log(f"[kernels] {label}: max abs err {err:.3e}, max rel err {errs['rel']:.3e}, normwise {errs['norm']:.3e} "
-        f"(t >= T_min; bound {bound or 'none, the gate is the oracle'}), argmin equal {int((T_k == T_p).sum())}/{Bsz}, "
+        f"(t >= T_min; bound {bound or 'none here: ' + ungated}), argmin equal {int((T_k == T_p).sum())}/{Bsz}, "
         f"tied {int(tied.sum())}/{Bsz}")
     if bound is not None:
         kind, r = bound
@@ -293,6 +369,63 @@ def select_pair(system, probs, opts, X, U, A, Bj):
             lambda: cuda_lft.select_fused_plain(*args), s)
 
 
+def normwise(k, p, label: str) -> float:
+    """Largest |k - p| of each trailing matrix over its largest |p|, max over
+    the batch; the non-finite patterns must agree."""
+    require(max_err(k, p)[1], f"{label}: non-finite pattern differs")
+    d = (k - p).abs().nan_to_num(0.0).amax(dim=(-1, -2))
+    return (d / p.abs().nan_to_num(0.0).amax(dim=(-1, -2))).nan_to_num(0.0).max().item()
+
+
+def scan_query_pair(system, probs, X, U, A, Bj, levels: int, bound, label: str, timed: bool = False) -> dict:
+    """The unfused select on the assembled blocks of (X, U, A, B): the scan
+    kernel's prefixes against the plain scan's (normwise per matrix,
+    printed); the query kernel on the plain prefixes against the plain query
+    (QUERY_BOUND); the whole kernel chain against the generic select kernel
+    (CHAIN_BOUND) and against the whole plain chain (`bound`), each gated as
+    check_select. With `timed`, both kernels and both plain versions are
+    timed. Returns the errors of the chain and of the query alone."""
+    import torch
+    from timeopt_tpu_torch.ops import cuda_lft_generic, cuda_lft_query, cuda_lft_scan
+    from timeopt_tpu_torch.solver.augmented import build_augmented, build_terminal_factors
+    from timeopt_tpu_torch.solver.horizon import brb
+
+    blk = build_augmented(system, probs, X, U, A, Bj, psd_levels=levels)
+    C = build_terminal_factors(probs, X, s=blk.s).contiguous()
+    args = [t.contiguous() for t in (blk.A_aug, brb(blk.B_aug, blk.R_inv), blk.Q_aug)]
+    pre_k = cuda_lft_scan.lft_scan(*args, levels=levels)
+    pre_p = cuda_lft_scan.lft_scan_plain(*args, levels=levels)
+    J_kq = cuda_lft_query.lft_query(*pre_p, C, levels=levels)
+    J_p = cuda_lft_query.lft_query_plain(*pre_p, C, levels=levels)
+    J_k = cuda_lft_query.lft_query(*pre_k, C, levels=levels)
+    J_g = cuda_lft_generic.propagator_select_generic(
+        *[t.contiguous() for t in (blk.A_aug, blk.B_aug, blk.Q_aug, blk.R_inv, C)], t_min=probs.T_min)
+    torch.cuda.synchronize()
+    efg = [normwise(k, p, f"{label} prefixes") for k, p in zip(pre_k, pre_p)]
+    log(f"[kernels] {label}: scan normwise err E {efg[0]:.3e}, F {efg[1]:.3e}, G {efg[2]:.3e}")
+    q_err, _ = check_select(J_kq, J_p, blk.s, probs, QUERY_BOUND, f"{label} query kernel on the plain prefixes",
+                            inf_below=False)
+    check_select(J_k, J_g, blk.s, probs, CHAIN_BOUND, f"{label} scan+query J vs the generic select kernel",
+                 inf_below=False)
+    err, _ = check_select(J_k, J_p, blk.s, probs, bound, f"{label} scan+query J vs the plain chain", inf_below=False,
+                          ungated="the plain chain loses digits; gated against the generic select kernel above "
+                                  "and against the brute force in phase 5")
+    out = dict(max_abs_err=err, query_max_abs_err=q_err)
+    if timed:
+        out["scan"] = (cuda_ms(lambda: cuda_lft_scan.lft_scan(*args, levels=levels), reps=5),
+                       cuda_ms(lambda: cuda_lft_scan.lft_scan_plain(*args, levels=levels), reps=3))
+        out["query"] = (cuda_ms(lambda: cuda_lft_query.lft_query(*pre_k, C, levels=levels), reps=5),
+                        cuda_ms(lambda: cuda_lft_query.lft_query_plain(*pre_k, C, levels=levels), reps=3))
+        log(f"[kernels] {label}: lft_scan kernel {out['scan'][0]:.3f} ms, plain {out['scan'][1]:.3f} ms | "
+            f"lft_query kernel {out['query'][0]:.3f} ms, plain {out['query'][1]:.3f} ms")
+    return out
+
+
+def load_oracle(case: str) -> dict:
+    suffix = "" if case == "Quadrotor" else f"_{case}"
+    return dict(np.load(os.path.join(ROOT, "results", f"oracle_f64{suffix}.npz")))
+
+
 def phase_kernels(device) -> dict:
     """The main path's kernels at B=1024 (quadrotor N=160, PointMass
     N = T_max = 220), then each system's select and line search at B=128."""
@@ -302,6 +435,7 @@ def phase_kernels(device) -> dict:
     from timeopt_tpu_torch.solver.augmented import build_augmented, build_terminal_factors
     from timeopt_tpu_torch.solver.backward import backward_inputs, backward_truncated
     from timeopt_tpu_torch.solver.ilqr import SolveOptions
+    from timeopt_tpu_torch.solver.linearize import linearize
 
     opts = SolveOptions(max_iter=MAX_ITER, psd_levels=1)
     out = {}
@@ -376,20 +510,47 @@ def phase_kernels(device) -> dict:
         ms = cuda_ms(lambda: cuda_forward.linesearch(*ls_args), reps=3)
         pms = cuda_ms(lambda: cuda_forward.linesearch_plain(*ls_args), reps=1)
         log(f"[kernels] line search ({case} B={B_ORACLE} N={probs.N}): kernel {ms:.3f} ms, plain {pms:.3f} ms")
+
+    # ---- the unfused select (consistency_check's psd_levels=2): quadrotor
+    # B=1024 first iterate, timed; then each system's oracle (X, U) at B=128
+    system, probs, X, U, A, Bj, _ = quad
+    sq = scan_query_pair(system, probs, X, U, A, Bj, 2, SCAN_QUERY_FIRST_BOUND,
+                         f"scan+query (Quadrotor B={B_FULL})", timed=True)
+    # the scan's error is the chain's (its prefixes reach J only through a
+    # query); the query's is its own, on the plain prefixes
+    out["lft_scan"] = dict(max_abs_err=sq["max_abs_err"], ms=sq["scan"][0], plain_ms=sq["scan"][1])
+    out["lft_query"] = dict(max_abs_err=sq["query_max_abs_err"], ms=sq["query"][0], plain_ms=sq["query"][1])
+    for case in CASES:
+        system, mk = get_system(case)
+        orc = load_oracle(case)
+        probs = oracle_problems(system, mk, B_ORACLE, device)
+        X, U = (torch.as_tensor(orc[k], device=device) for k in ("X", "U"))
+        A, Bj = linearize(system.step, X, U)
+        scan_query_pair(system, probs, X, U, A, Bj, 2, SCAN_QUERY_BOUND[case], f"scan+query ({case} oracle X, U)")
     return out
 
 
-def reset_launches() -> None:
-    from timeopt_tpu_torch.ops import cuda_backward, cuda_forward, cuda_lft, cuda_lft_generic
+def _counted():
+    from timeopt_tpu_torch.ops import cuda_backward, cuda_forward, cuda_lft, cuda_lft_generic, cuda_lft_query, cuda_lft_scan
 
-    cuda_lft.LAUNCHES = cuda_lft_generic.LAUNCHES = cuda_backward.LAUNCHES = cuda_forward.LAUNCHES = 0
+    return {"lft_select": cuda_lft, "lft_select_generic": cuda_lft_generic, "backward": cuda_backward,
+            "linesearch": cuda_forward, "lft_scan": cuda_lft_scan, "lft_query": cuda_lft_query}
+
+
+def reset_launches() -> None:
+    for mod in _counted().values():
+        mod.LAUNCHES = 0
 
 
 def launches() -> dict:
-    from timeopt_tpu_torch.ops import cuda_backward, cuda_forward, cuda_lft, cuda_lft_generic
+    return {name: mod.LAUNCHES for name, mod in _counted().items()}
 
-    return {"lft_select": cuda_lft.LAUNCHES, "lft_select_generic": cuda_lft_generic.LAUNCHES,
-            "backward": cuda_backward.LAUNCHES, "linesearch": cuda_forward.LAUNCHES}
+
+def score(T, T_o, curve_o, w: float):
+    """(exact, exact-or-tied) boolean arrays of T* against the oracle's."""
+    idx = np.arange(len(T_o))
+    exact = T == T_o
+    return exact, exact | (np.abs(curve_o[idx, T - 1] - curve_o[idx, T_o - 1]) <= w * (np.abs(T - T_o) + 1))
 
 
 def phase_oracle(case: str, device) -> dict:
@@ -401,8 +562,7 @@ def phase_oracle(case: str, device) -> dict:
     from timeopt_tpu_torch.solver.ilqr import SolveOptions, solve_batch
 
     system, mk = get_system(case)
-    suffix = "" if case == "Quadrotor" else f"_{case}"
-    orc = np.load(os.path.join(ROOT, "results", f"oracle_f64{suffix}.npz"))
+    orc = load_oracle(case)
     T_o, J_o, curve_o = orc["T"].astype(np.int64), orc["J"], orc["J_curve"]
     Bo = len(T_o)
     probs = oracle_problems(system, mk, Bo, device)
@@ -424,10 +584,7 @@ def phase_oracle(case: str, device) -> dict:
     require(bool(torch.isfinite(res.J_star).all()), f"{case}: non-finite J*")
     T = res.T_star.cpu().numpy()
     J = res.J_star.cpu().numpy()
-    w = float(probs.w[0])
-    idx = np.arange(Bo)
-    exact = T == T_o
-    tied = np.abs(curve_o[idx, T - 1] - curve_o[idx, T_o - 1]) <= w * (np.abs(T - T_o) + 1)
+    exact, tied = score(T, T_o, curve_o, float(probs.w[0]))
     gap = np.abs(J - J_o) / np.abs(J_o)
     eT = wrap_error(res.X[torch.arange(Bo, device=device), res.T_star] - probs.xg, probs.wrap_mask)
     succ = float((eT.norm(dim=-1) <= 0.5).double().mean())
@@ -441,6 +598,154 @@ def phase_oracle(case: str, device) -> dict:
     require(set(bad.tolist()) <= allowed,
             f"oracle {case}: exact-or-tied {int((exact | tied).sum())}/{Bo}, misses {sorted(set(bad.tolist()) - allowed)} "
             "beyond the reference's own")
+    return counts
+
+
+def phase_bruteforce(case: str, device) -> dict:
+    """The oracle's own computation on its 128 problems: the brute-force
+    solve, scored exact-or-tied 128/128; then consistency_check on its
+    result (the scan and query kernels). Returns the launch counts of both
+    paths."""
+    import torch
+    from timeopt_tpu_torch.models import get_system
+    from timeopt_tpu_torch.solver.cost import argmin_T
+    from timeopt_tpu_torch.solver.ilqr import SolveOptions, solve_batch
+    from timeopt_tpu_torch.solver.verify import consistency_check
+
+    system, mk = get_system(case)
+    orc = load_oracle(case)
+    T_o, J_o, curve_o = orc["T"].astype(np.int64), orc["J"], orc["J_curve"]
+    Bo = len(T_o)
+    probs = oracle_problems(system, mk, Bo, device)
+
+    reset_launches()
+    t0 = time.perf_counter()
+    res = solve_batch(system, probs, options=SolveOptions(method="bruteforce", max_iter=MAX_ITER, psd_levels=1))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launches()
+    for name in ("backward", "linesearch"):
+        require(counts[name] > 0, f"brute-force solve {case}: kernel {name} was never launched")
+    require(bool(torch.isfinite(res.J_star).all()), f"brute-force {case}: non-finite J*")
+    T, J = res.T_star.cpu().numpy(), res.J_star.cpu().numpy()
+    exact, tied = score(T, T_o, curve_o, float(probs.w[0]))
+    gap = np.abs(J - J_o) / np.abs(J_o)
+    c, co = res.J_curve.cpu().numpy()[:, probs.T_min - 1 :], curve_o[:, probs.T_min - 1 :]
+    cgap = np.abs(c - co).max(axis=1) / np.abs(co).max(axis=1)
+    log(f"[bruteforce] {case} B={Bo}: T* exact {int(exact.sum())}/{Bo}, exact-or-tied {int(tied.sum())}/{Bo} | "
+        f"J* rel gap median {np.median(gap):.3e} max {gap.max():.3e} | J(T) normwise gap to the oracle's curve "
+        f"median {np.median(cgap):.3e} max {cgap.max():.3e} | {secs:.2f} s, {counts['backward']} outer iterations, "
+        f"{1e3 * secs / counts['backward']:.1f} ms/iteration | {smi()}")
+    bad = np.nonzero(~tied)[0]
+    require(len(bad) == 0, f"brute force {case}: not exact or tied on {bad.tolist()} (T* {T[bad].tolist()}, "
+            f"oracle {T_o[bad].tolist()})")
+
+    reset_launches()
+    t0 = time.perf_counter()
+    cc = consistency_check(system, probs, res.X, res.U)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    cc_counts = launches()
+    for name in ("lft_scan", "lft_query"):
+        require(cc_counts[name] > 0, f"consistency_check {case}: kernel {name} was never launched")
+    mx = cc["max_abs"].cpu().numpy()
+    require(np.isfinite(mx).all() and bool(torch.isfinite(cc["rmse"]).all()), f"consistency_check {case}: non-finite")
+    require(bool(torch.isfinite(cc["J_prop"][:, probs.T_min - 1 :]).all()), f"consistency_check {case}: J_prop non-finite")
+    # the kernels' curve against the brute force's on the same trajectories
+    J_prop, J_bf = cc["J_prop"], cc["J_bf"]
+    a, b = J_prop[:, probs.T_min - 1 :], J_bf[:, probs.T_min - 1 :]
+    nw = ((a - b).abs().amax(1) / b.abs().amax(1)).cpu().numpy()
+    T_prop = argmin_T(J_prop, probs.T_min, probs.T_max).cpu().numpy()
+    T_bf = argmin_T(J_bf, probs.T_min, probs.T_max).cpu().numpy()
+    exact_bf, tied_bf = score(T_prop, T_bf, J_bf.cpu().numpy(), float(probs.w[0]))
+    q = np.quantile(mx, [0.0, 0.5, 0.9, 1.0])
+    log(f"[consistency] {case} B={Bo}: max_abs min {q[0]:.3e} median {q[1]:.3e} p90 {q[2]:.3e} max {q[3]:.3e} | "
+        f"rmse median {float(cc['rmse'].median()):.3e} | J_prop vs J_bf normwise median {np.median(nw):.3e} max "
+        f"{nw.max():.3e} (bound {CC_NORM_BOUND[case]}), argmin exact {int(exact_bf.sum())}/{Bo}, tied "
+        f"{int(tied_bf.sum())}/{Bo} | {secs:.2f} s | launches {cc_counts}")
+    require(nw.max() <= CC_NORM_BOUND[case],
+            f"consistency_check {case}: J_prop vs J_bf normwise {nw.max():.3e} > {CC_NORM_BOUND[case]}")
+    bad = np.nonzero(~tied_bf)[0]
+    require(len(bad) == 0, f"consistency_check {case}: the kernels' argmin T* is not tied to the brute force's on "
+            f"{bad.tolist()} (T* {T_prop[bad].tolist()}, brute force {T_bf[bad].tolist()})")
+    return {k: counts[k] + cc_counts[k] for k in counts}
+
+
+def phase_inverse(device) -> dict:
+    """One quadrotor solve at B=128 with the reference-parity inverse query:
+    the scan kernel inside a solve. Returns its launch counts."""
+    import torch
+    from timeopt_tpu_torch.models import get_system
+    from timeopt_tpu_torch.solver.ilqr import SolveOptions, solve_batch
+
+    system, mk = get_system("Quadrotor")
+    orc = load_oracle("Quadrotor")
+    probs = oracle_problems(system, mk, B_ORACLE, device)
+    opts = SolveOptions(method="propagator", terminal_mode="inverse", max_iter=MAX_ITER, psd_levels=1)
+    reset_launches()
+    t0 = time.perf_counter()
+    res = solve_batch(system, probs, options=opts)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launches()
+    require(counts["lft_scan"] > 0, "inverse-query solve: kernel lft_scan was never launched")
+    require(bool(torch.isfinite(res.J_star).all()), "inverse-query solve: non-finite J*")
+    T_o = orc["T"].astype(np.int64)
+    exact, tied = score(res.T_star.cpu().numpy(), T_o, orc["J_curve"], float(probs.w[0]))
+    gap = np.abs(res.J_star.cpu().numpy() - orc["J"]) / np.abs(orc["J"])
+    log(f"[inverse] Quadrotor B={B_ORACLE} terminal_mode=inverse: T* exact {int(exact.sum())}/{B_ORACLE}, "
+        f"exact-or-tied {int(tied.sum())}/{B_ORACLE} | J* rel gap max {gap.max():.3e} | {secs:.2f} s | launches {counts}")
+    return counts
+
+
+def phase_runner() -> dict:
+    """The port's suite runner in-process (device cuda) on all six cases,
+    held against the committed results/cpu_f64_25 rows. Returns its launch
+    counts."""
+    import csv
+    import tempfile
+
+    from timeopt_tpu_torch.runner import run_suite
+
+    with open(COMMITTED_CSV, newline="") as f:
+        want = {(r["case"], r["solver"], r["trial"]): r for r in csv.DictReader(f)}
+    with tempfile.TemporaryDirectory() as out:
+        reset_launches()
+        t0 = time.perf_counter()
+        run_suite.main(["--cases", ",".join(CASES), "--trials", "25", "--solvers", "ourmethod,baseline1",
+                        "--consistency", "--save-jt", "--save-trajectories", "--outdir", out])
+        secs = time.perf_counter() - t0
+        counts = launches()
+        with open(os.path.join(out, "summary_all.csv"), newline="") as f:
+            got = list(csv.DictReader(f))
+        with open(os.path.join(out, "summary_agg.csv"), newline="") as f:
+            agg = list(csv.DictReader(f))
+        for case in CASES:
+            require(os.path.exists(os.path.join(out, case, f"{case}_Jt.csv")), f"runner: no {case}_Jt.csv")
+            require(os.path.exists(os.path.join(out, case, "trajectories_baseline1.npz")), f"runner: no {case} npz")
+    for name in KERNELS:
+        require(counts[name] > 0, f"runner: kernel {name} was never launched")
+    require(len(got) == len(CASES) * 2 * 25, f"runner: {len(got)} rows")
+    log(f"[runner] 6 cases x 25 trials x (ourmethod, baseline1), --consistency --save-jt --save-trajectories: "
+        f"{secs:.1f} s | launches {counts}")
+    for case in CASES:
+        rows = [r for r in got if r["case"] == case]
+        t_miss = [(r["solver"], r["trial"], r["T_star"], want[(case, r["solver"], r["trial"])]["T_star"])
+                  for r in rows if r["T_star"] != want[(case, r["solver"], r["trial"])]["T_star"]]
+        jgap = max(abs(float(r["J_star"]) - float(want[(case, r["solver"], r["trial"])]["J_star"]))
+                   / abs(float(want[(case, r["solver"], r["trial"])]["J_star"])) for r in rows)
+        cc = {s: (float(r["consistency_max_abs"]), float(want[(case, s, "0")]["consistency_max_abs"]))
+              for s in ("ourmethod", "baseline1") for r in rows if r["solver"] == s and r["trial"] == "0"}
+        ratio = {r["solver"]: r["ratio_time_median"] for r in agg if r["case"] == case}
+        log(f"[runner] {case}: T* differs from the committed rows on {len(t_miss)}/{len(rows)} "
+            f"{t_miss[:6]}{' ...' if len(t_miss) > 6 else ''} | J* max rel gap {jgap:.3e} | trial-0 consistency_max_abs "
+            + ", ".join(f"{s} {a:.6e} (committed {b:.6e}, rel {(a - b) / b:+.3e})" for s, (a, b) in cc.items())
+            + f" | time_ratio_base median ourmethod {ratio.get('ourmethod')}")
+        if case in RUNNER_GATED:
+            require(not t_miss, f"runner {case}: T* differs from the committed rows: {t_miss}")
+            for s, (a, b) in cc.items():
+                lim = RUNNER_CC_RTOL[case] * abs(b)
+                require(abs(a - b) <= lim, f"runner {case} {s}: consistency_max_abs {a} vs committed {b} (limit {lim:.3e})")
     return counts
 
 
@@ -484,9 +789,17 @@ def main() -> None:
     phase_build()
     numbers = phase_kernels(device)
     counts = {name: 0 for name in KERNELS}
+
+    def add(c: dict) -> None:
+        for name, v in c.items():
+            counts[name] += v
+
     for case in CASES:
-        for name, c in phase_oracle(case, device).items():
-            counts[name] += c
+        add(phase_oracle(case, device))
+    for case in CASES:
+        add(phase_bruteforce(case, device))
+    add(phase_inverse(device))
+    add(phase_runner())
     for case in ("Quadrotor", "PointMass_Navigation"):
         phase_throughput(case, device)
 

@@ -7,7 +7,9 @@ The file imports torch and numpy only, so it runs where JAX is absent:
 
 Inputs come from the port's own CPU path (rollout, AD linearization) at a
 small size, then move to the card. Tolerances are those of chip_smoke.py:
-select J (fused or generic) within rtol 1e-9 for T >= T_min; backward kappa/K within
+select J (fused or generic) within rtol 1e-9 for T >= T_min; prefix scan
+E, F, G within 1e-9 of each matrix's largest entry, the query J and the
+scan + query J within rtol 1e-9 for T >= T_min; backward kappa/K within
 rtol 1e-9 / atol 1e-12 with identical ok; line search X, U, J within
 rtol 1e-10 / atol 1e-12 with identical acceptance. The kernels contract
 FMAs and use the device's sin/cos/tan, so they are not bitwise equal to the
@@ -31,8 +33,9 @@ import pytest
 import torch
 
 from timeopt_tpu_torch.models import get_system
-from timeopt_tpu_torch.ops import cuda_backward, cuda_forward, cuda_lft, cuda_lft_generic
+from timeopt_tpu_torch.ops import cuda_backward, cuda_forward, cuda_lft, cuda_lft_generic, cuda_lft_query, cuda_lft_scan
 from timeopt_tpu_torch.solver.augmented import build_augmented, build_fused_inputs, build_terminal_factors
+from timeopt_tpu_torch.solver.horizon import brb
 from timeopt_tpu_torch.solver.backward import backward_inputs
 from timeopt_tpu_torch.solver.cost import argmin_T, cost_true, rollout
 from timeopt_tpu_torch.solver.forward import select_first_improving
@@ -108,6 +111,72 @@ def test_generic_select_kernel_matches_plain(dev, case, noise):
     assert torch.equal(argmin_T(s0 * J_k, probs.T_min, probs.T_max), argmin_T(s0 * J_p, probs.T_min, probs.T_max))
 
 
+def ladder_inputs():
+    """Prefix-scan blocks (A_aug, BRB, Q_aug) and query inputs (E, F, G, C)
+    whose first jitter rung is singular. With A_aug = 0 and BRB = 0, G = 0,
+    so the step-1 compose inverts sym(E_1) + 1e-9 I with E_1 = (-1e9 I)^-1,
+    which is exactly -1e-9 I: zero. Q_aug at step 2 is -1e-9 I, so its
+    element's first rung is zero too. The query's X0 = E when F = 0, and
+    E = -1e-9 I at one (b, t) makes its first rung zero."""
+    B, N, p = 2, 3, 3
+    eye = np.eye(p)
+    A = np.zeros((B, N, p, p))
+    BRB = np.zeros((B, N, p, p))
+    Q = np.stack([eye, -1e9 * eye, -1e-9 * eye])[None].repeat(B, 0)
+    Q[1, 2] = 2.0 * eye
+    E = np.broadcast_to(eye, (B, N, p, p)).copy()
+    E[0, 1] = -1e-9 * eye
+    C = np.concatenate([np.eye(p - 1), np.ones((p - 1, 1))], axis=1)[None, None].repeat(B, 0).repeat(N, 1)
+    return A, BRB, Q, (E, np.zeros_like(E), np.zeros_like(E), C)
+
+
+def _normwise(k, p):
+    """Largest |k - p| of each trailing matrix over its largest |p|."""
+    return ((k - p).abs().amax(dim=(-1, -2)) / p.abs().amax(dim=(-1, -2))).max().item()
+
+
+@pytest.mark.parametrize("case,levels", [("Quadrotor", 1), ("Quadrotor", 2), ("DoubleIntegrator", 2)])
+def test_scan_and_query_kernels_match_plain(dev, case, levels):
+    system, probs, X, U, A, Bj = _iterate(case, noise=0.0)
+    blk = build_augmented(system, probs, X, U, A, Bj, psd_levels=levels)
+    C = build_terminal_factors(probs, X, s=blk.s).to(dev)
+    args = [t.contiguous().to(dev) for t in (blk.A_aug, brb(blk.B_aug, blk.R_inv), blk.Q_aug)]
+    n0 = (cuda_lft_scan.LAUNCHES, cuda_lft_query.LAUNCHES)
+    pre_k = cuda_lft_scan.lft_scan(*args, levels=levels)
+    pre_p = cuda_lft_scan.lft_scan_plain(*args, levels=levels)
+    for k, p in zip(pre_k, pre_p):
+        assert _normwise(k, p) <= 1e-9
+    J_k = cuda_lft_query.lft_query(*pre_k, C, levels=levels)
+    assert (cuda_lft_scan.LAUNCHES, cuda_lft_query.LAUNCHES) == (n0[0] + 1, n0[1] + 1)
+    J_p = cuda_lft_query.lft_query_plain(*pre_p, C, levels=levels)
+    t = probs.T_min - 1
+    # the query alone on the plain prefixes, then the whole kernel chain
+    _close(cuda_lft_query.lft_query(*pre_p, C, levels=levels)[:, t:], J_p[:, t:], 1e-9, 0.0)
+    _close(J_k[:, t:], J_p[:, t:], 1e-9, 0.0)
+    s0 = blk.s[:, :1].to(dev) ** 2
+    assert torch.equal(argmin_T(s0 * J_k, probs.T_min, probs.T_max), argmin_T(s0 * J_p, probs.T_min, probs.T_max))
+
+
+@pytest.mark.parametrize("levels", [1, 2])
+def test_scan_and_query_ladder_on_the_card(dev, levels):
+    A, BRB, Q, qargs = ladder_inputs()
+    args = [torch.as_tensor(x, device=dev) for x in (A, BRB, Q)]
+    for k, p in zip(cuda_lft_scan.lft_scan(*args, levels=levels), cuda_lft_scan.lft_scan_plain(*args, levels=levels)):
+        _close(k, p, 1e-12, 0.0)
+    q = [torch.as_tensor(x, device=dev) for x in qargs]
+    J_k = cuda_lft_query.lft_query(*q, levels=levels)
+    _close(J_k, cuda_lft_query.lft_query_plain(*q, levels=levels), 1e-12, 0.0)
+    assert bool(torch.isfinite(J_k).all()) == (levels == 2)
+
+
+def test_scan_and_query_take_one_or_two_levels_on_the_card(dev):
+    x = torch.zeros((1, 2, 3, 3), dtype=torch.float64, device=dev)
+    with pytest.raises(ValueError):
+        cuda_lft_scan.lft_scan(x, x, x, levels=3)
+    with pytest.raises(ValueError):
+        cuda_lft_query.lft_query(x, x, x, x[..., :2, :], levels=0)
+
+
 @pytest.mark.parametrize("variant", ["T1", "Tmid", "TN", "nonpd", "nonfinite_eT", "T0"])
 def test_backward_kernel_matches_plain(dev, variant):
     system, probs, X, U, A, Bj = _iterate("Quadrotor")
@@ -158,6 +227,8 @@ def test_float32_on_the_card_raises(dev):
     x = torch.zeros((1, 2, 2, 2), dtype=torch.float32, device=dev)
     with pytest.raises(TypeError):
         cuda_lft.propagator_select_fused(x, x, x, x, x, x, x, t_min=1)
+    with pytest.raises(TypeError):
+        cuda_lft_scan.lft_scan(x, x, x, levels=1)
     with pytest.raises(TypeError):
         cuda_backward.backward_truncated_core(*([x] * 12))
 

@@ -67,8 +67,8 @@ def test_early_exit_changes_no_result():
 
 @pytest.mark.parametrize(
     "kw",
-    [dict(method="bruteforce"), dict(method="onepass"), dict(scan_mode="associative"),
-     dict(terminal_mode="inverse"), dict(linearize_mode="central")],
+    [dict(method="onepass"), dict(scan_mode="associative"), dict(method="onepass", terminal_mode="inverse"),
+     dict(scan_mode="associative", method="bruteforce")],
     ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()),
 )
 def test_unported_options_raise(kw):

@@ -53,6 +53,7 @@ SYSTEM = System(
     xdot=xdot,
     wrap_idx=(2,),
     sigma_x0=(0.02, 0.02, 0.02, 0.02),
+    sigma_xg=(0.0, 0.0, 0.0, 0.0),
     device_id=4,
 )
 

@@ -84,6 +84,7 @@ class System:
     extra_cost: Optional[Callable] = dataclasses.field(default=None, compare=False)
     wrap_idx: tuple = ()
     sigma_x0: tuple = ()  # x0 perturbation of the benchmark trials
+    sigma_xg: tuple = ()  # xg perturbation of the benchmark trials
     device_id: Optional[int] = None
 
     def safe_step(self, x: torch.Tensor, u: torch.Tensor, max_state_norm: float = 1e6) -> torch.Tensor:

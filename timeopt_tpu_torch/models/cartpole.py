@@ -54,6 +54,7 @@ SYSTEM = System(
     xdot=xdot,
     wrap_idx=(2,),
     sigma_x0=(0.0, 0.0, 0.0, 0.0),
+    sigma_xg=(0.0, 0.0, 0.0, 0.0),
     device_id=2,
 )
 

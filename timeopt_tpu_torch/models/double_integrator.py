@@ -27,6 +27,7 @@ SYSTEM = System(
     step=step,
     xdot=xdot,
     sigma_x0=(0.2, 0.2),
+    sigma_xg=(0.0, 0.0),
     device_id=0,
 )
 

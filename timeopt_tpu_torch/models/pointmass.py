@@ -51,6 +51,7 @@ SYSTEM = System(
     xdot=xdot,
     extra_cost=obstacle_cost,
     sigma_x0=(0.1, 0.1, 0.0, 0.0),
+    sigma_xg=(0.0, 0.0, 0.0, 0.0),
     device_id=5,
 )
 

@@ -91,6 +91,7 @@ SYSTEM = System(
     xdot=xdot,
     guard=guard,
     sigma_x0=(0.4, 0.4, 0.4) + (0.0,) * 9,
+    sigma_xg=(0.0,) * 12,
     device_id=1,
 )
 

@@ -1,0 +1,55 @@
+"""Every prefix of the LFT scan: hand-written CUDA kernel and its plain version.
+
+Replaces timeopt_tpu/ops/pallas_lft.py::lft_scan_lanes (kernel body
+_lft_scan_kernel). Kernel: csrc/lft_scan.cu, float64, sm_90a; its header
+says what bounds it on the H100 and how the design answers that.
+
+`lft_scan` takes the assembled blocks A_aug, Q_aug and BRB = B_aug R^-1
+B_aug' (formed outside the kernel, as the JAX wrapper does) with a leading
+batch axis, and returns the prefix compositions (E, F, G) of every step.
+On a CPU tensor it runs the plain version; on a CUDA float64 tensor it
+launches the kernel; any other CUDA dtype raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from timeopt_tpu_torch.ops import _build
+
+LAUNCHES = 0  # kernel launches since the last reset
+
+
+def lft_scan_plain(A_aug, BRB, Q_aug, *, jitter: float = 1e-9, levels: int):
+    """Plain PyTorch version of the kernel: lft_prefix_scan(lft_elements(...))
+    of solver/horizon.py."""
+    from timeopt_tpu_torch.solver.horizon import lft_elements_brb, lft_prefix_scan
+
+    elems = lft_elements_brb(A_aug, BRB, Q_aug, psd_levels=levels, jitter=jitter)
+    return tuple(lft_prefix_scan(elems, psd_levels=levels, jitter=jitter))
+
+
+def lft_scan(A_aug, BRB, Q_aug, *, jitter: float = 1e-9, levels: int):
+    """A_aug, BRB, Q_aug (B, N, p, p) -> prefixes (E, F, G), each
+    (B, N, p, p). `levels` (1 or 2 on the card) is the jitter ladder of
+    ops/linalg.py::psd_inv for the element and the compose inverses."""
+    if not _build.on_card(A_aug, "LFT prefix scan"):
+        return lft_scan_plain(A_aug, BRB, Q_aug, jitter=jitter, levels=levels)
+    if levels not in (1, 2):
+        raise ValueError(f"LFT prefix scan: levels must be 1 or 2 on the card, got {levels}")
+    global LAUNCHES
+    Bsz, N, p, _ = A_aug.shape
+    f64, dev = torch.float64, A_aug.device
+    for t, name in ((A_aug, "A_aug"), (BRB, "BRB"), (Q_aug, "Q_aug")):
+        _build.check(t, (Bsz, N, p, p), f64, dev, name)
+    E, F, G = (torch.empty((Bsz, N, p, p), dtype=f64, device=dev) for _ in range(3))
+    fn = _build.bind(_build.load("lft_scan"), "lft_scan", 6, [ctypes.c_int] * 4 + [ctypes.c_double])
+    rc = fn(
+        A_aug.data_ptr(), BRB.data_ptr(), Q_aug.data_ptr(), E.data_ptr(), F.data_ptr(), G.data_ptr(),
+        Bsz, N, p, int(levels), float(jitter), _build.stream_ptr(dev),
+    )
+    _build.raise_on_error(rc, "lft_scan")
+    LAUNCHES += 1
+    return E, F, G

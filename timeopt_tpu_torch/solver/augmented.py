@@ -5,7 +5,9 @@ Two forms feed the two select kernels: `build_fused_inputs` gives the raw
 per-step ingredients that the fused kernel assembles itself (stationary
 stage cost), `build_augmented` + `build_terminal_factors` the assembled
 (n+1)-dimensional blocks of the generic kernel, whose Q_aug varies with k
-(an extra stage cost). The homogeneous scaling is always on."""
+(an extra stage cost). `build_terminal_blocks` gives the reference-parity
+terminal blocks QT of the inverse query (terminal_mode="inverse"). The
+homogeneous scaling is always on."""
 
 from __future__ import annotations
 
@@ -166,3 +168,24 @@ def build_terminal_factors(prob: Problem, X: torch.Tensor, *, s: torch.Tensor, r
     C = torch.cat([Lt[:, None].expand(Bsz, N, n, n), Le[..., None]], dim=-1)
     C[:, :, :, n] = C[:, :, :, n] * (1.0 / s[:, 1:, None])
     return C
+
+
+def build_terminal_blocks(prob: Problem, X: torch.Tensor, *, rho_reg: float = 1e-12, s: torch.Tensor = None) -> torch.Tensor:
+    """Terminal (n+1)^2 block per arrival step t = 1..N (B, N, n+1, n+1):
+    QT_t = [[P, P e_t], [e_t' P, e_t' P e_t + rho]] with P = sym(Qf), then
+    scaled by D_t^-1 on both sides (last row and column divided by s_t)."""
+    n = prob.n
+    P = sym(prob.Qf)
+    e = wrap_error(X[:, 1:] - prob.xg[:, None], prob.wrap_mask[:, None])
+    px = torch.einsum("bki,bji->bkj", e, P)  # P e_t
+    p0 = torch.einsum("bki,bkj,bij->bk", e, e, P)
+    Bsz, N = e.shape[:2]
+    QT = torch.zeros((Bsz, N, n + 1, n + 1), dtype=X.dtype, device=X.device)
+    QT[:, :, :n, :n] = P[:, None]
+    QT[:, :, :n, n] = px
+    QT[:, :, n, :n] = px
+    QT[:, :, n, n] = p0 + rho_reg
+    if s is not None:
+        d = torch.cat([torch.ones((Bsz, N, n), dtype=X.dtype, device=X.device), (1.0 / s[:, 1:])[..., None]], dim=-1)
+        QT = QT * d[..., :, None] * d[..., None, :]
+    return sym(QT)

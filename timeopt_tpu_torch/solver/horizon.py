@@ -1,14 +1,24 @@
-"""Horizon selection by the LFT propagator sweep (HOP-DDP); port of the
-propagator half of timeopt_tpu/solver/horizon.py.
+"""Horizon selection: the LFT propagator sweep (HOP-DDP) and the brute-force
+curve; port of timeopt_tpu/solver/horizon.py.
 
 Each step contributes an information-form LFT element (E, F, G); prefix
 composition of the elements is a sequential loop over the steps here, and
-the factored terminal query gives J(T) for every candidate horizon at once.
-All functions take a leading batch axis B. The phase has two dispatch
+the terminal query gives J(T) for every candidate horizon at once. All
+functions take a leading batch axis B. The propagator has four dispatch
 points, each the plain version below on the CPU and a hand-written kernel
-on the card: `propagator_select_fused` (ops/cuda_lft.py) for a stationary
-stage cost, `propagator_select_generic` (ops/cuda_lft_generic.py) for the
-assembled blocks of an extra stage cost.
+on the card:
+
+- `propagator_select_fused` (ops/cuda_lft.py): the solve's select for a
+  stationary stage cost;
+- `propagator_select_generic` (ops/cuda_lft_generic.py): the solve's select
+  on the assembled blocks of an extra stage cost;
+- `propagator_select`, the unfused select (consistency_check and
+  terminal_mode="inverse"): every prefix from ops/cuda_lft_scan.py, then
+  the factored query of ops/cuda_lft_query.py or the plain inverse query.
+
+The brute force (`bruteforce_J_curve`) has no kernel in the JAX package and
+stays plain PyTorch: one reverse loop over the steps that carries the value
+expansion of every candidate horizon at once.
 """
 
 from __future__ import annotations
@@ -17,8 +27,9 @@ from typing import NamedTuple
 
 import torch
 
-from timeopt_tpu_torch.ops import cuda_lft, cuda_lft_generic
+from timeopt_tpu_torch.ops import cuda_lft, cuda_lft_generic, cuda_lft_query, cuda_lft_scan
 from timeopt_tpu_torch.ops.linalg import psd_inv, psd_solve, sym
+from timeopt_tpu_torch.ops.wrap import wrap_error
 
 
 class LFTElements(NamedTuple):
@@ -27,21 +38,31 @@ class LFTElements(NamedTuple):
     G: torch.Tensor  # (B, N, p, p)
 
 
-def lft_elements(A_aug, B_aug, Q_aug, R_inv, *, psd_levels: int = 2) -> LFTElements:
-    """Per-step element: E = Q_aug^-1, F = E A', G = A E A' + B R^-1 B'.
-    A_aug, Q_aug (B, N, p, p); B_aug (B, N, p, m); R_inv (B, m, m)."""
-    E = psd_inv(Q_aug, levels=psd_levels)
+def brb(B_aug: torch.Tensor, R_inv: torch.Tensor) -> torch.Tensor:
+    """B_aug R^-1 B_aug' (B, N, p, p) for B_aug (B, N, p, m), R_inv (B, m, m)."""
+    return torch.einsum("bkim,bmn,bkjn->bkij", B_aug, R_inv, B_aug)
+
+
+def lft_elements_brb(A_aug, BRB, Q_aug, *, psd_levels: int = 2, jitter: float = 1e-9) -> LFTElements:
+    """Per-step element: E = Q_aug^-1, F = E A', G = sym(A E A' + BRB).
+    A_aug, BRB, Q_aug (B, N, p, p)."""
+    E = psd_inv(Q_aug, jitter=jitter, levels=psd_levels)
     F = E @ A_aug.transpose(-1, -2)
-    BRB = torch.einsum("bkim,bmn,bkjn->bkij", B_aug, R_inv, B_aug)
     return LFTElements(E=E, F=F, G=sym(A_aug @ F + BRB))
 
 
-def lft_compose(first: LFTElements, second: LFTElements, *, psd_levels: int = 2) -> LFTElements:
+def lft_elements(A_aug, B_aug, Q_aug, R_inv, *, psd_levels: int = 2) -> LFTElements:
+    """Per-step element: E = Q_aug^-1, F = E A', G = A E A' + B R^-1 B'.
+    A_aug, Q_aug (B, N, p, p); B_aug (B, N, p, m); R_inv (B, m, m)."""
+    return lft_elements_brb(A_aug, brb(B_aug, R_inv), Q_aug, psd_levels=psd_levels)
+
+
+def lft_compose(first: LFTElements, second: LFTElements, *, psd_levels: int = 2, jitter: float = 1e-9) -> LFTElements:
     """Composition of LFT elements (first, then second):
       W = (E2 + G1)^-1,  E = E1 - F1 W F1',  F = F1 W F2,  G = G2 - F2' W F2."""
     E1, F1, G1 = first
     E2, F2, G2 = second
-    W = psd_inv(E2 + G1, levels=psd_levels)
+    W = psd_inv(E2 + G1, jitter=jitter, levels=psd_levels)
     F1W = F1 @ W
     E = sym(E1 - F1W @ F1.transpose(-1, -2))
     F = F1W @ F2
@@ -49,18 +70,20 @@ def lft_compose(first: LFTElements, second: LFTElements, *, psd_levels: int = 2)
     return LFTElements(E=E, F=F, G=G)
 
 
-def lft_prefix_scan(elems: LFTElements, *, psd_levels: int = 2) -> LFTElements:
+def lft_prefix_scan(elems: LFTElements, *, psd_levels: int = 2, jitter: float = 1e-9) -> LFTElements:
     """All prefix compositions elem_0 o ... o elem_k for k = 0..N-1, as a
     sequential loop over the step axis (axis 1)."""
     carry = LFTElements(*(x[:, 0] for x in elems))
     out = [carry]
     for k in range(1, elems.E.shape[1]):
-        carry = lft_compose(carry, LFTElements(*(x[:, k] for x in elems)), psd_levels=psd_levels)
+        carry = lft_compose(carry, LFTElements(*(x[:, k] for x in elems)), psd_levels=psd_levels, jitter=jitter)
         out.append(carry)
     return LFTElements(*(torch.stack(t, dim=1) for t in zip(*out)))
 
 
-def propagator_J_curve_factored(prefixes: LFTElements, C: torch.Tensor, *, psd_levels: int = 2) -> torch.Tensor:
+def propagator_J_curve_factored(
+    prefixes: LFTElements, C: torch.Tensor, *, psd_levels: int = 2, jitter: float = 1e-9
+) -> torch.Tensor:
     """Exact inverse-free terminal query. With QT = C'C (C = L'[I e_t]),
       X0 = E - (F C') (I + C G C')^-1 (C F')
     and J(T) = 0.5 (X0^-1)[p-1, p-1]. C: (B, N, n, p) -> J (B, N)."""
@@ -71,10 +94,44 @@ def propagator_J_curve_factored(prefixes: LFTElements, C: torch.Tensor, *, psd_l
     FC = Fb @ Ct
     Y = psd_solve(S, FC.transpose(-1, -2), jitter=0.0, levels=psd_levels)
     X0 = sym(Eb - FC @ Y)
+    return 0.5 * _last_solve(X0, psd_levels, jitter)
+
+
+def _last_solve(X0: torch.Tensor, psd_levels: int, jitter: float = 1e-9) -> torch.Tensor:
+    """Last component of the solve X0 y = e_{p-1} (= (X0^-1)[p-1, p-1])."""
     z0 = torch.zeros(X0.shape[:-1], dtype=X0.dtype, device=X0.device)
     z0[..., -1] = 1.0
-    y = psd_solve(X0, z0, levels=psd_levels)
-    return 0.5 * y[..., -1]
+    return psd_solve(X0, z0, jitter=jitter, levels=psd_levels)[..., -1]
+
+
+def propagator_J_curve(prefixes: LFTElements, QT: torch.Tensor, *, psd_levels: int = 2) -> torch.Tensor:
+    """Reference-parity terminal query: inverts the regularized homogeneous
+    terminal block QT (B, N, p, p) (build_terminal_blocks),
+      X0 = E - F (QT^-1 + G)^-1 F',  J(T) = 0.5 (X0^-1)[p-1, p-1].
+    QT is rank-deficient by construction, so this query carries the
+    reference's O(1e-4) regularization error."""
+    Eb, Fb, Gb = prefixes
+    Xt = psd_inv(QT, levels=psd_levels)
+    Wt = psd_inv(Xt + Gb, levels=psd_levels)
+    X0 = sym(Eb - Fb @ Wt @ Fb.transpose(-1, -2))
+    return 0.5 * _last_solve(X0, psd_levels)
+
+
+def propagator_select(
+    A_aug, B_aug, Q_aug, R_inv, terminal, *, psd_levels: int = 2, terminal_mode: str = "factored"
+) -> torch.Tensor:
+    """The unfused propagator sweep: blocks -> J(T), T = 1..N (B, N),
+    unscaled. Every prefix comes from the scan kernel; `terminal` is C from
+    build_terminal_factors (terminal_mode="factored", the query kernel) or
+    QT from build_terminal_blocks ("inverse", the plain inverse query)."""
+    pre = LFTElements(*cuda_lft_scan.lft_scan(
+        A_aug.contiguous(), brb(B_aug, R_inv).contiguous(), Q_aug.contiguous(), levels=psd_levels
+    ))
+    if terminal_mode == "factored":
+        return cuda_lft_query.lft_query(*pre, terminal.contiguous(), levels=psd_levels)
+    if terminal_mode == "inverse":
+        return propagator_J_curve(pre, terminal, psd_levels=psd_levels)
+    raise ValueError(f"unknown terminal_mode {terminal_mode!r}")
 
 
 def select_generic_plain(A_aug, B_aug, Q_aug, R_inv, C) -> torch.Tensor:
@@ -131,3 +188,82 @@ def propagator_select_fused(A, Bm, vecs, scal, Qq, R_inv, Lt, t_min: int) -> tor
 def propagator_select_generic(A_aug, B_aug, Q_aug, R_inv, C, t_min: int) -> torch.Tensor:
     """The select phase's dispatch point for assembled blocks: J (B, N)."""
     return cuda_lft_generic.propagator_select_generic(A_aug, B_aug, Q_aug, R_inv, C, t_min=t_min)
+
+
+# ---------------------------------------------------------------------------
+# Brute force
+# ---------------------------------------------------------------------------
+
+
+def _value_expansion_arrays(A, B, lx, lu, l0, Qstage, eTs, QfT, R, T, *, lm_lambda=1e-6, psd_levels=2):
+    """V0(0) of the full quadratic value expansion with the terminal at step
+    T, for K candidate horizons T (B, K) of each problem at once: one masked
+    reverse loop over the N steps carrying (Vx, Vxx, V0) of shape (B, K, ...).
+    The per-step inputs broadcast over the candidate axis. A (B, N, n, n),
+    B (B, N, n, m), lx (B, N, n), lu (B, N, m), l0 (B, N), Qstage
+    (B, N, n, n), eTs[:, k] = wrap(x_{k+1} - xg) (B, N, n), QfT = sym(Qf)
+    and R (B, ., .) -> V0 (B, K)."""
+    Bsz, N, n, _ = A.shape
+    m = B.shape[-1]
+    K = T.shape[1]
+    z = dict(dtype=A.dtype, device=A.device)
+    lam_I = lm_lambda * torch.eye(m, **z)
+    QfeT = torch.einsum("bij,bkj->bki", QfT, eTs)  # QfT eT
+    V0T = 0.5 * torch.einsum("bki,bki->bk", eTs, QfeT)
+    Vx = torch.zeros((Bsz, K, n), **z)
+    Vxx = torch.zeros((Bsz, K, n, n), **z)
+    V0 = torch.zeros((Bsz, K), **z)
+    R = R[:, None]
+    for k in range(N - 1, -1, -1):
+        is_term = T == k + 1
+        Vx = torch.where(is_term[..., None], QfeT[:, k, None], Vx)
+        Vxx = torch.where(is_term[..., None, None], QfT[:, None], Vxx)
+        V0 = torch.where(is_term, V0T[:, k, None], V0)
+
+        Ak, Bk = A[:, k, None], B[:, k, None]
+        AkT, BkT = Ak.transpose(-1, -2), Bk.transpose(-1, -2)
+        Qx = lx[:, k, None] + (AkT @ Vx[..., None])[..., 0]
+        Qu = lu[:, k, None] + (BkT @ Vx[..., None])[..., 0]
+        BV = BkT @ Vxx
+        Qxx = Qstage[:, k, None] + AkT @ Vxx @ Ak
+        Quu = R + BV @ Bk
+        Qux = BV @ Ak
+
+        Quu_reg = sym(Quu) + lam_I
+        yu = psd_solve(Quu_reg, Qu, levels=psd_levels)
+        Yx = psd_solve(Quu_reg, Qux, levels=psd_levels)
+        QuxT = Qux.transpose(-1, -2)
+        Vx_new = Qx - (QuxT @ yu[..., None])[..., 0]
+        Vxx_new = sym(Qxx - QuxT @ Yx)
+        V0_new = l0[:, k, None] + V0 - 0.5 * (Qu * yu).sum(-1)
+
+        active = k < T
+        Vx = torch.where(active[..., None], Vx_new, Vx)
+        Vxx = torch.where(active[..., None, None], Vxx_new, Vxx)
+        V0 = torch.where(active, V0_new, V0)
+    return V0
+
+
+def _bruteforce_inputs(system, prob, X, U):
+    from timeopt_tpu_torch.solver.backward import stage_expansion
+
+    _, _, lx, lu, l0, Qstage = stage_expansion(system, prob, X, U)
+    eTs = wrap_error(X[:, 1:] - prob.xg[:, None], prob.wrap_mask[:, None])
+    return lx, lu, l0, Qstage, eTs, sym(prob.Qf), prob.R
+
+
+def value_expansion_V0(system, prob, A, B, X, U, T, *, lm_lambda: float = 1e-6, psd_levels: int = 2) -> torch.Tensor:
+    """V0(0) of the full quadratic value expansion with the terminal at
+    step T (B,) of each problem -> (B,)."""
+    args = _bruteforce_inputs(system, prob, X, U)
+    return _value_expansion_arrays(A, B, *args, T[:, None], lm_lambda=lm_lambda, psd_levels=psd_levels)[:, 0]
+
+
+def bruteforce_J_curve(system, prob, A, B, X, U, *, lm_lambda: float = 1e-6, psd_levels: int = 2) -> torch.Tensor:
+    """J(T) for every T = 1..N of the given window (A, B, U (B, N, .),
+    X (B, N+1, n)): the exact quadratic-model curve (B, N), with no T_min
+    mask (argmin_T applies it)."""
+    Bsz, N = U.shape[:2]
+    T = torch.arange(1, N + 1, device=X.device).expand(Bsz, N)
+    args = _bruteforce_inputs(system, prob, X, U)
+    return _value_expansion_arrays(A, B, *args, T, lm_lambda=lm_lambda, psd_levels=psd_levels)

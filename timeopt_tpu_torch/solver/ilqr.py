@@ -1,5 +1,5 @@
 """Outer time-optimal iLQR loop, batched (port of timeopt_tpu/solver/ilqr.py,
-propagator method).
+the curve methods: the propagator and the brute force).
 
 The loop runs the warm start as masked iteration 0 and then up to max_iter
 accept/reject iterations: Levenberg-Marquardt lambda /10 (floor 1e-12) on
@@ -17,11 +17,21 @@ from typing import Optional
 import torch
 
 from timeopt_tpu_torch.models.base import PROBLEM_FIELDS, Problem, System
-from timeopt_tpu_torch.solver.augmented import build_augmented, build_fused_inputs, build_terminal_factors
+from timeopt_tpu_torch.solver.augmented import (
+    build_augmented,
+    build_fused_inputs,
+    build_terminal_blocks,
+    build_terminal_factors,
+)
 from timeopt_tpu_torch.solver.backward import backward_truncated
 from timeopt_tpu_torch.solver.cost import argmin_T, rollout
 from timeopt_tpu_torch.solver.forward import forward_linesearch
-from timeopt_tpu_torch.solver.horizon import propagator_select_fused, propagator_select_generic
+from timeopt_tpu_torch.solver.horizon import (
+    bruteforce_J_curve,
+    propagator_select,
+    propagator_select_fused,
+    propagator_select_generic,
+)
 from timeopt_tpu_torch.solver.linearize import linearize
 
 _ROADMAP = "not ported yet (ROADMAP.md, Queue 1)"
@@ -30,28 +40,37 @@ _ROADMAP = "not ported yet (ROADMAP.md, Queue 1)"
 @dataclasses.dataclass(frozen=True)
 class SolveOptions:
     """Solver configuration; the defaults are those of the JAX package.
-    Only the propagator method with the sequential scan and the factored
-    terminal query is ported; other values raise NotImplementedError."""
+    Ported: the propagator (sequential scan; factored or reference-parity
+    inverse terminal query) and the brute-force method, with AD or
+    finite-difference linearization. The one-pass method and the
+    associative scan raise NotImplementedError. S_window is the one-pass
+    window, kept so the runner's options carry over."""
 
-    method: str = "propagator"
+    method: str = "propagator"  # "propagator" | "bruteforce"
     max_iter: int = 15
     lm_init: float = 1e-3
-    linearize_mode: str = "ad"
+    S_window: int = 20
+    linearize_mode: str = "ad"  # "ad" | "central" | "forward"
     alphas: tuple = (1.0, 0.5, 0.25, 0.1, 0.05)
     scan_mode: str = "sequential"
-    terminal_mode: str = "factored"
+    terminal_mode: str = "factored"  # "factored" | "inverse"
     psd_levels: int = 2
     q_reg: Optional[float] = None  # None: 1e-9 in float64, 1e-5 otherwise
+    rho_reg: float = 1e-12
     rel_tol: float = 1e-4
     early_exit: bool = True
 
     def check(self) -> None:
-        if self.method != "propagator":
-            raise NotImplementedError(f"method={self.method!r} is {_ROADMAP}")
+        if self.method == "onepass":
+            raise NotImplementedError(f"method='onepass' is {_ROADMAP}")
+        if self.method not in ("propagator", "bruteforce"):
+            raise ValueError(f"unknown method {self.method!r}")
         if self.scan_mode != "sequential":
             raise NotImplementedError(f"scan_mode={self.scan_mode!r} is {_ROADMAP}")
-        if self.terminal_mode != "factored":
-            raise NotImplementedError(f"terminal_mode={self.terminal_mode!r} is {_ROADMAP}")
+        if self.terminal_mode not in ("factored", "inverse"):
+            raise ValueError(f"unknown terminal_mode {self.terminal_mode!r}")
+        if self.linearize_mode not in ("ad", "central", "forward"):
+            raise ValueError(f"unknown linearize_mode {self.linearize_mode!r}")
 
 
 @dataclasses.dataclass
@@ -65,6 +84,7 @@ class SolveResult:
     T_hist: torch.Tensor  # (B, max_iter+1) accepted horizons, -1-padded
     n_accept: torch.Tensor  # (B,) number of accepted updates
     lm_final: torch.Tensor  # (B,) final LM lambda
+    n_fallback: torch.Tensor  # (B,) int64 one-pass fallback iterations: 0 for the curve methods
     T_ties: torch.Tensor  # (B, T_max) bool: horizons flat-tied with T*
 
 
@@ -97,18 +117,31 @@ def select_inputs(system, prob, opts, X, U, A, B):
     Xh, Uh, Ah, Bh = X[:, : Tm + 1], U[:, :Tm], A[:, :Tm], B[:, :Tm]
     q_reg = resolve_q_reg(opts, X.dtype)
     if system.extra_cost is None:
-        fi = build_fused_inputs(system, prob, Xh, Uh, Ah, Bh, q_reg=q_reg, psd_levels=opts.psd_levels)
+        fi = build_fused_inputs(system, prob, Xh, Uh, Ah, Bh, q_reg=q_reg, rho_reg=opts.rho_reg,
+                                psd_levels=opts.psd_levels)
         args = (fi.A, fi.B, fi.vecs, fi.scal, fi.Qq, fi.R_inv, fi.Lt)
         return False, [t.contiguous() for t in args], fi.s
-    blk = build_augmented(system, prob, Xh, Uh, Ah, Bh, q_reg=q_reg, psd_levels=opts.psd_levels)
-    C = build_terminal_factors(prob, Xh, s=blk.s)
+    blk = build_augmented(system, prob, Xh, Uh, Ah, Bh, q_reg=q_reg, rho_reg=opts.rho_reg, psd_levels=opts.psd_levels)
+    C = build_terminal_factors(prob, Xh, s=blk.s, rho_reg=opts.rho_reg)
     args = (blk.A_aug, blk.B_aug, blk.Q_aug, blk.R_inv, C)
     return True, [t.contiguous() for t in args], blk.s
 
 
 def _select_curve(system, prob, opts, X, U, A, B) -> torch.Tensor:
-    """J(T) for T = 1..T_max through the fused or the generic select,
-    scaled by s_0^2."""
+    """J(T) for T = 1..T_max: the brute-force curve, or the propagator's
+    through the fused or the generic select (factored query) or the unfused
+    select (inverse query), scaled by s_0^2."""
+    Tm = prob.T_max
+    Xh, Uh, Ah, Bh = X[:, : Tm + 1], U[:, :Tm], A[:, :Tm], B[:, :Tm]
+    if opts.method == "bruteforce":
+        return bruteforce_J_curve(system, prob, Ah, Bh, Xh, Uh, psd_levels=opts.psd_levels)
+    if opts.terminal_mode == "inverse":
+        blk = build_augmented(system, prob, Xh, Uh, Ah, Bh, q_reg=resolve_q_reg(opts, X.dtype), rho_reg=opts.rho_reg,
+                              psd_levels=opts.psd_levels)
+        QT = build_terminal_blocks(prob, Xh, rho_reg=opts.rho_reg, s=blk.s)
+        return blk.s[:, :1] ** 2 * propagator_select(
+            blk.A_aug, blk.B_aug, blk.Q_aug, blk.R_inv, QT, psd_levels=opts.psd_levels, terminal_mode="inverse"
+        )
     generic, args, s = select_inputs(system, prob, opts, X, U, A, B)
     select = propagator_select_generic if generic else propagator_select_fused
     return s[:, :1] ** 2 * select(*args, prob.T_min)
@@ -193,6 +226,7 @@ def _solve_curve_methods(system: System, opts: SolveOptions, prob: Problem, U_in
         T_hist=s["T_hist"],
         n_accept=s["n_acc"],
         lm_final=s["lm"],
+        n_fallback=torch.zeros(Bsz, dtype=i64, device=dev),
         T_ties=flat_tie_set(s["J_curve"], T_star, prob.T_min, prob.w),
     )
 

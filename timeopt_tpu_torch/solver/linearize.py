@@ -1,6 +1,7 @@
-"""Trajectory linearization by forward-mode AD (port of the "ad" mode of
-timeopt_tpu/solver/linearize.py; the finite-difference modes are not ported
-yet). One `jacfwd` over the joint (x, u) input, vmapped over all B*N steps."""
+"""Trajectory linearization (port of timeopt_tpu/solver/linearize.py): exact
+Jacobians by forward-mode AD (the default, one `jacfwd` over the joint
+(x, u) input), and the reference's central and forward finite-difference
+stencils, kept for parity. Both are batched over all B*N steps at once."""
 
 from __future__ import annotations
 
@@ -22,9 +23,43 @@ def linearize_ad(step, X: torch.Tensor, U: torch.Tensor):
     return J[..., :n].reshape(Bsz, N, n, n), J[..., n:].reshape(Bsz, N, n, m)
 
 
+def _fd_steps(v: torch.Tensor, eps: float, rel: float) -> torch.Tensor:
+    """Per-dimension step max(eps, rel max(1, |v|))."""
+    return torch.clamp(rel * torch.clamp(v.abs(), min=1.0), min=eps)
+
+
+def linearize_fd(step, X, U, *, mode: str = "central", epsx=1e-5, epsu=1e-5, relx=1e-6, relu=1e-6):
+    """Finite-difference Jacobians with relative per-dimension steps h.
+
+    mode="central": (f(x + h e_i) - f(x - h e_i)) / 2h.
+    mode="forward": (f(x + h e_i) - f(x)) / h, with every entry of a step's
+    A and B NaN where its base evaluation f(x) is not finite.
+    X: (B, N+1, n); U: (B, N, m). Returns A (B, N, n, n), B (B, N, n, m)."""
+    Bsz, Np1, n = X.shape
+    N, m = Np1 - 1, U.shape[-1]
+    x, u = X[:, :-1].reshape(-1, n), U.reshape(-1, m)
+    hx, hu = _fd_steps(x, epsx, relx), _fd_steps(u, epsu, relu)
+    Dx, Du = torch.diag_embed(hx), torch.diag_embed(hu)  # row i = h_i e_i
+    x_n, u_n = x[:, None].expand(-1, n, -1), u[:, None].expand(-1, n, -1)
+    x_m, u_m = x[:, None].expand(-1, m, -1), u[:, None].expand(-1, m, -1)
+    if mode == "central":
+        A = (step(x_n + Dx, u_n) - step(x_n - Dx, u_n)) / (2.0 * hx[..., None])
+        B = (step(x_m, u_m + Du) - step(x_m, u_m - Du)) / (2.0 * hu[..., None])
+    elif mode == "forward":
+        f0 = step(x, u)
+        A = (step(x_n + Dx, u_n) - f0[:, None]) / hx[..., None]
+        B = (step(x_m, u_m + Du) - f0[:, None]) / hu[..., None]
+        bad = ~torch.isfinite(f0).all(dim=-1)
+        poison = torch.where(bad, float("nan"), 0.0).to(X.dtype)[:, None, None]
+        A, B = A + poison, B + poison
+    else:
+        raise ValueError(f"unknown fd mode {mode!r}")
+    return (A.transpose(-1, -2).reshape(Bsz, N, n, n).contiguous(),
+            B.transpose(-1, -2).reshape(Bsz, N, n, m).contiguous())
+
+
 def linearize(step, X: torch.Tensor, U: torch.Tensor, mode: str = "ad"):
-    if mode != "ad":
-        raise NotImplementedError(
-            f"linearize_mode={mode!r} is not ported yet; only 'ad' (ROADMAP.md)"
-        )
-    return linearize_ad(step, X, U)
+    """Dispatch: mode in {"ad", "central", "forward"}."""
+    if mode == "ad":
+        return linearize_ad(step, X, U)
+    return linearize_fd(step, X, U, mode=mode)
