@@ -45,14 +45,30 @@ exit, no result line):
    consistency_max_abs within RUNNER_CC_RTOL of the committed value; the
    other cases' mismatches printed;
 7. throughput: one timed solve_batch at B=1024 of the quadrotor and of
-   PointMass, after a warm-up.
+   PointMass, after a warm-up; the kernels of each path must launch.
 
 Each path resets the kernels' launch counts just before it runs and reads
 them just after; a kernel of the path that was not launched fails it. The
 line before the last is the card's name and power limit as nvidia-smi
-prints them; before that, one JSON line with each kernel's numbers (its
-launches summed over the paths of phases 4-6). The last line is
-{"ok": true, "device": {...}}. Imports no JAX.
+prints them; before that, one JSON line with each kernel's numbers: its
+launches summed over the paths of phases 4-6 (`launches`) and in one
+B=1024 solve of phase 7 (`launches_per_solve`), its error and times from
+phase 3 (`ms` and `plain_ms` one call between two CUDA events, the
+wrapper's host work included; `ms_back_to_back` ten launches back to back
+between two events, the kernel's own device time), and its roofline bound
+at the phase-3 shapes (timeopt_tpu_torch/ops/work.py: `flops`, `bytes`,
+`bound_ms` at 67 TFLOP/s and 3.35 TB/s, `bound_by`, `bound_ms_cuda_cores`
+at 34 TFLOP/s, `share_of_bound` = bound_ms / ms_back_to_back; `library_ms`
+is null: no single PyTorch call computes any of these functions). The last
+line is {"ok": true, "device": {...}}.
+Imports no JAX.
+
+    python3 chip_smoke.py --ab OLD_CSRC
+
+times the fused select and the line search built from another directory
+of kernel sources (e.g. an earlier commit's timeopt_tpu_torch/csrc, from
+`git archive`) against this checkout's, in turns old, new, new, old, and
+prints the largest difference between their outputs (phase_ab).
 """
 
 from __future__ import annotations
@@ -63,6 +79,8 @@ import statistics
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
+from pathlib import Path
 
 import numpy as np
 
@@ -185,6 +203,24 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """Milliseconds per call of fn() launched `reps` times back to back
+    between two CUDA events, after a warm-up: the device's own time, as
+    long as the host enqueues faster than the card runs (cuda_ms, one call
+    per event pair, also counts the card idling on the host's launches)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def max_err(a, b):
@@ -412,12 +448,15 @@ def scan_query_pair(system, probs, X, U, A, Bj, levels: int, bound, label: str, 
                                   "and against the brute force in phase 5")
     out = dict(max_abs_err=err, query_max_abs_err=q_err)
     if timed:
-        out["scan"] = (cuda_ms(lambda: cuda_lft_scan.lft_scan(*args, levels=levels), reps=5),
+        scan = lambda: cuda_lft_scan.lft_scan(*args, levels=levels)  # noqa: E731
+        query = lambda: cuda_lft_query.lft_query(*pre_k, C, levels=levels)  # noqa: E731
+        out["scan"] = (device_ms(scan), cuda_ms(scan, reps=5),
                        cuda_ms(lambda: cuda_lft_scan.lft_scan_plain(*args, levels=levels), reps=3))
-        out["query"] = (cuda_ms(lambda: cuda_lft_query.lft_query(*pre_k, C, levels=levels), reps=5),
+        out["query"] = (device_ms(query), cuda_ms(query, reps=5),
                         cuda_ms(lambda: cuda_lft_query.lft_query_plain(*pre_k, C, levels=levels), reps=3))
-        log(f"[kernels] {label}: lft_scan kernel {out['scan'][0]:.3f} ms, plain {out['scan'][1]:.3f} ms | "
-            f"lft_query kernel {out['query'][0]:.3f} ms, plain {out['query'][1]:.3f} ms")
+        log(f"[kernels] {label}: lft_scan kernel {out['scan'][0]:.3f} ms back to back, {out['scan'][1]:.3f} ms one "
+            f"call, plain {out['scan'][2]:.3f} ms | lft_query kernel {out['query'][0]:.3f} ms back to back, "
+            f"{out['query'][1]:.3f} ms one call, plain {out['query'][2]:.3f} ms")
     return out
 
 
@@ -431,7 +470,7 @@ def phase_kernels(device) -> dict:
     N = T_max = 220), then each system's select and line search at B=128."""
     import torch
     from timeopt_tpu_torch.models import get_system
-    from timeopt_tpu_torch.ops import cuda_backward, cuda_forward, cuda_lft_generic
+    from timeopt_tpu_torch.ops import cuda_backward, cuda_forward, cuda_lft_generic, work
     from timeopt_tpu_torch.solver.augmented import build_augmented, build_terminal_factors
     from timeopt_tpu_torch.solver.backward import backward_inputs, backward_truncated
     from timeopt_tpu_torch.solver.ilqr import SolveOptions
@@ -449,9 +488,11 @@ def phase_kernels(device) -> dict:
         J_k, J_p = kernel(), plain()
         torch.cuda.synchronize()
         err, T_p = check_select(J_k, J_p, s, probs, SELECT_BOUND[case], f"{name} ({case} B={B_FULL})")
-        ms, pms = cuda_ms(kernel, reps=5), cuda_ms(plain, reps=3)
-        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=pms)
-        log(f"[kernels] {name}: kernel {ms:.3f} ms, plain {pms:.3f} ms")
+        b2b, ms, pms = device_ms(kernel), cuda_ms(kernel, reps=5), cuda_ms(plain, reps=3)
+        count = work.select_fused if name == "lft_select" else work.select_generic
+        out[name] = dict(max_abs_err=err, ms=ms, ms_back_to_back=b2b, plain_ms=pms,
+                         **count(B_FULL, probs.N, system.n, system.m, probs.T_min))
+        log(f"[kernels] {name}: kernel {ms:.3f} ms one call, {b2b:.3f} ms back to back, plain {pms:.3f} ms")
         if case == "Quadrotor":
             quad = (system, probs, X, U, A, Bj, T_p)
 
@@ -468,18 +509,23 @@ def phase_kernels(device) -> dict:
     require(within(kap_k, kap_p, 1e-9, 1e-12) and within(K_k, K_p, 1e-9, 1e-12),
             f"backward: kappa/K outside rtol 1e-9 atol 1e-12 (max abs {e1:.3e}, {e2:.3e})")
     require(bool(torch.equal(ok_k, ok_p)), "backward: ok flags differ")
+    b2b = device_ms(lambda: cuda_backward.backward_truncated_core(*bw_args))
     ms = cuda_ms(lambda: cuda_backward.backward_truncated_core(*bw_args), reps=5)
     pms = cuda_ms(lambda: cuda_backward.backward_plain(*bw_args), reps=3)
-    out["backward"] = dict(max_abs_err=max(e1, e2), ms=ms, plain_ms=pms)
+    out["backward"] = dict(max_abs_err=max(e1, e2), ms=ms, ms_back_to_back=b2b, plain_ms=pms,
+                           **work.backward(T_p.tolist(), probs.N, system.n, system.m))
     log(f"[kernels] backward: max abs err kappa {e1:.3e}, K {e2:.3e}, ok identical "
-        f"({int(ok_k.sum())}/{B_FULL} ok) | kernel {ms:.3f} ms, plain {pms:.3f} ms")
+        f"({int(ok_k.sum())}/{B_FULL} ok) | kernel {ms:.3f} ms one call, {b2b:.3f} ms back to back, plain {pms:.3f} ms")
 
     ls_args = (system, probs, X, U, K_p, kap_p, T_p, opts.alphas)
     err = check_linesearch(*ls_args, f"line search (Quadrotor B={B_FULL})", gate_all=True)
+    b2b = device_ms(lambda: cuda_forward.linesearch(*ls_args))
     ms = cuda_ms(lambda: cuda_forward.linesearch(*ls_args), reps=5)
     pms = cuda_ms(lambda: cuda_forward.linesearch_plain(*ls_args), reps=3)
-    out["linesearch"] = dict(max_abs_err=err, ms=ms, plain_ms=pms)
-    log(f"[kernels] line search: kernel {ms:.3f} ms, plain {pms:.3f} ms")
+    out["linesearch"] = dict(max_abs_err=err, ms=ms, ms_back_to_back=b2b, plain_ms=pms,
+                             **work.linesearch(system.name, T_p.tolist(), probs.N, system.n, system.m,
+                                               len(opts.alphas)))
+    log(f"[kernels] line search: kernel {ms:.3f} ms one call, {b2b:.3f} ms back to back, plain {pms:.3f} ms")
 
     # ---- B=128, each system's oracle set: its select kernel and the line
     # search; on the quadrotor the generic select on its assembled blocks
@@ -507,9 +553,10 @@ def phase_kernels(device) -> dict:
         bw = backward_truncated(system, probs, A, Bj, X, U, T, lm)
         ls_args = (system, probs, X, U, bw.K, bw.kappa, T, opts.alphas)
         check_linesearch(*ls_args, f"line search ({case} B={B_ORACLE})", gate_all=False)
-        ms = cuda_ms(lambda: cuda_forward.linesearch(*ls_args), reps=3)
+        ms = device_ms(lambda: cuda_forward.linesearch(*ls_args))
         pms = cuda_ms(lambda: cuda_forward.linesearch_plain(*ls_args), reps=1)
-        log(f"[kernels] line search ({case} B={B_ORACLE} N={probs.N}): kernel {ms:.3f} ms, plain {pms:.3f} ms")
+        log(f"[kernels] line search ({case} B={B_ORACLE} N={probs.N}): kernel {ms:.3f} ms back to back, "
+            f"plain {pms:.3f} ms")
 
     # ---- the unfused select (consistency_check's psd_levels=2): quadrotor
     # B=1024 first iterate, timed; then each system's oracle (X, U) at B=128
@@ -518,8 +565,12 @@ def phase_kernels(device) -> dict:
                          f"scan+query (Quadrotor B={B_FULL})", timed=True)
     # the scan's error is the chain's (its prefixes reach J only through a
     # query); the query's is its own, on the plain prefixes
-    out["lft_scan"] = dict(max_abs_err=sq["max_abs_err"], ms=sq["scan"][0], plain_ms=sq["scan"][1])
-    out["lft_query"] = dict(max_abs_err=sq["query_max_abs_err"], ms=sq["query"][0], plain_ms=sq["query"][1])
+    out["lft_scan"] = dict(max_abs_err=sq["max_abs_err"], ms=sq["scan"][1], ms_back_to_back=sq["scan"][0],
+                           plain_ms=sq["scan"][2],
+                           **work.lft_scan(B_FULL, probs.N, system.n))
+    out["lft_query"] = dict(max_abs_err=sq["query_max_abs_err"], ms=sq["query"][1], ms_back_to_back=sq["query"][0],
+                            plain_ms=sq["query"][2],
+                            **work.lft_query(B_FULL, probs.N, system.n))
     for case in CASES:
         system, mk = get_system(case)
         orc = load_oracle(case)
@@ -749,7 +800,9 @@ def phase_runner() -> dict:
     return counts
 
 
-def phase_throughput(case: str, device) -> None:
+def phase_throughput(case: str, device) -> dict:
+    """One timed solve_batch at B=1024 after a warm-up; returns its launch
+    counts (the launches of one main-path solve)."""
     import torch
     from timeopt_tpu_torch.models import get_system
     from timeopt_tpu_torch.ops.wrap import wrap_error
@@ -767,6 +820,9 @@ def phase_throughput(case: str, device) -> None:
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = launches()
+    select = "lft_select" if system.extra_cost is None else "lft_select_generic"
+    for name in (select, "backward", "linesearch"):
+        require(counts[name] > 0, f"throughput {case}: kernel {name} was never launched")
     iters = counts["backward"]
     eT = wrap_error(res.X[torch.arange(B_FULL, device=device), res.T_star] - probs.xg, probs.wrap_mask)
     succ = float((eT.norm(dim=-1) <= 0.5).double().mean())
@@ -779,6 +835,121 @@ def phase_throughput(case: str, device) -> None:
     log(f"[throughput] {case} B={B_FULL} max_iter={MAX_ITER} f64: {B_FULL / secs:.2f} solves/s | {secs:.3f} s | "
         f"{iters} outer iterations, {1e3 * secs / iters:.2f} ms/iteration | T* median "
         f"{float(res.T_star.double().median()):g} | success@0.5 {succ:.3f} | launches {counts}{extra} | {smi()}")
+    return counts
+
+
+def phase_ab(device, old: str) -> list:
+    """The two redesigned kernels against an earlier version of their
+    sources (`old`, a csrc/ directory) on one card, in turns old, new, new,
+    old (each turn the median of CUDA-event timings): the fused select at
+    the quadrotor's B=1024 and the line search there and at B=128 on every
+    system, each on the first iterate of the oracle problem sets. Prints the
+    largest difference between the two versions' outputs and whether they
+    are bitwise equal; the new version is also held against the plain one
+    as phase 3 holds it."""
+    import torch
+    from timeopt_tpu_torch.models import get_system
+    from timeopt_tpu_torch.ops import _build, cuda_forward
+    from timeopt_tpu_torch.solver.backward import backward_truncated
+    from timeopt_tpu_torch.solver.cost import argmin_T
+    from timeopt_tpu_torch.solver.ilqr import SolveOptions
+
+    names = ["lft_select", "linesearch"]
+    old = Path(old).resolve()
+    t0 = time.perf_counter()
+    _build.load_all(names, old)
+    _build.load_all(names)
+    log(f"[ab] {names} built from {old} (old) and from this checkout (new) in {time.perf_counter() - t0:.1f} s")
+    for tag, csrc in (("old", old), ("new", _build.CSRC)):
+        for name in names:
+            report = _build.build_info(name, csrc)[1]
+            lines = [ln.split("ptxas info    : ")[-1] for ln in report.splitlines() if "registers" in ln or "spill" in ln]
+            log(f"[ab] {tag} {name}: " + " | ".join(lines))
+
+    @contextmanager
+    def kernels(tag):
+        """Inside the block the wrappers launch the old kernels for tag
+        "old", this checkout's for "new"."""
+        load = _build.load
+        if tag == "old":
+            _build.load = lambda name: load(name, old)
+        try:
+            yield
+        finally:
+            _build.load = load
+
+    def both(fn):
+        with kernels("old"):
+            a = fn()
+        b = fn()
+        torch.cuda.synchronize()
+        return a, b
+
+    def turns(fn) -> dict:
+        """Back-to-back ms (and one-call ms) of old and new, in turns."""
+        t = {"old": [], "new": [], "old_one_call": [], "new_one_call": []}
+        for tag in ("old", "new", "new", "old"):
+            with kernels(tag):
+                t[tag].append(device_ms(fn))
+                t[tag + "_one_call"].append(cuda_ms(fn, reps=5))
+        return t
+
+    opts = SolveOptions(max_iter=MAX_ITER, psd_levels=1)
+    rows = []
+    system, mk = get_system("Quadrotor")
+    probs = oracle_problems(system, mk, B_FULL, device)
+    X, U, A, Bj = first_iterate(system, probs)
+    kernel, plain, s = select_pair(system, probs, opts, X, U, A, Bj)
+    J_o, J_n = both(kernel)
+    err, same = max_err(J_o, J_n)
+    check_select(J_n, plain(), s, probs, SELECT_BOUND["Quadrotor"], f"ab: new lft_select vs plain (Quadrotor B={B_FULL})")
+    rows.append(dict(kernel="lft_select", case="Quadrotor", B=B_FULL, N=probs.N, max_abs_diff=err,
+                     bitwise=bool(same and err == 0.0), **{f"{k}_ms": v for k, v in turns(kernel).items()}))
+    for case, Bsz in [("Quadrotor", B_FULL)] + [(c, B_ORACLE) for c in CASES]:
+        system, mk = get_system(case)
+        probs = oracle_problems(system, mk, Bsz, device)
+        X, U, A, Bj = first_iterate(system, probs)
+        kernel, _, s = select_pair(system, probs, opts, X, U, A, Bj)
+        T = argmin_T(s[:, :1] ** 2 * kernel(), probs.T_min, probs.T_max)
+        lm = torch.full((Bsz,), opts.lm_init, dtype=torch.float64, device=device)
+        bw = backward_truncated(system, probs, A, Bj, X, U, T, lm)
+        args = (system, probs, X, U, bw.K, bw.kappa, T, opts.alphas)
+        out_o, out_n = both(lambda: cuda_forward.linesearch(*args))
+        errs = [max_err(a, b) for a, b in zip(out_o, out_n)]
+        check_linesearch(*args, f"ab: new line search vs plain ({case} B={Bsz})", gate_all=Bsz == B_FULL)
+        rows.append(dict(kernel="linesearch", case=case, B=Bsz, N=probs.N, max_abs_diff=max(e for e, _ in errs),
+                         bitwise=all(same and e == 0.0 for e, same in errs),
+                         **{f"{k}_ms": v for k, v in turns(lambda: cuda_forward.linesearch(*args)).items()}))
+    # end to end: one B=1024 solve with each version's kernels, in turns
+    from timeopt_tpu_torch.solver.ilqr import solve_batch
+
+    for case in ("Quadrotor", "PointMass_Navigation"):
+        system, mk = get_system(case)
+        probs = oracle_problems(system, mk, B_FULL, device)
+        res, secs = {}, {"old": [], "new": []}
+        for tag in ("old", "new", "new", "old"):
+            with kernels(tag):
+                solve_batch(system, probs, options=opts)  # warm-up
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res[tag] = solve_batch(system, probs, options=opts)
+                torch.cuda.synchronize()
+                secs[tag].append(time.perf_counter() - t0)
+        same = all(bool(torch.equal(getattr(res["old"], f), getattr(res["new"], f))) for f in ("T_star", "J_star", "X", "U"))
+        rows.append(dict(kernel="solve_batch", case=case, B=B_FULL, N=probs.N, same_result=same,
+                         old_solves_per_s=[B_FULL / t for t in secs["old"]],
+                         new_solves_per_s=[B_FULL / t for t in secs["new"]]))
+        log(f"[ab] solve_batch ({case} B={B_FULL}), solves/s in turns: old {B_FULL / secs['old'][0]:.2f} / new "
+            f"{B_FULL / secs['new'][0]:.2f} / new {B_FULL / secs['new'][1]:.2f} / old {B_FULL / secs['old'][1]:.2f} | "
+            f"T*, J*, X, U identical {same} | {smi()}")
+    for r in rows:
+        if r["kernel"] == "solve_batch":
+            continue
+        log(f"[ab] {r['kernel']} ({r['case']} B={r['B']} N={r['N']}), back to back: old {r['old_ms'][0]:.3f} / new "
+            f"{r['new_ms'][0]:.3f} / new {r['new_ms'][1]:.3f} / old {r['old_ms'][1]:.3f} ms; one call: old "
+            f"{r['old_one_call_ms'][0]:.3f} / new {r['new_one_call_ms'][0]:.3f} / new {r['new_one_call_ms'][1]:.3f} / old "
+            f"{r['old_one_call_ms'][1]:.3f} ms | max |new - old| {r['max_abs_diff']:.3e}, bitwise {r['bitwise']} | {smi()}")
+    return rows
 
 
 def main() -> None:
@@ -800,18 +971,41 @@ def main() -> None:
         add(phase_bruteforce(case, device))
     add(phase_inverse(device))
     add(phase_runner())
-    for case in ("Quadrotor", "PointMass_Navigation"):
-        phase_throughput(case, device)
+    per_solve = {case: phase_throughput(case, device) for case in ("Quadrotor", "PointMass_Navigation")}
 
-    kernels = [
-        dict(name=name, route=route, source=src, replaces=rep, launches=counts[name], **numbers[name])
-        for name, (route, src, rep) in KERNELS.items()
-    ]
+    from timeopt_tpu_torch.ops import work
+
+    log(f"[bounds] float64 peaks of an H100 SXM: {work.PEAK_FLOPS / 1e12:g} TFLOP/s (tensor cores; bound_ms), "
+        f"{work.PEAK_FLOPS_CUDA_CORES / 1e12:g} TFLOP/s (CUDA cores; bound_ms_cuda_cores), "
+        f"{work.PEAK_BYTES / 1e12:g} TB/s; card: {smi()}")
+    kernels = []
+    for name, (route, src, rep) in KERNELS.items():
+        k = dict(name=name, route=route, source=src, replaces=rep, launches=counts[name],
+                 launches_per_solve={case: c[name] for case, c in per_solve.items()}, **numbers[name],
+                 library_ms=None, library="none: no single PyTorch call computes it")
+        k["share_of_bound"] = k["bound_ms"] / k["ms_back_to_back"]
+        kernels.append(k)
+        log(f"[bounds] {name}: {k['ms_back_to_back']:.3f} ms back to back ({k['ms']:.3f} one call), bound {k['bound_ms']:.4f} ms by {k['bound_by']} "
+            f"({k['flops'] / 1e9:.3f} GFLOP, {k['bytes'] / 1e6:.1f} MB; {k['bound_ms_cuda_cores']:.4f} ms at "
+            f"{work.PEAK_FLOPS_CUDA_CORES / 1e12:g} TFLOP/s), share of bound {k['share_of_bound']:.4f}, "
+            f"launches per B={B_FULL} solve {k['launches_per_solve']}")
     print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
 
 
+def main_ab(old: str) -> None:
+    import torch
+
+    phase_device()
+    rows = phase_ab(torch.device("cuda", 0), old)
+    print(json.dumps({"ab": rows}))
+    print(smi())
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--ab"]:
+        main_ab(sys.argv[2])
+    else:
+        main()

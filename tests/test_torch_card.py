@@ -57,7 +57,7 @@ def _iterate(case, B=4, N=32, seed=0, noise=0.05):
     """Problems and a nominal (u_ref plus noise) with its Jacobians, built on
     the CPU."""
     system, mk = get_system(case)
-    base = mk(N=N).replace(T_min=N // 4, T_max=N)
+    base = mk(N=N, device="cpu").replace(T_min=N // 4, T_max=N)
     rng = np.random.default_rng(seed)
     x0 = base.x0.numpy() + np.asarray(system.sigma_x0) * rng.standard_normal((B, system.n))
     probs = broadcast_problem(base, B).replace(x0=torch.as_tensor(x0))
@@ -223,6 +223,66 @@ def test_linesearch_kernel_matches_plain(dev, case, kappa_scale):
         _close(k, q, 1e-10, 1e-12)
 
 
+@pytest.mark.parametrize("case,B,N,t_min,noise", [
+    ("DoubleIntegrator", 3, 33, 1, 0.05),  # p = 3; N odd: the last step takes ring slot 0
+    ("DoubleIntegrator", 2, 32, 32, 0.05),  # T_min = N: one query, at the last step
+    ("Quadrotor", 3, 33, 1, 0.0),  # p = 13, every step queried
+    ("Quadrotor", 1, 31, 31, 0.0),  # a single problem, T_min = N
+    ("Quadrotor", 2, 2, 1, 0.0),  # N = 2: the rings never wrap
+])
+def test_select_kernel_edges_match_plain(dev, case, B, N, t_min, noise):
+    """The select's pipeline (element, compose and query warps handing
+    ring slots over) at the edges of its schedule, against the plain
+    version within rtol 1e-9 (the kernel's solve-based sweeps against the
+    plain explicit inverses, as test_select_kernel_matches_plain)."""
+    system, probs, X, U, A, Bj = _iterate(case, B=B, N=N, noise=noise)
+    fi = build_fused_inputs(system, probs, X, U, A, Bj, psd_levels=1)
+    args = [t.contiguous().to(dev) for t in (fi.A, fi.B, fi.vecs, fi.scal, fi.Qq, fi.R_inv, fi.Lt)]
+    J_k = cuda_lft.propagator_select_fused(*args, t_min=t_min)
+    J_p = cuda_lft.select_fused_plain(*args)
+    assert torch.isinf(J_k[:, : t_min - 1]).all()
+    _close(J_k[:, t_min - 1 :], J_p[:, t_min - 1 :], 1e-9, 0.0)
+
+
+@pytest.mark.parametrize("case,B,alphas,poison", [
+    ("DoubleIntegrator", 17, ALPHAS, False),  # group width 2: 16 problems a block, the second block ragged
+    ("Cartpole_SwingUp", 9, ALPHAS, False),  # width 4: 8 problems a block
+    ("PointMass_Navigation", 9, (1.0,), False),  # width 4, one alpha
+    ("Quadrotor", 3, ALPHAS + (0.02, 0.01), False),  # width 16, 2 problems a block, alphas over two blocks
+    ("Quadrotor", 3, ALPHAS, True),  # rollouts the guard poisons with NaN
+])
+def test_linesearch_kernel_edges_match_plain(dev, case, B, alphas, poison):
+    """The grouped line search at the edges of its layout: every group
+    width, blocks the batch does not fill, more alphas than a block holds,
+    T* = 0, T* = N - 1 (the terminal cost at the last step), T* = N and
+    T* > N (the terminal row clipped to N). X, U, J within rtol 1e-10 /
+    atol 1e-12 on the improving alphas (a diverging rollout amplifies
+    last-bit differences without bound), the same infinite costs, and with
+    `poison` the same rollouts carrying NaN."""
+    N = 24
+    system, probs, X, U, A, Bj = _iterate(case, B=B, N=N)
+    T = torch.tensor([[0, N - 1, N, N + 5, N // 2][i % 5] for i in range(B)])
+    lm = torch.full((B,), 1e-3, dtype=torch.float64)
+    kap, K, _ = cuda_backward.backward_plain(A, Bj, *backward_inputs(system, probs, X, U), T.clamp(max=N), lm)
+    if poison:
+        kap = 1e6 * kap
+    p = probs.to(dev)
+    args = (system, p, X.to(dev), U.to(dev), K.to(dev), kap.to(dev), T.to(dev), alphas)
+    n0 = cuda_forward.LAUNCHES
+    Xs_k, Us_k, Js_k = cuda_forward.linesearch(*args)
+    assert cuda_forward.LAUNCHES == n0 + 1
+    Xs_p, Us_p, Js_p = cuda_forward.linesearch_plain(*args)
+    assert torch.equal(torch.isinf(Js_k), torch.isinf(Js_p)) and bool(torch.isinf(Js_k[T.to(dev) == 0]).all())
+    nan_k = torch.isnan(Xs_k).flatten(2).any(-1)
+    assert torch.equal(nan_k, torch.isnan(Xs_p).flatten(2).any(-1))
+    assert bool(nan_k.any()) == poison
+    J_old = cost_true(system, p, args[2], args[3], args[6])
+    improving = Js_p < J_old[:, None]
+    assert torch.equal(Js_k < J_old[:, None], improving)
+    for k, q in ((Xs_k, Xs_p), (Us_k, Us_p), (Js_k, Js_p)):
+        _close(k[improving], q[improving], 1e-10, 1e-12)
+
+
 def test_float32_on_the_card_raises(dev):
     x = torch.zeros((1, 2, 2, 2), dtype=torch.float32, device=dev)
     with pytest.raises(TypeError):
@@ -252,7 +312,8 @@ def test_argmin_T_on_the_card_matches_cpu(dev):
 @pytest.mark.parametrize("case", ["DoubleIntegrator", "PointMass_Navigation"])
 def test_solve_on_the_card_matches_cpu(dev, case):
     system, mk = get_system(case)
-    base = mk(N=24).replace(T_min=4, T_max=16) if case == "DoubleIntegrator" else mk(N=40).replace(T_min=10, T_max=40)
+    base = (mk(N=24, device="cpu").replace(T_min=4, T_max=16) if case == "DoubleIntegrator"
+            else mk(N=40, device="cpu").replace(T_min=10, T_max=40))
     rng = np.random.default_rng(1)
     sigma = torch.as_tensor(system.sigma_x0 if case != "DoubleIntegrator" else (0.2, 0.2))
     probs = broadcast_problem(base, 3).replace(x0=base.x0 + sigma * torch.as_tensor(rng.standard_normal((3, system.n))))

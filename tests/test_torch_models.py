@@ -27,6 +27,7 @@ from timeopt_tpu.solver import augmented as jaug
 from timeopt_tpu.solver import cost as jcost
 from timeopt_tpu.solver.linearize import linearize_ad as jax_linearize_ad
 from timeopt_tpu_torch.models import get_system as torch_get_system
+from timeopt_tpu_torch.models import make_problem
 from timeopt_tpu_torch.ops import linalg as tla
 from timeopt_tpu_torch.ops import wrap as twrap
 from timeopt_tpu_torch.solver import augmented as taug
@@ -208,17 +209,41 @@ def test_fused_inputs_match_jax(case):
 def test_default_problem_matches_jax(case):
     _, jmk = jax_get_system(case)
     _, tmk = torch_get_system(case)
-    jp, tp = jmk(dtype=jnp.float64), tmk()
+    jp, tp = jmk(dtype=jnp.float64), tmk(device="cpu")
     assert (tp.N, tp.T_min, tp.T_max) == (jp.N, jp.T_min, jp.T_max)
     for f, t in tp.tensors().items():
         np.testing.assert_array_equal(t[0].numpy(), np.asarray(getattr(jp, f)), err_msg=f)
 
 
+@pytest.mark.parametrize("case", ["Quadrotor", "DoubleIntegrator", "PointMass_Navigation"])
+def test_problems_default_to_the_card(case):
+    """default_problem() and make_problem() build on the card unless the
+    caller passes device="cpu"; with no card they raise, nothing falls back."""
+    _, mk = torch_get_system(case)
+    tp = mk(device="cpu")
+    kw = dict(x0=tp.x0[0].numpy(), xg=tp.xg[0].numpy(), u_ref=tp.u_ref[0].numpy(), Q=tp.Q[0].numpy(),
+              R=tp.R[0].numpy(), alpha=1.0, w=float(tp.w[0]), N=tp.N, T_min=tp.T_min, T_max=tp.T_max)
+    if torch.cuda.is_available():
+        for p in (mk(), make_problem(**kw)):
+            assert all(t.device.type == "cuda" for t in p.tensors().values())
+    else:
+        for build in (mk, lambda: make_problem(**kw)):
+            with pytest.raises((RuntimeError, AssertionError)):
+                build()
+    assert all(t.device.type == "cpu" for t in make_problem(**kw, device="cpu").tensors().values())
+
+
 def test_port_never_imports_jax():
+    """Every module of the port, and chip_smoke.py with everything its
+    phases import, loads without JAX."""
     code = (
-        "import sys, timeopt_tpu_torch\n"
-        "import timeopt_tpu_torch.solver.ilqr, timeopt_tpu_torch.ops.cuda_lft, timeopt_tpu_torch.ops.cuda_lft_generic\n"
-        "import timeopt_tpu_torch.ops.cuda_backward, timeopt_tpu_torch.ops.cuda_forward\n"
+        "import importlib, pkgutil, sys, timeopt_tpu_torch\n"
+        "for m in pkgutil.walk_packages(timeopt_tpu_torch.__path__, 'timeopt_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import timeopt_tpu_torch.runner.run_suite, timeopt_tpu_torch.solver.verify\n"
+        "import timeopt_tpu_torch.ops.cuda_lft_scan, timeopt_tpu_torch.ops.cuda_lft_query, timeopt_tpu_torch.models\n"
+        "import chip_smoke\n"
+        "chip_smoke._counted()\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

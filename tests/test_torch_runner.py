@@ -35,7 +35,7 @@ def test_trial_problems_bit_equal_to_jax(case):
     import jax.numpy as jnp
 
     _, _, jp = jrun.build_trial_problems(case, 7, 3, jnp.float64)
-    _, base, tp = trun.build_trial_problems(case, 7, 3)
+    _, base, tp = trun.build_trial_problems(case, 7, 3, device="cpu")
     assert base.batch == 1 and (tp.N, tp.T_min, tp.T_max) == (jp.N, jp.T_min, jp.T_max)
     for f in PROBLEM_FIELDS:
         np.testing.assert_array_equal(getattr(tp, f).numpy(), np.asarray(getattr(jp, f)), err_msg=f)

@@ -12,211 +12,508 @@
 // W0-form terminal query J = 0.5 ((X0 + jitter I)^-1)[p-1, p-1]. Below
 // T_min the output is +inf. J is unscaled (the caller multiplies by s_0^2).
 //
-// What bounds it on the H100: the recursion is sequential in k and every
-// step is a chain of dependent 13 x 13 eliminations, so a problem is bound
-// by latency (barriers between elimination steps), not by bytes or FLOPs:
-// a step reads ~1.8 KB of inputs and does ~40k FLOPs. The TPU's sequential
-// grid axis (time) becomes a loop inside the block: one thread block per
-// problem keeps the three 13 x 13 carries and all scratch in shared memory
-// (~21 KB), threads map over matrix entries, and the batch fills the card
-// (B = 1024 gives ~8 resident blocks per SM, which hide each other's
-// barrier latency). The compose never forms W = (E_k + Gbar)^-1: one
-// Gauss-Jordan sweep over [E_k + Gbar + jitter I | Fbar' | F_k] yields
-// W Fbar' and W F_k together.
+// Bound on the H100 (chip_smoke.py's count, timeopt_tpu_torch/ops/work.py):
+// ~44 kFLOP and ~1.9 KB of inputs per (problem, step) at p = 13, so at
+// B = 1024, N = 160, T_min = 40 ~7.2 GFLOP against ~0.32 GB: 0.11 ms at
+// 67 TFLOP/s (0.21 ms at the 34 TFLOP/s of the float64 CUDA cores, where a
+// 13 x 13 elimination runs), bound by operations. What holds it back is
+// the serial chain over k: each step is three dependent eliminations of
+// 13-row systems. The earlier design (one block of 128 threads mapping
+// over matrix entries) crossed ~88 block-wide barriers per step with 4-8
+// multiply-adds between them, element and query on the chain too.
+//
+// The design takes the chain apart. One block of four warps runs each
+// problem (B = 1024 is ~7.8 blocks per SM: one wave at 8 blocks of
+// <= 27.5 KB shared memory and <= 64 registers a thread):
+// - the element warp loads step k+1's inputs with cp.async while it builds
+//   the element of step k (it does not depend on the carry) into a ring of
+//   two slots;
+// - two compose warps compose the carry with the element: each sweeps
+//   [sym(E_k + Gbar) + jitter I | R] by Gauss-Jordan in registers, lane j
+//   holding column j, the pivot column broadcast by __shfl_sync (no
+//   barrier per pivot), R = Fbar' in one warp and F_k in the other (one
+//   sweep of [left | Fbar' | F_k] needs two columns a lane and spilled);
+//   they write each new carry into a ring of two slots;
+// - the query warp runs the terminal query of step k off the chain, while
+//   the compose proceeds with k+1; its last sweep only eliminates the
+//   trailing block, which is all the last pivot reads.
+// The warps hand slots over with mbarriers in shared memory (a "full" and
+// a "free" barrier per slot; named barriers with a register id made ptxas
+// reserve all 16 and halved the blocks per SM), and no block-wide barrier
+// runs inside the step loop. Every entry keeps the arithmetic and the
+// operation order of the earlier kernel (each division by the pivot, each
+// M - col * row update, each inner sum in index order, each
+// symmetrization); only the schedule differs, and the results are equal
+// bit for bit. Per-step matrices never leave shared memory: the kernel
+// reads its inputs once and writes J.
+//
+// What holds it back now (chip_smoke.py --ab, PERF.md): each role is one
+// warp walking latency chains (pivot shuffle, division, update; dot
+// products in index order) at 64 registers, and the query warp paces the
+// pipeline; the kernel stays ~55x above its bound.
 #include <cuda_runtime.h>
 #include <math.h>
-
-#include "smallmat.cuh"
+#include <stdint.h>
 
 namespace {
 
 constexpr int NMAX = 12;
 constexpr int PMAX = NMAX + 1;
 constexpr int MMAX = 8;
-constexpr int THREADS = 128;
+constexpr int PP = PMAX * PMAX;
+constexpr int WARP = 32;
+constexpr int THREADS = 4 * WARP;  // element, compose A, compose B, query
+constexpr int RING = 2;            // slots of the element ring and of the carry ring
 
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// mbarriers in shared memory: every thread of a producing warp arrives
+// (release), a consuming warp waits for the phase of its step (acquire).
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  uint64_t state;
+  asm volatile("mbarrier.arrive.shared.b64 %0, [%1];" : "=l"(state) : "r"(smem_addr(bar)) : "memory");
+  (void)state;
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile("{ .reg .pred p; mbarrier.try_wait.parity.shared.b64 p, [%1], %2; selp.u32 %0, 1, 0, p; }" : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void cp_async8(double* dst, const double* src) {
+  const unsigned d = smem_addr(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+template <int K>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(K) : "memory");
+}
+
+struct Stage {  // raw inputs of one step
+  double A[NMAX * NMAX], B[NMAX * MMAX], vecs[4 * NMAX], scal[4];
+};
+struct Elem {  // the element of one step; E = blkdiag(iQ, 0) + inv_s u u' is rebuilt from u
+  double F[PP], G[PP], u[PMAX], et[NMAX], inv_s;
+};
+struct Carry {  // a prefix (Ebar, Fbar, Gbar) and the e~ of its last step
+  double E[PP], F[PP], G[PP], et[NMAX];
+};
+struct Smem {
+  uint64_t elem_full[RING], elem_free[RING], carry_full[RING], carry_free[RING];
+  double iQ[NMAX * NMAX], W0[NMAX * NMAX], Ri[MMAX * MMAX], zero[NMAX];
+  Stage stage[2];
+  double BR[NMAX * MMAX], DAt[NMAX * PMAX], q[NMAX], v[PMAX];  // element scratch
+  Elem elem[RING];
+  Carry carry[RING];
+  double QX[PP], QS[PP];  // query scratch: K^-1 FEt' and X0
+};
+
+// A_aug = [[A, atil/s_k], [0, s_{k+1}/s_k]], entry (i, j)
+__device__ __forceinline__ double aug(const Stage& st, int n, double inv_sk, double s_kp1, int i, int j) {
+  if (i < n) return (j < n) ? st.A[i * n + j] : st.vecs[2 * n + i] * inv_sk;
+  return (j < n) ? 0.0 : s_kp1 * inv_sk;
+}
+
+// E_k (i, j) of the element in slot el
+__device__ __forceinline__ double elem_E(const Smem& S, const Elem& el, int n, int i, int j) {
+  const double ui = el.u[i] * el.inv_s;
+  return ((i < n && j < n) ? S.iQ[i * n + j] : 0.0) + ui * el.u[j];
+}
+
+// M (p x p, row-major) <- sym(M), in place: one lane per pair i <= j.
+__device__ __forceinline__ void sym_inplace(double* M, int p, int lane) {
+  for (int idx = lane; idx < p * p; idx += WARP) {
+    const int i = idx / p, j = idx - (idx / p) * p;
+    if (i > j) continue;
+    const double s = 0.5 * (M[idx] + M[j * p + i]);
+    M[idx] = s;
+    M[j * p + i] = s;
+  }
+}
+
+__device__ void load_stage(Stage& st, const double* A, const double* Bm, const double* vecs,
+                           const double* scal, size_t bk, int n, int m, int lane) {
+  for (int i = lane; i < n * n; i += WARP) cp_async8(&st.A[i], A + bk * n * n + i);
+  for (int i = lane; i < n * m; i += WARP) cp_async8(&st.B[i], Bm + bk * n * m + i);
+  for (int i = lane; i < 4 * n; i += WARP) cp_async8(&st.vecs[i], vecs + bk * 4 * n + i);
+  if (lane < 4) cp_async8(&st.scal[lane], scal + bk * 4 + lane);
+  cp_async_commit();
+}
+
+// ---- element warp: the arrow element of one step into slot el
+__device__ void build_element(Smem& S, const Stage& st, Elem& el, int n, int m, double jitter, int lane) {
+  const int p = n + 1, pp = p * p;
+  const double corner = st.scal[0], inv_sk = st.scal[1], s_kp1 = st.scal[2], inv_skp1 = st.scal[3];
+  // B R^-1, q = Qe/s_k, e~
+  for (int idx = lane; idx < n * m; idx += WARP) {
+    const int i = idx / m, j = idx - (idx / m) * m;
+    double sum = 0.0;
+    for (int l = 0; l < m; ++l) sum += st.B[i * m + l] * S.Ri[l * m + j];
+    S.BR[idx] = sum;
+  }
+  for (int i = lane; i < n; i += WARP) {
+    S.q[i] = st.vecs[3 * n + i] * inv_sk;
+    el.et[i] = st.vecs[n + i] * inv_skp1;
+  }
+  __syncwarp();
+  // w = iQq q, u = [w; -1]
+  for (int i = lane; i < n; i += WARP) {
+    double s = 0.0;
+#pragma unroll 4
+    for (int l = 0; l < n; ++l) s += S.iQ[i * n + l] * S.q[l];
+    el.u[i] = s;
+  }
+  if (lane == 0) el.u[n] = -1.0;
+  __syncwarp();
+  // s = (c + jitter) - q'w;  v = A_aug u;  DAt = iQq A_left' (row n of A_left is 0)
+  if (lane == 0) {
+    double qtw = 0.0;
+    for (int l = 0; l < n; ++l) qtw += S.q[l] * el.u[l];
+    el.inv_s = 1.0 / ((corner * inv_sk * inv_sk + jitter) - qtw);
+  }
+  for (int i = lane; i < p; i += WARP) {
+    double s = 0.0;
+    for (int l = 0; l < p; ++l) s += aug(st, n, inv_sk, s_kp1, i, l) * el.u[l];
+    S.v[i] = s;
+  }
+  for (int idx = lane; idx < n * p; idx += WARP) {
+    const int i = idx / p, j = idx - (idx / p) * p;
+    const double* arow = (j < n) ? st.A + j * n : S.zero;
+    double sum = 0.0;
+#pragma unroll 4
+    for (int l = 0; l < n; ++l) sum += S.iQ[i * n + l] * arow[l];
+    S.DAt[idx] = sum;
+  }
+  __syncwarp();
+  // F = [DAt; 0] + (1/s) u v';  G = A_left DAt + (1/s) v v' + [[B R^-1 B', 0], [0, 0]]
+  const double inv_s = el.inv_s;
+  for (int idx = lane; idx < pp; idx += WARP) {
+    const int i = idx / p, j = idx - (idx / p) * p;
+    const double ui = el.u[i] * inv_s;
+    el.F[idx] = ((i < n) ? S.DAt[i * p + j] : 0.0) + ui * S.v[j];
+    const double* arow = (i < n) ? st.A + i * n : S.zero;
+    double g = 0.0;
+#pragma unroll 4
+    for (int l = 0; l < n; ++l) g += arow[l] * S.DAt[l * p + j];
+    double brb = 0.0;
+    if (i < n && j < n)
+      for (int l = 0; l < m; ++l) brb += S.BR[i * m + l] * st.B[j * m + l];
+    el.G[idx] = (g + (S.v[i] * inv_s) * S.v[j]) + brb;
+  }
+  __syncwarp();
+  sym_inplace(el.G, p, lane);
+}
+
+// ---- compose warps: carry nc = carry pc o element el (k > 0), one right
+// block each. Both sweep [sym(E_k + Gbar) + jitter I | R] with lane j
+// holding column j (2p <= 26 columns): R = Fbar' for warp A, R = F_k for
+// warp B. The left block's sweep is the same arithmetic in both warps, so
+// each right block comes out as one sweep of [left | Fbar' | F_k] gives it.
+// The pivot column i < p sits in lane i and reaches every lane by shuffle,
+// row by row before that row is updated.
+template <int PM>
+__device__ void sweep(const Smem& S, const Elem& el, const Carry& pc, bool right_is_Fbar, int n,
+                      double jitter, int lane, double (&M)[PM]) {
+  const int p = n + 1;
+  const int j = lane;
+#pragma unroll
+  for (int i = 0; i < PM; ++i) {
+    double x = 0.0;
+    if (i < p && j < 2 * p) {
+      if (j < p)
+        x = 0.5 * ((elem_E(S, el, n, i, j) + pc.G[i * p + j]) + (elem_E(S, el, n, j, i) + pc.G[j * p + i])) +
+            (i == j ? jitter : 0.0);
+      else
+        x = right_is_Fbar ? pc.F[(j - p) * p + i] : el.F[i * p + (j - p)];
+    }
+    M[i] = x;
+  }
+#pragma unroll
+  for (int i = 0; i < PM; ++i) {
+    if (i < p) {
+      const double pv = __shfl_sync(0xffffffffu, M[i], i);
+      const double r = M[i] / pv;
+#pragma unroll
+      for (int q = 0; q < PM; ++q) {
+        if (q < p) {
+          const double c = __shfl_sync(0xffffffffu, M[q], i);
+          M[q] = (q == i) ? r : M[q] - c * r;
+        }
+      }
+    }
+  }
+}
+
+// After the sweep lane p + j holds column j of the right block. Every lane
+// takes a copy of one such column: lanes p .. 2p-1 their own, lanes 0 .. p-1
+// (the left block's, idle now) that of lane p + lane, so that two lanes
+// share the p rows of each column's products. Returns the first row of
+// this lane's share; its rows end at `hi`.
+template <int PM>
+__device__ __forceinline__ int share_column(const double (&M)[PM], double (&X)[PM], int p, int lane, int& j,
+                                            int& hi) {
+  const int src = lane < p ? p + lane : lane;
+#pragma unroll
+  for (int l = 0; l < PM; ++l) X[l] = __shfl_sync(0xffffffffu, M[l], src);
+  const int half = (p + 1) / 2;
+  j = src - p;
+  hi = lane < p ? p : half;
+  return lane < p ? half : 0;
+}
+
+// warp A: Ebar - Fbar (W Fbar') -> nc.E
+template <int PM>
+__device__ __noinline__ void compose_E(const Smem& S, const Elem& el, const Carry& pc, Carry& nc, int n, double jitter,
+                          int lane) {
+  const int p = n + 1;
+  double M[PM], X[PM];
+  sweep<PM>(S, el, pc, true, n, jitter, lane, M);
+  int j, hi;
+  const int lo = share_column<PM>(M, X, p, lane, j, hi);
+  if (lane < 2 * p) {
+    for (int i = lo; i < hi; ++i) {
+      double a = 0.0;
+#pragma unroll
+      for (int l = 0; l < PM; ++l)
+        if (l < p) a += pc.F[i * p + l] * X[l];
+      nc.E[i * p + j] = pc.E[i * p + j] - a;
+    }
+  }
+  __syncwarp();
+  sym_inplace(nc.E, p, lane);
+}
+
+// warp B: Fbar (W F_k) -> nc.F;  G_k - F_k' (W F_k) -> nc.G
+template <int PM>
+__device__ __noinline__ void compose_FG(const Smem& S, const Elem& el, const Carry& pc, Carry& nc, int n, double jitter,
+                           int lane) {
+  const int p = n + 1;
+  double M[PM], X[PM];
+  sweep<PM>(S, el, pc, false, n, jitter, lane, M);
+  int j, hi;
+  const int lo = share_column<PM>(M, X, p, lane, j, hi);
+  if (lane < 2 * p) {
+    for (int i = lo; i < hi; ++i) {
+      double f = 0.0, g = 0.0;
+#pragma unroll
+      for (int l = 0; l < PM; ++l) {
+        if (l < p) {
+          f += pc.F[i * p + l] * X[l];
+          g += el.F[l * p + i] * X[l];
+        }
+      }
+      nc.F[i * p + j] = f;
+      nc.G[i * p + j] = el.G[i * p + j] - g;
+    }
+  }
+  for (int i = lane; i < n; i += WARP) nc.et[i] = el.et[i];
+  __syncwarp();
+  sym_inplace(nc.G, p, lane);
+}
+
+// ---- query warp: J of the prefix in slot cc (W0 form)
+// K = W0 + G11 + e~ g' + g e~' + g22 e~ e~',  FEt = Fbar[:, :n] + Fbar[:, n] e~'
+// X0 = Ebar - FEt K^-1 FEt';  J = 0.5 / (last pivot of sym(X0) + jitter I)
+template <int PM>
+__device__ __noinline__ double query(Smem& S, const Carry& cc, int n, double jitter, int lane) {
+  constexpr int NM = PM - 1;
+  const int p = n + 1, ld = n + p;
+  const double* cG = cc.G;
+  const double* cF = cc.F;
+  const double* et = cc.et;
+  // [K | FEt'], lane j holds column j (ld <= 25)
+  double M[NM];
+  const int j = lane;
+#pragma unroll
+  for (int i = 0; i < NM; ++i) {
+    double x = 0.0;
+    if (i < n && j < ld) {
+      if (j < n) {
+        const double eg = et[i] * cG[j * p + n];
+        const double ge = cG[i * p + n] * et[j];
+        x = S.W0[i * n + j] + (((cG[i * p + j] + eg) + ge) + (et[i] * cG[n * p + n]) * et[j]);
+      } else {
+        const int r = j - n;  // FEt'[i][r] = FEt[r][i]
+        x = cF[r * p + i] + cF[r * p + n] * et[i];
+      }
+    }
+    M[i] = x;
+  }
+#pragma unroll
+  for (int i = 0; i < NM; ++i) {
+    if (i < n) {
+      const double pv = __shfl_sync(0xffffffffu, M[i], i);
+      const double r = M[i] / pv;
+#pragma unroll
+      for (int q = 0; q < NM; ++q) {
+        if (q < n) {
+          const double c = __shfl_sync(0xffffffffu, M[q], i);
+          M[q] = (q == i) ? r : M[q] - c * r;
+        }
+      }
+    }
+  }
+  // Ebar - FEt (K^-1 FEt') -> QS, the right block through shared memory so
+  // that every lane takes a share of the p^2 sums
+  if (j >= n && j < ld) {
+#pragma unroll
+    for (int l = 0; l < NM; ++l)
+      if (l < n) S.QX[l * p + (j - n)] = M[l];
+  }
+  __syncwarp();
+  for (int idx = lane; idx < p * p; idx += WARP) {
+    const int i = idx / p, jj = idx - (idx / p) * p;
+    double s = 0.0;
+    for (int l = 0; l < n; ++l) s += (cF[i * p + l] + cF[i * p + n] * et[l]) * S.QX[l * p + jj];
+    S.QS[idx] = cc.E[idx] - s;
+  }
+  __syncwarp();
+  // sym(X0) + jitter I, lane j holds column j; forward elimination of the
+  // trailing block: the same updates as a full sweep on every entry the
+  // last pivot depends on
+  double X[PM];
+#pragma unroll
+  for (int i = 0; i < PM; ++i)
+    X[i] = (i < p && j < p) ? 0.5 * (S.QS[i * p + j] + S.QS[j * p + i]) + (i == j ? jitter : 0.0) : 0.0;
+#pragma unroll
+  for (int i = 0; i < PM - 1; ++i) {
+    if (i < p - 1) {
+      const double pv = __shfl_sync(0xffffffffu, X[i], i);
+      const double r = X[i] / pv;
+#pragma unroll
+      for (int q = i + 1; q < PM; ++q) {
+        if (q < p) {
+          const double c = __shfl_sync(0xffffffffu, X[q], i);
+          X[q] = X[q] - c * r;
+        }
+      }
+    }
+  }
+  double last = 0.0;
+#pragma unroll
+  for (int q = 0; q < PM; ++q)
+    if (q == p - 1) last = X[q];
+  last = __shfl_sync(0xffffffffu, last, p - 1);
+  __syncwarp();  // QS is read by every lane before the next query writes it
+  return 0.5 / last;
+}
+
+// The u-th completion of a slot's barrier has parity u & 1. Step k uses
+// slot k % RING for the (k / RING)-th time; it waits for the "full" phase of
+// its own use and for the "free" phase of the use before (k >= RING).
+__device__ __forceinline__ unsigned use_parity(int k) { return (unsigned)(k / RING) & 1u; }
+__device__ __forceinline__ unsigned prev_parity(int k) { return (unsigned)(k / RING - 1) & 1u; }
+
+template <int PM>
+__global__ void __launch_bounds__(THREADS, 8)
 lft_select_kernel(const double* __restrict__ A, const double* __restrict__ Bm,
                   const double* __restrict__ vecs, const double* __restrict__ scal,
                   const double* __restrict__ iQq, const double* __restrict__ Rinv,
-                  const double* __restrict__ W0g, double* __restrict__ J, int N,
-                  int n, int m, int t_min, double jitter) {
+                  const double* __restrict__ W0g, double* __restrict__ J, int N, int n, int m,
+                  int t_min, double jitter) {
+  __shared__ Smem S;
   const int b = blockIdx.x;
-  const int p = n + 1;
-  const int pp = p * p;
-  const int tid = threadIdx.x, nt = blockDim.x;
+  const int tid = threadIdx.x, warp = tid / WARP, lane = tid - warp * WARP;
 
-  __shared__ double cE[PMAX * PMAX], cF[PMAX * PMAX], cG[PMAX * PMAX];
-  __shared__ double E[PMAX * PMAX], F[PMAX * PMAX], G[PMAX * PMAX];
-  __shared__ double Aa[PMAX * PMAX], T1[PMAX * PMAX];
-  __shared__ double iQ[NMAX * NMAX], W0[NMAX * NMAX], Ri[MMAX * MMAX];
-  __shared__ double Bk[NMAX * MMAX], BR[NMAX * MMAX];
-  __shared__ double DAt[NMAX * PMAX];
-  __shared__ double Mx[PMAX * 3 * PMAX];
-  __shared__ double q[NMAX], u[PMAX], v[PMAX], et[NMAX];
-  __shared__ double rowbuf[3 * PMAX + NMAX], colbuf[PMAX], piv[PMAX];
-  __shared__ double inv_s;
-
-  for (int i = tid; i < n * n; i += nt) {
-    iQ[i] = iQq[(size_t)b * n * n + i];
-    W0[i] = W0g[(size_t)b * n * n + i];
+  for (int i = tid; i < n * n; i += THREADS) {
+    S.iQ[i] = iQq[(size_t)b * n * n + i];
+    S.W0[i] = W0g[(size_t)b * n * n + i];
   }
-  for (int i = tid; i < m * m; i += nt) Ri[i] = Rinv[(size_t)b * m * m + i];
-  __syncthreads();
+  for (int i = tid; i < m * m; i += THREADS) S.Ri[i] = Rinv[(size_t)b * m * m + i];
+  for (int i = tid; i < NMAX; i += THREADS) S.zero[i] = 0.0;
+  if (tid == 0) {
+    for (int s = 0; s < RING; ++s) {
+      mbar_init(&S.elem_full[s], WARP);         // the element warp
+      mbar_init(&S.elem_free[s], 2 * WARP);     // compose A and B
+      mbar_init(&S.carry_full[s], 2 * WARP);    // compose A and B
+      mbar_init(&S.carry_free[s], 2 * WARP);    // query, and compose A's read of the previous carry
+    }
+  }
+  __syncthreads();  // the only block-wide barrier
 
-  for (int k = 0; k < N; ++k) {
-    const size_t bk = (size_t)b * N + k;
-    const double* Ak = A + bk * n * n;
-    const double* vk = vecs + bk * 4 * n;  // rows e_k, e_{k+1}, atil_k, Q e_k
-    const double* sk = scal + bk * 4;      // corner_k, 1/s_k, s_{k+1}, 1/s_{k+1}
-    const double corner = sk[0], inv_sk = sk[1], s_kp1 = sk[2], inv_skp1 = sk[3];
-
-    // ---- A_aug = [[A, atil/s_k], [0, s_{k+1}/s_k]], B_k, q = Qe/s_k, e~
-    for (int idx = tid; idx < pp; idx += nt) {
-      const int i = idx / p, j = idx - (idx / p) * p;
-      double a;
-      if (i < n) a = (j < n) ? Ak[i * n + j] : vk[2 * n + i] * inv_sk;
-      else a = (j < n) ? 0.0 : s_kp1 * inv_sk;
-      Aa[idx] = a;
-    }
-    for (int i = tid; i < n * m; i += nt) Bk[i] = Bm[bk * n * m + i];
-    for (int i = tid; i < n; i += nt) {
-      q[i] = vk[3 * n + i] * inv_sk;
-      et[i] = vk[n + i] * inv_skp1;
-    }
-    __syncthreads();
-    smm<false, false>(BR, m, Bk, m, Ri, m, n, m, m, 1.0, false);  // B R^-1
-
-    // ---- arrow element: w = iQq q, s = (c + jitter) - q'w, u = [w; -1]
-    for (int i = tid; i < n; i += nt) {
-      double s = 0.0;
-      for (int l = 0; l < n; ++l) s += iQ[i * n + l] * q[l];
-      u[i] = s;
-    }
-    if (tid == 0) u[n] = -1.0;
-    __syncthreads();
-    if (tid == 0) {
-      double qtw = 0.0;
-      for (int l = 0; l < n; ++l) qtw += q[l] * u[l];
-      inv_s = 1.0 / ((corner * inv_sk * inv_sk + jitter) - qtw);
-    }
-    // v = A_aug u;  DAt = iQq A_left' (n x p)
-    for (int i = tid; i < p; i += nt) {
-      double s = 0.0;
-      for (int l = 0; l < p; ++l) s += Aa[i * p + l] * u[l];
-      v[i] = s;
-    }
-    smm<false, true>(DAt, p, iQ, n, Aa, p, n, p, n, 1.0, false);
-
-    // E = blkdiag(iQq, 0) + (1/s) u u';  F = [DAt; 0] + (1/s) u v';
-    // G = A_left DAt + (1/s) v v' + [[B R^-1 B', 0], [0, 0]]  (then sym)
-    for (int idx = tid; idx < pp; idx += nt) {
-      const int i = idx / p, j = idx - (idx / p) * p;
-      const double ui = u[i] * inv_s;
-      E[idx] = ((i < n && j < n) ? iQ[i * n + j] : 0.0) + ui * u[j];
-      F[idx] = ((i < n) ? DAt[i * p + j] : 0.0) + ui * v[j];
-      double g = 0.0;
-      for (int l = 0; l < n; ++l) g += Aa[i * p + l] * DAt[l * p + j];
-      double brb = 0.0;
-      if (i < n && j < n)
-        for (int l = 0; l < m; ++l) brb += BR[i * m + l] * Bk[j * m + l];
-      T1[idx] = (g + (v[i] * inv_s) * v[j]) + brb;
-    }
-    __syncthreads();
-    for (int idx = tid; idx < pp; idx += nt) {
-      const int i = idx / p, j = idx - (idx / p) * p;
-      G[idx] = 0.5 * (T1[idx] + T1[j * p + i]);
-    }
-    __syncthreads();
-
-    if (k == 0) {
-      // the first element is the carry itself: no compose
-      for (int idx = tid; idx < pp; idx += nt) {
-        cE[idx] = E[idx];
-        cF[idx] = F[idx];
-        cG[idx] = G[idx];
+  if (warp == 0) {  // element warp: step k+1's inputs in flight while step k is built
+    load_stage(S.stage[0], A, Bm, vecs, scal, (size_t)b * N, n, m, lane);
+    for (int k = 0; k < N; ++k) {
+      if (k + 1 < N) {
+        load_stage(S.stage[(k + 1) & 1], A, Bm, vecs, scal, (size_t)b * N + k + 1, n, m, lane);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
       }
-      __syncthreads();
-    } else {
-      // ---- compose: [sym(E_k + Gbar) + jitter I | Fbar' | F_k] -> [I | W Fbar' | W F_k]
-      const int ld = 3 * p;
-      for (int idx = tid; idx < p * ld; idx += nt) {
-        const int i = idx / ld, j = idx - (idx / ld) * ld;
-        double x;
-        if (j < p)
-          x = 0.5 * ((E[i * p + j] + cG[i * p + j]) + (E[j * p + i] + cG[j * p + i])) +
-              (i == j ? jitter : 0.0);
-        else if (j < 2 * p) x = cF[(j - p) * p + i];
-        else x = F[i * p + (j - 2 * p)];
-        Mx[idx] = x;
-      }
-      __syncthreads();
-      gj_eliminate(Mx, ld, p, ld, piv, rowbuf, colbuf);
-      // Ebar - Fbar (W Fbar') -> E;  Fbar (W F_k) -> Aa;  G_k - F_k' (W F_k) -> T1
-      for (int idx = tid; idx < pp; idx += nt) {
-        const int i = idx / p, j = idx - (idx / p) * p;
-        double a = 0.0, f = 0.0, g = 0.0;
-        for (int l = 0; l < p; ++l) {
-          a += cF[i * p + l] * Mx[l * ld + p + j];
-          f += cF[i * p + l] * Mx[l * ld + 2 * p + j];
-          g += F[l * p + i] * Mx[l * ld + 2 * p + j];
+      __syncwarp();
+      const int e = k % RING;
+      if (k >= RING) mbar_wait(&S.elem_free[e], prev_parity(k));
+      build_element(S, S.stage[k & 1], S.elem[e], n, m, jitter, lane);
+      __syncwarp();
+      mbar_arrive(&S.elem_full[e]);
+    }
+  } else if (warp <= 2) {  // compose warps: the carry's chain
+    const bool is_A = warp == 1;
+    const int p = n + 1, pp = p * p;
+    for (int k = 0; k < N; ++k) {
+      const int s = k % RING;
+      mbar_wait(&S.elem_full[s], use_parity(k));
+      if (k >= RING) mbar_wait(&S.carry_free[s], prev_parity(k));
+      const Elem& el = S.elem[s];
+      Carry& nc = S.carry[s];
+      if (k == 0) {  // the first element is the carry itself: no compose
+        for (int idx = lane; idx < pp; idx += WARP) {
+          const int i = idx / p, j = idx - (idx / p) * p;
+          if (is_A) {
+            nc.E[idx] = elem_E(S, el, n, i, j);
+          } else {
+            nc.F[idx] = el.F[idx];
+            nc.G[idx] = el.G[idx];
+          }
         }
-        E[idx] = cE[idx] - a;
-        Aa[idx] = f;
-        T1[idx] = G[idx] - g;
-      }
-      __syncthreads();
-      for (int idx = tid; idx < pp; idx += nt) {
-        const int i = idx / p, j = idx - (idx / p) * p;
-        cE[idx] = 0.5 * (E[idx] + E[j * p + i]);
-        cF[idx] = Aa[idx];
-        cG[idx] = 0.5 * (T1[idx] + T1[j * p + i]);
-      }
-      __syncthreads();
-    }
-
-    if (k + 1 < t_min) {
-      if (tid == 0) J[bk] = INFINITY;
-      continue;
-    }
-
-    // ---- W0-form terminal query. With e~ = e_{k+1}/s_{k+1}:
-    // K = W0 + G11 + e~ g' + g e~' + g22 e~ e~',  FEt = Fbar[:, :n] + Fbar[:, n] e~'
-    // X0 = Ebar - FEt K^-1 FEt';  J = 0.5 / (last pivot of sym(X0) + jitter I)
-    {
-      const int ld = n + p;
-      for (int idx = tid; idx < n * ld; idx += nt) {
-        const int i = idx / ld, j = idx - (idx / ld) * ld;
-        double x;
-        if (j < n) {
-          const double eg = et[i] * cG[j * p + n];
-          const double ge = cG[i * p + n] * et[j];
-          x = W0[i * n + j] + (((cG[i * p + j] + eg) + ge) + (et[i] * cG[n * p + n]) * et[j]);
+        if (!is_A)
+          for (int i = lane; i < n; i += WARP) nc.et[i] = el.et[i];
+      } else {
+        const int ps = (k - 1) % RING;
+        if (is_A) {
+          mbar_wait(&S.carry_full[ps], use_parity(k - 1));  // warp B's Fbar, Gbar of step k-1
+          compose_E<PM>(S, el, S.carry[ps], nc, n, jitter, lane);
         } else {
-          const int r = j - n;  // FEt'[i][r] = FEt[r][i]
-          x = cF[r * p + i] + cF[r * p + n] * et[i];
+          compose_FG<PM>(S, el, S.carry[ps], nc, n, jitter, lane);
         }
-        Mx[idx] = x;
       }
-      __syncthreads();
-      gj_eliminate(Mx, ld, n, ld, piv, rowbuf, colbuf);  // right block: K^-1 FEt'
-      for (int idx = tid; idx < pp; idx += nt) {
-        const int i = idx / p, j = idx - (idx / p) * p;
-        double s = 0.0;
-        for (int l = 0; l < n; ++l) s += (cF[i * p + l] + cF[i * p + n] * et[l]) * Mx[l * ld + n + j];
-        T1[idx] = cE[idx] - s;
+      __syncwarp();
+      if (k + RING < N) mbar_arrive(&S.elem_free[s]);
+      mbar_arrive(&S.carry_full[s]);
+      if (is_A && k >= 1 && k + 1 < N) mbar_arrive(&S.carry_free[(k - 1) % RING]);
+    }
+  } else {  // query warp: J of step k off the chain
+    for (int k = 0; k < N; ++k) {
+      const int s = k % RING;
+      mbar_wait(&S.carry_full[s], use_parity(k));
+      const size_t bk = (size_t)b * N + k;
+      if (k + 1 < t_min) {
+        if (lane == 0) J[bk] = INFINITY;
+      } else {
+        const double jv = query<PM>(S, S.carry[s], n, jitter, lane);
+        if (lane == 0) J[bk] = jv;
       }
-      __syncthreads();
-      for (int idx = tid; idx < pp; idx += nt) {
-        const int i = idx / p, j = idx - (idx / p) * p;
-        E[idx] = 0.5 * (T1[idx] + T1[j * p + i]) + (i == j ? jitter : 0.0);
-      }
-      __syncthreads();
-      gj_eliminate(E, p, p, p, piv, rowbuf, colbuf);
-      if (tid == 0) J[bk] = 0.5 / piv[p - 1];
-      __syncthreads();
+      __syncwarp();
+      if (k + RING < N) mbar_arrive(&S.carry_free[s]);
     }
   }
+}
+
+template <int PM>
+void launch(const void* A, const void* Bm, const void* vecs, const void* scal, const void* iQq,
+            const void* Rinv, const void* W0, void* J, int B, int N, int n, int m, int t_min,
+            double jitter, cudaStream_t stream) {
+  lft_select_kernel<PM><<<B, THREADS, 0, stream>>>(
+      (const double*)A, (const double*)Bm, (const double*)vecs, (const double*)scal,
+      (const double*)iQq, (const double*)Rinv, (const double*)W0, (double*)J, N, n, m, t_min,
+      jitter);
 }
 
 }  // namespace
@@ -227,10 +524,9 @@ extern "C" int lft_select_fused(const void* A, const void* Bm, const void* vecs,
                                 int t_min, double jitter, void* stream) {
   if (n < 1 || n > NMAX || m < 1 || m > MMAX) return (int)cudaErrorInvalidValue;
   if (B > 0 && N > 0) {
-    lft_select_kernel<<<B, THREADS, 0, (cudaStream_t)stream>>>(
-        (const double*)A, (const double*)Bm, (const double*)vecs, (const double*)scal,
-        (const double*)iQq, (const double*)Rinv, (const double*)W0, (double*)J, N, n, m,
-        t_min, jitter);
+    // p <= 5 (n <= 4) takes the narrow instantiation
+    if (n + 1 <= 5) launch<5>(A, Bm, vecs, scal, iQq, Rinv, W0, J, B, N, n, m, t_min, jitter, (cudaStream_t)stream);
+    else launch<PMAX>(A, Bm, vecs, scal, iQq, Rinv, W0, J, B, N, n, m, t_min, jitter, (cudaStream_t)stream);
   }
   return (int)cudaGetLastError();
 }

@@ -122,9 +122,11 @@ def euler_step_fn(xdot: StepFn, dt: float, n: int, wrap_idx: tuple = (), guard=N
 
 def make_problem(
     *, x0, xg, u_ref, Q, R, alpha, w, N: int, T_min: int, T_max: int,
-    wrap_idx=(), device="cpu",
+    wrap_idx=(), device="cuda",
 ) -> Problem:
-    """Assemble a batch-of-1 float64 Problem from reference-style ingredients."""
+    """Assemble a batch-of-1 float64 Problem from reference-style ingredients,
+    on `device`: the card unless the caller passes device="cpu" (with no card
+    the default raises, as torch does; nothing falls back to the CPU)."""
     x0 = np.asarray(x0, dtype=np.float64).reshape(-1)
     n = x0.size
     leaves = dict(

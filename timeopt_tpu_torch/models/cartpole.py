@@ -59,7 +59,7 @@ SYSTEM = System(
 )
 
 
-def default_problem(N: int = 360, device="cpu") -> Problem:
+def default_problem(N: int = 360, device="cuda") -> Problem:
     return make_problem(
         x0=[0.0, 0.0, 0.0, 0.0],
         xg=[0.0, 0.0, math.pi, 0.0],

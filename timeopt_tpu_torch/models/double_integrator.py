@@ -32,7 +32,7 @@ SYSTEM = System(
 )
 
 
-def default_problem(N: int = 120, device="cpu") -> Problem:
+def default_problem(N: int = 120, device="cuda") -> Problem:
     return make_problem(
         x0=[1.0, 0.0],
         xg=[2.0, 0.0],

@@ -56,7 +56,7 @@ SYSTEM = System(
 )
 
 
-def default_problem(N: int = 240, device="cpu") -> Problem:
+def default_problem(N: int = 240, device="cuda") -> Problem:
     return make_problem(
         x0=[-2.0, -2.0, 0.0, 0.0],
         xg=[2.0, 2.0, 0.0, 0.0],

@@ -96,7 +96,7 @@ SYSTEM = System(
 )
 
 
-def default_problem(N: int = 160, device="cpu") -> Problem:
+def default_problem(N: int = 160, device="cuda") -> Problem:
     return make_problem(
         x0=[2.0, 2.0, 2.0] + [0.0] * 9,
         xg=[0.0] * 12,

@@ -57,7 +57,7 @@ SYSTEM = System(
 )
 
 
-def default_problem(N: int = 240, device="cpu") -> Problem:
+def default_problem(N: int = 240, device="cuda") -> Problem:
     return make_problem(
         x0=[0.05, 0.0, 0.08, 0.0],
         xg=[0.0, 0.0, 0.0, 0.0],

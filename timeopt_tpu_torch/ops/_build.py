@@ -28,7 +28,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# name -> (ctypes.CDLL, build seconds, ptxas report); filled on first use
+# (name, source directory) -> (ctypes.CDLL, build seconds, ptxas report);
+# filled on first use
 _LOADED: dict = {}
 
 
@@ -39,13 +40,15 @@ def nvcc() -> str:
     return path
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Build csrc/<name>.cu if its cached library is missing, then load it."""
-    if name in _LOADED:
-        return _LOADED[name][0]
-    src = CSRC / f"{name}.cu"
+def load(name: str, csrc: Path = CSRC) -> ctypes.CDLL:
+    """Build <csrc>/<name>.cu if its cached library is missing, then load it.
+    Another directory than the package's csrc/ serves only to time an
+    earlier version of the sources against this one."""
+    if (name, csrc) in _LOADED:
+        return _LOADED[(name, csrc)][0]
+    src = csrc / f"{name}.cu"
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in [src, *sorted(CSRC.glob("*.cuh"))]:
+    for f in [src, *sorted(csrc.glob("*.cuh"))]:
         h.update(f.name.encode() + f.read_bytes())
     out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
     seconds, report = 0.0, "cached"
@@ -54,7 +57,7 @@ def load(name: str) -> ctypes.CDLL:
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         t0 = time.perf_counter()
         proc = subprocess.run(
-            [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)],
+            [nvcc(), *NVCC_FLAGS, "-I", str(csrc), "-o", str(tmp), str(src)],
             capture_output=True, text=True,
         )
         seconds = time.perf_counter() - t0
@@ -63,21 +66,21 @@ def load(name: str) -> ctypes.CDLL:
         os.replace(tmp, out)
         report = proc.stderr.strip()
     lib = ctypes.CDLL(str(out))
-    _LOADED[name] = (lib, seconds, report)
+    _LOADED[(name, csrc)] = (lib, seconds, report)
     return lib
 
 
-def load_all(names) -> None:
+def load_all(names, csrc: Path = CSRC) -> None:
     """Build and load several kernels at once: one nvcc process per source,
     all started together."""
     with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
-        list(pool.map(load, names))
+        list(pool.map(lambda name: load(name, csrc), names))
 
 
-def build_info(name: str) -> tuple[float, str]:
+def build_info(name: str, csrc: Path = CSRC) -> tuple[float, str]:
     """(build seconds, ptxas resource report) of a loaded kernel library."""
-    load(name)
-    return _LOADED[name][1], _LOADED[name][2]
+    load(name, csrc)
+    return _LOADED[(name, csrc)][1:]
 
 
 def bind(lib: ctypes.CDLL, fn: str, n_ptr: int, tail: list) -> ctypes._CFuncPtr:

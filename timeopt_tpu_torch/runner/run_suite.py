@@ -57,15 +57,16 @@ def _case_rng(seed: int, case: str) -> np.random.Generator:
     return np.random.default_rng(int(seed) + zlib.crc32(case.encode()) % 10_000)
 
 
-def build_trial_problems(case: str, trials: int, seed: int, device="cpu"):
+def build_trial_problems(case: str, trials: int, seed: int, device="cuda"):
     """(system, base, probs): trial 0 is the nominal x0/xg, trials 1.. are
     Gaussian-perturbed with the case's sigmas, drawn as the JAX runner
-    draws them. `base` is the batch-of-1 default problem."""
+    draws them. `base` is the batch-of-1 default problem, on the CPU; the
+    trials go to `device`."""
     from timeopt_tpu_torch.models import get_system
     from timeopt_tpu_torch.solver.ilqr import broadcast_problem
 
     system, mk = get_system(case)
-    base = mk()
+    base = mk(device="cpu")
     rng = _case_rng(seed, case)
 
     sx = np.asarray(system.sigma_x0, float)
