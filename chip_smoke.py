@@ -15,11 +15,18 @@ exit, no result line):
    card, on inputs from a real iterate, with the stated tolerances, and
    timed (median of CUDA-event timings after warm-up): the fused select,
    backward and line search on the quadrotor at B=1024, N=160 (the main
-   path); the generic select on PointMass at B=1024, N=220; then per system,
-   at B=128 on its oracle problem set, its select kernel (the error printed,
-   gated by SELECT_BOUND) and the line search, and the generic select on
-   the quadrotor's assembled blocks (rtol 2e-9, the tight check of that
-   kernel); then the unfused select's prefix-scan and terminal-query
+   path); the generic select on PointMass at B=1024, N=220, and the
+   backward there at its own T*; then per system, at B=128 on its oracle
+   problem set, its select kernel (the error printed, gated by
+   SELECT_BOUND), the backward at that select's T* (rtol 1e-9, atol 1e-12,
+   ok identical) and the line search, and the generic select on the
+   assembled blocks of the quadrotor, the double integrator and the
+   cart-pole (GENERIC_BLOCKS_BOUND: p = 13, 3 and 5); the backward and the
+   generic select on random inputs of shapes no system has (their
+   run-time-size paths: OFF_REGISTRY_BACKWARD, OFF_REGISTRY_SELECT); at
+   PointMass B=1024, where the backward is held normwise, a long-double
+   witness on the problems where kernel and plain differ most; then the unfused
+   select's prefix-scan and terminal-query
    kernels on the quadrotor's first-iterate blocks at B=1024, N=160, timed,
    and per system at B=128 on the oracle's own final (X, U): E, F, G
    printed; on every system the query kernel alone (QUERY_BOUND) and the
@@ -59,22 +66,28 @@ between two events, the kernel's own device time), and its roofline bound
 at the phase-3 shapes (timeopt_tpu_torch/ops/work.py: `flops`, `bytes`,
 `bound_ms` at 67 TFLOP/s and 3.35 TB/s, `bound_by`, `bound_ms_cuda_cores`
 at 34 TFLOP/s, `share_of_bound` = bound_ms / ms_back_to_back; `library_ms`
-is null: no single PyTorch call computes any of these functions). The last
-line is {"ok": true, "device": {...}}.
+is null: no single PyTorch call computes any of these functions); the
+backward's entry also holds its numbers at PointMass B=1024 (`pointmass`,
+printed on a [bounds] line of its own). The last line is
+{"ok": true, "device": {...}}.
 Imports no JAX.
 
     python3 chip_smoke.py --ab OLD_CSRC
 
-times the fused select and the line search built from another directory
-of kernel sources (e.g. an earlier commit's timeopt_tpu_torch/csrc, from
-`git archive`) against this checkout's, in turns old, new, new, old, and
-prints the largest difference between their outputs (phase_ab).
+times every kernel whose sources (its .cu or a header it includes) differ
+between another directory of kernel sources (e.g. an earlier commit's
+timeopt_tpu_torch/csrc, from `git archive`) and this checkout's, old
+against new in turns old, new, new, old, prints the largest difference
+between their outputs and whether they are bitwise equal, then times one
+B=1024 solve with each version's kernels, and fails unless old and new
+are bitwise equal on every row (phase_ab).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -116,6 +129,17 @@ KERNELS = {
 # (against a long-double run of the same math, PERF.md section 6).
 SELECT_BOUND = {"DoubleIntegrator": ("rel", 1e-9), "Cartpole_SwingUp": None, "Quadrotor": ("rel", 1e-9),
                 "Segway_Balance": None, "Ballbot_Balance": None, "PointMass_Navigation": ("norm", 1e-2)}
+# The backward kernel against its plain version: ok identical, and kappa
+# and K within rtol 1e-9 / atol 1e-12 elementwise (the quadrotor at B=1024
+# and every system at B=128). PointMass at B=1024 (first iterate, T* up to
+# 220) holds the largest error of each problem within 1e-8 of its largest
+# |kappa| (|K|) instead: there the earlier kernel, bitwise equal to this
+# one (--ab), reads 2.8e-4 abs off the plain version (a gain near zero
+# carries the absolute error of the terms that sum to it) and 6.95e-10
+# normwise (PERF.md section 6). There a long-double witness
+# (witness_backward) reads both sides on the problems where they differ
+# most, and the kernel must stay within the same bound of it.
+BACKWARD_NORM_B1024 = {"PointMass_Navigation": 1e-8}
 # Phase 4 requires every problem exact or tied, except the problems listed
 # here: on them the JAX f64 propagator itself (CPU, the same 128 problems
 # and options) is neither exact nor tied against the brute-force oracle
@@ -144,6 +168,24 @@ REFERENCE_MISSES = {"PointMass_Navigation": (39, 42, 57, 66, 81, 112)}
 QUERY_BOUND = ("rel", 1e-9)
 CHAIN_BOUND = ("rel", 1e-12)
 SCAN_QUERY_FIRST_BOUND = ("rel", 2e-9)
+# The generic select kernel against its plain version on the assembled
+# blocks of the first iterate at B=128, read as SELECT_BOUND: one system a
+# width (p = 13, 3, 5). Against a long-double run of the same math on the
+# quadrotor's blocks the plain version is off by 7.9e-10 and the kernel's
+# elimination order by 2.8e-10 (before FMA contraction), hence rtol 2e-9
+# there and on the double integrator. On the cart-pole's blocks the plain
+# version loses digits as it does in SELECT_BOUND (zero theta weight; the
+# kernel reads 1.77e-2 off it, PERF.md section 6): printed, and the
+# generic kernel is gated there by a long-double witness and CHAIN_BOUND.
+GENERIC_BLOCKS_BOUND = {"Quadrotor": ("rel", 2e-9), "DoubleIntegrator": ("rel", 2e-9), "Cartpole_SwingUp": None}
+# Where GENERIC_BLOCKS_BOUND is None, the kernel is held to a long-double
+# run of its own solve-based math (select_generic_longdouble): J within
+# WITNESS_SELECT_REL relative for T >= T_min, and argmin T* tied to the
+# witness's on every problem. The kernel's order run in float64 on the CPU
+# reads 3.9e-5 (8 of the cart-pole's problems) and 1.9e-4 (a 32-step
+# cart-pole iterate) off the witness, the plain version 1.9e-2 and 0.42
+# (tests/test_torch_witness.py).
+WITNESS_SELECT_REL = 1e-3
 SCAN_QUERY_BOUND = {"DoubleIntegrator": ("rel", 1e-9), "Cartpole_SwingUp": None, "Quadrotor": ("rel", 1e-6),
                     "Segway_Balance": None, "Ballbot_Balance": None, "PointMass_Navigation": None}
 # Phase 5 holds consistency_check's two curves on each brute-force result to
@@ -169,6 +211,34 @@ CC_NORM_BOUND = {"DoubleIntegrator": 5e-5, "Cartpole_SwingUp": 3e-4, "Quadrotor"
 RUNNER_GATED = ("DoubleIntegrator", "Quadrotor")
 RUNNER_CC_RTOL = {"DoubleIntegrator": 1e-3, "Quadrotor": 3e-2}
 COMMITTED_CSV = os.path.join(ROOT, "results", "cpu_f64_25", "summary_all.csv")
+
+
+def kernel_sources(name: str, csrc: Path) -> set:
+    """The file names a kernel's build reads in a csrc/ directory:
+    <name>.cu and, transitively, the headers it includes ("x.cuh")."""
+    seen, todo = set(), [f"{name}.cu"]
+    while todo:
+        f = todo.pop()
+        if f in seen or not (csrc / f).exists():
+            continue
+        seen.add(f)
+        todo += re.findall(r'^\s*#include\s+"([^"]+)"', (csrc / f).read_text(), flags=re.M)
+    return seen
+
+
+def changed_kernels(old: Path, new: Path, names) -> list:
+    """The kernels among `names` that both csrc/ directories hold and whose
+    sources differ between them: the .cu, or a header it includes in either
+    directory (a header that one of them lacks counts as differing)."""
+    out = []
+    for name in names:
+        if not ((old / f"{name}.cu").exists() and (new / f"{name}.cu").exists()):
+            continue
+        files = kernel_sources(name, old) | kernel_sources(name, new)
+        read = lambda d, f: (d / f).read_bytes() if (d / f).exists() else None  # noqa: E731
+        if any(read(old, f) != read(new, f) for f in files):
+            out.append(name)
+    return out
 
 
 def require(cond, msg: str) -> None:
@@ -460,6 +530,274 @@ def scan_query_pair(system, probs, X, U, A, Bj, levels: int, bound, label: str, 
     return out
 
 
+def generic_block_args(system, probs, X, U, A, Bj) -> tuple:
+    """The generic select's inputs on the assembled blocks of (X, U, A, B)
+    (q_reg 1e-9, psd_levels 1), for any system, and the scales s."""
+    from timeopt_tpu_torch.solver.augmented import build_augmented, build_terminal_factors
+
+    blk = build_augmented(system, probs, X, U, A, Bj, q_reg=1e-9, psd_levels=1)
+    args = [t.contiguous() for t in (blk.A_aug, blk.B_aug, blk.Q_aug, blk.R_inv,
+                                     build_terminal_factors(probs, X, s=blk.s))]
+    return args, blk.s
+
+
+def backward_args(system, probs, X, U, A, Bj, T, lm_init: float) -> list:
+    """backward_truncated_core's inputs at the horizons T, as the solve builds them."""
+    import torch
+    from timeopt_tpu_torch.solver.backward import backward_inputs
+
+    lm = torch.full((T.shape[0],), lm_init, dtype=torch.float64, device=X.device)
+    return [A.contiguous(), Bj.contiguous(), *backward_inputs(system, probs, X, U), T.contiguous(), lm]
+
+
+# Shapes that no system of the registry has, which the kernels run through
+# their run-time-size paths: the backward any (n, m) but (2, 1), (4, 1),
+# (4, 2) and (12, 4); the generic select any p but 3 and 5. Phase 3 holds
+# each against its plain version on random inputs (random_backward_args,
+# random_select_args), --ab against the earlier kernel bit for bit.
+OFF_REGISTRY_BACKWARD = ((3, 1), (6, 5))  # (n, m)
+OFF_REGISTRY_SELECT = ((4, 1), (9, 3))  # (p, m)
+B_OFF, N_OFF = 37, 48  # a batch that leaves the last block of either kernel partial
+
+
+def _spd(rng, k: int, lead: tuple, shift: float) -> np.ndarray:
+    """Random symmetric matrices G G' / k + shift I, exactly symmetric."""
+    G = rng.standard_normal((*lead, k, k))
+    S = G @ G.swapaxes(-1, -2) / k
+    return 0.5 * (S + S.swapaxes(-1, -2)) + shift * np.eye(k)
+
+
+def random_backward_args(n: int, m: int, B: int, N: int, device, seed: int = SEED) -> list:
+    """backward_truncated_core's inputs from a seed: A = I + 0.05 N(0, 1),
+    B = 0.3 N(0, 1), Qstage, Qf and R positive definite, every flag 1, T*
+    0, N, N/2, 1, N - 1, 3 and N + 2 in turn (so that the problems of one
+    block differ), lambda 1e-3."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    f = [np.eye(n) + 0.05 * rng.standard_normal((B, N, n, n)), 0.3 * rng.standard_normal((B, N, n, m)),
+         rng.standard_normal((B, N, n)), rng.standard_normal((B, N, m)), _spd(rng, n, (B, N), 0.1),
+         rng.standard_normal((B, N, n)), np.ones((B, N)), np.ones((B, N)), _spd(rng, n, (B,), 1.0),
+         _spd(rng, m, (B,), 0.5)]
+    T = [(0, N, N // 2, 1, N - 1, 3, N + 2)[i % 7] for i in range(B)]
+    return ([torch.as_tensor(x, device=device) for x in f]
+            + [torch.tensor(T, dtype=torch.int64, device=device), torch.full((B,), 1e-3, dtype=torch.float64,
+                                                                              device=device)])
+
+
+def random_select_args(p: int, m: int, B: int, N: int, device, seed: int = SEED) -> list:
+    """The generic select's inputs from a seed, laid out as build_augmented
+    lays them out: A_aug = [A a; 0 1] with A = I + 0.05 N(0, 1) and
+    a = 0.1 N(0, 1), B_aug = [0.3 N(0, 1); 0], Q_aug and R_inv positive
+    definite, C = [I + 0.1 N(0, 1) | 0.3 N(0, 1)]."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    n = p - 1
+    A = np.zeros((B, N, p, p))
+    A[..., :n, :n] = np.eye(n) + 0.05 * rng.standard_normal((B, N, n, n))
+    A[..., :n, n] = 0.1 * rng.standard_normal((B, N, n))
+    A[..., n, n] = 1.0
+    Bm = np.zeros((B, N, p, m))
+    Bm[..., :n, :] = 0.3 * rng.standard_normal((B, N, n, m))
+    C = np.concatenate([np.eye(n) + 0.1 * rng.standard_normal((B, N, n, n)), 0.3 * rng.standard_normal((B, N, n, 1))],
+                       axis=-1)
+    f = [A, Bm, _spd(rng, p, (B, N), 0.5), _spd(rng, m, (B,), 0.5), C]
+    return [torch.as_tensor(x, device=device) for x in f]
+
+
+def _gj_longdouble(M, k: int):
+    """Pivot-free Gauss-Jordan on the first k columns of the batched
+    (..., k, k + r) M, as ops/linalg.py::_gj_eliminate."""
+    for i in range(k):
+        row = M[..., i, :] / M[..., i, i][..., None]
+        M = M - M[..., :, i][..., :, None] * row[..., None, :]
+        M[..., i, :] = row
+    return M
+
+
+def select_generic_longdouble(args, rows, jitter: float = 1e-9, dtype=np.longdouble):
+    """J (len(rows), N) of the generic select kernel's math in numpy long
+    double, in its solve-based order (element from [sym(Q) + jitter I | A' |
+    I], compose from [sym(E_k + Gbar) + jitter I | Fbar' | F_k], query
+    Y = S^-1 (C Fbar') and J = 0.5 ((sym(X0) + jitter I)^-1)[p-1, p-1]),
+    every horizon evaluated; float64 on the CPU. The witness where the plain
+    version (explicit inverses) loses digits. dtype=np.float64 runs the
+    same order in double, as the kernel does (tests/test_torch_witness.py
+    reads it against the witness)."""
+    import torch
+
+    ld = dtype
+    A, Bm, Q, Ri, C = [a[rows].cpu().numpy().astype(ld) for a in args]
+    Bz, N, p, _ = A.shape
+    n = p - 1
+    tr = lambda x: x.swapaxes(-1, -2)  # noqa: E731
+    sym = lambda x: 0.5 * (x + tr(x))  # noqa: E731
+    I_p, I_n = np.eye(p, dtype=ld), np.eye(n, dtype=ld)
+    M = _gj_longdouble(np.concatenate([sym(Q) + jitter * I_p, tr(A), np.broadcast_to(I_p, Q.shape)], -1), p)
+    F, E = M[..., p:2 * p], M[..., 2 * p:]
+    G = sym(A @ F + (Bm @ Ri[:, None]) @ tr(Bm))
+    e_last = np.broadcast_to(I_p[:, -1:], (Bz, p, 1))
+    J = np.empty((Bz, N), ld)
+    Eb, Fb, Gb = E[:, 0], F[:, 0], G[:, 0]
+    for k in range(N):
+        if k:
+            M = _gj_longdouble(np.concatenate([sym(E[:, k] + Gb) + jitter * I_p, tr(Fb), F[:, k]], -1), p)
+            WFb, WFk = M[..., p:2 * p], M[..., 2 * p:]
+            Eb, Fb, Gb = sym(Eb - Fb @ WFb), Fb @ WFk, sym(G[:, k] - tr(F[:, k]) @ WFk)
+        Ck = C[:, k]
+        FC = Fb @ tr(Ck)
+        Y = _gj_longdouble(np.concatenate([sym(I_n + (Ck @ Gb) @ tr(Ck)), tr(FC)], -1), n)[..., n:]
+        X0 = sym(Eb - FC @ Y) + jitter * I_p
+        J[:, k] = 0.5 * _gj_longdouble(np.concatenate([X0, e_last], -1), p)[:, p - 1, p]
+    return torch.as_tensor(J.astype(np.float64))
+
+
+def backward_longdouble(bw_args, rows) -> tuple:
+    """kappa, K of the plain backward's math (solver/backward.py::
+    _backward_arrays: the same Q-expansion, pivot-free Gauss-Jordan on
+    [sym(Quu) + lambda I | Qu | Qux], value update in the K'Quu K form) in
+    numpy long double, for the problems `rows`; float64 on the CPU. The
+    witness for which of the kernel and its plain version is nearer the
+    exact gains where the two differ."""
+    import torch
+
+    ld = np.longdouble
+    A, Bm, lx, lu, Qs, QfeT, _, _, Qf, R, T, lm = [a[rows].cpu().numpy() for a in bw_args]
+    A, Bm, lx, lu, Qs, QfeT, Qf, R, lm = (x.astype(ld) for x in (A, Bm, lx, lu, Qs, QfeT, Qf, R, lm))
+    Bz, N, n, _ = A.shape
+    m = Bm.shape[-1]
+    tr = lambda x: x.swapaxes(-1, -2)  # noqa: E731
+    Vx, Vxx = np.zeros((Bz, n), ld), np.zeros((Bz, n, n), ld)
+    kappa, K = np.zeros((Bz, N, m), ld), np.zeros((Bz, N, m, n), ld)
+    for k in range(N - 1, -1, -1):
+        term = (k + 1) == T
+        Vx = np.where(term[:, None], QfeT[:, k], Vx)
+        Vxx = np.where(term[:, None, None], Qf, Vxx)
+        Ak, Bk = A[:, k], Bm[:, k]
+        Qx = lx[:, k] + (tr(Ak) @ Vx[..., None])[..., 0]
+        Qu = lu[:, k] + (tr(Bk) @ Vx[..., None])[..., 0]
+        Qxx = Qs[:, k] + tr(Ak) @ Vxx @ Ak
+        Quu = R + tr(Bk) @ Vxx @ Bk
+        Qux = tr(Bk) @ Vxx @ Ak
+        M = _gj_longdouble(np.concatenate([0.5 * (Quu + tr(Quu)) + lm[:, None, None] * np.eye(m, dtype=ld),
+                                           Qu[..., None], Qux], -1), m)
+        kap, Kk = -M[:, :, m], -M[:, :, m + 1:]
+        Vx_new = Qx + (tr(Kk) @ Qu[..., None])[..., 0] + (tr(Qux) @ kap[..., None])[..., 0] + (
+            tr(Kk) @ (Quu @ kap[..., None]))[..., 0]
+        Vxx_new = Qxx + tr(Kk) @ Qux + tr(Qux) @ Kk + tr(Kk) @ Quu @ Kk
+        Vxx_new = 0.5 * (Vxx_new + tr(Vxx_new))
+        active = k < T
+        Vx = np.where(active[:, None], Vx_new, Vx)
+        Vxx = np.where(active[:, None, None], Vxx_new, Vxx)
+        kappa[:, k] = np.where(active[:, None], kap, 0.0)
+        K[:, k] = np.where(active[:, None, None], Kk, 0.0)
+    return torch.as_tensor(kappa.astype(np.float64)), torch.as_tensor(K.astype(np.float64))
+
+
+def check_backward(bw_args, label: str, timed: bool = False, norm: float | None = None) -> tuple:
+    """Backward kernel vs plain: ok identical, and kappa, K within rtol 1e-9
+    / atol 1e-12 elementwise or, with `norm`, each problem's largest error
+    within `norm` of its largest |kappa| (|K|) (BACKWARD_NORM_B1024); both
+    readings are printed. Returns (kappa, K, ok) of the kernel and of the
+    plain version, and the kernel's numbers: max abs error and, with
+    `timed`, ms one call, back to back and plain."""
+    import torch
+    from timeopt_tpu_torch.ops import cuda_backward
+
+    kap_k, K_k, ok_k = cuda_backward.backward_truncated_core(*bw_args)
+    kap_p, K_p, ok_p = cuda_backward.backward_plain(*bw_args)
+    torch.cuda.synchronize()
+    e1, _ = max_err(kap_k, kap_p)
+    e2, _ = max_err(K_k, K_p)
+    nw = max(((k - p).abs().flatten(1).amax(1) / p.abs().flatten(1).amax(1)).nan_to_num(0.0).max().item()
+             for k, p in ((kap_k, kap_p), (K_k, K_p)))
+    elementwise = within(kap_k, kap_p, 1e-9, 1e-12) and within(K_k, K_p, 1e-9, 1e-12)
+    if norm is None:
+        require(elementwise, f"{label}: kappa/K outside rtol 1e-9 atol 1e-12 (max abs {e1:.3e}, {e2:.3e})")
+    else:
+        require(max_err(kap_k, kap_p)[1] and max_err(K_k, K_p)[1] and nw <= norm,
+                f"{label}: kappa/K normwise {nw:.3e} > {norm} or non-finite patterns differ")
+    require(bool(torch.equal(ok_k, ok_p)), f"{label}: ok flags differ")
+    if norm is not None:
+        witness_backward(bw_args, (kap_k, K_k), (kap_p, K_p), norm, label)
+    out = dict(max_abs_err=max(e1, e2))
+    timing = ""
+    if timed:
+        run = lambda: cuda_backward.backward_truncated_core(*bw_args)  # noqa: E731
+        out.update(ms=cuda_ms(run, reps=5), ms_back_to_back=device_ms(run),
+                   plain_ms=cuda_ms(lambda: cuda_backward.backward_plain(*bw_args), reps=3))
+        timing = (f" | kernel {out['ms']:.3f} ms one call, {out['ms_back_to_back']:.3f} ms back to back, "
+                  f"plain {out['plain_ms']:.3f} ms")
+    T = bw_args[-2]
+    gate = "rtol 1e-9, atol 1e-12" if norm is None else f"normwise {norm}; rtol 1e-9 atol 1e-12 holds: {elementwise}"
+    log(f"[kernels] {label}: max abs err kappa {e1:.3e}, K {e2:.3e}, normwise {nw:.3e} ({gate}), ok identical "
+        f"({int(ok_k.sum())}/{len(ok_k)} ok), T* {int(T.min())}..{int(T.max())}{timing}")
+    return (kap_k, K_k, ok_k), (kap_p, K_p, ok_p), out
+
+
+def witness_backward(bw_args, kernel, plain, norm: float, label: str, n_rows: int = 4) -> None:
+    """Where the backward kernel and its plain version differ beyond rtol
+    1e-9 / atol 1e-12, the long-double witness (backward_longdouble) on the
+    n_rows problems of largest excess: each side's largest abs error and
+    normwise error against it are printed, and the kernel must stay within
+    `norm` of it normwise."""
+    import torch
+
+    def excess(k, p):
+        return ((k - p).abs() - (1e-12 + 1e-9 * p.abs())).nan_to_num(0.0).flatten(1).amax(1)
+
+    exc = torch.maximum(excess(kernel[0], plain[0]), excess(kernel[1], plain[1]))
+    rows = exc.topk(min(n_rows, exc.numel())).indices.cpu()
+    wit = backward_longdouble(bw_args, rows)
+    read = {}
+    for side, outs in (("kernel", kernel), ("plain", plain)):
+        errs = [(o[rows].cpu() - w).abs() for o, w in zip(outs, wit)]
+        nw = max((e.flatten(1).amax(1) / w.abs().flatten(1).amax(1)).nan_to_num(0.0).max().item()
+                 for e, w in zip(errs, wit))
+        read[side] = (max(e.max().item() for e in errs), nw,
+                      all(within(o[rows].cpu(), w, 1e-9, 1e-12) for o, w in zip(outs, wit)))
+    log(f"[kernels] {label}: long-double witness (eps {float(np.finfo(np.longdouble).eps):.2e}) on problems "
+        f"{rows.tolist()} (excess over rtol 1e-9 / atol 1e-12: {exc.max().item():.3e}): kernel max abs err "
+        f"{read['kernel'][0]:.3e}, normwise {read['kernel'][1]:.3e}, rtol 1e-9 / atol 1e-12 {read['kernel'][2]}; "
+        f"plain max abs err {read['plain'][0]:.3e}, normwise {read['plain'][1]:.3e}, rtol 1e-9 / atol 1e-12 "
+        f"{read['plain'][2]}")
+    require(read["kernel"][1] <= norm, f"{label}: kappa/K normwise {read['kernel'][1]:.3e} off the long-double "
+                                       f"witness > {norm}")
+
+
+def witness_select(args, J_k, J_p, s, probs, label: str) -> None:
+    """The generic select kernel and its plain version against the
+    long-double witness (select_generic_longdouble) on every problem, for
+    T >= T_min: each side's largest relative and normwise error and its
+    argmin T* against the witness's (equal, or tied within 1e-9 of the
+    witness's J) printed; the kernel's J must be within WITNESS_SELECT_REL
+    of the witness's and its argmin tied on every problem."""
+    import torch
+    from timeopt_tpu_torch.solver.cost import argmin_T
+
+    Bsz, t = J_k.shape[0], probs.T_min - 1
+    J_w = select_generic_longdouble(args, torch.arange(Bsz)).to(J_k.device)
+    s0 = s[:, :1] ** 2
+    T_w = argmin_T(s0 * J_w, probs.T_min, probs.T_max)
+    rows = torch.arange(Bsz, device=J_k.device)
+    read = {}
+    for side, J in (("kernel", J_k), ("plain", J_p)):
+        d = (J[:, t:] - J_w[:, t:]).abs()
+        T = argmin_T(s0 * J, probs.T_min, probs.T_max)
+        Jt, Jw = J_w[rows, T - 1], J_w[rows, T_w - 1]
+        read[side] = ((d / J_w[:, t:].abs()).max().item(), (d.amax(1) / J_w[:, t:].abs().amax(1)).max().item(),
+                      int((T == T_w).sum()), int(((T == T_w) | ((Jt - Jw).abs() <= 1e-9 * Jw.abs())).sum()))
+    log(f"[kernels] {label}: long-double witness (eps {float(np.finfo(np.longdouble).eps):.2e}): kernel max rel err "
+        f"{read['kernel'][0]:.3e}, normwise {read['kernel'][1]:.3e}, argmin equal {read['kernel'][2]}/{Bsz}, tied "
+        f"{read['kernel'][3]}/{Bsz}; plain max rel err {read['plain'][0]:.3e}, normwise {read['plain'][1]:.3e}, "
+        f"argmin equal {read['plain'][2]}/{Bsz}, tied {read['plain'][3]}/{Bsz}")
+    require(read["kernel"][0] <= WITNESS_SELECT_REL, f"{label}: kernel J {read['kernel'][0]:.3e} relative off the "
+                                                     f"long-double witness > {WITNESS_SELECT_REL}")
+    require(read["kernel"][3] == Bsz, f"{label}: kernel argmin T* not tied to the long-double witness's on "
+                                      f"{Bsz - read['kernel'][3]} problems")
+
+
 def load_oracle(case: str) -> dict:
     suffix = "" if case == "Quadrotor" else f"_{case}"
     return dict(np.load(os.path.join(ROOT, "results", f"oracle_f64{suffix}.npz")))
@@ -467,12 +805,11 @@ def load_oracle(case: str) -> dict:
 
 def phase_kernels(device) -> dict:
     """The main path's kernels at B=1024 (quadrotor N=160, PointMass
-    N = T_max = 220), then each system's select and line search at B=128."""
+    N = T_max = 220), then each system's select, backward and line search
+    at B=128."""
     import torch
     from timeopt_tpu_torch.models import get_system
-    from timeopt_tpu_torch.ops import cuda_backward, cuda_forward, cuda_lft_generic, work
-    from timeopt_tpu_torch.solver.augmented import build_augmented, build_terminal_factors
-    from timeopt_tpu_torch.solver.backward import backward_inputs, backward_truncated
+    from timeopt_tpu_torch.ops import cuda_forward, cuda_lft_generic, work
     from timeopt_tpu_torch.solver.ilqr import SolveOptions
     from timeopt_tpu_torch.solver.linearize import linearize
 
@@ -495,27 +832,25 @@ def phase_kernels(device) -> dict:
         log(f"[kernels] {name}: kernel {ms:.3f} ms one call, {b2b:.3f} ms back to back, plain {pms:.3f} ms")
         if case == "Quadrotor":
             quad = (system, probs, X, U, A, Bj, T_p)
+        else:
+            pm = (system, probs, X, U, A, Bj, T_p)
 
-    # ---- quadrotor B=1024, at the plain select's T*: backward (kappa, K
-    # rtol 1e-9 / atol 1e-12, ok identical), then the line search
+    # ---- B=1024, at the plain select's T*: the backward on the quadrotor
+    # (its row in the kernels line) and on PointMass (beside it), each
+    # against its plain version (kappa, K rtol 1e-9 / atol 1e-12, ok
+    # identical); then the line search on the quadrotor
+    for case, tup in (("Quadrotor", quad), ("PointMass_Navigation", pm)):
+        system, probs, X, U, A, Bj, T_p = tup
+        bw_args = backward_args(system, probs, X, U, A, Bj, T_p, opts.lm_init)
+        _, plain_out, nums = check_backward(bw_args, f"backward ({case} B={B_FULL})", timed=True,
+                                            norm=BACKWARD_NORM_B1024.get(case))
+        nums.update(work.backward(T_p.tolist(), probs.N, system.n, system.m))
+        if case == "Quadrotor":
+            out["backward"] = nums
+            kap_p, K_p, _ = plain_out
+        else:
+            out["backward"]["pointmass"] = nums
     system, probs, X, U, A, Bj, T_p = quad
-    lm = torch.full((B_FULL,), opts.lm_init, dtype=torch.float64, device=device)
-    bw_args = [A.contiguous(), Bj.contiguous(), *backward_inputs(system, probs, X, U), T_p.contiguous(), lm]
-    kap_k, K_k, ok_k = cuda_backward.backward_truncated_core(*bw_args)
-    kap_p, K_p, ok_p = cuda_backward.backward_plain(*bw_args)
-    torch.cuda.synchronize()
-    e1, _ = max_err(kap_k, kap_p)
-    e2, _ = max_err(K_k, K_p)
-    require(within(kap_k, kap_p, 1e-9, 1e-12) and within(K_k, K_p, 1e-9, 1e-12),
-            f"backward: kappa/K outside rtol 1e-9 atol 1e-12 (max abs {e1:.3e}, {e2:.3e})")
-    require(bool(torch.equal(ok_k, ok_p)), "backward: ok flags differ")
-    b2b = device_ms(lambda: cuda_backward.backward_truncated_core(*bw_args))
-    ms = cuda_ms(lambda: cuda_backward.backward_truncated_core(*bw_args), reps=5)
-    pms = cuda_ms(lambda: cuda_backward.backward_plain(*bw_args), reps=3)
-    out["backward"] = dict(max_abs_err=max(e1, e2), ms=ms, ms_back_to_back=b2b, plain_ms=pms,
-                           **work.backward(T_p.tolist(), probs.N, system.n, system.m))
-    log(f"[kernels] backward: max abs err kappa {e1:.3e}, K {e2:.3e}, ok identical "
-        f"({int(ok_k.sum())}/{B_FULL} ok) | kernel {ms:.3f} ms one call, {b2b:.3f} ms back to back, plain {pms:.3f} ms")
 
     ls_args = (system, probs, X, U, K_p, kap_p, T_p, opts.alphas)
     err = check_linesearch(*ls_args, f"line search (Quadrotor B={B_FULL})", gate_all=True)
@@ -527,36 +862,55 @@ def phase_kernels(device) -> dict:
                                                len(opts.alphas)))
     log(f"[kernels] line search: kernel {ms:.3f} ms one call, {b2b:.3f} ms back to back, plain {pms:.3f} ms")
 
-    # ---- B=128, each system's oracle set: its select kernel and the line
-    # search; on the quadrotor the generic select on its assembled blocks
+    # ---- B=128, each system's oracle set: its select kernel, the backward
+    # at that select's T* and the line search; the generic select on the
+    # assembled blocks of the quadrotor (p = 13), the double integrator
+    # (p = 3) and the cart-pole (p = 5)
     for case in CASES:
         system, mk = get_system(case)
         probs = oracle_problems(system, mk, B_ORACLE, device)
         X, U, A, Bj = first_iterate(system, probs)
-        if case == "Quadrotor":
-            blk = build_augmented(system, probs, X, U, A, Bj, q_reg=1e-9, psd_levels=opts.psd_levels)
-            args = [t.contiguous() for t in (blk.A_aug, blk.B_aug, blk.Q_aug, blk.R_inv,
-                                             build_terminal_factors(probs, X, s=blk.s))]
+        if case in GENERIC_BLOCKS_BOUND:
+            args, s = generic_block_args(system, probs, X, U, A, Bj)
             J_k = cuda_lft_generic.propagator_select_generic(*args, t_min=probs.T_min)
             J_p = cuda_lft_generic.select_generic_plain(*args)
             torch.cuda.synchronize()
-            # rtol 2e-9: against a long-double run of the same math the plain
-            # version is off by 7.9e-10 and the kernel's elimination order by
-            # 2.8e-10 (before FMA contraction) on these inputs
-            check_select(J_k, J_p, blk.s, probs, ("rel", 2e-9), f"lft_select_generic (Quadrotor blocks B={B_ORACLE})")
-            continue
+            check_select(J_k, J_p, s, probs, GENERIC_BLOCKS_BOUND[case],
+                         f"lft_select_generic ({case} blocks B={B_ORACLE})",
+                         ungated="the plain version loses digits on these blocks (SELECT_BOUND); the generic kernel "
+                                 "is gated against the long-double witness next and the scan+query chain "
+                                 "(CHAIN_BOUND) below")
+            if GENERIC_BLOCKS_BOUND[case] is None:
+                witness_select(args, J_k, J_p, s, probs, f"lft_select_generic ({case} blocks B={B_ORACLE})")
         kernel, plain, s = select_pair(system, probs, opts, X, U, A, Bj)
         J_k, J_p = kernel(), plain()
         torch.cuda.synchronize()
         _, T = check_select(J_k, J_p, s, probs, SELECT_BOUND[case], f"select ({case} B={B_ORACLE})")
-        lm = torch.full((B_ORACLE,), opts.lm_init, dtype=torch.float64, device=device)
-        bw = backward_truncated(system, probs, A, Bj, X, U, T, lm)
-        ls_args = (system, probs, X, U, bw.K, bw.kappa, T, opts.alphas)
+        (kap, K, _), _, _ = check_backward(backward_args(system, probs, X, U, A, Bj, T, opts.lm_init),
+                                        f"backward ({case} B={B_ORACLE})")
+        ls_args = (system, probs, X, U, K, kap, T, opts.alphas)
         check_linesearch(*ls_args, f"line search ({case} B={B_ORACLE})", gate_all=False)
         ms = device_ms(lambda: cuda_forward.linesearch(*ls_args))
         pms = cuda_ms(lambda: cuda_forward.linesearch_plain(*ls_args), reps=1)
         log(f"[kernels] line search ({case} B={B_ORACLE} N={probs.N}): kernel {ms:.3f} ms back to back, "
             f"plain {pms:.3f} ms")
+
+    # ---- shapes no system has (the kernels' run-time-size paths), random
+    # inputs: the backward as at B=128, the generic select at T_min 1 (rel
+    # 1e-9: on these well-conditioned blocks 1e-13 relative perturbations
+    # of the inputs move J by at most 22 times that)
+    for n, m in OFF_REGISTRY_BACKWARD:
+        check_backward(random_backward_args(n, m, B_OFF, N_OFF, device),
+                       f"backward (random n={n} m={m} B={B_OFF} N={N_OFF})")
+    for p, m in OFF_REGISTRY_SELECT:
+        args = random_select_args(p, m, B_OFF, N_OFF, device)
+        J_k = cuda_lft_generic.propagator_select_generic(*args, t_min=1)
+        J_p = cuda_lft_generic.select_generic_plain(*args)
+        err, same = max_err(J_k, J_p)
+        rel = ((J_k - J_p).abs() / J_p.abs()).max().item()
+        log(f"[kernels] lft_select_generic (random p={p} m={m} B={B_OFF} N={N_OFF}, T_min 1): max abs err {err:.3e}, "
+            f"max rel err {rel:.3e} (bound rel 1e-9)")
+        require(same and rel <= 1e-9, f"lft_select_generic (random p={p} m={m}): J rel err {rel:.3e} > 1e-9")
 
     # ---- the unfused select (consistency_check's psd_levels=2): quadrotor
     # B=1024 first iterate, timed; then each system's oracle (X, U) at B=128
@@ -839,27 +1193,41 @@ def phase_throughput(case: str, device) -> dict:
 
 
 def phase_ab(device, old: str) -> list:
-    """The two redesigned kernels against an earlier version of their
-    sources (`old`, a csrc/ directory) on one card, in turns old, new, new,
-    old (each turn the median of CUDA-event timings): the fused select at
-    the quadrotor's B=1024 and the line search there and at B=128 on every
-    system, each on the first iterate of the oracle problem sets. Prints the
-    largest difference between the two versions' outputs and whether they
-    are bitwise equal; the new version is also held against the plain one
-    as phase 3 holds it."""
+    """The kernels whose sources differ between an earlier csrc/ directory
+    (`old`, e.g. an earlier commit's timeopt_tpu_torch/csrc) and this
+    checkout's (changed_kernels: the .cu, or a header it includes), old
+    against new on one card, in turns old, new, new, old (each turn the
+    median of CUDA-event timings), on the first iterate of the oracle
+    problem sets:
+    - lft_select: the quadrotor at B=1024;
+    - linesearch: the quadrotor at B=1024 and every system at B=128;
+    - lft_select_generic: PointMass at B=1024, the assembled blocks of
+      every system at B=128 (p = 3, 5 and 13) and the random blocks of
+      OFF_REGISTRY_SELECT;
+    - backward: the quadrotor and PointMass at B=1024, every system at
+      B=128, at the select kernel's T*, and the random inputs of
+      OFF_REGISTRY_BACKWARD.
+    Each row prints the largest difference between the two versions'
+    outputs and whether they are equal bit for bit; at B=1024 the new
+    version is also held against the plain one as phase 3 holds it. Then
+    one B=1024 solve of the quadrotor and of PointMass with each version's
+    kernels, in turns. After every row is printed, it fails unless each
+    kernel row is bitwise equal and each solve's T*, J*, X and U
+    identical."""
     import torch
     from timeopt_tpu_torch.models import get_system
-    from timeopt_tpu_torch.ops import _build, cuda_forward
-    from timeopt_tpu_torch.solver.backward import backward_truncated
+    from timeopt_tpu_torch.ops import _build, cuda_backward, cuda_forward, cuda_lft_generic
     from timeopt_tpu_torch.solver.cost import argmin_T
-    from timeopt_tpu_torch.solver.ilqr import SolveOptions
+    from timeopt_tpu_torch.solver.ilqr import SolveOptions, solve_batch
 
-    names = ["lft_select", "linesearch"]
     old = Path(old).resolve()
+    names = changed_kernels(old, _build.CSRC, list(KERNELS))
+    require(names, f"no kernel's sources differ between {old} and {_build.CSRC}")
     t0 = time.perf_counter()
     _build.load_all(names, old)
     _build.load_all(names)
-    log(f"[ab] {names} built from {old} (old) and from this checkout (new) in {time.perf_counter() - t0:.1f} s")
+    log(f"[ab] {names} differ; built from {old} (old) and from this checkout (new) in "
+        f"{time.perf_counter() - t0:.1f} s")
     for tag, csrc in (("old", old), ("new", _build.CSRC)):
         for name in names:
             report = _build.build_info(name, csrc)[1]
@@ -894,35 +1262,85 @@ def phase_ab(device, old: str) -> list:
                 t[tag + "_one_call"].append(cuda_ms(fn, reps=5))
         return t
 
-    opts = SolveOptions(max_iter=MAX_ITER, psd_levels=1)
-    rows = []
-    system, mk = get_system("Quadrotor")
-    probs = oracle_problems(system, mk, B_FULL, device)
-    X, U, A, Bj = first_iterate(system, probs)
-    kernel, plain, s = select_pair(system, probs, opts, X, U, A, Bj)
-    J_o, J_n = both(kernel)
-    err, same = max_err(J_o, J_n)
-    check_select(J_n, plain(), s, probs, SELECT_BOUND["Quadrotor"], f"ab: new lft_select vs plain (Quadrotor B={B_FULL})")
-    rows.append(dict(kernel="lft_select", case="Quadrotor", B=B_FULL, N=probs.N, max_abs_diff=err,
-                     bitwise=bool(same and err == 0.0), **{f"{k}_ms": v for k, v in turns(kernel).items()}))
-    for case, Bsz in [("Quadrotor", B_FULL)] + [(c, B_ORACLE) for c in CASES]:
-        system, mk = get_system(case)
-        probs = oracle_problems(system, mk, Bsz, device)
-        X, U, A, Bj = first_iterate(system, probs)
-        kernel, _, s = select_pair(system, probs, opts, X, U, A, Bj)
-        T = argmin_T(s[:, :1] ** 2 * kernel(), probs.T_min, probs.T_max)
-        lm = torch.full((Bsz,), opts.lm_init, dtype=torch.float64, device=device)
-        bw = backward_truncated(system, probs, A, Bj, X, U, T, lm)
-        args = (system, probs, X, U, bw.K, bw.kappa, T, opts.alphas)
-        out_o, out_n = both(lambda: cuda_forward.linesearch(*args))
-        errs = [max_err(a, b) for a, b in zip(out_o, out_n)]
-        check_linesearch(*args, f"ab: new line search vs plain ({case} B={Bsz})", gate_all=Bsz == B_FULL)
-        rows.append(dict(kernel="linesearch", case=case, B=Bsz, N=probs.N, max_abs_diff=max(e for e, _ in errs),
-                         bitwise=all(same and e == 0.0 for e, same in errs),
-                         **{f"{k}_ms": v for k, v in turns(lambda: cuda_forward.linesearch(*args)).items()}))
-    # end to end: one B=1024 solve with each version's kernels, in turns
-    from timeopt_tpu_torch.solver.ilqr import solve_batch
+    def row(name: str, case: str, BN: tuple, fn, outs) -> dict:
+        """BN: (B, N); outs: the old and the new version's outputs (tuples
+        of tensors)."""
+        o, n = outs
+        diff, bitwise = 0.0, True
+        for a, b in zip(o, n):
+            if a.dtype == torch.float64:
+                diff = max(diff, max_err(a, b)[0])
+                bitwise = bitwise and bool(torch.equal(a.contiguous().view(torch.int64), b.contiguous().view(torch.int64)))
+            else:
+                bitwise = bitwise and bool(torch.equal(a, b))
+        return dict(kernel=name, case=case, B=BN[0], N=BN[1], max_abs_diff=diff, bitwise=bitwise,
+                    **{f"{k}_ms": v for k, v in turns(fn).items()})
 
+    opts = SolveOptions(max_iter=MAX_ITER, psd_levels=1)
+    cache = {}
+
+    def setup(case: str, Bsz: int):
+        """(system, probs, X, U, A, Bj, select kernel, its plain version, s, the select kernel's T*)."""
+        if (case, Bsz) not in cache:
+            system, mk = get_system(case)
+            probs = oracle_problems(system, mk, Bsz, device)
+            X, U, A, Bj = first_iterate(system, probs)
+            kernel, plain, s = select_pair(system, probs, opts, X, U, A, Bj)
+            T = argmin_T(s[:, :1] ** 2 * kernel(), probs.T_min, probs.T_max)
+            cache[(case, Bsz)] = (system, probs, X, U, A, Bj, kernel, plain, s, T)
+        return cache[(case, Bsz)]
+
+    rows = []
+    every = [(c, B_ORACLE) for c in CASES]
+    if "lft_select" in names:
+        system, probs, X, U, A, Bj, kernel, plain, s, _ = setup("Quadrotor", B_FULL)
+        J_o, J_n = both(kernel)
+        check_select(J_n, plain(), s, probs, SELECT_BOUND["Quadrotor"], f"ab: new lft_select vs plain (Quadrotor B={B_FULL})")
+        rows.append(row("lft_select", "Quadrotor", (B_FULL, probs.N), kernel, ((J_o,), (J_n,))))
+    if "linesearch" in names:
+        for case, Bsz in [("Quadrotor", B_FULL)] + every:
+            system, probs, X, U, A, Bj, _, _, _, T = setup(case, Bsz)
+            kap, K, _ = cuda_backward.backward_truncated_core(*backward_args(system, probs, X, U, A, Bj, T, opts.lm_init))
+            args = (system, probs, X, U, K, kap, T, opts.alphas)
+            fn = lambda: cuda_forward.linesearch(*args)  # noqa: E731
+            outs = both(fn)
+            check_linesearch(*args, f"ab: new line search vs plain ({case} B={Bsz})", gate_all=Bsz == B_FULL)
+            rows.append(row("linesearch", case, (Bsz, probs.N), fn, outs))
+    if "lft_select_generic" in names:
+        system, probs, X, U, A, Bj, kernel, plain, s, _ = setup("PointMass_Navigation", B_FULL)
+        J_o, J_n = both(kernel)
+        check_select(J_n, plain(), s, probs, SELECT_BOUND["PointMass_Navigation"],
+                     f"ab: new lft_select_generic vs plain (PointMass_Navigation B={B_FULL})")
+        rows.append(row("lft_select_generic", "PointMass_Navigation", (B_FULL, probs.N), kernel, ((J_o,), (J_n,))))
+        for case, Bsz in every:  # the assembled blocks of every system
+            system, probs, X, U, A, Bj, _, _, _, _ = setup(case, Bsz)
+            args, _ = generic_block_args(system, probs, X, U, A, Bj)
+            fn = lambda: cuda_lft_generic.propagator_select_generic(*args, t_min=probs.T_min)  # noqa: E731
+            J_o, J_n = both(fn)
+            rows.append(row("lft_select_generic", f"{case} blocks", (Bsz, probs.N), fn, ((J_o,), (J_n,))))
+        for p, m in OFF_REGISTRY_SELECT:  # the run-time-size path
+            args = random_select_args(p, m, B_OFF, N_OFF, device)
+            fn = lambda: cuda_lft_generic.propagator_select_generic(*args, t_min=1)  # noqa: E731
+            J_o, J_n = both(fn)
+            rows.append(row("lft_select_generic", f"random p={p} m={m}", (B_OFF, N_OFF), fn, ((J_o,), (J_n,))))
+    if "backward" in names:
+        for case, Bsz in [("Quadrotor", B_FULL), ("PointMass_Navigation", B_FULL)] + every:
+            system, probs, X, U, A, Bj, _, _, _, T = setup(case, Bsz)
+            bw_args = backward_args(system, probs, X, U, A, Bj, T, opts.lm_init)
+            fn = lambda: cuda_backward.backward_truncated_core(*bw_args)  # noqa: E731
+            outs = both(fn)
+            if Bsz == B_FULL:
+                check_backward(bw_args, f"ab: new backward vs plain ({case} B={Bsz})",
+                               norm=BACKWARD_NORM_B1024.get(case))
+            rows.append(row("backward", case, (Bsz, probs.N), fn, outs))
+        for n, m in OFF_REGISTRY_BACKWARD:  # the run-time-size path
+            bw_args = random_backward_args(n, m, B_OFF, N_OFF, device)
+            fn = lambda: cuda_backward.backward_truncated_core(*bw_args)  # noqa: E731
+            rows.append(row("backward", f"random n={n} m={m}", (B_OFF, N_OFF), fn, both(fn)))
+    for name in names:
+        if not any(r["kernel"] == name for r in rows):
+            log(f"[ab] {name}: its sources differ, and --ab has no rows for it")
+    # end to end: one B=1024 solve with each version's kernels, in turns
     for case in ("Quadrotor", "PointMass_Navigation"):
         system, mk = get_system(case)
         probs = oracle_problems(system, mk, B_FULL, device)
@@ -949,6 +1367,9 @@ def phase_ab(device, old: str) -> list:
             f"{r['new_ms'][0]:.3f} / new {r['new_ms'][1]:.3f} / old {r['old_ms'][1]:.3f} ms; one call: old "
             f"{r['old_one_call_ms'][0]:.3f} / new {r['new_one_call_ms'][0]:.3f} / new {r['new_one_call_ms'][1]:.3f} / old "
             f"{r['old_one_call_ms'][1]:.3f} ms | max |new - old| {r['max_abs_diff']:.3e}, bitwise {r['bitwise']} | {smi()}")
+    differ = [f"{r['kernel']} ({r['case']})" for r in rows
+              if not r.get("bitwise", True) or not r.get("same_result", True)]
+    require(not differ, f"--ab: old and new are not bitwise equal on {differ}")
     return rows
 
 
@@ -989,6 +1410,11 @@ def main() -> None:
             f"({k['flops'] / 1e9:.3f} GFLOP, {k['bytes'] / 1e6:.1f} MB; {k['bound_ms_cuda_cores']:.4f} ms at "
             f"{work.PEAK_FLOPS_CUDA_CORES / 1e12:g} TFLOP/s), share of bound {k['share_of_bound']:.4f}, "
             f"launches per B={B_FULL} solve {k['launches_per_solve']}")
+    bpm = numbers["backward"]["pointmass"]
+    bpm["share_of_bound"] = bpm["bound_ms"] / bpm["ms_back_to_back"]
+    log(f"[bounds] backward (PointMass_Navigation B={B_FULL}, its own T*): {bpm['ms_back_to_back']:.3f} ms back to back "
+        f"({bpm['ms']:.3f} one call, plain {bpm['plain_ms']:.3f}), bound {bpm['bound_ms']:.4f} ms by {bpm['bound_by']} "
+        f"({bpm['flops'] / 1e9:.3f} GFLOP, {bpm['bytes'] / 1e6:.1f} MB), share of bound {bpm['share_of_bound']:.4f}")
     print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,86 @@
+"""Which kernels `chip_smoke.py --ab` times: those whose sources differ.
+
+`changed_kernels(old, new, names)` compares two csrc/ directories kernel
+by kernel: the .cu and every header it includes (transitively, as read in
+either directory). These tests need no card: they build directories of
+sources and compare them.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import shutil
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+CSRC = ROOT / "timeopt_tpu_torch" / "csrc"
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke_ab", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+cs = _chip_smoke()
+
+
+def _tree(root: Path, files: dict) -> Path:
+    root.mkdir(parents=True)
+    for name, text in files.items():
+        (root / name).write_text(text)
+    return root
+
+
+BASE = {
+    "a.cu": '#include "h.cuh"\nint a;\n',
+    "b.cu": '#include <math.h>\n#include "g.cuh"\nint b;\n',
+    "c.cu": "int c;\n",
+    "h.cuh": '#include "deep.cuh"\nint h;\n',
+    "g.cuh": "int g;\n",
+    "deep.cuh": "int deep;\n",
+}
+
+
+@pytest.mark.parametrize("edit,expected", [
+    ({}, []),  # identical trees
+    ({"c.cu": "int c2;\n"}, ["c"]),  # a .cu alone
+    ({"g.cuh": "int g2;\n"}, ["b"]),  # a header one kernel includes
+    ({"deep.cuh": "int deep2;\n"}, ["a"]),  # a header included by a header
+    ({"a.cu": '#include "new.cuh"\nint a;\n', "new.cuh": "int n;\n"}, ["a"]),  # a header only the new tree has
+    ({"unused.cuh": "int u;\n"}, []),  # a header no kernel includes
+    ({"c.cu": "int c2;\n", "g.cuh": "int g2;\n"}, ["b", "c"]),
+])
+def test_changed_kernels_takes_what_each_build_reads(tmp_path, edit, expected):
+    old = _tree(tmp_path / "old", BASE)
+    new = _tree(tmp_path / "new", {**BASE, **edit})
+    assert cs.changed_kernels(old, new, ["a", "b", "c"]) == expected
+    assert cs.changed_kernels(new, old, ["a", "b", "c"]) == expected
+
+
+def test_changed_kernels_skips_a_kernel_the_old_tree_lacks(tmp_path):
+    old = _tree(tmp_path / "old", {k: v for k, v in BASE.items() if k != "c.cu"})
+    new = _tree(tmp_path / "new", {**BASE, "c.cu": "int c2;\n"})
+    assert cs.changed_kernels(old, new, ["a", "b", "c"]) == []
+
+
+def test_kernel_sources_follow_includes():
+    assert cs.kernel_sources("backward", CSRC) == {"backward.cu", "warpmat.cuh"}
+    assert cs.kernel_sources("lft_select", CSRC) == {"lft_select.cu"}
+
+
+@pytest.mark.parametrize("header,expected", [
+    ("warpmat.cuh", ["lft_select_generic", "backward"]),
+    ("smallmat.cuh", ["linesearch", "lft_scan", "lft_query"]),
+])
+def test_changed_kernels_on_this_checkout(tmp_path, header, expected):
+    """A changed shared header selects exactly the kernels that include it,
+    in the order of chip_smoke.py's kernel table."""
+    old = tmp_path / "csrc"
+    shutil.copytree(CSRC, old)
+    (old / header).write_text((old / header).read_text() + "\n// an earlier version\n")
+    assert cs.changed_kernels(old, CSRC, list(cs.KERNELS)) == expected
+    assert cs.changed_kernels(CSRC, CSRC, list(cs.KERNELS)) == []

@@ -27,6 +27,8 @@ search compares trajectories only where an alpha improves on J_old.
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -44,6 +46,14 @@ from timeopt_tpu_torch.solver.linearize import linearize
 
 pytestmark = pytest.mark.cuda
 ALPHAS = (1.0, 0.5, 0.25, 0.1, 0.05)
+
+
+def _chip_smoke():
+    """chip_smoke.py, for its random inputs of shapes no system has."""
+    spec = importlib.util.spec_from_file_location("chip_smoke_card", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 @pytest.fixture
@@ -90,25 +100,65 @@ def test_select_kernel_matches_plain(dev, case, noise, rtol):
     assert torch.equal(argmin_T(s0 * J_k, probs.T_min, probs.T_max), argmin_T(s0 * J_p, probs.T_min, probs.T_max))
 
 
-@pytest.mark.parametrize("case,noise", [("PointMass_Navigation", 0.0), ("PointMass_Navigation", 0.05),
-                                        ("Quadrotor", 0.0)])
-def test_generic_select_kernel_matches_plain(dev, case, noise):
+@pytest.mark.parametrize("case,noise,B,t_min", [
+    ("PointMass_Navigation", 0.0, 4, None), ("PointMass_Navigation", 0.05, 4, None), ("Quadrotor", 0.0, 4, None),
+    ("DoubleIntegrator", 0.05, 37, 1), ("DoubleIntegrator", 0.05, 37, "N"),
+    ("Cartpole_SwingUp", 0.0, 37, 1), ("Cartpole_SwingUp", 0.0, 37, "N"),
+])
+def test_generic_select_kernel_matches_plain(dev, case, noise, B, t_min):
     """PointMass iterates (its obstacle Hessian makes Q_aug vary with k) and
     the quadrotor's assembled blocks, which have no extra cost, exercise the
-    largest p = 13, m = 4."""
-    system, probs, X, U, A, Bj = _iterate(case, N=64 if case == "PointMass_Navigation" else 32, noise=noise)
+    largest p = 13, m = 4; the double integrator (p = 3) and the cart-pole
+    (p = 5, m = 1) at B = 37 leave the last block half full (two problems
+    a block at p = 3 and 5), with T_min = 1 (every step queried) and N (one
+    query). On the cart-pole's blocks the plain version (explicit inverses)
+    loses digits at the zero theta weight (1e-2 to 0.4 relative here), so
+    the kernel's J is held to the scan+query kernel chain, which takes the
+    kernel's operation order in other code (chip_smoke.py's CHAIN_BOUND,
+    rtol 1e-12), and to a long-double run of its own math, with its argmin
+    T* (chip_smoke.py's WITNESS_SELECT_REL)."""
+    system, probs, X, U, A, Bj = _iterate(case, B=B, N=64 if case == "PointMass_Navigation" else 32, noise=noise)
+    t_min = {None: probs.T_min, "N": probs.N}.get(t_min, t_min)
     blk = build_augmented(system, probs, X, U, A, Bj, psd_levels=1)
     C = build_terminal_factors(probs, X, s=blk.s)
     args = [t.contiguous().to(dev) for t in (blk.A_aug, blk.B_aug, blk.Q_aug, blk.R_inv, C)]
     n0 = cuda_lft_generic.LAUNCHES
-    J_k = cuda_lft_generic.propagator_select_generic(*args, t_min=probs.T_min)
+    J_k = cuda_lft_generic.propagator_select_generic(*args, t_min=t_min)
     assert cuda_lft_generic.LAUNCHES == n0 + 1
-    J_p = cuda_lft_generic.select_generic_plain(*args)
-    t = probs.T_min - 1
+    t = t_min - 1
     assert torch.isinf(J_k[:, :t]).all()
+    J_p = cuda_lft_generic.select_generic_plain(*args)
+    if case == "Cartpole_SwingUp":
+        pre = cuda_lft_scan.lft_scan(args[0], brb(args[1], args[3]), args[2], levels=1)
+        _close(J_k[:, t:], cuda_lft_query.lft_query(*pre, args[4], levels=1)[:, t:], 1e-12, 0.0)
+        # the long-double witness of the kernel's math (chip_smoke.py's
+        # WITNESS_SELECT_REL): J within 1e-3, argmin T* equal or tied
+        # within 1e-9 of the witness's J
+        J_w = _chip_smoke().select_generic_longdouble(args, torch.arange(B)).to(dev)
+        _close(J_k[:, t:], J_w[:, t:], 1e-3, 0.0)
+        s0 = blk.s[:, :1].to(dev) ** 2
+        T_k, T_w = argmin_T(s0 * J_k, t_min, probs.T_max), argmin_T(s0 * J_w, t_min, probs.T_max)
+        rows = torch.arange(B, device=dev)
+        Jk, Jw = J_w[rows, T_k - 1], J_w[rows, T_w - 1]
+        assert bool(((T_k == T_w) | ((Jk - Jw).abs() <= 1e-9 * Jw.abs())).all())
+        return
     _close(J_k[:, t:], J_p[:, t:], 1e-9, 0.0)
     s0 = blk.s[:, :1].to(dev) ** 2
-    assert torch.equal(argmin_T(s0 * J_k, probs.T_min, probs.T_max), argmin_T(s0 * J_p, probs.T_min, probs.T_max))
+    assert torch.equal(argmin_T(s0 * J_k, t_min, probs.T_max), argmin_T(s0 * J_p, t_min, probs.T_max))
+
+
+@pytest.mark.parametrize("p,m,t_min", [(4, 1, 1), (2, 1, 1), (9, 3, "N"), (13, 8, 1)])
+def test_generic_select_run_time_sizes_match_plain(dev, p, m, t_min):
+    """p other than the registry's 3 and 5 takes the kernel's run-time-size
+    path: random well-conditioned blocks (chip_smoke.random_select_args) at
+    B = 37, against the plain version within rtol 1e-9."""
+    cs = _chip_smoke()
+    N = 24
+    t_min = N if t_min == "N" else t_min
+    args = cs.random_select_args(p, m, 37, N, dev)
+    J_k = cuda_lft_generic.propagator_select_generic(*args, t_min=t_min)
+    assert torch.isinf(J_k[:, : t_min - 1]).all()
+    _close(J_k[:, t_min - 1 :], cuda_lft_generic.select_generic_plain(*args)[:, t_min - 1 :], 1e-9, 0.0)
 
 
 def ladder_inputs():
@@ -177,12 +227,19 @@ def test_scan_and_query_take_one_or_two_levels_on_the_card(dev):
         cuda_lft_query.lft_query(x, x, x, x[..., :2, :], levels=0)
 
 
-@pytest.mark.parametrize("variant", ["T1", "Tmid", "TN", "nonpd", "nonfinite_eT", "T0"])
-def test_backward_kernel_matches_plain(dev, variant):
-    system, probs, X, U, A, Bj = _iterate("Quadrotor")
+@pytest.mark.parametrize("case,variant", [("Quadrotor", v) for v in ("T1", "Tmid", "TN", "nonpd", "nonfinite_eT", "T0")]
+                         + [(c, "mixed") for c in ("DoubleIntegrator", "Cartpole_SwingUp", "Quadrotor", "Segway_Balance",
+                                                   "Ballbot_Balance", "PointMass_Navigation")])
+def test_backward_kernel_matches_plain(dev, case, variant):
+    """The quadrotor's edges at B = 4, and every system at B = 37 ("mixed":
+    four problems a block, the last block with one) with T* that differ
+    between the problems of a block: 0, N, N/2, 1, N - 1, 3 and N + 2."""
+    B = 37 if variant == "mixed" else 4
+    system, probs, X, U, A, Bj = _iterate(case, B=B)
     N = U.shape[1]
-    Tst = {"T1": [1] * 4, "TN": [N] * 4, "T0": [0, 3, 5, 7]}.get(variant, [N // 2, 7, N - 3, 11])
-    lm = torch.full((4,), 1e-3, dtype=torch.float64)
+    Tst = {"T1": [1] * 4, "TN": [N] * 4, "T0": [0, 3, 5, 7],
+           "mixed": [(0, N, N // 2, 1, N - 1, 3, N + 2)[i % 7] for i in range(B)]}.get(variant, [N // 2, 7, N - 3, 11])
+    lm = torch.full((B,), 1e-3, dtype=torch.float64)
     if variant == "nonpd":
         lm[0] = -1e4
     if variant == "nonfinite_eT":
@@ -190,6 +247,19 @@ def test_backward_kernel_matches_plain(dev, variant):
         X[1, Tst[1], 2] = float("nan")
     args = [A, Bj, *backward_inputs(system, probs, X, U), torch.tensor(Tst), lm]
     args = [a.to(dev) for a in args]
+    kap_k, K_k, ok_k = cuda_backward.backward_truncated_core(*args)
+    kap_p, K_p, ok_p = cuda_backward.backward_plain(*args)
+    assert torch.equal(ok_k, ok_p)
+    _close(kap_k, kap_p, 1e-9, 1e-12)
+    _close(K_k, K_p, 1e-9, 1e-12)
+
+
+@pytest.mark.parametrize("n,m", [(3, 1), (6, 5), (1, 1), (12, 8), (8, 2)])
+def test_backward_run_time_sizes_match_plain(dev, n, m):
+    """(n, m) other than the registry's takes the kernel's run-time-size
+    path: random inputs (chip_smoke.random_backward_args) at B = 37 with T*
+    from 0 to N + 2 mixed in a block, against the plain version as above."""
+    args = _chip_smoke().random_backward_args(n, m, 37, 24, dev)
     kap_k, K_k, ok_k = cuda_backward.backward_truncated_core(*args)
     kap_p, K_p, ok_p = cuda_backward.backward_plain(*args)
     assert torch.equal(ok_k, ok_p)

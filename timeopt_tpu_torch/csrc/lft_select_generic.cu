@@ -22,183 +22,471 @@
 // reference: Q_aug may be indefinite near an obstacle, and the result must
 // be the same function, not a better-conditioned one.
 //
-// What bounds it on the H100: as for lft_select.cu, the recursion is
-// sequential in k and each step is a chain of dependent p x p eliminations
-// (three per step: element, compose, query, plus the n x n query solve), so
-// a problem is bound by the latency of its block barriers, not by bytes or
-// FLOPs (a step reads (3p^2 + pm + np) doubles, 1.5 KB at p = 5, m = 2). The
-// time loop runs inside one thread block per problem with every carry and
-// scratch matrix in shared memory (~20 KB at the p = 13 maximum); threads map
-// over matrix entries, and the batch fills the card. The element takes F
-// and E from one Gauss-Jordan sweep of [Q | A' | I], the compose W Fbar' and
-// W F_k from one sweep of [E_k + Gbar | Fbar' | F_k]; that compose is a copy
-// of lft_select.cu's rather than a shared header, so the fused kernel's
-// compiled code, and its agreement with its plain version, stay as they
-// are. At p = 5 a 128-thread block leaves most threads idle in every sweep;
-// packing several problems into a block is left for later work.
+// Bound on the H100 (chip_smoke.py's count, timeopt_tpu_torch/ops/work.py):
+// at PointMass's p = 5, m = 2, B = 1024, N = 220 a step reads 1.1 KB of
+// inputs and does ~3.6 kFLOP, so the call is bound by bytes at ~0.05 ms.
+// What holds it back is the serial chain over k: three dependent p x p
+// eliminations a step. The earlier design ran each problem in one block
+// of 128 threads mapped over matrix entries, crossed ~50 block-wide
+// barriers a step with a few multiply-adds between them, read each step's
+// inputs at the step's head, and ran element, compose and query in series.
+//
+// The design takes the chain apart, as lft_select.cu does. Each problem
+// has four warps (two problems a block at the registry's p = 3 and 5,
+// one at any other p <= 13):
+// - the element warp loads step k+1's Q_aug, A_aug and B_aug with
+//   cp.async while it builds step k's element (E, F, G: it does not
+//   depend on the carry) into a ring of two slots;
+// - the compose warp alone is on the chain: it sweeps
+//   [sym(E_k + Gbar) + jitter I | Fbar' | F_k] by Gauss-Jordan in
+//   registers (csrc/warpmat.cuh: lane j holds column j at p = 3 and 5,
+//   two columns a lane otherwise; the pivot column broadcast by
+//   __shfl_sync, no barrier per pivot), forms the three p x p products
+//   (with one column a lane the left block's lanes, idle after the sweep,
+//   take G_k - F_k' (W F_k)) and
+//   writes the new carry into a ring of four slots;
+// - two query warps take the even and the odd steps, each loading its
+//   steps' C with cp.async one step ahead, and run the C-form query off
+//   the chain; the last sweep eliminates forward only, which gives the last
+//   pivot the same bits as the full sweep.
+// Warps hand slots over with mbarriers ("full" and "free" per slot), and
+// no block-wide barrier runs inside the step loops. Every entry keeps the
+// arithmetic and the operation order of the earlier kernel (each division
+// by the pivot, each M - col * row update, each inner sum in index order,
+// each symmetrization with its operands in the same order), so J is equal
+// to it bit for bit; only the schedule differs. The additions that join two
+// sums are written __dadd_rn / __dsub_rn: with compile-time sizes the
+// compiler could otherwise fuse a one-term sum's product into them, which
+// the earlier kernel (runtime sizes) never did.
+//
+// What holds it back now (PERF.md section 6): at PointMass B = 1024 the
+// kernel runs 1.30 ms against the earlier kernel's 3.79 (bound 0.048 ms).
+// The element, compose and query roles take about the same time a step,
+// so no single role paces the pipeline; inside each role the p-row
+// Gauss-Jordan sweep leads: every pivot waits on a shuffle and a float64
+// division, which the bit-for-bit contract keeps.
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
-#include "smallmat.cuh"
+#include "warpmat.cuh"
 
 namespace {
+
+using namespace warpmat;
 
 constexpr int NMAX = 12;
 constexpr int PMAX = NMAX + 1;
 constexpr int MMAX = 8;
-constexpr int THREADS = 128;
+constexpr int NQ = 2;           // query warps: step k goes to warp k % NQ
+constexpr int ROLES = 2 + NQ;   // element, compose, queries
+constexpr int RE = 2;           // element ring
+constexpr int RC = 2 * NQ;      // carry ring; a multiple of NQ, so a slot always feeds the same query warp
 
-__global__ void __launch_bounds__(THREADS)
-lft_select_generic_kernel(const double* __restrict__ Ag, const double* __restrict__ Bg,
-                          const double* __restrict__ Qg, const double* __restrict__ Rinv,
-                          const double* __restrict__ Cg, double* __restrict__ J, int N, int n,
-                          int m, int t_min, double jitter) {
-  const int b = blockIdx.x;
-  const int p = n + 1;
+template <int PM>
+struct Stage {  // raw inputs of one step
+  double Q[PM * PM], A[PM * PM], B[PM * MMAX];
+};
+template <int PM>
+struct Mats {  // an element (E, F, G) or a prefix carry (Ebar, Fbar, Gbar)
+  double E[PM * PM], F[PM * PM], G[PM * PM];
+};
+template <int PM>
+struct QueryScratch {  // one query warp's C ring and products
+  double C[2][(PM - 1) * PM], CG[(PM - 1) * PM], FC[PM * (PM - 1)], QS[PM * PM];
+};
+template <int PM>
+struct Problem {
+  uint64_t elem_full[RE], elem_free[RE], carry_full[RC], carry_free[RC];
+  double Ri[MMAX * MMAX], BR[PM * MMAX];
+  Stage<PM> stage[2];
+  Mats<PM> elem[RE], carry[RC];
+  QueryScratch<PM> qs[NQ];
+};
+
+template <int PM>
+__device__ __forceinline__ void load_stage(Stage<PM>& st, const double* Ag, const double* Bg, const double* Qg,
+                                           size_t bk, int p, int m, int lane) {
   const int pp = p * p;
-  const int tid = threadIdx.x, nt = blockDim.x;
+  for (int i = lane; i < pp; i += WARP) {
+    cp_async8(&st.Q[i], Qg + bk * pp + i);
+    cp_async8(&st.A[i], Ag + bk * pp + i);
+  }
+  for (int i = lane; i < p * m; i += WARP) cp_async8(&st.B[i], Bg + bk * p * m + i);
+  cp_async_commit();
+}
 
-  __shared__ double cE[PMAX * PMAX], cF[PMAX * PMAX], cG[PMAX * PMAX];
-  __shared__ double E[PMAX * PMAX], F[PMAX * PMAX], G[PMAX * PMAX];
-  __shared__ double Aa[PMAX * PMAX], T1[PMAX * PMAX];
-  __shared__ double Ri[MMAX * MMAX], Bk[PMAX * MMAX], BR[PMAX * MMAX];
-  __shared__ double Ck[NMAX * PMAX], CG[NMAX * PMAX], FC[PMAX * NMAX];
-  __shared__ double Mx[PMAX * 3 * PMAX];
-  __shared__ double rowbuf[3 * PMAX], colbuf[PMAX], piv[PMAX];
-
-  for (int i = tid; i < m * m; i += nt) Ri[i] = Rinv[(size_t)b * m * m + i];
-
-  for (int k = 0; k < N; ++k) {
-    const size_t bk = (size_t)b * N + k;
-    const double* Ak = Ag + bk * pp;
-    const double* Qk = Qg + bk * pp;
-
-    // ---- element: [sym(Q) + jitter I | A' | I] -> [I | Q^-1 A' | Q^-1] = [I | F | E]
-    const int ld = 3 * p;
-    for (int idx = tid; idx < p * ld; idx += nt) {
-      const int i = idx / ld, j = idx - (idx / ld) * ld;
-      double x;
-      if (j < p) x = 0.5 * (Qk[i * p + j] + Qk[j * p + i]) + (i == j ? jitter : 0.0);
-      else if (j < 2 * p) x = Ak[(j - p) * p + i];
-      else x = (i == j - 2 * p) ? 1.0 : 0.0;
-      Mx[idx] = x;
-    }
-    for (int i = tid; i < pp; i += nt) Aa[i] = Ak[i];
-    for (int i = tid; i < p * m; i += nt) Bk[i] = Bg[bk * p * m + i];
-    for (int i = tid; i < n * p; i += nt) Ck[i] = Cg[bk * n * p + i];
-    __syncthreads();
-    smm<false, false>(BR, m, Bk, m, Ri, m, p, m, m, 1.0, false);  // B R^-1
-    gj_eliminate(Mx, ld, p, ld, piv, rowbuf, colbuf);
-    // G = sym(A F + B R^-1 B')
-    for (int idx = tid; idx < pp; idx += nt) {
-      const int i = idx / p, j = idx - (idx / p) * p;
-      F[idx] = Mx[i * ld + p + j];
-      E[idx] = Mx[i * ld + 2 * p + j];
-      double g = 0.0;
-      for (int l = 0; l < p; ++l) g += Aa[i * p + l] * Mx[l * ld + p + j];
-      double brb = 0.0;
-      for (int l = 0; l < m; ++l) brb += BR[i * m + l] * Bk[j * m + l];
-      T1[idx] = g + brb;
-    }
-    __syncthreads();
-    for (int idx = tid; idx < pp; idx += nt) {
-      const int i = idx / p, j = idx - (idx / p) * p;
-      G[idx] = 0.5 * (T1[idx] + T1[j * p + i]);
-    }
-    __syncthreads();
-
-    if (k == 0) {
-      // the first element is the carry itself: no compose
-      for (int idx = tid; idx < pp; idx += nt) {
-        cE[idx] = E[idx];
-        cF[idx] = F[idx];
-        cG[idx] = G[idx];
+// ---- element warp: step k's element from its staged inputs
+template <int PM, int CPL, bool EXACT>
+__device__ __noinline__ void build_element(Problem<PM>& P, const Stage<PM>& st, Mats<PM>& el, int n, int m,
+                                           double jitter, int lane) {
+  const int p = EXACT ? PM : n + 1;
+  // B R^-1 (p x m)
+  for (int idx = lane; idx < p * m; idx += WARP) {
+    const int i = idx / m, j = idx - (idx / m) * m;
+    double sum = 0.0;
+    for (int l = 0; l < m; ++l) sum += st.B[i * m + l] * P.Ri[l * m + j];
+    P.BR[idx] = sum;
+  }
+  // [sym(Q) + jitter I | A' | I] -> [I | Q^-1 A' | Q^-1] = [I | F | E]
+  double M[CPL][PM];
+#pragma unroll
+  for (int s = 0; s < CPL; ++s) {
+    const int col = lane + WARP * s;
+#pragma unroll
+    for (int i = 0; i < PM; ++i) {
+      double x = 0.0;
+      if (i < p && col < 3 * p) {
+        if (col < p) x = 0.5 * (st.Q[i * p + col] + st.Q[col * p + i]) + (i == col ? jitter : 0.0);
+        else if (col < 2 * p) x = st.A[(col - p) * p + i];
+        else x = (i == col - 2 * p) ? 1.0 : 0.0;
       }
-      __syncthreads();
-    } else {
-      // ---- compose: [sym(E_k + Gbar) + jitter I | Fbar' | F_k] -> [I | W Fbar' | W F_k]
-      for (int idx = tid; idx < p * ld; idx += nt) {
-        const int i = idx / ld, j = idx - (idx / ld) * ld;
-        double x;
-        if (j < p)
-          x = 0.5 * ((E[i * p + j] + cG[i * p + j]) + (E[j * p + i] + cG[j * p + i])) +
-              (i == j ? jitter : 0.0);
-        else if (j < 2 * p) x = cF[(j - p) * p + i];
-        else x = F[i * p + (j - 2 * p)];
-        Mx[idx] = x;
-      }
-      __syncthreads();
-      gj_eliminate(Mx, ld, p, ld, piv, rowbuf, colbuf);
-      // Ebar - Fbar (W Fbar') -> E;  Fbar (W F_k) -> Aa;  G_k - F_k' (W F_k) -> T1
-      for (int idx = tid; idx < pp; idx += nt) {
-        const int i = idx / p, j = idx - (idx / p) * p;
-        double a = 0.0, f = 0.0, g = 0.0;
-        for (int l = 0; l < p; ++l) {
-          a += cF[i * p + l] * Mx[l * ld + p + j];
-          f += cF[i * p + l] * Mx[l * ld + 2 * p + j];
-          g += F[l * p + i] * Mx[l * ld + 2 * p + j];
-        }
-        E[idx] = cE[idx] - a;
-        Aa[idx] = f;
-        T1[idx] = G[idx] - g;
-      }
-      __syncthreads();
-      for (int idx = tid; idx < pp; idx += nt) {
-        const int i = idx / p, j = idx - (idx / p) * p;
-        cE[idx] = 0.5 * (E[idx] + E[j * p + i]);
-        cF[idx] = Aa[idx];
-        cG[idx] = 0.5 * (T1[idx] + T1[j * p + i]);
-      }
-      __syncthreads();
-    }
-
-    if (k + 1 < t_min) {
-      if (tid == 0) J[bk] = INFINITY;
-      continue;
-    }
-
-    // ---- C-form terminal query
-    smm<false, false>(CG, p, Ck, p, cG, p, n, p, p, 1.0, false);  // C Gbar   (n x p)
-    smm<false, true>(FC, n, cF, p, Ck, p, p, n, p, 1.0, false);   // Fbar C'  (p x n)
-    {
-      // [sym(I + C Gbar C') | C Fbar'] -> [I | Y]
-      const int lq = n + p;
-      for (int idx = tid; idx < n * lq; idx += nt) {
-        const int i = idx / lq, j = idx - (idx / lq) * lq;
-        double x;
-        if (j < n) {
-          double sij = 0.0, sji = 0.0;
-          for (int l = 0; l < p; ++l) {
-            sij += CG[i * p + l] * Ck[j * p + l];
-            sji += CG[j * p + l] * Ck[i * p + l];
-          }
-          const double d = (i == j) ? 1.0 : 0.0;
-          x = 0.5 * ((d + sij) + (d + sji));
-        } else {
-          x = FC[(j - n) * n + i];
-        }
-        Mx[idx] = x;
-      }
-      __syncthreads();
-      gj_eliminate(Mx, lq, n, lq, piv, rowbuf, colbuf);
-      // X0 = Ebar - (Fbar C') Y
-      for (int idx = tid; idx < pp; idx += nt) {
-        const int i = idx / p, j = idx - (idx / p) * p;
-        double s = 0.0;
-        for (int l = 0; l < n; ++l) s += FC[i * n + l] * Mx[l * lq + n + j];
-        T1[idx] = cE[idx] - s;
-      }
-      __syncthreads();
-      for (int idx = tid; idx < pp; idx += nt) {
-        const int i = idx / p, j = idx - (idx / p) * p;
-        E[idx] = 0.5 * (T1[idx] + T1[j * p + i]) + (i == j ? jitter : 0.0);
-      }
-      __syncthreads();
-      gj_eliminate(E, p, p, p, piv, rowbuf, colbuf);
-      if (tid == 0) J[bk] = 0.5 / piv[p - 1];
-      __syncthreads();
+      M[s][i] = x;
     }
   }
+  gj_sweep<PM, CPL>(M, p, lane);
+  __syncwarp();  // B R^-1
+  // F and E out of the right blocks; the lane of F's column j forms
+  // column j of A F + B R^-1 B' (G before its symmetrization)
+#pragma unroll
+  for (int s = 0; s < CPL; ++s) {
+    const int col = lane + WARP * s;
+    if (col >= p && col < 2 * p) {
+      const int j = col - p;
+#pragma unroll
+      for (int i = 0; i < PM; ++i)
+        if (i < p) el.F[i * p + j] = M[s][i];
+      double g[PM], brb[PM];
+#pragma unroll
+      for (int i = 0; i < PM; ++i) g[i] = brb[i] = 0.0;
+#pragma unroll
+      for (int l = 0; l < PM; ++l) {
+        if (l < p) {
+          const double f = M[s][l];
+#pragma unroll
+          for (int i = 0; i < PM; ++i)
+            if (i < p) g[i] += st.A[i * p + l] * f;
+        }
+      }
+      for (int l = 0; l < m; ++l) {
+        const double bj = st.B[j * m + l];
+#pragma unroll
+        for (int i = 0; i < PM; ++i)
+          if (i < p) brb[i] += P.BR[i * m + l] * bj;
+      }
+#pragma unroll
+      for (int i = 0; i < PM; ++i)
+        if (i < p) el.G[i * p + j] = __dadd_rn(g[i], brb[i]);
+    } else if (col >= 2 * p && col < 3 * p) {
+      const int j = col - 2 * p;
+#pragma unroll
+      for (int i = 0; i < PM; ++i)
+        if (i < p) el.E[i * p + j] = M[s][i];
+    }
+  }
+  __syncwarp();
+  sym_inplace(el.G, p, lane);
+}
+
+// ---- compose warp: carry nc = carry pc o element el (k > 0)
+template <int PM, int CPL, bool EXACT>
+__device__ __noinline__ void compose(const Mats<PM>& el, const Mats<PM>& pc, Mats<PM>& nc, int n, double jitter,
+                                     int lane) {
+  const int p = EXACT ? PM : n + 1;
+  // [sym(E_k + Gbar) + jitter I | Fbar' | F_k] -> [I | W Fbar' | W F_k]
+  double M[CPL][PM];
+#pragma unroll
+  for (int s = 0; s < CPL; ++s) {
+    const int col = lane + WARP * s;
+#pragma unroll
+    for (int i = 0; i < PM; ++i) {
+      double x = 0.0;
+      if (i < p && col < 3 * p) {
+        if (col < p)
+          x = 0.5 * ((el.E[i * p + col] + pc.G[i * p + col]) + (el.E[col * p + i] + pc.G[col * p + i])) +
+              (i == col ? jitter : 0.0);
+        else if (col < 2 * p) x = pc.F[(col - p) * p + i];
+        else x = el.F[i * p + (col - 2 * p)];
+      }
+      M[s][i] = x;
+    }
+  }
+  gj_sweep<PM, CPL>(M, p, lane);
+  // with one column a lane, lane j < p takes a copy of column j of W F_k
+  double Y[PM];
+  if constexpr (CPL == 1) {
+    const int src = lane < p ? lane + 2 * p : lane;
+#pragma unroll
+    for (int l = 0; l < PM; ++l) Y[l] = __shfl_sync(FULL, M[0][l], src);
+  }
+  // Ebar - Fbar (W Fbar') -> nc.E;  Fbar (W F_k) -> nc.F;  G_k - F_k' (W F_k) -> nc.G.
+  // Every sum runs over l in order; the loop over l is outside, so each l
+  // feeds p independent sums.
+#pragma unroll
+  for (int s = 0; s < CPL; ++s) {
+    const int col = lane + WARP * s;
+    if (col >= p && col < 2 * p) {
+      const int j = col - p;
+      double a[PM];
+#pragma unroll
+      for (int i = 0; i < PM; ++i) a[i] = 0.0;
+#pragma unroll
+      for (int l = 0; l < PM; ++l) {
+        if (l < p) {
+          const double x = M[s][l];
+#pragma unroll
+          for (int i = 0; i < PM; ++i)
+            if (i < p) a[i] += pc.F[i * p + l] * x;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < PM; ++i)
+        if (i < p) nc.E[i * p + j] = __dsub_rn(pc.E[i * p + j], a[i]);
+    } else if (col >= 2 * p && col < 3 * p) {
+      const int j = col - 2 * p;
+      double f[PM], g[PM];
+#pragma unroll
+      for (int i = 0; i < PM; ++i) f[i] = g[i] = 0.0;
+#pragma unroll
+      for (int l = 0; l < PM; ++l) {
+        if (l < p) {
+          const double x = M[s][l];
+#pragma unroll
+          for (int i = 0; i < PM; ++i) {
+            if (i < p) {
+              f[i] += pc.F[i * p + l] * x;
+              if constexpr (CPL > 1) g[i] += el.F[l * p + i] * x;
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < PM; ++i) {
+        if (i < p) {
+          nc.F[i * p + j] = f[i];
+          if constexpr (CPL > 1) nc.G[i * p + j] = __dsub_rn(el.G[i * p + j], g[i]);
+        }
+      }
+    }
+  }
+  if constexpr (CPL == 1) {
+    if (lane < p) {
+      const int j = lane;
+      double g[PM];
+#pragma unroll
+      for (int i = 0; i < PM; ++i) g[i] = 0.0;
+#pragma unroll
+      for (int l = 0; l < PM; ++l) {
+        if (l < p) {
+          const double y = Y[l];
+#pragma unroll
+          for (int i = 0; i < PM; ++i)
+            if (i < p) g[i] += el.F[l * p + i] * y;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < PM; ++i)
+        if (i < p) nc.G[i * p + j] = __dsub_rn(el.G[i * p + j], g[i]);
+    }
+  }
+  __syncwarp();
+  sym_inplace(nc.E, p, lane);
+  sym_inplace(nc.G, p, lane);
+}
+
+// ---- query warp: J of the prefix cc with the terminal factor C (C form)
+template <int PM, bool EXACT>
+__device__ __noinline__ double query(QueryScratch<PM>& Qs, const double* C, const Mats<PM>& cc, int n_arg,
+                                     double jitter, int lane) {
+  constexpr int NM = PM - 1;
+  const int n = EXACT ? NM : n_arg;
+  const int p = n + 1, ld = n + p;
+  // C Gbar (n x p) and Fbar C' (p x n)
+  for (int idx = lane; idx < n * p; idx += WARP) {
+    const int i = idx / p, l = idx - (idx / p) * p;
+    double s = 0.0;
+    for (int l2 = 0; l2 < p; ++l2) s += C[i * p + l2] * cc.G[l2 * p + l];
+    Qs.CG[idx] = s;
+  }
+  for (int idx = lane; idx < p * n; idx += WARP) {
+    const int i = idx / n, j = idx - (idx / n) * n;
+    double s = 0.0;
+    for (int l = 0; l < p; ++l) s += cc.F[i * p + l] * C[j * p + l];
+    Qs.FC[idx] = s;
+  }
+  __syncwarp();
+  // [sym(I + C Gbar C') | C Fbar'] -> [I | Y], lane j holding column j (n + p <= 25)
+  const int j = lane;
+  double M[1][NM];
+#pragma unroll
+  for (int i = 0; i < NM; ++i) M[0][i] = 0.0;
+  if (j < n) {
+    double sij[NM], sji[NM];
+#pragma unroll
+    for (int i = 0; i < NM; ++i) sij[i] = sji[i] = 0.0;
+#pragma unroll
+    for (int l = 0; l < PM; ++l) {
+      if (l < p) {
+        const double cj = C[j * p + l], gj = Qs.CG[j * p + l];
+#pragma unroll
+        for (int i = 0; i < NM; ++i) {
+          if (i < n) {
+            sij[i] += Qs.CG[i * p + l] * cj;
+            sji[i] += gj * C[i * p + l];
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NM; ++i) {
+      const double d = (i == j) ? 1.0 : 0.0;
+      if (i < n) M[0][i] = 0.5 * __dadd_rn(__dadd_rn(d, sij[i]), __dadd_rn(d, sji[i]));
+    }
+  } else if (j < ld) {
+#pragma unroll
+    for (int i = 0; i < NM; ++i)
+      if (i < n) M[0][i] = Qs.FC[(j - n) * n + i];
+  }
+  gj_sweep<NM, 1>(M, n, lane);
+  // X0 = Ebar - (Fbar C') Y, lane n + jj forming column jj
+  if (j >= n && j < ld) {
+    const int jj = j - n;
+    double s[PM];
+#pragma unroll
+    for (int i = 0; i < PM; ++i) s[i] = 0.0;
+#pragma unroll
+    for (int l = 0; l < NM; ++l) {
+      if (l < n) {
+        const double y = M[0][l];
+#pragma unroll
+        for (int i = 0; i < PM; ++i)
+          if (i < p) s[i] += Qs.FC[i * n + l] * y;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < PM; ++i)
+      if (i < p) Qs.QS[i * p + jj] = __dsub_rn(cc.E[i * p + jj], s[i]);
+  }
+  __syncwarp();
+  // sym(X0) + jitter I, lane j holding column j; its last pivot
+  double X[PM];
+#pragma unroll
+  for (int i = 0; i < PM; ++i)
+    X[i] = (i < p && j < p) ? 0.5 * (Qs.QS[i * p + j] + Qs.QS[j * p + i]) + (i == j ? jitter : 0.0) : 0.0;
+  const double last = last_pivot<PM>(X, p);
+  __syncwarp();  // the scratch is read by every lane before the next query writes it
+  return 0.5 / last;
+}
+
+// PPB problems a block, ROLES warps each: element, compose, NQ queries.
+// EXACT: p = PM, known to the compiler.
+template <int PM, int CPL, int PPB, bool EXACT>
+__global__ void __launch_bounds__(PPB * ROLES * WARP, PM <= 5 ? 4 : 3)
+lft_select_generic_kernel(const double* __restrict__ Ag, const double* __restrict__ Bg,
+                          const double* __restrict__ Qg, const double* __restrict__ Rinv,
+                          const double* __restrict__ Cg, double* __restrict__ J, int Bsz, int N, int n_arg,
+                          int m, int t_min, double jitter) {
+  const int n = EXACT ? PM - 1 : n_arg;
+  __shared__ Problem<PM> S[PPB];
+  const int tid = threadIdx.x, warp = tid / WARP, lane = tid - warp * WARP;
+  const int slot = warp / ROLES, role = warp - slot * ROLES;
+  const int b = blockIdx.x * PPB + slot;
+  const bool live = b < Bsz;
+  Problem<PM>& P = S[slot];
+  const int p = n + 1, pp = p * p;
+
+  if (live && role == 0) {
+    for (int i = lane; i < m * m; i += WARP) P.Ri[i] = Rinv[(size_t)b * m * m + i];
+    if (lane == 0) {
+      for (int s = 0; s < RE; ++s) {
+        mbar_init(&P.elem_full[s], WARP);   // the element warp
+        mbar_init(&P.elem_free[s], WARP);   // the compose warp
+      }
+      for (int s = 0; s < RC; ++s) {
+        mbar_init(&P.carry_full[s], WARP);  // the compose warp
+        mbar_init(&P.carry_free[s], WARP);  // the query warp of the slot's steps
+      }
+    }
+  }
+  __syncthreads();  // the only block-wide barrier, before the step loops
+  if (!live) return;
+
+  if (role == 0) {  // element warp: step k+1's inputs in flight while step k is built
+    load_stage<PM>(P.stage[0], Ag, Bg, Qg, (size_t)b * N, p, m, lane);
+    for (int k = 0; k < N; ++k) {
+      if (k + 1 < N) {
+        load_stage<PM>(P.stage[(k + 1) & 1], Ag, Bg, Qg, (size_t)b * N + k + 1, p, m, lane);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncwarp();
+      const int e = k % RE;
+      if (k >= RE) mbar_wait(&P.elem_free[e], prev_parity(k, RE));
+      build_element<PM, CPL, EXACT>(P, P.stage[k & 1], P.elem[e], n, m, jitter, lane);
+      __syncwarp();
+      mbar_arrive(&P.elem_full[e]);
+    }
+  } else if (role == 1) {  // compose warp: the carry's chain
+    for (int k = 0; k < N; ++k) {
+      const int e = k % RE, c = k % RC;
+      mbar_wait(&P.elem_full[e], use_parity(k, RE));
+      if (k >= RC) mbar_wait(&P.carry_free[c], prev_parity(k, RC));
+      const Mats<PM>& el = P.elem[e];
+      Mats<PM>& nc = P.carry[c];
+      if (k == 0) {  // the first element is the carry itself: no compose
+        for (int idx = lane; idx < pp; idx += WARP) {
+          nc.E[idx] = el.E[idx];
+          nc.F[idx] = el.F[idx];
+          nc.G[idx] = el.G[idx];
+        }
+      } else {
+        compose<PM, CPL, EXACT>(el, P.carry[(k - 1) % RC], nc, n, jitter, lane);
+      }
+      __syncwarp();
+      mbar_arrive(&P.elem_free[e]);
+      mbar_arrive(&P.carry_full[c]);
+    }
+  } else {  // query warp q: the steps k = q, q + NQ, ... off the chain
+    const int q = role - 2;
+    QueryScratch<PM>& Qs = P.qs[q];
+    const int np = n * p;
+    if (q < N) {
+      for (int i = lane; i < np; i += WARP) cp_async8(&Qs.C[0][i], Cg + ((size_t)b * N + q) * np + i);
+      cp_async_commit();
+    }
+    int it = 0;
+    for (int k = q; k < N; k += NQ, ++it) {
+      if (k + NQ < N) {
+        double* dst = Qs.C[(it + 1) & 1];
+        for (int i = lane; i < np; i += WARP) cp_async8(dst + i, Cg + ((size_t)b * N + k + NQ) * np + i);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncwarp();
+      const int c = k % RC;
+      mbar_wait(&P.carry_full[c], use_parity(k, RC));
+      const size_t bk = (size_t)b * N + k;
+      if (k + 1 < t_min) {
+        if (lane == 0) J[bk] = INFINITY;
+      } else {
+        const double jv = query<PM, EXACT>(Qs, Qs.C[it & 1], P.carry[c], n, jitter, lane);
+        if (lane == 0) J[bk] = jv;
+      }
+      __syncwarp();
+      mbar_arrive(&P.carry_free[c]);
+    }
+  }
+}
+
+template <int PM, int CPL, int PPB, bool EXACT>
+void launch(const void* A, const void* B, const void* Q, const void* Rinv, const void* C, void* J, int Bsz, int N,
+            int n, int m, int t_min, double jitter, cudaStream_t stream) {
+  lft_select_generic_kernel<PM, CPL, PPB, EXACT><<<(Bsz + PPB - 1) / PPB, PPB * ROLES * WARP, 0, stream>>>(
+      (const double*)A, (const double*)B, (const double*)Q, (const double*)Rinv, (const double*)C, (double*)J,
+      Bsz, N, n, m, t_min, jitter);
 }
 
 }  // namespace
@@ -208,9 +496,14 @@ extern "C" int lft_select_generic(const void* A, const void* B, const void* Q, c
                                   double jitter, void* stream) {
   if (n < 1 || n > NMAX || m < 1 || m > MMAX) return (int)cudaErrorInvalidValue;
   if (Bsz > 0 && N > 0) {
-    lft_select_generic_kernel<<<Bsz, THREADS, 0, (cudaStream_t)stream>>>(
-        (const double*)A, (const double*)B, (const double*)Q, (const double*)Rinv,
-        (const double*)C, (double*)J, N, n, m, t_min, jitter);
+    // the registry's p = 3 (double integrator) and p = 5 (PointMass,
+    // cart-pole, segway, ballbot) as compile-time sizes, one column a lane
+    // and two problems a block; any other p <= 13 at run time, two columns
+    // a lane (3p > 32 from p = 11 on) and one problem a block
+    cudaStream_t s = (cudaStream_t)stream;
+    if (n + 1 == 3) launch<3, 1, 2, true>(A, B, Q, Rinv, C, J, Bsz, N, n, m, t_min, jitter, s);
+    else if (n + 1 == 5) launch<5, 1, 2, true>(A, B, Q, Rinv, C, J, Bsz, N, n, m, t_min, jitter, s);
+    else launch<PMAX, 2, 1, false>(A, B, Q, Rinv, C, J, Bsz, N, n, m, t_min, jitter, s);
   }
   return (int)cudaGetLastError();
 }
