@@ -10,7 +10,7 @@ exit, no result line):
 
 1. device: the card, CUDA and nvcc versions (no CPU fallback);
 2. build: the six kernels from timeopt_tpu_torch/csrc/, one nvcc each, all
-   started together;
+   started together, and the scan's and query's blocks resident per SM;
 3. kernels vs plain: each kernel against its plain PyTorch version on the
    card, on inputs from a real iterate, with the stated tolerances, and
    timed (median of CUDA-event timings after warm-up): the fused select,
@@ -32,7 +32,8 @@ exit, no result line):
    printed; on every system the query kernel alone (QUERY_BOUND) and the
    chain against the generic select kernel (CHAIN_BOUND); the chain against
    the plain chain where that holds (SCAN_QUERY_FIRST_BOUND,
-   SCAN_QUERY_BOUND);
+   SCAN_QUERY_BOUND), and the scan against a long-double witness of its
+   own math where it does not (cart-pole, PointMass: SCAN_WITNESS_NORM);
 4. the solve of the 128 problems of each results/oracle_f64*.npz (six
    systems), scored against that f64 brute-force oracle (exact and
    exact-or-tied T*, every problem but REFERENCE_MISSES), with the launch
@@ -77,10 +78,10 @@ Imports no JAX.
 times every kernel whose sources (its .cu or a header it includes) differ
 between another directory of kernel sources (e.g. an earlier commit's
 timeopt_tpu_torch/csrc, from `git archive`) and this checkout's, old
-against new in turns old, new, new, old, prints the largest difference
-between their outputs and whether they are bitwise equal, then times one
-B=1024 solve with each version's kernels, and fails unless old and new
-are bitwise equal on every row (phase_ab).
+against new in turns old, new, new, old, on that kernel's rows (AB_ROWS),
+prints the largest difference between their outputs and whether they are
+bitwise equal, then times one B=1024 solve with each version's kernels,
+and fails unless old and new are bitwise equal on every row (phase_ab).
 """
 
 from __future__ import annotations
@@ -186,6 +187,16 @@ GENERIC_BLOCKS_BOUND = {"Quadrotor": ("rel", 2e-9), "DoubleIntegrator": ("rel", 
 # cart-pole iterate) off the witness, the plain version 1.9e-2 and 0.42
 # (tests/test_torch_witness.py).
 WITNESS_SELECT_REL = 1e-3
+# On the cart-pole's and PointMass's oracle (X, U), where the plain chain
+# loses digits (SCAN_QUERY_BOUND None), the scan kernel's prefixes are held
+# to a long-double run of its own solve-based math (scan_longdouble): the
+# largest error of each E, F and G over that matrix's largest entry, on every
+# problem and step, within SCAN_WITNESS_NORM. Each bound is 10x the
+# kernel's first reading on the card (cart-pole 3.02e-6, PointMass 1.53e-3;
+# the kernel's order run in float64 on the CPU reads the same,
+# tests/test_torch_witness.py), and fails the plain scan, which reads
+# 2.9e-3 and 6.6e-2 (PERF.md section 6).
+SCAN_WITNESS_NORM = {"Cartpole_SwingUp": 3e-5, "PointMass_Navigation": 1.5e-2}
 SCAN_QUERY_BOUND = {"DoubleIntegrator": ("rel", 1e-9), "Cartpole_SwingUp": None, "Quadrotor": ("rel", 1e-6),
                     "Segway_Balance": None, "Ballbot_Balance": None, "PointMass_Navigation": None}
 # Phase 5 holds consistency_check's two curves on each brute-force result to
@@ -368,6 +379,30 @@ def phase_build():
         secs, report = _build.build_info(name)
         lines = [ln.split("ptxas info    : ")[-1] for ln in report.splitlines() if "registers" in ln or "spill" in ln]
         log(f"[build] {name}: nvcc {secs:.1f} s | " + " | ".join(lines))
+    residency()
+
+
+def residency() -> None:
+    """Blocks an SM holds at once of the scan kernel (two problems a block)
+    at each p and of the query kernel (one warp a block) at each n, as the
+    built kernels report them (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
+    from their registers and shared memory): the scan's B=1024 quadrotor
+    problems run in one wave if 2 x blocks x SMs >= 1,024."""
+    import ctypes
+
+    import torch
+    from timeopt_tpu_torch.ops import _build
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    scan = _build.load("lft_scan").lft_scan_blocks_per_sm
+    query = _build.load("lft_query").lft_query_blocks_per_sm
+    for f in (scan, query):
+        f.argtypes, f.restype = [ctypes.c_int], ctypes.c_int
+    s = {p: scan(p) for p in (3, 5, 13, 4)}
+    log("[build] lft_scan blocks an SM (two problems each): " + ", ".join(f"p={p} {v}" for p, v in s.items())
+        + f"; at p=13 {2 * s[13] * sms} problems at once on {sms} SMs (quadrotor B={B_FULL})")
+    log("[build] lft_query blocks an SM (one warp each): "
+        + ", ".join(f"n={n} {query(n)}" for n in (2, 4, 12, 3)))
 
 
 def check_select(J_k, J_p, s, probs, bound, label: str, inf_below: bool = True,
@@ -483,14 +518,17 @@ def normwise(k, p, label: str) -> float:
     return (d / p.abs().nan_to_num(0.0).amax(dim=(-1, -2))).nan_to_num(0.0).max().item()
 
 
-def scan_query_pair(system, probs, X, U, A, Bj, levels: int, bound, label: str, timed: bool = False) -> dict:
+def scan_query_pair(system, probs, X, U, A, Bj, levels: int, bound, label: str, timed: bool = False,
+                    witness: float | None = None) -> dict:
     """The unfused select on the assembled blocks of (X, U, A, B): the scan
     kernel's prefixes against the plain scan's (normwise per matrix,
-    printed); the query kernel on the plain prefixes against the plain query
-    (QUERY_BOUND); the whole kernel chain against the generic select kernel
-    (CHAIN_BOUND) and against the whole plain chain (`bound`), each gated as
-    check_select. With `timed`, both kernels and both plain versions are
-    timed. Returns the errors of the chain and of the query alone."""
+    printed) and, with a `witness` bound, both against the long-double
+    witness (witness_scan); the query kernel on the plain prefixes against
+    the plain query (QUERY_BOUND); the whole kernel chain against the generic
+    select kernel (CHAIN_BOUND) and against the whole plain chain (`bound`),
+    each gated as check_select. With `timed`, both kernels and both plain
+    versions are timed. Returns the errors of the chain and of the query
+    alone."""
     import torch
     from timeopt_tpu_torch.ops import cuda_lft_generic, cuda_lft_query, cuda_lft_scan
     from timeopt_tpu_torch.solver.augmented import build_augmented, build_terminal_factors
@@ -509,6 +547,8 @@ def scan_query_pair(system, probs, X, U, A, Bj, levels: int, bound, label: str, 
     torch.cuda.synchronize()
     efg = [normwise(k, p, f"{label} prefixes") for k, p in zip(pre_k, pre_p)]
     log(f"[kernels] {label}: scan normwise err E {efg[0]:.3e}, F {efg[1]:.3e}, G {efg[2]:.3e}")
+    if witness is not None:
+        witness_scan(args, pre_k, pre_p, levels, witness, label)
     q_err, _ = check_select(J_kq, J_p, blk.s, probs, QUERY_BOUND, f"{label} query kernel on the plain prefixes",
                             inf_below=False)
     check_select(J_k, J_g, blk.s, probs, CHAIN_BOUND, f"{label} scan+query J vs the generic select kernel",
@@ -606,6 +646,36 @@ def random_select_args(p: int, m: int, B: int, N: int, device, seed: int = SEED)
     return [torch.as_tensor(x, device=device) for x in f]
 
 
+def random_rung2_args(p: int, B: int, N: int, device, seed: int = SEED) -> tuple:
+    """Prefix-scan inputs (A_aug, BRB, Q_aug) and the query's C from a seed
+    (random_select_args, m = 2, BRB = B_aug R^-1 B_aug'), on which the jitter
+    ladder takes its second rung, by problem b % 3:
+    0: none (the random blocks as drawn);
+    1: the element at a quarter of the steps (seeded, step 0 always):
+       Q_aug[0, 0] = -jitter, so the first pivot of sym(Q_aug) + jitter I is
+       exactly zero and the rung-1 inverse is not finite;
+    2: the compose at every k > 0 and the query at every t: A_aug = 0,
+       BRB = 0 and Q_aug = -1e9 I make every element (-1e-9 I, 0, 0) and
+       keep the carry at it, so sym(E_k + Gbar) + jitter I and X0 + jitter I
+       are exactly zero (tests/test_torch_card.py::ladder_inputs at any p
+       and N)."""
+    import torch
+
+    A, Bm, Q, Ri, C = random_select_args(p, 2, B, N, device, seed)
+    BRB = torch.einsum("bkim,bmn,bkjn->bkij", Bm, Ri, Bm)
+    rng = np.random.default_rng(seed + 1)
+    kind = np.arange(B) % 3
+    hit = rng.random((B, N)) < 0.25
+    hit[:, 0] = True
+    el = torch.as_tensor(hit & (kind == 1)[:, None], device=device)
+    Q[..., 0, 0] = torch.where(el, -1e-9, Q[..., 0, 0])
+    two = torch.as_tensor(kind == 2, device=device)
+    A[two] = 0.0
+    BRB[two] = 0.0
+    Q[two] = -1e9 * torch.eye(p, dtype=Q.dtype, device=device)
+    return (A.contiguous(), BRB.contiguous(), Q.contiguous()), C.contiguous()
+
+
 def _gj_longdouble(M, k: int):
     """Pivot-free Gauss-Jordan on the first k columns of the batched
     (..., k, k + r) M, as ops/linalg.py::_gj_eliminate."""
@@ -651,6 +721,69 @@ def select_generic_longdouble(args, rows, jitter: float = 1e-9, dtype=np.longdou
         X0 = sym(Eb - FC @ Y) + jitter * I_p
         J[:, k] = 0.5 * _gj_longdouble(np.concatenate([X0, e_last], -1), p)[:, p - 1, p]
     return torch.as_tensor(J.astype(np.float64))
+
+
+def scan_longdouble(args, rows, levels: int = 2, jitter: float = 1e-9, dtype=np.longdouble) -> tuple:
+    """Every prefix (E, F, G) (len(rows), N, p, p) of the scan kernel's math
+    in numpy long double, in its solve-based order (element from
+    [sym(Q) + eps I | A' | I], compose from [sym(E_k + Gbar) + eps I | Fbar'
+    | F_k], eps a rung of the jitter ladder of ops/linalg.py::psd_inv: with
+    levels = 2, rung 2 where rung 1's inverse has a non-finite entry);
+    float64 on the CPU. args: A_aug, BRB, Q_aug. The witness where the plain
+    scan (explicit inverses) loses digits; dtype=np.float64 runs the same
+    order in double, as the kernel does."""
+    import torch
+
+    A, BRB, Q = [a[rows].cpu().numpy().astype(dtype) for a in args]
+    Bz, N, p, _ = A.shape
+    tr = lambda x: x.swapaxes(-1, -2)  # noqa: E731
+    sym = lambda x: 0.5 * (x + tr(x))  # noqa: E731
+    I_p = np.eye(p, dtype=dtype)
+
+    def ladder(left, right):
+        """The right part of the swept [left + eps I | right | I]: rung 2 on
+        the matrices whose rung-1 inverse (the last p columns) is not
+        finite."""
+        Ib = np.broadcast_to(I_p, left.shape)
+        M = _gj_longdouble(np.concatenate([left + jitter * I_p, right, Ib], -1), p)
+        if levels > 1:
+            bad = ~np.isfinite(M[..., -p:]).all(axis=(-1, -2))
+            if bad.any():
+                M2 = _gj_longdouble(np.concatenate([left + 1e4 * jitter * I_p, right, Ib], -1), p)
+                M = np.where(bad[..., None, None], M2, M)
+        return M[..., p:]
+
+    out = [np.empty((Bz, N, p, p), dtype) for _ in range(3)]
+    with np.errstate(all="ignore"):
+        FE = ladder(sym(Q), tr(A))
+        F, E = FE[..., :p], FE[..., p:]
+        G = sym(A @ F + BRB)
+        Eb, Fb, Gb = E[:, 0], F[:, 0], G[:, 0]
+        for k in range(N):
+            if k:
+                WW = ladder(sym(E[:, k] + Gb), np.concatenate([tr(Fb), F[:, k]], -1))
+                WFb, WFk = WW[..., :p], WW[..., p:2 * p]
+                Eb, Fb, Gb = sym(Eb - Fb @ WFb), Fb @ WFk, sym(G[:, k] - tr(F[:, k]) @ WFk)
+            for o, x in zip(out, (Eb, Fb, Gb)):
+                o[:, k] = x
+    return tuple(torch.as_tensor(o.astype(np.float64)) for o in out)
+
+
+def witness_scan(args, pre_k, pre_p, levels: int, bound: float, label: str) -> dict:
+    """The scan kernel's prefixes and the plain scan's against the
+    long-double witness (scan_longdouble) on every problem: each side's
+    largest error of each E, F, G over that matrix's largest witness entry
+    (normwise) printed; the kernel's must be within `bound`
+    (SCAN_WITNESS_NORM). Returns the readings."""
+    wit = scan_longdouble(args, np.arange(args[0].shape[0]), levels=levels)
+    read = {side: [normwise(x.cpu(), w, f"{label} {side} vs the long-double witness") for x, w in zip(pre, wit)]
+            for side, pre in (("kernel", pre_k), ("plain", pre_p))}
+    log(f"[kernels] {label}: scan against a long-double witness (eps {float(np.finfo(np.longdouble).eps):.2e}), "
+        f"normwise E, F, G: kernel {read['kernel'][0]:.3e}, {read['kernel'][1]:.3e}, {read['kernel'][2]:.3e}; "
+        f"plain {read['plain'][0]:.3e}, {read['plain'][1]:.3e}, {read['plain'][2]:.3e} (bound on the kernel {bound})")
+    require(max(read["kernel"]) <= bound, f"{label}: scan kernel {max(read['kernel']):.3e} normwise off the "
+                                          f"long-double witness > {bound}")
+    return read
 
 
 def backward_longdouble(bw_args, rows) -> tuple:
@@ -931,7 +1064,8 @@ def phase_kernels(device) -> dict:
         probs = oracle_problems(system, mk, B_ORACLE, device)
         X, U = (torch.as_tensor(orc[k], device=device) for k in ("X", "U"))
         A, Bj = linearize(system.step, X, U)
-        scan_query_pair(system, probs, X, U, A, Bj, 2, SCAN_QUERY_BOUND[case], f"scan+query ({case} oracle X, U)")
+        scan_query_pair(system, probs, X, U, A, Bj, 2, SCAN_QUERY_BOUND[case], f"scan+query ({case} oracle X, U)",
+                        witness=SCAN_WITNESS_NORM.get(case))
     return out
 
 
@@ -1192,33 +1326,245 @@ def phase_throughput(case: str, device) -> dict:
     return counts
 
 
+class ABRun:
+    """What phase_ab's rows share: the two versions' kernels (`kernels`),
+    both versions' outputs on one input (`both`), their times in turns
+    (`turns`), one row of the table (`row`) and the first iterates of the
+    oracle problem sets (`setup`)."""
+
+    def __init__(self, device, old: Path):
+        from timeopt_tpu_torch.solver.ilqr import SolveOptions
+
+        self.device, self.old = device, old
+        self.opts = SolveOptions(max_iter=MAX_ITER, psd_levels=1)
+        self.every = [(c, B_ORACLE) for c in CASES]
+        self.cache = {}
+
+    @contextmanager
+    def kernels(self, tag):
+        """Inside the block the wrappers launch the old kernels for tag
+        "old", this checkout's for "new"."""
+        from timeopt_tpu_torch.ops import _build
+
+        load = _build.load
+        if tag == "old":
+            _build.load = lambda name: load(name, self.old)
+        try:
+            yield
+        finally:
+            _build.load = load
+
+    def both(self, fn):
+        import torch
+
+        with self.kernels("old"):
+            a = fn()
+        b = fn()
+        torch.cuda.synchronize()
+        return a, b
+
+    def turns(self, fn) -> dict:
+        """Back-to-back ms (and one-call ms) of old and new, in turns."""
+        t = {"old": [], "new": [], "old_one_call": [], "new_one_call": []}
+        for tag in ("old", "new", "new", "old"):
+            with self.kernels(tag):
+                t[tag].append(device_ms(fn))
+                t[tag + "_one_call"].append(cuda_ms(fn, reps=5))
+        return t
+
+    def row(self, name: str, case: str, BN: tuple, fn, outs) -> dict:
+        """BN: (B, N); outs: the old and the new version's outputs (tuples
+        of tensors)."""
+        import torch
+
+        o, n = outs
+        diff, bitwise = 0.0, True
+        for a, b in zip(o, n):
+            if a.dtype == torch.float64:
+                diff = max(diff, max_err(a, b)[0])
+                bitwise = bitwise and bool(torch.equal(a.contiguous().view(torch.int64), b.contiguous().view(torch.int64)))
+            else:
+                bitwise = bitwise and bool(torch.equal(a, b))
+        return dict(kernel=name, case=case, B=BN[0], N=BN[1], max_abs_diff=diff, bitwise=bitwise,
+                    **{f"{k}_ms": v for k, v in self.turns(fn).items()})
+
+    def setup(self, case: str, Bsz: int):
+        """(system, probs, X, U, A, Bj, select kernel, its plain version, s, the select kernel's T*)."""
+        from timeopt_tpu_torch.models import get_system
+        from timeopt_tpu_torch.solver.cost import argmin_T
+
+        if (case, Bsz) not in self.cache:
+            system, mk = get_system(case)
+            probs = oracle_problems(system, mk, Bsz, self.device)
+            X, U, A, Bj = first_iterate(system, probs)
+            kernel, plain, s = select_pair(system, probs, self.opts, X, U, A, Bj)
+            T = argmin_T(s[:, :1] ** 2 * kernel(), probs.T_min, probs.T_max)
+            self.cache[(case, Bsz)] = (system, probs, X, U, A, Bj, kernel, plain, s, T)
+        return self.cache[(case, Bsz)]
+
+
+def ab_lft_select(ab: ABRun) -> list:
+    """The quadrotor at B=1024, also held against the plain version."""
+    system, probs, X, U, A, Bj, kernel, plain, s, _ = ab.setup("Quadrotor", B_FULL)
+    J_o, J_n = ab.both(kernel)
+    check_select(J_n, plain(), s, probs, SELECT_BOUND["Quadrotor"], f"ab: new lft_select vs plain (Quadrotor B={B_FULL})")
+    return [ab.row("lft_select", "Quadrotor", (B_FULL, probs.N), kernel, ((J_o,), (J_n,)))]
+
+
+def ab_linesearch(ab: ABRun) -> list:
+    """The quadrotor at B=1024 and every system at B=128, at the select
+    kernel's T*."""
+    from timeopt_tpu_torch.ops import cuda_backward, cuda_forward
+
+    rows = []
+    for case, Bsz in [("Quadrotor", B_FULL)] + ab.every:
+        system, probs, X, U, A, Bj, _, _, _, T = ab.setup(case, Bsz)
+        kap, K, _ = cuda_backward.backward_truncated_core(*backward_args(system, probs, X, U, A, Bj, T, ab.opts.lm_init))
+        args = (system, probs, X, U, K, kap, T, ab.opts.alphas)
+        fn = lambda: cuda_forward.linesearch(*args)  # noqa: E731
+        outs = ab.both(fn)
+        check_linesearch(*args, f"ab: new line search vs plain ({case} B={Bsz})", gate_all=Bsz == B_FULL)
+        rows.append(ab.row("linesearch", case, (Bsz, probs.N), fn, outs))
+    return rows
+
+
+def ab_lft_select_generic(ab: ABRun) -> list:
+    """PointMass at B=1024, the assembled blocks of every system at B=128
+    (p = 3, 5 and 13) and the random blocks of OFF_REGISTRY_SELECT."""
+    from timeopt_tpu_torch.ops import cuda_lft_generic
+
+    system, probs, X, U, A, Bj, kernel, plain, s, _ = ab.setup("PointMass_Navigation", B_FULL)
+    J_o, J_n = ab.both(kernel)
+    check_select(J_n, plain(), s, probs, SELECT_BOUND["PointMass_Navigation"],
+                 f"ab: new lft_select_generic vs plain (PointMass_Navigation B={B_FULL})")
+    rows = [ab.row("lft_select_generic", "PointMass_Navigation", (B_FULL, probs.N), kernel, ((J_o,), (J_n,)))]
+    for case, Bsz in ab.every:
+        system, probs, X, U, A, Bj, _, _, _, _ = ab.setup(case, Bsz)
+        args, _ = generic_block_args(system, probs, X, U, A, Bj)
+        fn = lambda: cuda_lft_generic.propagator_select_generic(*args, t_min=probs.T_min)  # noqa: E731
+        J_o, J_n = ab.both(fn)
+        rows.append(ab.row("lft_select_generic", f"{case} blocks", (Bsz, probs.N), fn, ((J_o,), (J_n,))))
+    for p, m in OFF_REGISTRY_SELECT:  # the run-time-size path
+        args = random_select_args(p, m, B_OFF, N_OFF, ab.device)
+        fn = lambda: cuda_lft_generic.propagator_select_generic(*args, t_min=1)  # noqa: E731
+        J_o, J_n = ab.both(fn)
+        rows.append(ab.row("lft_select_generic", f"random p={p} m={m}", (B_OFF, N_OFF), fn, ((J_o,), (J_n,))))
+    return rows
+
+
+def ab_backward(ab: ABRun) -> list:
+    """The quadrotor and PointMass at B=1024, every system at B=128, at the
+    select kernel's T*, and the random inputs of OFF_REGISTRY_BACKWARD."""
+    from timeopt_tpu_torch.ops import cuda_backward
+
+    rows = []
+    for case, Bsz in [("Quadrotor", B_FULL), ("PointMass_Navigation", B_FULL)] + ab.every:
+        system, probs, X, U, A, Bj, _, _, _, T = ab.setup(case, Bsz)
+        bw_args = backward_args(system, probs, X, U, A, Bj, T, ab.opts.lm_init)
+        fn = lambda: cuda_backward.backward_truncated_core(*bw_args)  # noqa: E731
+        outs = ab.both(fn)
+        if Bsz == B_FULL:
+            check_backward(bw_args, f"ab: new backward vs plain ({case} B={Bsz})", norm=BACKWARD_NORM_B1024.get(case))
+        rows.append(ab.row("backward", case, (Bsz, probs.N), fn, outs))
+    for n, m in OFF_REGISTRY_BACKWARD:  # the run-time-size path
+        bw_args = random_backward_args(n, m, B_OFF, N_OFF, ab.device)
+        fn = lambda: cuda_backward.backward_truncated_core(*bw_args)  # noqa: E731
+        rows.append(ab.row("backward", f"random n={n} m={m}", (B_OFF, N_OFF), fn, ab.both(fn)))
+    return rows
+
+
+def scan_sets(ab: ABRun) -> list:
+    """(label, (A_aug, BRB, Q_aug), C) of the scan and query rows: the
+    quadrotor's first-iterate blocks at B=1024 and every system's at B=128
+    (p = 13, 3 and 5); the random blocks of OFF_REGISTRY_SELECT (the
+    run-time-size paths; B_OFF, N_OFF leave the last block partial); N = 1
+    (the quadrotor's blocks cut to their first step, and random p = 4); and
+    the rung-2 sets of random_rung2_args at p = 4, 5 and 13."""
+    from timeopt_tpu_torch.solver.augmented import build_augmented, build_terminal_factors
+    from timeopt_tpu_torch.solver.horizon import brb
+
+    if "scan_sets" not in ab.cache:
+        sets = []
+        for case, Bsz in [("Quadrotor", B_FULL)] + ab.every:
+            system, probs, X, U, A, Bj, *_ = ab.setup(case, Bsz)
+            blk = build_augmented(system, probs, X, U, A, Bj)
+            args = tuple(t.contiguous() for t in (blk.A_aug, brb(blk.B_aug, blk.R_inv), blk.Q_aug))
+            C = build_terminal_factors(probs, X, s=blk.s).contiguous()
+            sets.append((f"{case} blocks", args, C))
+            if case == "Quadrotor" and Bsz == B_ORACLE:
+                sets.append((f"{case} blocks, step 1 only", tuple(t[:, :1].contiguous() for t in args),
+                             C[:, :1].contiguous()))
+        for p, m, N in [(p, m, N_OFF) for p, m in OFF_REGISTRY_SELECT] + [(4, 1, 1)]:
+            A, Bm, Q, Ri, C = random_select_args(p, m, B_OFF, N, ab.device)
+            sets.append((f"random p={p} m={m}", (A, brb(Bm, Ri).contiguous(), Q), C))
+        for p in (4, 5, 13):
+            args, C = random_rung2_args(p, B_OFF, N_OFF, ab.device)
+            sets.append((f"rung 2 p={p}", args, C))
+        ab.cache["scan_sets"] = sets
+    return ab.cache["scan_sets"]
+
+
+def _hold_unfused_b1024(ab: ABRun) -> None:
+    """The new scan and query at B=1024 against the plain versions and the
+    generic select kernel, as phase 3 holds them."""
+    if "unfused_held" not in ab.cache:
+        system, probs, X, U, A, Bj, *_ = ab.setup("Quadrotor", B_FULL)
+        scan_query_pair(system, probs, X, U, A, Bj, 2, SCAN_QUERY_FIRST_BOUND, f"ab: new scan+query (Quadrotor B={B_FULL})")
+        ab.cache["unfused_held"] = True
+
+
+def ab_lft_scan(ab: ABRun) -> list:
+    """E, F, G on every set of scan_sets, at levels 1 and 2."""
+    from timeopt_tpu_torch.ops import cuda_lft_scan
+
+    _hold_unfused_b1024(ab)
+    rows = []
+    for label, args, _ in scan_sets(ab):
+        for levels in (1, 2):
+            fn = lambda: cuda_lft_scan.lft_scan(*args, levels=levels)  # noqa: E731
+            rows.append(ab.row("lft_scan", f"{label} levels {levels}", args[0].shape[:2], fn, ab.both(fn)))
+    return rows
+
+
+def ab_lft_query(ab: ABRun) -> list:
+    """J on every set of scan_sets, at levels 1 and 2, on the new scan's
+    prefixes of that set."""
+    from timeopt_tpu_torch.ops import cuda_lft_query, cuda_lft_scan
+
+    _hold_unfused_b1024(ab)
+    rows = []
+    for label, args, C in scan_sets(ab):
+        for levels in (1, 2):
+            pre = cuda_lft_scan.lft_scan(*args, levels=levels)
+            fn = lambda: cuda_lft_query.lft_query(*pre, C, levels=levels)  # noqa: E731
+            J_o, J_n = ab.both(fn)
+            rows.append(ab.row("lft_query", f"{label} levels {levels}", args[0].shape[:2], fn, ((J_o,), (J_n,))))
+    return rows
+
+
+# phase_ab's rows of each kernel, in the order of KERNELS
+AB_ROWS = {"lft_select": ab_lft_select, "lft_select_generic": ab_lft_select_generic, "backward": ab_backward,
+           "linesearch": ab_linesearch, "lft_scan": ab_lft_scan, "lft_query": ab_lft_query}
+
+
 def phase_ab(device, old: str) -> list:
     """The kernels whose sources differ between an earlier csrc/ directory
     (`old`, e.g. an earlier commit's timeopt_tpu_torch/csrc) and this
     checkout's (changed_kernels: the .cu, or a header it includes), old
     against new on one card, in turns old, new, new, old (each turn the
-    median of CUDA-event timings), on the first iterate of the oracle
-    problem sets:
-    - lft_select: the quadrotor at B=1024;
-    - linesearch: the quadrotor at B=1024 and every system at B=128;
-    - lft_select_generic: PointMass at B=1024, the assembled blocks of
-      every system at B=128 (p = 3, 5 and 13) and the random blocks of
-      OFF_REGISTRY_SELECT;
-    - backward: the quadrotor and PointMass at B=1024, every system at
-      B=128, at the select kernel's T*, and the random inputs of
-      OFF_REGISTRY_BACKWARD.
-    Each row prints the largest difference between the two versions'
-    outputs and whether they are equal bit for bit; at B=1024 the new
-    version is also held against the plain one as phase 3 holds it. Then
-    one B=1024 solve of the quadrotor and of PointMass with each version's
-    kernels, in turns. After every row is printed, it fails unless each
-    kernel row is bitwise equal and each solve's T*, J*, X and U
-    identical."""
+    median of CUDA-event timings), on the rows of AB_ROWS: each kernel's
+    first iterates of the oracle problem sets, and random inputs of shapes
+    no system has (the run-time-size paths). Each row prints the largest
+    difference between the two versions' outputs and whether they are equal
+    bit for bit; at B=1024 the new version is also held against the plain
+    one as phase 3 holds it. Then one B=1024 solve of the quadrotor and of
+    PointMass with each version's kernels, in turns. After every row is
+    printed, it fails unless each kernel row is bitwise equal and each
+    solve's T*, J*, X and U identical."""
     import torch
     from timeopt_tpu_torch.models import get_system
-    from timeopt_tpu_torch.ops import _build, cuda_backward, cuda_forward, cuda_lft_generic
-    from timeopt_tpu_torch.solver.cost import argmin_T
-    from timeopt_tpu_torch.solver.ilqr import SolveOptions, solve_batch
+    from timeopt_tpu_torch.ops import _build
+    from timeopt_tpu_torch.solver.ilqr import solve_batch
 
     old = Path(old).resolve()
     names = changed_kernels(old, _build.CSRC, list(KERNELS))
@@ -1233,124 +1579,24 @@ def phase_ab(device, old: str) -> list:
             report = _build.build_info(name, csrc)[1]
             lines = [ln.split("ptxas info    : ")[-1] for ln in report.splitlines() if "registers" in ln or "spill" in ln]
             log(f"[ab] {tag} {name}: " + " | ".join(lines))
+    residency()
 
-    @contextmanager
-    def kernels(tag):
-        """Inside the block the wrappers launch the old kernels for tag
-        "old", this checkout's for "new"."""
-        load = _build.load
-        if tag == "old":
-            _build.load = lambda name: load(name, old)
-        try:
-            yield
-        finally:
-            _build.load = load
-
-    def both(fn):
-        with kernels("old"):
-            a = fn()
-        b = fn()
-        torch.cuda.synchronize()
-        return a, b
-
-    def turns(fn) -> dict:
-        """Back-to-back ms (and one-call ms) of old and new, in turns."""
-        t = {"old": [], "new": [], "old_one_call": [], "new_one_call": []}
-        for tag in ("old", "new", "new", "old"):
-            with kernels(tag):
-                t[tag].append(device_ms(fn))
-                t[tag + "_one_call"].append(cuda_ms(fn, reps=5))
-        return t
-
-    def row(name: str, case: str, BN: tuple, fn, outs) -> dict:
-        """BN: (B, N); outs: the old and the new version's outputs (tuples
-        of tensors)."""
-        o, n = outs
-        diff, bitwise = 0.0, True
-        for a, b in zip(o, n):
-            if a.dtype == torch.float64:
-                diff = max(diff, max_err(a, b)[0])
-                bitwise = bitwise and bool(torch.equal(a.contiguous().view(torch.int64), b.contiguous().view(torch.int64)))
-            else:
-                bitwise = bitwise and bool(torch.equal(a, b))
-        return dict(kernel=name, case=case, B=BN[0], N=BN[1], max_abs_diff=diff, bitwise=bitwise,
-                    **{f"{k}_ms": v for k, v in turns(fn).items()})
-
-    opts = SolveOptions(max_iter=MAX_ITER, psd_levels=1)
-    cache = {}
-
-    def setup(case: str, Bsz: int):
-        """(system, probs, X, U, A, Bj, select kernel, its plain version, s, the select kernel's T*)."""
-        if (case, Bsz) not in cache:
-            system, mk = get_system(case)
-            probs = oracle_problems(system, mk, Bsz, device)
-            X, U, A, Bj = first_iterate(system, probs)
-            kernel, plain, s = select_pair(system, probs, opts, X, U, A, Bj)
-            T = argmin_T(s[:, :1] ** 2 * kernel(), probs.T_min, probs.T_max)
-            cache[(case, Bsz)] = (system, probs, X, U, A, Bj, kernel, plain, s, T)
-        return cache[(case, Bsz)]
-
+    ab = ABRun(device, old)
     rows = []
-    every = [(c, B_ORACLE) for c in CASES]
-    if "lft_select" in names:
-        system, probs, X, U, A, Bj, kernel, plain, s, _ = setup("Quadrotor", B_FULL)
-        J_o, J_n = both(kernel)
-        check_select(J_n, plain(), s, probs, SELECT_BOUND["Quadrotor"], f"ab: new lft_select vs plain (Quadrotor B={B_FULL})")
-        rows.append(row("lft_select", "Quadrotor", (B_FULL, probs.N), kernel, ((J_o,), (J_n,))))
-    if "linesearch" in names:
-        for case, Bsz in [("Quadrotor", B_FULL)] + every:
-            system, probs, X, U, A, Bj, _, _, _, T = setup(case, Bsz)
-            kap, K, _ = cuda_backward.backward_truncated_core(*backward_args(system, probs, X, U, A, Bj, T, opts.lm_init))
-            args = (system, probs, X, U, K, kap, T, opts.alphas)
-            fn = lambda: cuda_forward.linesearch(*args)  # noqa: E731
-            outs = both(fn)
-            check_linesearch(*args, f"ab: new line search vs plain ({case} B={Bsz})", gate_all=Bsz == B_FULL)
-            rows.append(row("linesearch", case, (Bsz, probs.N), fn, outs))
-    if "lft_select_generic" in names:
-        system, probs, X, U, A, Bj, kernel, plain, s, _ = setup("PointMass_Navigation", B_FULL)
-        J_o, J_n = both(kernel)
-        check_select(J_n, plain(), s, probs, SELECT_BOUND["PointMass_Navigation"],
-                     f"ab: new lft_select_generic vs plain (PointMass_Navigation B={B_FULL})")
-        rows.append(row("lft_select_generic", "PointMass_Navigation", (B_FULL, probs.N), kernel, ((J_o,), (J_n,))))
-        for case, Bsz in every:  # the assembled blocks of every system
-            system, probs, X, U, A, Bj, _, _, _, _ = setup(case, Bsz)
-            args, _ = generic_block_args(system, probs, X, U, A, Bj)
-            fn = lambda: cuda_lft_generic.propagator_select_generic(*args, t_min=probs.T_min)  # noqa: E731
-            J_o, J_n = both(fn)
-            rows.append(row("lft_select_generic", f"{case} blocks", (Bsz, probs.N), fn, ((J_o,), (J_n,))))
-        for p, m in OFF_REGISTRY_SELECT:  # the run-time-size path
-            args = random_select_args(p, m, B_OFF, N_OFF, device)
-            fn = lambda: cuda_lft_generic.propagator_select_generic(*args, t_min=1)  # noqa: E731
-            J_o, J_n = both(fn)
-            rows.append(row("lft_select_generic", f"random p={p} m={m}", (B_OFF, N_OFF), fn, ((J_o,), (J_n,))))
-    if "backward" in names:
-        for case, Bsz in [("Quadrotor", B_FULL), ("PointMass_Navigation", B_FULL)] + every:
-            system, probs, X, U, A, Bj, _, _, _, T = setup(case, Bsz)
-            bw_args = backward_args(system, probs, X, U, A, Bj, T, opts.lm_init)
-            fn = lambda: cuda_backward.backward_truncated_core(*bw_args)  # noqa: E731
-            outs = both(fn)
-            if Bsz == B_FULL:
-                check_backward(bw_args, f"ab: new backward vs plain ({case} B={Bsz})",
-                               norm=BACKWARD_NORM_B1024.get(case))
-            rows.append(row("backward", case, (Bsz, probs.N), fn, outs))
-        for n, m in OFF_REGISTRY_BACKWARD:  # the run-time-size path
-            bw_args = random_backward_args(n, m, B_OFF, N_OFF, device)
-            fn = lambda: cuda_backward.backward_truncated_core(*bw_args)  # noqa: E731
-            rows.append(row("backward", f"random n={n} m={m}", (B_OFF, N_OFF), fn, both(fn)))
     for name in names:
-        if not any(r["kernel"] == name for r in rows):
-            log(f"[ab] {name}: its sources differ, and --ab has no rows for it")
+        rows += AB_ROWS[name](ab)
+        require(any(r["kernel"] == name for r in rows), f"--ab has no rows for {name}, whose sources differ")
     # end to end: one B=1024 solve with each version's kernels, in turns
     for case in ("Quadrotor", "PointMass_Navigation"):
         system, mk = get_system(case)
         probs = oracle_problems(system, mk, B_FULL, device)
         res, secs = {}, {"old": [], "new": []}
         for tag in ("old", "new", "new", "old"):
-            with kernels(tag):
-                solve_batch(system, probs, options=opts)  # warm-up
+            with ab.kernels(tag):
+                solve_batch(system, probs, options=ab.opts)  # warm-up
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                res[tag] = solve_batch(system, probs, options=opts)
+                res[tag] = solve_batch(system, probs, options=ab.opts)
                 torch.cuda.synchronize()
                 secs[tag].append(time.perf_counter() - t0)
         same = all(bool(torch.equal(getattr(res["old"], f), getattr(res["new"], f))) for f in ("T_star", "J_star", "X", "U"))

@@ -73,8 +73,8 @@ def test_kernel_sources_follow_includes():
 
 
 @pytest.mark.parametrize("header,expected", [
-    ("warpmat.cuh", ["lft_select_generic", "backward"]),
-    ("smallmat.cuh", ["linesearch", "lft_scan", "lft_query"]),
+    ("warpmat.cuh", ["lft_select_generic", "backward", "lft_scan", "lft_query"]),
+    ("smallmat.cuh", ["linesearch"]),
 ])
 def test_changed_kernels_on_this_checkout(tmp_path, header, expected):
     """A changed shared header selects exactly the kernels that include it,
@@ -84,3 +84,11 @@ def test_changed_kernels_on_this_checkout(tmp_path, header, expected):
     (old / header).write_text((old / header).read_text() + "\n// an earlier version\n")
     assert cs.changed_kernels(old, CSRC, list(cs.KERNELS)) == expected
     assert cs.changed_kernels(CSRC, CSRC, list(cs.KERNELS)) == []
+
+
+def test_every_kernel_has_ab_rows():
+    """phase_ab times every kernel whose sources differ, and fails on one
+    without rows: each kernel of the table has its row function, in the
+    table's order."""
+    assert list(cs.AB_ROWS) == list(cs.KERNELS)
+    assert all(callable(f) for f in cs.AB_ROWS.values())

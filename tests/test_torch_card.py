@@ -219,6 +219,59 @@ def test_scan_and_query_ladder_on_the_card(dev, levels):
     assert bool(torch.isfinite(J_k).all()) == (levels == 2)
 
 
+def _scan_query_vs_plain(args, C, levels):
+    """The scan and query kernels against their plain versions on the card:
+    (scan kernel, plain scan, query kernel on the plain prefixes, plain
+    query), one launch of each kernel."""
+    n0 = (cuda_lft_scan.LAUNCHES, cuda_lft_query.LAUNCHES)
+    pre_k = cuda_lft_scan.lft_scan(*args, levels=levels)
+    pre_p = cuda_lft_scan.lft_scan_plain(*args, levels=levels)
+    J_k = cuda_lft_query.lft_query(*pre_p, C, levels=levels)
+    assert (cuda_lft_scan.LAUNCHES, cuda_lft_query.LAUNCHES) == (n0[0] + 1, n0[1] + 1)
+    return pre_k, pre_p, J_k, cuda_lft_query.lft_query_plain(*pre_p, C, levels=levels)
+
+
+@pytest.mark.parametrize("levels", [1, 2])
+@pytest.mark.parametrize("p,m,N", [(4, 1, 48), (9, 3, 48), (2, 1, 24), (13, 4, 1), (3, 1, 1), (5, 2, 2)])
+def test_scan_and_query_kernels_on_random_blocks(dev, p, m, N, levels):
+    """Random well-conditioned blocks (chip_smoke.random_select_args) at
+    B = 37, so the scan's last block of two problems holds one: p = 2, 4
+    and 9 take the kernels' run-time-size paths, and N = 1 and 2 the
+    shortest scans. Prefixes within 1e-9 of each matrix's largest entry, J
+    within rtol 1e-9."""
+    A, Bm, Q, Ri, C = _chip_smoke().random_select_args(p, m, 37, N, dev)
+    pre_k, pre_p, J_k, J_p = _scan_query_vs_plain((A, brb(Bm, Ri).contiguous(), Q), C, levels)
+    for k, q in zip(pre_k, pre_p):
+        assert k.shape == (37, N, p, p) and _normwise(k, q) <= 1e-9
+    _close(J_k, J_p, 1e-9, 0.0)
+
+
+@pytest.mark.parametrize("levels", [1, 2])
+@pytest.mark.parametrize("p", [4, 5, 13])
+def test_scan_and_query_kernels_take_rung_two(dev, p, levels):
+    """chip_smoke.random_rung2_args at B = 37: rung 1 fails in the element
+    at a quarter of the steps of every third problem, in the compose and the
+    query at every step of another third. At levels 1 the same problems'
+    prefixes are non-finite in kernel and plain; at levels 2 everything is
+    finite, each prefix matrix within 1e-7 of its largest entry (a zero
+    matrix exactly zero) and J within rtol 1e-9 of the plain versions. The
+    prefixes' room: rung 2 inverts sym(Q_aug) + 1e-5 I with a 1e-5 pivot
+    beside O(1) entries, where the plain version's explicit inverse and the
+    kernel's solve differ by up to 7.9e-9 normwise (p = 5, levels 2, on the
+    card)."""
+    args, C = _chip_smoke().random_rung2_args(p, 37, 48, dev)
+    pre_k, pre_p, J_k, J_p = _scan_query_vs_plain(args, C, levels)
+    for k, q in zip(pre_k, pre_p):
+        fin = torch.isfinite(q).all(dim=-1).all(dim=-1)
+        assert torch.equal(torch.isfinite(k).all(dim=-1).all(dim=-1), fin)
+        assert bool(fin.all()) == (levels == 2)
+        d, ref = (k - q).abs().amax(dim=(-1, -2)), q.abs().amax(dim=(-1, -2))
+        assert bool((d[fin] <= 1e-7 * ref[fin]).all())
+    if levels == 2:
+        assert bool(torch.isfinite(J_k).all())
+    _close(J_k, J_p, 1e-9, 0.0)
+
+
 def test_scan_and_query_take_one_or_two_levels_on_the_card(dev):
     x = torch.zeros((1, 2, 3, 3), dtype=torch.float64, device=dev)
     with pytest.raises(ValueError):

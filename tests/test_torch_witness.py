@@ -6,9 +6,12 @@ double; the card holds the backward kernel against it where the kernel and
 its plain version differ (PointMass at B=1024). `select_generic_longdouble`
 recomputes the generic select kernel's math (its solve-based order) in long
 double; the card holds the kernel's argmin T* to it where the plain version
-loses digits (the cart-pole's blocks). `random_backward_args` and
-`random_select_args` feed the kernels' run-time-size paths. These tests
-need no card.
+loses digits (the cart-pole's blocks). `scan_longdouble` recomputes the prefix-scan kernel's math in long double;
+the card holds the scan kernel's prefixes to it where the plain scan loses
+digits (the cart-pole's and PointMass's oracle iterates). `random_backward_args`
+and `random_select_args` feed the kernels' run-time-size paths,
+`random_rung2_args` the jitter ladder's second rung. These tests need no
+card.
 """
 
 from __future__ import annotations
@@ -20,7 +23,10 @@ import numpy as np
 import pytest
 import torch
 
-from timeopt_tpu_torch.ops import cuda_backward, cuda_lft_generic
+from timeopt_tpu_torch.ops import cuda_backward, cuda_lft_generic, cuda_lft_scan
+from timeopt_tpu_torch.ops.linalg import psd_inv
+from timeopt_tpu_torch.solver.augmented import build_augmented
+from timeopt_tpu_torch.solver.horizon import brb
 from timeopt_tpu_torch.solver.cost import rollout
 from timeopt_tpu_torch.solver.ilqr import default_U_init
 from timeopt_tpu_torch.solver.linearize import linearize
@@ -177,3 +183,80 @@ def test_kernel_order_in_double_is_within_the_witness_bound(B, N):
     assert ((J_d - J_w).abs() / J_w.abs())[:, t:].max().item() <= cs.WITNESS_SELECT_REL / 5
     cs.witness_select(args, J_d, J_p, s, probs, "kernel order in double")
     assert ((J_p - J_w).abs() / J_w.abs())[:, t:].max().item() > 10 * cs.WITNESS_SELECT_REL
+
+
+def _scan_args(p, m, B, N):
+    A, Bm, Q, Ri, _ = cs.random_select_args(p, m, B, N, CPU)
+    return A, brb(Bm, Ri), Q
+
+
+@pytest.mark.parametrize("levels", [1, 2])
+@pytest.mark.parametrize("p,m", [(4, 1), (9, 3), (5, 2), (13, 4)])
+def test_longdouble_scan_matches_plain_on_random_blocks(p, m, levels):
+    """On well-conditioned blocks the plain scan (explicit inverses) and the
+    long-double witness of the kernel's solve-based order agree within
+    1e-12 of each matrix's largest entry."""
+    args = _scan_args(p, m, 5, 24)
+    plain = cuda_lft_scan.lft_scan_plain(*args, levels=levels)
+    wit = cs.scan_longdouble(args, torch.arange(5), levels=levels)
+    for x, w in zip(plain, wit):
+        assert cs.normwise(x, w, "plain vs witness") <= 1e-12
+
+
+def test_scan_witness_gate_passes_the_plain_scan_and_fails_a_perturbed_one():
+    args = _scan_args(5, 2, 4, 16)
+    pre = cuda_lft_scan.lft_scan_plain(*args, levels=2)
+    read = cs.witness_scan(args, pre, pre, 2, 1e-10, "plain as kernel")
+    assert max(read["kernel"]) <= 1e-12
+    bent = (pre[0], pre[1] * (1 + 1e-8), pre[2])
+    with pytest.raises(RuntimeError, match="long-double"):
+        cs.witness_scan(args, bent, pre, 2, 1e-10, "perturbed kernel")
+
+
+@pytest.mark.parametrize("p", [4, 5, 13])
+def test_rung2_args_are_seeded_and_take_the_second_rung(p):
+    """random_rung2_args: the same draw from the same seed; the rung-1
+    element inverse is non-finite exactly at the steps of every third problem
+    whose Q_aug[0, 0] is -jitter; the plain scan at levels 1 leaves those
+    problems and those of the compose construction non-finite and the
+    others finite, and at levels 2 (rung 2 taken) everything finite, within
+    1e-9 of the long-double witness."""
+    B, N = 7, 10
+    (A, BRB, Q), C = cs.random_rung2_args(p, B, N, CPU)
+    (A2, BRB2, Q2), C2 = cs.random_rung2_args(p, B, N, CPU)
+    assert all(torch.equal(x, y) for x, y in zip((A, BRB, Q, C), (A2, BRB2, Q2, C2)))
+    assert C.shape == (B, N, p - 1, p) and not torch.equal(cs.random_rung2_args(p, B, N, CPU, seed=1)[0][2], Q)
+    kind = torch.arange(B) % 3
+    flagged = (Q[..., 0, 0] == -1e-9) & (kind == 1)[:, None]
+    assert bool(flagged[kind == 1][:, 0].all()) and not bool(flagged[kind != 1].any())
+    rung1_bad = ~torch.isfinite(psd_inv(Q, levels=1)).all(dim=-1).all(dim=-1)
+    assert torch.equal(rung1_bad, flagged)
+    for levels in (1, 2):
+        pre = cuda_lft_scan.lft_scan_plain(A, BRB, Q, levels=levels)
+        fin = torch.isfinite(pre[0]).all(dim=-1).all(dim=-1).all(dim=-1)
+        assert fin.tolist() == ([True] * B if levels == 2 else (kind == 0).tolist())
+    wit = cs.scan_longdouble((A, BRB, Q), torch.arange(B), levels=2)
+    for x, w in zip(pre, wit):
+        assert cs.normwise(x, w, "plain vs witness at rung 2") <= 1e-9
+
+
+@pytest.mark.parametrize("case", ["Cartpole_SwingUp", "PointMass_Navigation"])
+def test_scan_kernel_order_in_double_is_within_the_witness_bound(case):
+    """chip_smoke.py's SCAN_WITNESS_NORM on the oracle's final (X, U): the
+    scan kernel's solve-based order run in float64 (as the kernel runs it)
+    stays within a fifth of the bound of its long-double run, and the plain
+    scan (explicit inverses) is off by more than the bound."""
+    system, mk = get_system(case)
+    orc = cs.load_oracle(case)
+    probs = cs.oracle_problems(system, mk, 128, CPU)
+    X, U = (torch.as_tensor(orc[k]) for k in ("X", "U"))
+    A, Bj = linearize(system.step, X, U)
+    blk = build_augmented(system, probs, X, U, A, Bj, psd_levels=2)
+    args = [t.contiguous() for t in (blk.A_aug, brb(blk.B_aug, blk.R_inv), blk.Q_aug)]
+    rows = np.arange(128)
+    wit = cs.scan_longdouble(args, rows)
+    dbl = cs.scan_longdouble(args, rows, dtype=np.float64)
+    plain = cuda_lft_scan.lft_scan_plain(*args, levels=2)
+    bound = cs.SCAN_WITNESS_NORM[case]
+    assert max(cs.normwise(x, w, "kernel order") for x, w in zip(dbl, wit)) <= bound / 5
+    assert max(cs.normwise(x, w, "plain") for x, w in zip(plain, wit)) > bound

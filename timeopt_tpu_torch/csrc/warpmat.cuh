@@ -63,6 +63,14 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ unsigned use_parity(int k, int R) { return (unsigned)(k / R) & 1u; }
 __device__ __forceinline__ unsigned prev_parity(int k, int R) { return (unsigned)(k / R - 1) & 1u; }
 
+// x / pv, as IEEE division gives it; with a zero x and a finite, non-zero
+// pv the signed zero comes from x * pv, which has the same value and sign,
+// without the division: a zero quotient falls outside the range of the
+// float64 division's fast path, and its slow path costs the whole warp.
+__device__ __forceinline__ double quot(double x, double pv) {
+  return (x == 0.0 && isfinite(pv) && pv != 0.0) ? x * pv : x / pv;
+}
+
 // Pivot-free Gauss-Jordan elimination of the r x c system held in
 // registers, CPL columns a lane: M[s][i] is row i of column lane + 32 s.
 // The left block is r x r (r <= R <= 32, its column i in lane i); after
@@ -71,8 +79,10 @@ __device__ __forceinline__ unsigned prev_parity(int k, int R) { return (unsigned
 // row is divided by the pivot, then every other row q takes
 // M[q] - M[q][i] * row, the column entry M[q][i] broadcast by shuffle
 // before row q is updated. Returns the pivot of row `lane` (1.0 for a lane
-// >= r), for a vote on the pivots.
-template <int R, int CPL>
+// >= r), for a vote on the pivots. ZQ: the row's divisions by quot (the
+// same bits; zero entries and the columns past the matrix's edge skip the
+// division).
+template <int R, int CPL, bool ZQ = false>
 __device__ __forceinline__ double gj_sweep(double (&M)[CPL][R], int r, int lane) {
   double mine = 1.0;
 #pragma unroll
@@ -82,7 +92,7 @@ __device__ __forceinline__ double gj_sweep(double (&M)[CPL][R], int r, int lane)
       if (lane == i) mine = pv;
       double row[CPL];
 #pragma unroll
-      for (int s = 0; s < CPL; ++s) row[s] = M[s][i] / pv;
+      for (int s = 0; s < CPL; ++s) row[s] = ZQ ? quot(M[s][i], pv) : M[s][i] / pv;
 #pragma unroll
       for (int q = 0; q < R; ++q) {
         if (q < r) {

@@ -2,7 +2,11 @@
 
 Replaces timeopt_tpu/ops/pallas_lft.py::lft_query_lanes (kernel body
 _query_kernel). Kernel: csrc/lft_query.cu, float64, sm_90a; its header says
-what bounds it on the H100 and how the design answers that.
+what bounds it on the H100 and how the design answers that: persistent
+warps, each walking its own stride of (b, t) pairs with the next query's
+inputs in flight by cp.async, one query a warp in registers (the sweeps of
+csrc/warpmat.cuh), no block barrier. J equals the first (block-per-query)
+design's bit for bit (`chip_smoke.py --ab`).
 
 `lft_query` takes the prefixes (E, F, G) of ops/cuda_lft_scan.py and the
 terminal factors C of solver/augmented.py::build_terminal_factors, with a

@@ -2,7 +2,12 @@
 
 Replaces timeopt_tpu/ops/pallas_lft.py::lft_scan_lanes (kernel body
 _lft_scan_kernel). Kernel: csrc/lft_scan.cu, float64, sm_90a; its header
-says what bounds it on the H100 and how the design answers that.
+says what bounds it on the H100 and how the design answers that: per
+problem an element warp (step inputs by cp.async one step ahead) and a
+compose warp alone on the carry's chain (register Gauss-Jordan sweeps of
+csrc/warpmat.cuh), two problems a block sharing a store warp that streams
+every prefix out, all handed over by mbarriers. Its prefixes equal the
+first (block-per-problem) design's bit for bit (`chip_smoke.py --ab`).
 
 `lft_scan` takes the assembled blocks A_aug, Q_aug and BRB = B_aug R^-1
 B_aug' (formed outside the kernel, as the JAX wrapper does) with a leading

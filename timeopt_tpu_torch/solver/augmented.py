@@ -7,7 +7,8 @@ stage cost), `build_augmented` + `build_terminal_factors` the assembled
 (n+1)-dimensional blocks of the generic kernel, whose Q_aug varies with k
 (an extra stage cost). `build_terminal_blocks` gives the reference-parity
 terminal blocks QT of the inverse query (terminal_mode="inverse"). The
-homogeneous scaling is always on."""
+homogeneous scaling is on unless `scale=False` (SolveOptions.
+homogeneous_scaling), which takes s = 1 everywhere."""
 
 from __future__ import annotations
 
@@ -30,6 +31,14 @@ def homogeneous_scales(prob: Problem, X: torch.Tensor) -> torch.Tensor:
     qbar = torch.diagonal(prob.Q, dim1=-2, dim2=-1).sum(-1) / prob.n + 1e-12
     corner = quad + 2.0 * prob.w[:, None]
     return torch.sqrt(torch.clamp(corner / qbar[:, None], min=1e-12))
+
+
+def _scales(prob: Problem, X: torch.Tensor, scale: bool) -> torch.Tensor:
+    """s (B, N+1): the homogeneous scales, or ones without `scale` (the
+    blocks are then multiplied by exactly 1)."""
+    if scale:
+        return homogeneous_scales(prob, X)
+    return torch.ones(X.shape[:2], dtype=X.dtype, device=X.device)
 
 
 class FusedInputs(NamedTuple):
@@ -56,10 +65,11 @@ def build_fused_inputs(
     q_reg: float = 1e-9,
     rho_reg: float = 1e-12,
     psd_levels: int = 2,
+    scale: bool = True,
 ) -> FusedInputs:
-    """X (B, N+1, n), U (B, N, m), A (B, N, n, n), B (B, N, n, m). The
-    homogeneous scaling is always on (plain f32 would need it; f64 keeps it
-    for the conditioning of Q_aug)."""
+    """X (B, N+1, n), U (B, N, m), A (B, N, n, n), B (B, N, n, m). With
+    `scale` the homogeneous scales balance Q_aug (plain f32 would need them;
+    f64 keeps them for its conditioning); without, s = 1."""
     if system.extra_cost is not None:
         raise ValueError("an extra stage cost makes Q_aug step-dependent: use build_augmented")
     N, n = U.shape[1], prob.n
@@ -78,7 +88,7 @@ def build_fused_inputs(
     R_inv = psd_inv(prob.R, levels=psd_levels)
     Lt = chol_lower(sym(prob.Qf) + rho_reg * eye).transpose(-1, -2)
 
-    s = homogeneous_scales(prob, X)
+    s = _scales(prob, X, scale)
     scal = torch.stack([corner, 1.0 / s[:, :N], s[:, 1:], 1.0 / s[:, 1:]], dim=-1)
     vecs = torch.stack([e, en, atil, Qe], dim=2)
     return FusedInputs(A=A, B=B, vecs=vecs, scal=scal, Qq=Qq, R_inv=R_inv, Lt=Lt, s=s)
@@ -105,12 +115,13 @@ def build_augmented(
     q_reg: float = 1e-9,
     rho_reg: float = 1e-12,
     psd_levels: int = 2,
+    scale: bool = True,
 ) -> AugmentedBlocks:
     """Homogeneous blocks z_k = [dx; 1]: Q_aug = [[Q + q_reg I + cxx, Qe + cx],
     [., e'Qe + 2w + rho + 2c]], A_aug = [[A, atil], [0, 1]], B_aug = [B; 0],
     then scaled by D_k = diag(1..1, s_k): Q~ = D_k^-1 Q_aug D_k^-1,
-    A~ = D_{k+1} A_aug D_k^-1. X (B, N+1, n), U (B, N, m), A (B, N, n, n),
-    B (B, N, n, m)."""
+    A~ = D_{k+1} A_aug D_k^-1 (s = 1 without `scale`). X (B, N+1, n),
+    U (B, N, m), A (B, N, n, n), B (B, N, n, m)."""
     Bsz, N, m = U.shape
     n = prob.n
     z = dict(dtype=X.dtype, device=X.device)
@@ -146,7 +157,7 @@ def build_augmented(
     B_aug = torch.zeros((Bsz, N, n + 1, m), **z)
     B_aug[:, :, :n, :] = B
 
-    s = homogeneous_scales(prob, X)
+    s = _scales(prob, X, scale)
     ones = torch.ones((Bsz, N, n), **z)
     d_col = torch.cat([ones, (1.0 / s)[:, :N, None]], dim=-1)  # D_k^-1
     d_row = torch.cat([ones, s[:, 1:, None]], dim=-1)  # D_{k+1}

@@ -57,6 +57,7 @@ class SolveOptions:
     psd_levels: int = 2
     q_reg: Optional[float] = None  # None: 1e-9 in float64, 1e-5 otherwise
     rho_reg: float = 1e-12
+    homogeneous_scaling: bool = True  # balance the augmented blocks (False: s = 1)
     rel_tol: float = 1e-4
     early_exit: bool = True
 
@@ -118,10 +119,11 @@ def select_inputs(system, prob, opts, X, U, A, B):
     q_reg = resolve_q_reg(opts, X.dtype)
     if system.extra_cost is None:
         fi = build_fused_inputs(system, prob, Xh, Uh, Ah, Bh, q_reg=q_reg, rho_reg=opts.rho_reg,
-                                psd_levels=opts.psd_levels)
+                                psd_levels=opts.psd_levels, scale=opts.homogeneous_scaling)
         args = (fi.A, fi.B, fi.vecs, fi.scal, fi.Qq, fi.R_inv, fi.Lt)
         return False, [t.contiguous() for t in args], fi.s
-    blk = build_augmented(system, prob, Xh, Uh, Ah, Bh, q_reg=q_reg, rho_reg=opts.rho_reg, psd_levels=opts.psd_levels)
+    blk = build_augmented(system, prob, Xh, Uh, Ah, Bh, q_reg=q_reg, rho_reg=opts.rho_reg, psd_levels=opts.psd_levels,
+                          scale=opts.homogeneous_scaling)
     C = build_terminal_factors(prob, Xh, s=blk.s, rho_reg=opts.rho_reg)
     args = (blk.A_aug, blk.B_aug, blk.Q_aug, blk.R_inv, C)
     return True, [t.contiguous() for t in args], blk.s
@@ -137,7 +139,7 @@ def _select_curve(system, prob, opts, X, U, A, B) -> torch.Tensor:
         return bruteforce_J_curve(system, prob, Ah, Bh, Xh, Uh, psd_levels=opts.psd_levels)
     if opts.terminal_mode == "inverse":
         blk = build_augmented(system, prob, Xh, Uh, Ah, Bh, q_reg=resolve_q_reg(opts, X.dtype), rho_reg=opts.rho_reg,
-                              psd_levels=opts.psd_levels)
+                              psd_levels=opts.psd_levels, scale=opts.homogeneous_scaling)
         QT = build_terminal_blocks(prob, Xh, rho_reg=opts.rho_reg, s=blk.s)
         return blk.s[:, :1] ** 2 * propagator_select(
             blk.A_aug, blk.B_aug, blk.Q_aug, blk.R_inv, QT, psd_levels=opts.psd_levels, terminal_mode="inverse"
