@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py
 
-Drives the port's batched HOP-DDP solves in float64 on the card through
-its six hand-written CUDA kernels, for every system of the model registry,
-in seven phases; each prints its own lines and any failure raises (non-zero
-exit, no result line):
+Drives the port's batched HOP-DDP solves and its one-pass baseline in
+float64 on the card through its six hand-written CUDA kernels, for every
+system of the model registry, in seven phases; each prints its own lines
+and any failure raises (non-zero exit, no result line):
 
 1. device: the card, CUDA and nvcc versions (no CPU fallback);
 2. build: the six kernels from timeopt_tpu_torch/csrc/, one nvcc each, all
@@ -15,7 +15,9 @@ exit, no result line):
    card, on inputs from a real iterate, with the stated tolerances, and
    timed (median of CUDA-event timings after warm-up): the fused select,
    backward and line search on the quadrotor at B=1024, N=160 (the main
-   path); the generic select on PointMass at B=1024, N=220, and the
+   path), and the line search from start states other than row 0 of X:
+   the one-pass method's first shifted-gain rollouts on the quadrotor, at
+   three horizons a problem (3 x 1024 rollouts); the generic select on PointMass at B=1024, N=220, and the
    backward there at its own T*; then per system, at B=128 on its oracle
    problem set, its select kernel (the error printed, gated by
    SELECT_BOUND), the backward at that select's T* (rtol 1e-9, atol 1e-12,
@@ -47,20 +49,26 @@ exit, no result line):
    one quadrotor solve with terminal_mode="inverse" (the scan kernel inside
    a solve);
 6. the port's suite runner (timeopt_tpu_torch.runner.run_suite) in-process
-   on all six cases, 25 trials, ourmethod and baseline1, with --consistency
-   --save-jt --save-trajectories, against results/cpu_f64_25: T* identical
-   on every DoubleIntegrator and Quadrotor row, their trial-0
-   consistency_max_abs within RUNNER_CC_RTOL of the committed value; the
-   other cases' mismatches printed;
+   on all six cases, 25 trials, ourmethod, baseline1 and baseline2 (the
+   one-pass method), with --consistency --save-jt --save-trajectories
+   --phase-timers, against results/cpu_f64_25: ourmethod's and baseline1's
+   T* identical on every DoubleIntegrator and Quadrotor row, their trial-0
+   consistency_max_abs within RUNNER_CC_RTOL of the committed value;
+   baseline2's trial 0 of every case with the committed T* and J* within
+   rtol 1e-6, and its success share per case at least the committed one;
+   the other mismatches printed (baseline2's with their J* gap), and each
+   case's trial-0 phase timers beside the committed CPU values;
 7. throughput: one timed solve_batch at B=1024 of the quadrotor and of
-   PointMass, after a warm-up; the kernels of each path must launch.
+   PointMass, and one one-pass solve of the quadrotor, each after a
+   warm-up; the kernels of each path must launch.
 
 Each path resets the kernels' launch counts just before it runs and reads
 them just after; a kernel of the path that was not launched fails it. The
 line before the last is the card's name and power limit as nvidia-smi
 prints them; before that, one JSON line with each kernel's numbers: its
 launches summed over the paths of phases 4-6 (`launches`) and in one
-B=1024 solve of phase 7 (`launches_per_solve`), its error and times from
+B=1024 solve of phase 7 (`launches_per_solve`, by case; `Quadrotor_onepass`
+the one-pass solve), its error and times from
 phase 3 (`ms` and `plain_ms` one call between two CUDA events, the
 wrapper's host work included; `ms_back_to_back` ten launches back to back
 between two events, the kernel's own device time), and its roofline bound
@@ -69,7 +77,8 @@ at the phase-3 shapes (timeopt_tpu_torch/ops/work.py: `flops`, `bytes`,
 at 34 TFLOP/s, `share_of_bound` = bound_ms / ms_back_to_back; `library_ms`
 is null: no single PyTorch call computes any of these functions); the
 backward's entry also holds its numbers at PointMass B=1024 (`pointmass`,
-printed on a [bounds] line of its own). The last line is
+printed on a [bounds] line of its own), the line search's those of the
+one-pass rollouts from their start states (`onepass_rollout`). The last line is
 {"ok": true, "device": {...}}.
 Imports no JAX.
 
@@ -82,6 +91,9 @@ against new in turns old, new, new, old, on that kernel's rows (AB_ROWS),
 prints the largest difference between their outputs and whether they are
 bitwise equal, then times one B=1024 solve with each version's kernels,
 and fails unless old and new are bitwise equal on every row (phase_ab).
+The line search's rows also run the new kernel through its start-state
+entry (start states X[:, 0], as a view of X and as a copy) against the old
+kernel's ordinary entry.
 """
 
 from __future__ import annotations
@@ -493,6 +505,84 @@ def check_linesearch(system, probs, X, U, K, kap, T, alphas, label: str, gate_al
     require(bool(torch.equal(acc_k, acc_p)), f"{label}: accepted flags differ")
     log(f"[kernels] {label}: max abs err X {errs[0]:.3e}, U {errs[1]:.3e}, J {errs[2]:.3e} (all alphas and rows; "
         f"gated on {gated}), accepted identical ({int(acc_k.sum())}/{X.shape[0]})")
+    return max(errs)
+
+
+def onepass_rollout_args(system, probs, X, U, A, Bj, S: int = 20):
+    """The line-search kernel's inputs for the one-pass method's shifted-gain
+    rollouts of its first iteration from the iterate (X, U) and its
+    Jacobians, as solve_onepass makes them: T-bar from the nominal cost
+    curve, the warm-start update at T-bar (the backward and line-search
+    kernels), the prefix (S states) and the sweep on the updated iterate,
+    then three horizons of each problem, rolled out as 3 B problems: the
+    pick of the widest window, and T-bar + 2 and + 5 (- where above T_max),
+    horizons of the window at which the start state X_ext[:, S] is not the
+    first reference row. Returns (the line search's arguments, the start
+    states, the cost each rollout must improve on to be accepted: the warm
+    start's)."""
+    import torch
+    from timeopt_tpu_torch.solver import onepass
+    from timeopt_tpu_torch.solver.backward import backward_truncated
+    from timeopt_tpu_torch.solver.cost import argmin_T, nominal_cost_curve
+    from timeopt_tpu_torch.solver.forward import forward_linesearch
+    from timeopt_tpu_torch.solver.ilqr import SolveOptions
+    from timeopt_tpu_torch.solver.linearize import linearize
+
+    opts = SolveOptions(method="onepass", S_window=S)
+    T_bar = argmin_T(nominal_cost_curve(system, probs, X, U), probs.T_min, probs.T_max)
+    lm = torch.full((probs.batch,), opts.lm_init, dtype=X.dtype, device=X.device)
+    bw = backward_truncated(system, probs, A, Bj, X, U, T_bar, lm)
+    ls = forward_linesearch(system, probs, X, U, bw.K, bw.kappa, T_bar, alphas=opts.alphas)
+    X1 = torch.where(bw.ok[:, None, None], ls.X, X)
+    U1 = torch.where(bw.ok[:, None, None], ls.U, U)
+    J_prev = torch.where(bw.ok & torch.isfinite(ls.J), ls.J, float("inf"))
+    X_ext, U_ext, A_ext, B_ext = onepass.extend_and_linearize(system, opts, X1, U1, *linearize(system.step, X1, U1))
+    sweep = onepass.value_sweep_prefix(system, probs, A_ext, B_ext, X_ext, U_ext, T_bar, S, lm)
+    off = lambda d: torch.where(T_bar + d <= probs.T_max, T_bar + d, T_bar - d)  # noqa: E731
+    Ts = torch.stack([onepass.onepass_pick(probs, sweep, X_ext, X_ext[:, S], T_bar, S, S, S)[0], off(2), off(5)])
+    probJ, X_in, U_in, K_in, k_in, T_in, x_start = onepass.shifted_rollout_inputs(probs, X_ext, U_ext, sweep,
+                                                                                   T_bar, Ts, S)
+    return (system, probJ, X_in, U_in, K_in, k_in, T_in, opts.alphas[:4]), x_start, J_prev.repeat(3)
+
+
+def check_onepass_rollout(ls_args, x_start, J_prev, label: str) -> float:
+    """The line-search kernel from start states against its plain version
+    on what the one-pass method reads of each rollout: whether its
+    least-cost alpha improves on J_prev, the accept test (identical), and
+    on the accepted rollouts that alpha (identical, or its J tied within
+    1e-10 relative) with its J (rtol 1e-10), X on the rows <= T* and U,
+    each relative to the rollout's largest entry (rtol 1e-10, atol 1e-12;
+    beyond T* the rollout runs open loop on nominal controls). A rollout
+    that diverges amplifies last-bit differences without bound (as
+    check_linesearch says), so the others are compared only in the
+    printed errors. Returns the max abs error over all alphas and rows."""
+    import torch
+    from timeopt_tpu_torch.ops import cuda_forward
+
+    Xs_k, Us_k, Js_k = cuda_forward.linesearch(*ls_args, x_start=x_start)
+    Xs_p, Us_p, Js_p = cuda_forward.linesearch_plain(*ls_args, x_start=x_start)
+    torch.cuda.synchronize()
+    errs = [max_err(Xs_k, Xs_p)[0], max_err(Us_k, Us_p)[0], max_err(Js_k, Js_p)[0]]
+    r = torch.arange(Js_p.shape[0], device=Js_p.device)
+    bk, bp = torch.argmin(Js_k, dim=1), torch.argmin(Js_p, dim=1)
+    acc = Js_p[r, bp] < J_prev
+    require(torch.equal(acc, Js_k[r, bk] < J_prev), f"{label}: the accept decisions differ")
+    require(bool(acc.any()), f"{label}: no rollout improves on the warm start's cost, nothing to compare")
+    same = (bk == bp) | ((Js_p[r, bk] - Js_p[r, bp]).abs() <= 1e-10 * Js_p[r, bp].abs())
+    require(bool(same[acc].all()), f"{label}: the least-cost alpha differs on {int((~same & acc).sum())} rollouts")
+    T = ls_args[6]
+    rows = torch.arange(Xs_p.shape[2], device=T.device)[None, None] <= T[:, None, None]
+    sel = torch.zeros_like(Js_p, dtype=torch.bool)
+    sel[r, bp] = acc
+    gated = (close_per_rollout(Xs_k, Xs_p, sel[..., None] & rows, 1e-10, 1e-12)
+             and close_per_rollout(Us_k, Us_p, sel[..., None].expand(Us_p.shape[:3]), 1e-10, 1e-12)
+             and within(Js_k[sel], Js_p[sel], 1e-10, 1e-12))
+    require(gated, f"{label}: the accepted alpha's X/U/J outside rtol 1e-10 atol 1e-12 (max abs over all {errs})")
+    fin = torch.isfinite(Js_p).any(dim=1)
+    log(f"[kernels] {label}: max abs err X {errs[0]:.3e}, U {errs[1]:.3e}, J {errs[2]:.3e} (all alphas and rows; "
+        f"gated on the accepted rollouts' least-cost alpha, X on rows <= T*, per rollout), accepted identical "
+        f"({int(acc.sum())}/{acc.numel()}); a finite alpha on {int(fin.sum())} (plain) and "
+        f"{int(torch.isfinite(Js_k).any(dim=1).sum())} (kernel)")
     return max(errs)
 
 
@@ -995,6 +1085,23 @@ def phase_kernels(device) -> dict:
                                                len(opts.alphas)))
     log(f"[kernels] line search: kernel {ms:.3f} ms one call, {b2b:.3f} ms back to back, plain {pms:.3f} ms")
 
+    # ---- the one-pass method's first shifted-gain rollouts from the
+    # quadrotor's first iterate: start states X_ext[:, S], not row 0 of the
+    # kernel's X
+    ls_args, x_start, J_prev = onepass_rollout_args(system, probs, X, U, A, Bj)
+    nJ = ls_args[2].shape[0]
+    shifted = int((x_start != ls_args[2][:, 0]).any(dim=-1).sum())
+    require(shifted >= nJ // 2, f"one-pass rollouts: only {shifted}/{nJ} start states differ from row 0 of X")
+    err = check_onepass_rollout(ls_args, x_start, J_prev, f"line search from start states (one-pass rollouts, "
+                                                          f"Quadrotor {nJ} = 3 x {B_FULL})")
+    b2b = device_ms(lambda: cuda_forward.linesearch(*ls_args, x_start=x_start))
+    ms = cuda_ms(lambda: cuda_forward.linesearch(*ls_args, x_start=x_start), reps=5)
+    pms = cuda_ms(lambda: cuda_forward.linesearch_plain(*ls_args, x_start=x_start), reps=1)
+    out["linesearch"]["onepass_rollout"] = dict(rollouts=nJ, alphas=len(ls_args[-1]), max_abs_err=err, ms=ms,
+                                                ms_back_to_back=b2b, plain_ms=pms)
+    log(f"[kernels] line search from start states ({nJ} rollouts x {len(ls_args[-1])} alphas, {shifted} start states "
+        f"off row 0 of X): kernel {ms:.3f} ms one call, {b2b:.3f} ms back to back, plain {pms:.3f} ms")
+
     # ---- B=128, each system's oracle set: its select kernel, the backward
     # at that select's T* and the line search; the generic select on the
     # assembled blocks of the quadrotor (p = 13), the double integrator
@@ -1239,20 +1346,21 @@ def phase_inverse(device) -> dict:
 
 def phase_runner() -> dict:
     """The port's suite runner in-process (device cuda) on all six cases,
-    held against the committed results/cpu_f64_25 rows. Returns its launch
-    counts."""
+    the three solvers, with the phase timers, held against the committed
+    results/cpu_f64_25 rows. Returns its launch counts."""
     import csv
     import tempfile
 
     from timeopt_tpu_torch.runner import run_suite
 
+    solvers = ("ourmethod", "baseline1", "baseline2")
     with open(COMMITTED_CSV, newline="") as f:
         want = {(r["case"], r["solver"], r["trial"]): r for r in csv.DictReader(f)}
     with tempfile.TemporaryDirectory() as out:
         reset_launches()
         t0 = time.perf_counter()
-        run_suite.main(["--cases", ",".join(CASES), "--trials", "25", "--solvers", "ourmethod,baseline1",
-                        "--consistency", "--save-jt", "--save-trajectories", "--outdir", out])
+        run_suite.main(["--cases", ",".join(CASES), "--trials", "25", "--solvers", ",".join(solvers),
+                        "--consistency", "--save-jt", "--save-trajectories", "--phase-timers", "--outdir", out])
         secs = time.perf_counter() - t0
         counts = launches()
         with open(os.path.join(out, "summary_all.csv"), newline="") as f:
@@ -1261,30 +1369,55 @@ def phase_runner() -> dict:
             agg = list(csv.DictReader(f))
         for case in CASES:
             require(os.path.exists(os.path.join(out, case, f"{case}_Jt.csv")), f"runner: no {case}_Jt.csv")
-            require(os.path.exists(os.path.join(out, case, "trajectories_baseline1.npz")), f"runner: no {case} npz")
+            require(os.path.exists(os.path.join(out, case, "trajectories_baseline2.npz")), f"runner: no {case} npz")
     for name in KERNELS:
         require(counts[name] > 0, f"runner: kernel {name} was never launched")
-    require(len(got) == len(CASES) * 2 * 25, f"runner: {len(got)} rows")
-    log(f"[runner] 6 cases x 25 trials x (ourmethod, baseline1), --consistency --save-jt --save-trajectories: "
+    require(len(got) == len(CASES) * len(solvers) * 25, f"runner: {len(got)} rows")
+    with open(COMMITTED_CSV, newline="") as f:
+        require(list(got[0]) == next(csv.reader(f)), "runner: the header differs from the committed one")
+    log(f"[runner] 6 cases x 25 trials x {solvers}, --consistency --save-jt --save-trajectories --phase-timers: "
         f"{secs:.1f} s | launches {counts}")
+    phases = ("linearize", "select", "backward", "forward")
     for case in CASES:
         rows = [r for r in got if r["case"] == case]
-        t_miss = [(r["solver"], r["trial"], r["T_star"], want[(case, r["solver"], r["trial"])]["T_star"])
-                  for r in rows if r["T_star"] != want[(case, r["solver"], r["trial"])]["T_star"]]
-        jgap = max(abs(float(r["J_star"]) - float(want[(case, r["solver"], r["trial"])]["J_star"]))
-                   / abs(float(want[(case, r["solver"], r["trial"])]["J_star"])) for r in rows)
+        w = {(r["solver"], r["trial"]): want[(case, r["solver"], r["trial"])] for r in rows}
+        t_miss = [(r["solver"], r["trial"], r["T_star"], w[(r["solver"], r["trial"])]["T_star"])
+                  for r in rows if r["T_star"] != w[(r["solver"], r["trial"])]["T_star"]]
+        jgap = {s: max(abs(float(r["J_star"]) - float(w[(s, r["trial"])]["J_star"])) / abs(float(w[(s, r["trial"])]["J_star"]))
+                       for r in rows if r["solver"] == s) for s in solvers}
         cc = {s: (float(r["consistency_max_abs"]), float(want[(case, s, "0")]["consistency_max_abs"]))
               for s in ("ourmethod", "baseline1") for r in rows if r["solver"] == s and r["trial"] == "0"}
         ratio = {r["solver"]: r["ratio_time_median"] for r in agg if r["case"] == case}
         log(f"[runner] {case}: T* differs from the committed rows on {len(t_miss)}/{len(rows)} "
-            f"{t_miss[:6]}{' ...' if len(t_miss) > 6 else ''} | J* max rel gap {jgap:.3e} | trial-0 consistency_max_abs "
+            f"{t_miss[:6]}{' ...' if len(t_miss) > 6 else ''} | J* max rel gap "
+            + ", ".join(f"{s} {g:.3e}" for s, g in jgap.items()) + " | trial-0 consistency_max_abs "
             + ", ".join(f"{s} {a:.6e} (committed {b:.6e}, rel {(a - b) / b:+.3e})" for s, (a, b) in cc.items())
-            + f" | time_ratio_base median ourmethod {ratio.get('ourmethod')}")
+            + " | time_ratio_base median " + ", ".join(f"{s} {ratio.get(s)}" for s in solvers))
+        for s in solvers:
+            r0 = next(r for r in rows if r["solver"] == s and r["trial"] == "0")
+            log(f"[runner] {case} {s} trial-0 phase timers (B=1, host-driven), s on this card | committed CPU run: "
+                + ", ".join(f"t_{k} {float(r0['t_' + k]):.4f} | {float(w[(s, '0')]['t_' + k]):.4f}" for k in phases))
         if case in RUNNER_GATED:
-            require(not t_miss, f"runner {case}: T* differs from the committed rows: {t_miss}")
+            curve = [m for m in t_miss if m[0] != "baseline2"]
+            require(not curve, f"runner {case}: T* differs from the committed rows: {curve}")
             for s, (a, b) in cc.items():
                 lim = RUNNER_CC_RTOL[case] * abs(b)
                 require(abs(a - b) <= lim, f"runner {case} {s}: consistency_max_abs {a} vs committed {b} (limit {lim:.3e})")
+        # baseline2 (one-pass): trial 0 as committed, the success share no lower
+        b2 = {r["trial"]: r for r in rows if r["solver"] == "baseline2"}
+        w0 = w[("baseline2", "0")]
+        J0, Jw0 = float(b2["0"]["J_star"]), float(w0["J_star"])
+        share = sum(r["success"] == "True" for r in b2.values()) / 25
+        share_w = sum(w[("baseline2", t)]["success"] == "True" for t in b2) / 25
+        others = [(t, r["T_star"], w[("baseline2", t)]["T_star"],
+                   f"{(float(r['J_star']) - float(w[('baseline2', t)]['J_star'])) / abs(float(w[('baseline2', t)]['J_star'])):+.3e}")
+                  for t, r in b2.items() if t != "0" and r["T_star"] != w[("baseline2", t)]["T_star"]]
+        log(f"[runner] {case} baseline2: trial 0 T* {b2['0']['T_star']} (committed {w0['T_star']}), J* {J0!r} "
+            f"(committed {Jw0!r}, rel {(J0 - Jw0) / abs(Jw0):+.3e}) | success {share:.2f} (committed {share_w:.2f}) | "
+            f"other trials whose T* differs {len(others)}/24 (trial, T*, committed T*, J* rel gap): {others}")
+        require(b2["0"]["T_star"] == w0["T_star"] and abs(J0 - Jw0) <= 1e-6 * abs(Jw0),
+                f"runner {case} baseline2 trial 0: T* {b2['0']['T_star']} J* {J0} vs committed {w0['T_star']} {Jw0}")
+        require(share >= share_w, f"runner {case} baseline2: success share {share} < committed {share_w}")
     return counts
 
 
@@ -1326,6 +1459,42 @@ def phase_throughput(case: str, device) -> dict:
     return counts
 
 
+def phase_throughput_onepass(device) -> dict:
+    """One timed one-pass solve (baseline2) of the quadrotor at B=1024,
+    N=160, max_iter=12, after a warm-up; returns its launch counts. The
+    one-pass method launches the backward and the line-search kernels: the
+    warm start and the fixed-T-bar fallback (computed every iteration), and
+    the three window shrinks' shifted-gain rollouts of each iteration
+    stacked as one line-search launch."""
+    import torch
+    from timeopt_tpu_torch.models import get_system
+    from timeopt_tpu_torch.ops.wrap import wrap_error
+    from timeopt_tpu_torch.solver.ilqr import SolveOptions, solve_batch
+
+    system, mk = get_system("Quadrotor")
+    probs = oracle_problems(system, mk, B_FULL, device)
+    opts = SolveOptions(method="onepass", max_iter=MAX_ITER, S_window=20)
+    solve_batch(system, probs, options=opts)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = solve_batch(system, probs, options=opts)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launches()
+    for name in ("backward", "linesearch"):
+        require(counts[name] > 0, f"throughput one-pass: kernel {name} was never launched")
+    require(bool(torch.isfinite(res.J_star).all()), "throughput one-pass: non-finite J*")
+    eT = wrap_error(res.X[torch.arange(B_FULL, device=device), res.T_star] - probs.xg, probs.wrap_mask)
+    succ = float((eT.norm(dim=-1) <= 0.5).double().mean())
+    iters = counts["backward"] - 1  # the warm start's and one fallback backward an iteration
+    log(f"[throughput] Quadrotor one-pass B={B_FULL} max_iter={MAX_ITER} S_window=20 f64: {B_FULL / secs:.2f} solves/s | "
+        f"{secs:.3f} s | {iters} outer iterations | launches per solve: linesearch {counts['linesearch']}, backward "
+        f"{counts['backward']} (all {counts}) | T* median {float(res.T_star.double().median()):g} | n_fallback total "
+        f"{int(res.n_fallback.sum())} | success@0.5 {succ:.3f} | {smi()}")
+    return counts
+
+
 class ABRun:
     """What phase_ab's rows share: the two versions' kernels (`kernels`),
     both versions' outputs on one input (`both`), their times in turns
@@ -1354,27 +1523,30 @@ class ABRun:
         finally:
             _build.load = load
 
-    def both(self, fn):
+    def both(self, fn, fn_new=None):
+        """fn() with the old kernels, then fn_new() (default fn) with the new."""
         import torch
 
         with self.kernels("old"):
             a = fn()
-        b = fn()
+        b = (fn_new or fn)()
         torch.cuda.synchronize()
         return a, b
 
-    def turns(self, fn) -> dict:
-        """Back-to-back ms (and one-call ms) of old and new, in turns."""
+    def turns(self, fn, fn_new=None) -> dict:
+        """Back-to-back ms (and one-call ms) of old (fn) and new (fn_new,
+        default fn), in turns."""
         t = {"old": [], "new": [], "old_one_call": [], "new_one_call": []}
         for tag in ("old", "new", "new", "old"):
+            f = (fn_new or fn) if tag == "new" else fn
             with self.kernels(tag):
-                t[tag].append(device_ms(fn))
-                t[tag + "_one_call"].append(cuda_ms(fn, reps=5))
+                t[tag].append(device_ms(f))
+                t[tag + "_one_call"].append(cuda_ms(f, reps=5))
         return t
 
-    def row(self, name: str, case: str, BN: tuple, fn, outs) -> dict:
+    def row(self, name: str, case: str, BN: tuple, fn, outs, fn_new=None) -> dict:
         """BN: (B, N); outs: the old and the new version's outputs (tuples
-        of tensors)."""
+        of tensors); fn_new: the new version's call where it differs."""
         import torch
 
         o, n = outs
@@ -1386,7 +1558,7 @@ class ABRun:
             else:
                 bitwise = bitwise and bool(torch.equal(a, b))
         return dict(kernel=name, case=case, B=BN[0], N=BN[1], max_abs_diff=diff, bitwise=bitwise,
-                    **{f"{k}_ms": v for k, v in self.turns(fn).items()})
+                    **{f"{k}_ms": v for k, v in self.turns(fn, fn_new).items()})
 
     def setup(self, case: str, Bsz: int):
         """(system, probs, X, U, A, Bj, select kernel, its plain version, s, the select kernel's T*)."""
@@ -1413,7 +1585,9 @@ def ab_lft_select(ab: ABRun) -> list:
 
 def ab_linesearch(ab: ABRun) -> list:
     """The quadrotor at B=1024 and every system at B=128, at the select
-    kernel's T*."""
+    kernel's T*; on each, the new kernel also through its start-state entry
+    (start states X[:, 0] as a view of X, then as a copy) against the old
+    kernel's ordinary entry."""
     from timeopt_tpu_torch.ops import cuda_backward, cuda_forward
 
     rows = []
@@ -1425,6 +1599,10 @@ def ab_linesearch(ab: ABRun) -> list:
         outs = ab.both(fn)
         check_linesearch(*args, f"ab: new line search vs plain ({case} B={Bsz})", gate_all=Bsz == B_FULL)
         rows.append(ab.row("linesearch", case, (Bsz, probs.N), fn, outs))
+        for how, x0 in (("view", X[:, 0]), ("copy", X[:, 0].clone())):
+            fn_new = lambda x0=x0: cuda_forward.linesearch(*args, x_start=x0)  # noqa: E731
+            rows.append(ab.row("linesearch", f"{case}, new from x_start = X[:, 0] ({how})", (Bsz, probs.N), fn,
+                               ab.both(fn, fn_new), fn_new))
     return rows
 
 
@@ -1639,6 +1817,7 @@ def main() -> None:
     add(phase_inverse(device))
     add(phase_runner())
     per_solve = {case: phase_throughput(case, device) for case in ("Quadrotor", "PointMass_Navigation")}
+    per_solve["Quadrotor_onepass"] = phase_throughput_onepass(device)
 
     from timeopt_tpu_torch.ops import work
 
@@ -1656,6 +1835,9 @@ def main() -> None:
             f"({k['flops'] / 1e9:.3f} GFLOP, {k['bytes'] / 1e6:.1f} MB; {k['bound_ms_cuda_cores']:.4f} ms at "
             f"{work.PEAK_FLOPS_CUDA_CORES / 1e12:g} TFLOP/s), share of bound {k['share_of_bound']:.4f}, "
             f"launches per B={B_FULL} solve {k['launches_per_solve']}")
+    op = numbers["linesearch"]["onepass_rollout"]
+    log(f"[bounds] linesearch (one-pass rollouts from their start states, {op['rollouts']} x {op['alphas']} alphas): "
+        f"{op['ms_back_to_back']:.3f} ms back to back ({op['ms']:.3f} one call, plain {op['plain_ms']:.3f})")
     bpm = numbers["backward"]["pointmass"]
     bpm["share_of_bound"] = bpm["bound_ms"] / bpm["ms_back_to_back"]
     log(f"[bounds] backward (PointMass_Navigation B={B_FULL}, its own T*): {bpm['ms_back_to_back']:.3f} ms back to back "

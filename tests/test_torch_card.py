@@ -22,6 +22,11 @@ the same math it is off by up to 2.8e-8 where the kernel's solve-based
 compose is off by 2e-10, so there the bound is rtol 1e-7. A diverging
 rollout amplifies the last-bit differences without bound, so the line
 search compares trajectories only where an alpha improves on J_old.
+
+The line search's start-state entry (the one-pass method's shifted-gain
+rollouts start at X_ext[:, S], not at row 0 of their reference rows) is
+held to the plain version at the same tolerance, and one-pass solves on
+the card to the CPU's.
 """
 
 from __future__ import annotations
@@ -404,6 +409,56 @@ def test_linesearch_kernel_edges_match_plain(dev, case, B, alphas, poison):
     assert torch.equal(Js_k < J_old[:, None], improving)
     for k, q in ((Xs_k, Xs_p), (Us_k, Us_p), (Js_k, Js_p)):
         _close(k[improving], q[improving], 1e-10, 1e-12)
+
+
+@pytest.mark.parametrize("case", ["Quadrotor", "PointMass_Navigation"])
+@pytest.mark.parametrize("how", ["strided", "copy"])
+def test_linesearch_kernel_start_state_matches_plain(dev, case, how):
+    """Start states other than X[:, 0]: row 2 of X, as a strided view of X
+    (rows (N+1) n apart) or as a contiguous copy, moved by 1e-3 N(0, 1)."""
+    system, probs, X, U, A, Bj = _iterate(case)
+    N = U.shape[1]
+    Tst = torch.tensor([N // 2, 7, N - 3, 11])
+    lm = torch.full((4,), 1e-3, dtype=torch.float64)
+    kap, K, _ = cuda_backward.backward_plain(A, Bj, *backward_inputs(system, probs, X, U), Tst, lm)
+    rng = np.random.default_rng(3)
+    Xd = X.clone()
+    Xd[:, 2] += 1e-3 * torch.as_tensor(rng.standard_normal(Xd[:, 2].shape))
+    p = probs.to(dev)
+    Xd = Xd.to(dev)
+    x_start = Xd[:, 2] if how == "strided" else Xd[:, 2].contiguous()
+    assert (x_start.stride(0) == (N + 1) * system.n) == (how == "strided")
+    args = (system, p, X.to(dev), U.to(dev), K.to(dev), kap.to(dev), Tst.to(dev), ALPHAS)
+    n0 = cuda_forward.LAUNCHES
+    Xs_k, Us_k, Js_k = cuda_forward.linesearch(*args, x_start=x_start)
+    assert cuda_forward.LAUNCHES == n0 + 1
+    Xs_p, Us_p, Js_p = cuda_forward.linesearch_plain(*args, x_start=x_start)
+    assert torch.equal(Xs_k[:, :, 0], x_start[:, None].expand(-1, len(ALPHAS), -1))
+    J_old = cost_true(system, p, args[2], args[3], args[6])
+    improving = Js_p < J_old[:, None]
+    assert torch.equal(Js_k < J_old[:, None], improving) and bool(improving.any())
+    for k, q in ((Xs_k, Xs_p), (Us_k, Us_p), (Js_k, Js_p)):
+        _close(k[improving], q[improving], 1e-10, 1e-12)
+
+
+@pytest.mark.parametrize("case", ["DoubleIntegrator", "PointMass_Navigation"])
+def test_onepass_solve_on_the_card_matches_cpu(dev, case):
+    """The one-pass method on the card (backward and line-search kernels,
+    the line search also from start states) against the CPU's plain path."""
+    system, mk = get_system(case)
+    base = (mk(N=24, device="cpu").replace(T_min=4, T_max=16) if case == "DoubleIntegrator"
+            else mk(N=40, device="cpu").replace(T_min=10, T_max=40))
+    rng = np.random.default_rng(2)
+    sigma = torch.as_tensor(system.sigma_x0 if case != "DoubleIntegrator" else (0.2, 0.2))
+    probs = broadcast_problem(base, 3).replace(x0=base.x0 + sigma * torch.as_tensor(rng.standard_normal((3, system.n))))
+    opts = SolveOptions(method="onepass", max_iter=4, S_window=5)
+    counts = (cuda_backward.LAUNCHES, cuda_forward.LAUNCHES)
+    got = solve_batch(system, probs.to(dev), options=opts)
+    assert all(c1 > c0 for c0, c1 in zip(counts, (cuda_backward.LAUNCHES, cuda_forward.LAUNCHES)))
+    want = solve_batch(system, probs, options=opts)
+    for f in ("T_star", "n_accept", "n_fallback"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    _close(got.J_star.cpu(), want.J_star, 1e-8, 0.0)
 
 
 def test_float32_on_the_card_raises(dev):

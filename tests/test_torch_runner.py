@@ -4,10 +4,13 @@ the JAX runner and the committed results/cpu_f64_25 artifacts, on the CPU.
 - The trial problems are bit-equal to the JAX runner's (same CRC32 seeding).
 - The table code (no pandas) gives the JAX runner's pandas results on the
   same rows, value for value, and the same CSV text.
-- The runner reproduces the committed DoubleIntegrator rows of
-  ourmethod and baseline1: T* and n_iter identical, J* within rtol 1e-8
-  (the port's operation order differs, so not bitwise), and the trial-0
-  consistency columns within rtol 1e-6.
+- The runner reproduces the committed DoubleIntegrator rows of all three
+  solvers: T* and n_iter identical, J* within rtol 1e-8 (the port's
+  operation order differs, so not bitwise), and the trial-0 consistency
+  columns within rtol 1e-6; with --consistency and --phase-timers its
+  header is the committed one.
+- The cart-pole's trial 0 of baseline2 (the one-pass method) reproduces
+  the committed T* 140 and J* within rtol 1e-6.
 """
 
 from __future__ import annotations
@@ -91,15 +94,22 @@ def test_enrich_and_aggregate_matches_pandas(solvers, tmp_path):
 
 
 def test_unported_flags_fail_at_parsing():
-    for argv in (["--solvers", "ourmethod,baseline2"], ["--phase-timers"], ["--distributed"], ["--f32"],
-                 ["--cases", "Pendulum"]):
+    for argv in (["--distributed"], ["--f32"], ["--cases", "Pendulum"], ["--solvers", "ourmethod,baseline3"]):
         with pytest.raises(SystemExit):
             trun.parse_args(argv)
     args = trun.parse_args(["--solvers", "ourmethod,baseline1", "--cases", "Quadrotor,PointMass_Navigation"])
     assert args.device == "cuda" and args.solvers == ["ourmethod", "baseline1"]
     assert args.cases == ["Quadrotor", "PointMass_Navigation"]
     default = trun.parse_args([])
-    assert default.cases == trun.CASES and default.solvers == ["ourmethod", "baseline1"]
+    assert default.cases == trun.CASES and default.solvers == ["ourmethod", "baseline1", "baseline2"]
+    assert not default.phase_timers
+
+
+def test_ported_flags_parse():
+    """baseline2 (the one-pass method) and --phase-timers are ported."""
+    args = trun.parse_args(["--solvers", "ourmethod,baseline2", "--phase-timers"])
+    assert args.solvers == ["ourmethod", "baseline2"] and args.phase_timers
+    assert trun.SOLVER_METHODS["baseline2"] == "onepass"
 
 
 def test_cuda_device_without_a_card_fails(tmp_path):
@@ -145,3 +155,40 @@ def test_doubleintegrator_rows_reproduce_committed(tmp_path):
     assert list(jt[0]) == ["t", "J_propagator", "J_bruteforce"] and len(jt) == 80
     traj = np.load(tmp_path / "DoubleIntegrator" / "trajectories_baseline1.npz")
     assert traj["X"].shape == (25, 121, 2) and sorted(traj.files) == ["J_hist", "J_star", "T_hist", "T_star", "U", "X"]
+
+
+def test_doubleintegrator_baseline2_rows_reproduce_committed(tmp_path):
+    """baseline2 on the committed DoubleIntegrator case (25 trials, seed 0,
+    max_iter 12) with --consistency and --phase-timers: the committed
+    header, every row's T*, n_iter and status, J* within rtol 1e-8, and the
+    trial-0 timer columns (seconds of this CPU run, not the committed
+    values) present, non-negative and with a positive sum."""
+    trun.main(["--device", "cpu", "--cases", "DoubleIntegrator", "--trials", "25", "--solvers", "baseline2",
+               "--consistency", "--phase-timers", "--outdir", str(tmp_path)])
+    with open(tmp_path / "summary_all.csv", newline="") as f:
+        got = list(csv.DictReader(f))
+    with open(_COMMITTED, newline="") as f:
+        header = next(csv.reader(f))
+    assert list(got[0]) == header
+    want = _committed("DoubleIntegrator", "baseline2")
+    assert len(want) == len(got) == 25
+    for w, g in zip(want, got):
+        assert (g["trial"], g["T_star"], g["n_iter"], g["status"]) == (w["trial"], w["T_star"], w["n_iter"], w["status"])
+        np.testing.assert_allclose(float(g["J_star"]), float(w["J_star"]), rtol=1e-8)
+        assert g["solver_error"] == w["solver_error"] == ""
+    timers = [float(got[0][f"t_{k}"]) for k in ("linearize", "select", "backward", "forward")]
+    assert min(timers) >= 0 and sum(timers) > 0
+    assert all(g[f"t_{k}"] == "" for g in got[1:] for k in ("linearize", "select", "backward", "forward"))
+
+
+def test_cartpole_baseline2_trial0_anchor():
+    """The one-pass method on the cart-pole's nominal trial (trial 0 of
+    results/cpu_f64_25): T* 140, n_iter 13, J* 125.974151183 within rtol
+    1e-6."""
+    from timeopt_tpu_torch.solver.ilqr import SolveOptions, solve_batch
+
+    system, _, probs = trun.build_trial_problems("Cartpole_SwingUp", 1, 0, device="cpu")
+    res = solve_batch(system, probs, options=SolveOptions(method="onepass", max_iter=12, S_window=20))
+    w = _committed("Cartpole_SwingUp", "baseline2")[0]
+    assert (int(res.T_star[0]), int(res.n_accept[0])) == (int(w["T_star"]), int(w["n_iter"])) == (140, 13)
+    np.testing.assert_allclose(float(res.J_star[0]), float(w["J_star"]), rtol=1e-6)

@@ -72,9 +72,18 @@ def test_early_exit_changes_no_result():
     ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()),
 )
 def test_unported_options_raise(kw):
+    """The associative scan is not ported and raises; the one-pass method
+    is ported and solves, ignoring terminal_mode as the JAX package does."""
     _, ts, _, tp = _tiny_di(B=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tilqr.solve_batch(ts, tp, options=tilqr.SolveOptions(max_iter=1, **kw))
+    opts = tilqr.SolveOptions(max_iter=1, **kw)
+    if kw.get("scan_mode") == "associative":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tilqr.solve_batch(ts, tp, options=opts)
+        return
+    res = tilqr.solve_batch(ts, tp, options=opts)
+    assert bool(torch.isfinite(res.J_star).all()) and int(res.n_accept[0]) >= 1
+    ref = tilqr.solve_batch(ts, tp, options=tilqr.SolveOptions(max_iter=1, method="onepass"))
+    assert torch.equal(res.T_star, ref.T_star) and torch.equal(res.J_star, ref.J_star)
 
 
 def test_problem_batching_helpers():

@@ -7,7 +7,11 @@
 // first-improving-alpha selection stays outside the kernel, in torch, as
 // _select_first_improving stayed outside the TPU kernel.
 //
-// Per (problem, alpha): N Euler steps from X[0] with
+// Per (problem, alpha): N Euler steps from the start state x0 (X[0] through
+// the entry linesearch_rollout; a row of any array, a batch stride apart,
+// through linesearch_rollout_from: the one-pass method's shifted-gain
+// rollout starts at X_ext[S] while its reference rows X_k are re-indexed)
+// with
 //   u_k = U_k + [k < T*] (K_k wrap(x - X_k) + alpha kappa_k),
 //   x+  = x + dt xdot(x, u) (+ NaN where the system's guard holds on (x, u)),
 // the raw step of the system (no norm poisoning), and the cost of
@@ -374,7 +378,8 @@ __global__ void __launch_bounds__(WARP * A_BLOCK, 4) linesearch_kernel(const dou
                                   const double* __restrict__ Qf, const double* __restrict__ w,
                                   const bool* __restrict__ wrap_mask,
                                   const double* __restrict__ alphas, double* __restrict__ Xs,
-                                  double* __restrict__ Us, double* __restrict__ Js, int B, int N,
+                                  double* __restrict__ Us, double* __restrict__ Js,
+                                  const double* __restrict__ x0, long long x0_stride, int B, int N,
                                   int A, double dt, int state_wrap_bits) {
   constexpr int n = S::n, m = S::m;
   constexpr int G = group_width(n);
@@ -428,7 +433,7 @@ __global__ void __launch_bounds__(WARP * A_BLOCK, 4) linesearch_kernel(const dou
   const bool wmi = (wm >> li) & 1;
   const bool wrapi = li < n && ((state_wrap_bits >> li) & 1);
 
-  double xi = (valid && li < n) ? X[(size_t)b * (N + 1) * n + li] : 0.0;
+  double xi = (valid && li < n) ? x0[(size_t)b * x0_stride + li] : 0.0;
   double run = 0.0, jt = 0.0;
   if (valid && li < n) Xo[li] = xi;
   bool fa = group_all<G>(li >= n || isfinite(xi)), ft = fa, fu = true;
@@ -547,8 +552,8 @@ template <class S>
 int launch(const void* X, const void* U, const void* K, const void* kap, const void* T_star,
            const void* xg, const void* u_ref, const void* Q, const void* R, const void* Qf,
            const void* w, const void* wrap_mask, const void* alphas, void* Xs, void* Us,
-           void* Js, int B, int N, int n, int m, int A, double dt, int state_wrap_bits,
-           cudaStream_t stream) {
+           void* Js, const void* x0, long long x0_stride, int B, int N, int n, int m, int A,
+           double dt, int state_wrap_bits, cudaStream_t stream) {
   if (n != S::n || m != S::m || A < 1) return (int)cudaErrorInvalidValue;
   constexpr int PB = WARP / group_width(S::n);
   const int ab = A < A_BLOCK ? A : A_BLOCK;
@@ -558,8 +563,8 @@ int launch(const void* X, const void* U, const void* K, const void* kap, const v
         (const double*)X, (const double*)U, (const double*)K, (const double*)kap,
         (const int64_t*)T_star, (const double*)xg, (const double*)u_ref, (const double*)Q,
         (const double*)R, (const double*)Qf, (const double*)w, (const bool*)wrap_mask,
-        (const double*)alphas, (double*)Xs, (double*)Us, (double*)Js, B, N, A, dt,
-        state_wrap_bits);
+        (const double*)alphas, (double*)Xs, (double*)Us, (double*)Js, (const double*)x0,
+        x0_stride, B, N, A, dt, state_wrap_bits);
   }
   return (int)cudaGetLastError();
 }
@@ -567,34 +572,47 @@ int launch(const void* X, const void* U, const void* K, const void* kap, const v
 }  // namespace
 
 // system_id (System.device_id): 0 = DoubleIntegrator, 1 = Quadrotor,
-// 2 = Cartpole, 3 = Segway, 4 = Ballbot, 5 = PointMass.
+// 2 = Cartpole, 3 = Segway, 4 = Ballbot, 5 = PointMass. Each rollout of
+// problem b starts at x0 + b * x0_stride.
+extern "C" int linesearch_rollout_from(const void* X, const void* U, const void* K,
+                                       const void* kap, const void* T_star, const void* xg,
+                                       const void* u_ref, const void* Q, const void* R,
+                                       const void* Qf, const void* w, const void* wrap_mask,
+                                       const void* alphas, void* Xs, void* Us, void* Js,
+                                       const void* x0, int B, int N, int n, int m, int A,
+                                       int system_id, double dt, int state_wrap_bits,
+                                       long long x0_stride, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+#define LS_LAUNCH(SYS)                                                                          \
+  return launch<SYS>(X, U, K, kap, T_star, xg, u_ref, Q, R, Qf, w, wrap_mask, alphas, Xs, Us, Js, \
+                     x0, x0_stride, B, N, n, m, A, dt, state_wrap_bits, s)
+  switch (system_id) {
+    case 0:
+      LS_LAUNCH(DoubleIntegrator);
+    case 1:
+      LS_LAUNCH(Quadrotor);
+    case 2:
+      LS_LAUNCH(Cartpole);
+    case 3:
+      LS_LAUNCH(Segway);
+    case 4:
+      LS_LAUNCH(Ballbot);
+    case 5:
+      LS_LAUNCH(PointMass);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef LS_LAUNCH
+}
+
+// The ordinary line search: every rollout starts at its own X[0].
 extern "C" int linesearch_rollout(const void* X, const void* U, const void* K, const void* kap,
                                   const void* T_star, const void* xg, const void* u_ref,
                                   const void* Q, const void* R, const void* Qf, const void* w,
                                   const void* wrap_mask, const void* alphas, void* Xs, void* Us,
                                   void* Js, int B, int N, int n, int m, int A, int system_id,
                                   double dt, int state_wrap_bits, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (system_id) {
-    case 0:
-      return launch<DoubleIntegrator>(X, U, K, kap, T_star, xg, u_ref, Q, R, Qf, w, wrap_mask,
-                                      alphas, Xs, Us, Js, B, N, n, m, A, dt, state_wrap_bits, s);
-    case 1:
-      return launch<Quadrotor>(X, U, K, kap, T_star, xg, u_ref, Q, R, Qf, w, wrap_mask, alphas,
-                               Xs, Us, Js, B, N, n, m, A, dt, state_wrap_bits, s);
-    case 2:
-      return launch<Cartpole>(X, U, K, kap, T_star, xg, u_ref, Q, R, Qf, w, wrap_mask, alphas,
-                              Xs, Us, Js, B, N, n, m, A, dt, state_wrap_bits, s);
-    case 3:
-      return launch<Segway>(X, U, K, kap, T_star, xg, u_ref, Q, R, Qf, w, wrap_mask, alphas, Xs,
-                            Us, Js, B, N, n, m, A, dt, state_wrap_bits, s);
-    case 4:
-      return launch<Ballbot>(X, U, K, kap, T_star, xg, u_ref, Q, R, Qf, w, wrap_mask, alphas, Xs,
-                             Us, Js, B, N, n, m, A, dt, state_wrap_bits, s);
-    case 5:
-      return launch<PointMass>(X, U, K, kap, T_star, xg, u_ref, Q, R, Qf, w, wrap_mask, alphas,
-                               Xs, Us, Js, B, N, n, m, A, dt, state_wrap_bits, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return linesearch_rollout_from(X, U, K, kap, T_star, xg, u_ref, Q, R, Qf, w, wrap_mask, alphas,
+                                 Xs, Us, Js, X, B, N, n, m, A, system_id, dt, state_wrap_bits,
+                                 (long long)(N + 1) * n, stream);
 }

@@ -10,7 +10,9 @@ answers that. The first-improving selection stays in torch
 (solver/forward.py::select_first_improving).
 
 `linesearch` returns the per-alpha rollouts Xs (B, A, N+1, n),
-Us (B, A, N, m) and costs Js (B, A). On a CPU tensor it runs the plain
+Us (B, A, N, m) and costs Js (B, A). Each rollout starts at X[:, 0], or at
+`x_start` (B, n), whose rows may lie a batch stride apart (a view such as
+X_ext[:, S]); the one-pass method's shifted-gain rollout starts there. On a CPU tensor it runs the plain
 version; on a CUDA float64 tensor it launches the kernel; any other CUDA
 dtype, or a system without device dynamics, raises.
 """
@@ -26,19 +28,21 @@ from timeopt_tpu_torch.ops import _build
 LAUNCHES = 0  # kernel launches since the last reset
 
 
-def linesearch_plain(system, prob, X, U, K, kappa, T_star, alphas):
+def linesearch_plain(system, prob, X, U, K, kappa, T_star, alphas, x_start=None):
     """Plain PyTorch version of the kernel (solver/forward.py)."""
     from timeopt_tpu_torch.solver.forward import linesearch_plain as plain
 
-    return plain(system, prob, X, U, K, kappa, T_star, alphas)
+    return plain(system, prob, X, U, K, kappa, T_star, alphas, x_start)
 
 
-def linesearch(system, prob, X, U, K, kappa, T_star, alphas):
+def linesearch(system, prob, X, U, K, kappa, T_star, alphas, x_start=None):
     """X (B, N+1, n), U (B, N, m), K (B, N, m, n), kappa (B, N, m),
     T_star (B,) int64, problem data from `prob`, alphas a sequence of A
-    floats -> (Xs, Us, Js)."""
+    floats, x_start None or (B, n) with unit stride along n -> (Xs, Us, Js).
+    Without x_start the kernel's entry `linesearch_rollout` starts at
+    X[:, 0]; with it, `linesearch_rollout_from`."""
     if not _build.on_card(X, "line search"):
-        return linesearch_plain(system, prob, X, U, K, kappa, T_star, alphas)
+        return linesearch_plain(system, prob, X, U, K, kappa, T_star, alphas, x_start)
     if system.device_id is None:
         raise NotImplementedError(
             f"{system.name} has no device-side xdot in csrc/linesearch.cu (ROADMAP.md)"
@@ -56,23 +60,32 @@ def linesearch(system, prob, X, U, K, kappa, T_star, alphas):
         _build.check(t, shape, f64, dev, name)
     _build.check(T_star, (Bsz,), torch.int64, dev, "T_star")
     _build.check(prob.wrap_mask, (Bsz, n), torch.bool, dev, "wrap_mask")
+    if x_start is not None:
+        # rows a batch stride apart, each row contiguous
+        _build.check(x_start[0], (n,), f64, dev, "x_start")
+        if tuple(x_start.shape) != (Bsz, n):
+            raise ValueError(f"x_start: shape {tuple(x_start.shape)}, expected {(Bsz, n)}")
     a_vec = torch.tensor([float(a) for a in alphas], dtype=f64, device=dev)
     Xs = torch.empty((Bsz, A, N + 1, n), dtype=f64, device=dev)
     Us = torch.empty((Bsz, A, N, m), dtype=f64, device=dev)
     Js = torch.empty((Bsz, A), dtype=f64, device=dev)
     wrap_bits = sum(1 << int(i) for i in system.wrap_idx)
-    fn = _build.bind(
-        _build.load("linesearch"), "linesearch_rollout", 16,
-        [ctypes.c_int] * 6 + [ctypes.c_double, ctypes.c_int],
-    )
-    rc = fn(
-        X.data_ptr(), U.data_ptr(), K.data_ptr(), kappa.data_ptr(), T_star.data_ptr(),
-        prob.xg.data_ptr(), prob.u_ref.data_ptr(), prob.Q.data_ptr(), prob.R.data_ptr(),
-        prob.Qf.data_ptr(), prob.w.data_ptr(), prob.wrap_mask.data_ptr(), a_vec.data_ptr(),
-        Xs.data_ptr(), Us.data_ptr(), Js.data_ptr(),
-        Bsz, N, n, m, A, int(system.device_id), float(system.dt), wrap_bits,
-        _build.stream_ptr(dev),
-    )
-    _build.raise_on_error(rc, "linesearch_rollout")
+    lib = _build.load("linesearch")
+    ptrs = [X.data_ptr(), U.data_ptr(), K.data_ptr(), kappa.data_ptr(), T_star.data_ptr(),
+            prob.xg.data_ptr(), prob.u_ref.data_ptr(), prob.Q.data_ptr(), prob.R.data_ptr(),
+            prob.Qf.data_ptr(), prob.w.data_ptr(), prob.wrap_mask.data_ptr(), a_vec.data_ptr(),
+            Xs.data_ptr(), Us.data_ptr(), Js.data_ptr()]
+    tail = [Bsz, N, n, m, A, int(system.device_id), float(system.dt), wrap_bits]
+    tail_types = [ctypes.c_int] * 6 + [ctypes.c_double, ctypes.c_int]
+    if x_start is None:
+        entry = "linesearch_rollout"
+        fn = _build.bind(lib, entry, 16, tail_types)
+    else:
+        entry = "linesearch_rollout_from"
+        fn = _build.bind(lib, entry, 17, tail_types + [ctypes.c_longlong])
+        ptrs.append(x_start.data_ptr())
+        tail.append(x_start.stride(0))
+    rc = fn(*ptrs, *tail, _build.stream_ptr(dev))
+    _build.raise_on_error(rc, entry)
     LAUNCHES += 1
     return Xs, Us, Js

@@ -15,10 +15,13 @@ batch, which includes building the CUDA kernels on a first launch. The CSV
 files are written with the csv module (repr floats, so J round-trips
 exactly); pandas is not needed.
 
-Not ported (ROADMAP.md): baseline2 (the one-pass method, so the default
---solvers is ourmethod,baseline1), --phase-timers, --distributed and --f32
-fail at argument parsing; the plots
-(timeopt_tpu/runner/plot.py) need matplotlib.
+With --phase-timers, trial 0 of each (case, solver) is solved once more
+through the host-driven phase profiler (utils/timing.py), a warm-up call
+and a reported one, which fills the t_linearize, t_select, t_backward and
+t_forward columns of its row.
+
+Not ported (ROADMAP.md): --distributed and --f32 fail at argument parsing;
+the plots (timeopt_tpu/runner/plot.py) need matplotlib.
 """
 
 from __future__ import annotations
@@ -116,6 +119,7 @@ def run_case(
     save_trajectories: bool = False,
     save_jt: bool = False,
     consistency: bool = False,
+    phase_timers: bool = False,
     outdir: str = ".",
 ):
     from timeopt_tpu_torch.ops.wrap import wrap_error
@@ -176,6 +180,15 @@ def run_case(
             # propagator vs brute-force J(T) on this solver's trial-0 final trajectory
             cc = consistency_check(system, _take(probs, 0), res.X[:1], res.U[:1])
             cc_max, cc_rmse = float(cc["max_abs"][0]), float(cc["rmse"][0])
+        phase_cols = {}
+        if phase_timers:
+            # trial 0 through the host-driven phase profiler: a warm-up
+            # call, then the reported one
+            from timeopt_tpu_torch.utils.timing import profile_any
+
+            profile_any(system, _take(probs, 0), opts)
+            _, timers = profile_any(system, _take(probs, 0), opts)
+            phase_cols = {f"t_{k}": float(v) for k, v in timers.items()}
 
         for i in range(trials):
             final_err = float(np.linalg.norm(eT[i]))
@@ -202,6 +215,7 @@ def run_case(
                         if consistency and i == 0
                         else {}
                     ),
+                    **(phase_cols if i == 0 else {}),
                 }
             )
         succ = np.mean([r["success"] for r in rows if r["solver"] == solver_name])
@@ -324,8 +338,7 @@ def parse_args(argv=None):
     ap.add_argument("--S-window", type=int, default=20)
     ap.add_argument("--use-central-diff", action="store_true")
     ap.add_argument("--success-tol", type=float, default=0.5)
-    # baseline2 (one-pass) is not ported, so it is not in the default
-    ap.add_argument("--solvers", type=str, default="ourmethod,baseline1")
+    ap.add_argument("--solvers", type=str, default="ourmethod,baseline1,baseline2")
     ap.add_argument("--cases", type=str, default="")
     ap.add_argument("--timing", choices=["amortized", "per-solve"], default="amortized")
     ap.add_argument("--device", type=str, default="cuda", help="PyTorch device of the solves (default cuda)")
@@ -339,22 +352,24 @@ def parse_args(argv=None):
         help="save the trial-0 J(T) selection curve per case/solver to <outdir>/<case>/<case>_Jt.csv",
     )
     ap.add_argument("--distributed", action="store_true", help=f"multi-host run: {_ROADMAP}")
-    ap.add_argument("--phase-timers", action="store_true", help=f"per-phase timer columns: {_ROADMAP}")
+    ap.add_argument(
+        "--phase-timers", action="store_true",
+        help="add trial-0 per-phase timer columns (t_linearize/t_select/t_backward/t_forward) from the host-driven "
+             "phase profiler",
+    )
     ap.add_argument(
         "--consistency", action="store_true",
         help="report propagator-vs-bruteforce J(T) consistency (max|d|, rmse) on each solver's trial-0 final trajectory",
     )
     args = ap.parse_args(argv)
 
-    for flag in ("f32", "distributed", "phase_timers"):
+    for flag in ("f32", "distributed"):
         if getattr(args, flag):
             ap.error(f"--{flag.replace('_', '-')} {_ROADMAP}")
     args.solvers = [s.strip() for s in args.solvers.split(",") if s.strip()]
     for s in args.solvers:
         if s not in SOLVER_METHODS:
             ap.error(f"unknown solver: {s}. Options: {list(SOLVER_METHODS)}")
-        if SOLVER_METHODS[s] == "onepass":
-            ap.error(f"{s} (the one-pass method) {_ROADMAP}; use --solvers ourmethod,baseline1")
     args.cases = [c.strip() for c in args.cases.split(",") if c.strip()] or CASES
     for c in args.cases:
         if c not in CASES + EXTRA_CASES:
@@ -384,6 +399,7 @@ def main(argv=None):
             save_trajectories=args.save_trajectories,
             save_jt=args.save_jt,
             consistency=args.consistency,
+            phase_timers=args.phase_timers,
             outdir=args.outdir,
         )
         _write_tables(os.path.join(args.outdir, case), *enrich_and_aggregate(rows, args.solvers))

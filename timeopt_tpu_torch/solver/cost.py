@@ -1,6 +1,6 @@
 """Objective evaluation (port of timeopt_tpu/solver/cost.py): rollout, stage
-costs, the true cost truncated at a per-problem T*, and the argmin over T.
-Every function takes a leading batch axis B."""
+costs, the true cost truncated at a per-problem T*, the nominal cost curve
+and the argmin over T. Every function takes a leading batch axis B."""
 
 from __future__ import annotations
 
@@ -76,6 +76,20 @@ def cost_true(
     u_ok = torch.where(active, torch.isfinite(U).all(dim=-1), True).all(dim=1)
     ok = x_ok & u_ok & (T > 0) & torch.isfinite(total)
     return torch.where(ok, total, torch.full_like(total, float("inf")))
+
+
+def nominal_cost_curve(system: System, prob: Problem, X: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
+    """J_nom(T) for T = 1..T_max of the current nominal (B, T_max): the
+    running sum of stage costs plus the terminal cost at X[T]; +inf below
+    T_min, where J is not finite, and on every T of a problem whose X[:T_max+1]
+    or U[:T_max] is not finite. Seeds the one-pass method's T-bar."""
+    T_max = prob.T_max
+    run = torch.cumsum(stage_costs(system, prob, X, U)[:, :T_max], dim=1)
+    eT = wrap_error(X[:, 1 : T_max + 1] - prob.xg[:, None], prob.wrap_mask[:, None])
+    J = run + 0.5 * _quad(eT, prob.Qf)
+    Ts = torch.arange(1, T_max + 1, device=X.device)[None]
+    ok = torch.isfinite(X[:, : T_max + 1]).flatten(1).all(dim=1) & torch.isfinite(U[:, :T_max]).flatten(1).all(dim=1)
+    return torch.where((Ts >= prob.T_min) & ok[:, None] & torch.isfinite(J), J, torch.full_like(J, float("inf")))
 
 
 def argmin_T(J_curve: torch.Tensor, T_min: int, T_max: int) -> torch.Tensor:

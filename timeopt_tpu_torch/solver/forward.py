@@ -22,11 +22,12 @@ class LinesearchResult(NamedTuple):
     accepted: torch.Tensor  # (B,) bool
 
 
-def rollout_with_gains(system, prob, X, U, K, kappa, T_star, alpha: float):
+def rollout_with_gains(system, prob, X, U, K, kappa, T_star, alpha: float, x_start=None):
     """Roll x+ = step(x, U_k + [k<T*](K_k wrap(x - X_k) + alpha kappa_k)) with
-    the raw step; controls keep their nominal values from T* on."""
+    the raw step from x_start (B, n), by default X[:, 0]; controls keep
+    their nominal values from T* on."""
     T = T_star.to(torch.int64)
-    x = X[:, 0]
+    x = X[:, 0] if x_start is None else x_start
     xs, us = [x], []
     for k in range(U.shape[1]):
         dx = wrap_error(x - X[:, k], prob.wrap_mask)
@@ -38,13 +39,13 @@ def rollout_with_gains(system, prob, X, U, K, kappa, T_star, alpha: float):
     return torch.stack(xs, dim=1), torch.stack(us, dim=1)
 
 
-def linesearch_plain(system, prob, X, U, K, kappa, T_star, alphas):
+def linesearch_plain(system, prob, X, U, K, kappa, T_star, alphas, x_start=None):
     """Per-alpha rollouts and costs: Xs (B, A, N+1, n), Us (B, A, N, m),
     Js (B, A); an alpha whose rollout is non-finite anywhere on [0, N]
-    costs +inf."""
+    costs +inf. Each rollout starts at x_start (default X[:, 0])."""
     Xs, Us, Js = [], [], []
     for a in alphas:
-        Xn, Un = rollout_with_gains(system, prob, X, U, K, kappa, T_star, float(a))
+        Xn, Un = rollout_with_gains(system, prob, X, U, K, kappa, T_star, float(a), x_start)
         Jn = cost_true(system, prob, Xn, Un, T_star)
         finite = torch.isfinite(Xn).all(dim=-1).all(dim=-1)
         Xs.append(Xn)

@@ -1,7 +1,8 @@
-"""Outer time-optimal iLQR loop, batched (port of timeopt_tpu/solver/ilqr.py,
-the curve methods: the propagator and the brute force).
+"""Outer time-optimal iLQR loop, batched (port of timeopt_tpu/solver/ilqr.py):
+the curve methods (the propagator and the brute force) here, the one-pass
+method in solver/onepass.py, both behind `solve_batch`.
 
-The loop runs the warm start as masked iteration 0 and then up to max_iter
+The curve methods' loop runs the warm start as masked iteration 0 and then up to max_iter
 accept/reject iterations: Levenberg-Marquardt lambda /10 (floor 1e-12) on
 accept and x10 on reject, convergence when the relative cost change is below
 rel_tol and the last three accepted horizons agree. A converged problem
@@ -41,12 +42,12 @@ _ROADMAP = "not ported yet (ROADMAP.md, Queue 1)"
 class SolveOptions:
     """Solver configuration; the defaults are those of the JAX package.
     Ported: the propagator (sequential scan; factored or reference-parity
-    inverse terminal query) and the brute-force method, with AD or
-    finite-difference linearization. The one-pass method and the
-    associative scan raise NotImplementedError. S_window is the one-pass
-    window, kept so the runner's options carry over."""
+    inverse terminal query), the brute-force method and the one-pass method
+    (window S_window, prefix preimages by onepass_preimage; it ignores
+    terminal_mode), with AD or finite-difference linearization. The
+    associative scan raises NotImplementedError."""
 
-    method: str = "propagator"  # "propagator" | "bruteforce"
+    method: str = "propagator"  # "propagator" | "bruteforce" | "onepass"
     max_iter: int = 15
     lm_init: float = 1e-3
     S_window: int = 20
@@ -60,12 +61,14 @@ class SolveOptions:
     homogeneous_scaling: bool = True  # balance the augmented blocks (False: s = 1)
     rel_tol: float = 1e-4
     early_exit: bool = True
+    onepass_preimage: str = "fixedpoint"  # "fixedpoint" | "newton" | "copy"
+    preimage_iters: int = 4  # fixed-point preimage iterations (onepass.fixedpoint_preimage_step)
 
     def check(self) -> None:
-        if self.method == "onepass":
-            raise NotImplementedError(f"method='onepass' is {_ROADMAP}")
-        if self.method not in ("propagator", "bruteforce"):
+        if self.method not in ("propagator", "bruteforce", "onepass"):
             raise ValueError(f"unknown method {self.method!r}")
+        if self.onepass_preimage not in ("fixedpoint", "newton", "copy"):
+            raise ValueError(f"unknown onepass_preimage {self.onepass_preimage!r}")
         if self.scan_mode != "sequential":
             raise NotImplementedError(f"scan_mode={self.scan_mode!r} is {_ROADMAP}")
         if self.terminal_mode not in ("factored", "inverse"):
@@ -85,7 +88,7 @@ class SolveResult:
     T_hist: torch.Tensor  # (B, max_iter+1) accepted horizons, -1-padded
     n_accept: torch.Tensor  # (B,) number of accepted updates
     lm_final: torch.Tensor  # (B,) final LM lambda
-    n_fallback: torch.Tensor  # (B,) int64 one-pass fallback iterations: 0 for the curve methods
+    n_fallback: torch.Tensor  # (B,) int64 one-pass iterations that took the fixed-T-bar fallback; 0 for the curve methods
     T_ties: torch.Tensor  # (B, T_max) bool: horizons flat-tied with T*
 
 
@@ -150,7 +153,6 @@ def _select_curve(system, prob, opts, X, U, A, B) -> torch.Tensor:
 
 
 def _solve_curve_methods(system: System, opts: SolveOptions, prob: Problem, U_init: torch.Tensor) -> SolveResult:
-    opts.check()
     dtype, dev = U_init.dtype, U_init.device
     Bsz = prob.batch
     rows = torch.arange(Bsz, device=dev)
@@ -254,12 +256,18 @@ def solve_batch(
     options: Optional[SolveOptions] = None,
 ) -> SolveResult:
     """Solve a batch of problems (every Problem tensor has a leading batch
-    axis). Runs on the device of the problem's tensors."""
+    axis) by opts.method. Runs on the device of the problem's tensors."""
     opts = options or SolveOptions()
+    opts.check()
     probs = probs.replace(**{f: t.contiguous() for f, t in probs.tensors().items()})
     if U_inits is None:
         U_inits = default_U_init(probs)
-    return _solve_curve_methods(system, opts, probs, U_inits.to(probs.x0).contiguous())
+    U_inits = U_inits.to(probs.x0).contiguous()
+    if opts.method == "onepass":
+        from timeopt_tpu_torch.solver.onepass import solve_onepass
+
+        return solve_onepass(system, opts, probs, U_inits)
+    return _solve_curve_methods(system, opts, probs, U_inits)
 
 
 def solve(
