@@ -5,8 +5,9 @@
 
 Drives the port's batched HOP-DDP solves and its one-pass baseline in
 float64 on the card through its six hand-written CUDA kernels, for every
-system of the model registry, in seven phases; each prints its own lines
-and any failure raises (non-zero exit, no result line):
+system of the model registry, then its latency mode and its scale-out
+layer, in nine phases; each prints its own lines and any failure raises
+(non-zero exit, no result line):
 
 1. device: the card, CUDA and nvcc versions (no CPU fallback);
 2. build: the six kernels from timeopt_tpu_torch/csrc/, one nvcc each, all
@@ -60,13 +61,34 @@ and any failure raises (non-zero exit, no result line):
    case's trial-0 phase timers beside the committed CPU values;
 7. throughput: one timed solve_batch at B=1024 of the quadrotor and of
    PointMass, and one one-pass solve of the quadrotor, each after a
-   warm-up; the kernels of each path must launch.
+   warm-up; the kernels of each path must launch;
+8. latency mode: the six oracle sets at B=128 solved with
+   scan_mode="associative" and "assoc_df" (plain torch scans, then the
+   query kernel), scored and gated as phase 4 (misses within
+   REFERENCE_MISSES, and for "associative" within ASSOC_MISSES) and
+   printed beside phase 4's score; then the
+   quadrotor's oracle problem 0 at B=1 (N=160, max_iter=12) solved in the
+   three scan modes (median of 5 synchronized solves after a warm-up, the
+   modes in turns; T* identical to the sequential solve's, J* within rtol
+   1e-9) and its
+   select alone timed on the first iterate in each mode;
+9. scale-out (timeopt_tpu_torch.parallel): solve_batch_sharded over a
+   mesh of every card against solve_batch on the quadrotor and PointMass
+   oracle sets, propagator_select_sharded with the queries over the cards
+   against propagator_select (both scan modes), then torch.distributed
+   in this process at world size 1 with NCCL: solve_batch_global +
+   gather_results against the same solve, t_star_histogram and
+   batch_summary against their local values (exactly), and the runner
+   with --distributed against the runner without it (DoubleIntegrator, 5
+   trials, ourmethod,baseline1: T* identical); with two or more cards,
+   one NCCL rank a card by torch.multiprocessing against the one-process
+   solve. Solves: T* and T_ties identical, J*, X and U within rtol 1e-12.
 
 Each path resets the kernels' launch counts just before it runs and reads
 them just after; a kernel of the path that was not launched fails it. The
 line before the last is the card's name and power limit as nvidia-smi
 prints them; before that, one JSON line with each kernel's numbers: its
-launches summed over the paths of phases 4-6 (`launches`) and in one
+launches summed over the paths of phases 4-6, 8 and 9 (`launches`) and in one
 B=1024 solve of phase 7 (`launches_per_solve`, by case; `Quadrotor_onepass`
 the one-pass solve), its error and times from
 phase 3 (`ms` and `plain_ms` one call between two CUDA events, the
@@ -78,7 +100,8 @@ at 34 TFLOP/s, `share_of_bound` = bound_ms / ms_back_to_back; `library_ms`
 is null: no single PyTorch call computes any of these functions); the
 backward's entry also holds its numbers at PointMass B=1024 (`pointmass`,
 printed on a [bounds] line of its own), the line search's those of the
-one-pass rollouts from their start states (`onepass_rollout`). The last line is
+one-pass rollouts from their start states, with their bound
+(`onepass_rollout`). The last line is
 {"ok": true, "device": {...}}.
 Imports no JAX.
 
@@ -234,6 +257,19 @@ CC_NORM_BOUND = {"DoubleIntegrator": 5e-5, "Cartpole_SwingUp": 3e-4, "Quadrotor"
 RUNNER_GATED = ("DoubleIntegrator", "Quadrotor")
 RUNNER_CC_RTOL = {"DoubleIntegrator": 1e-3, "Quadrotor": 3e-2}
 COMMITTED_CSV = os.path.join(ROOT, "results", "cpu_f64_25", "summary_all.csv")
+# Phase 4's exact-or-tied score per case, printed beside phase 8's.
+ORACLE_TIED: dict = {}
+# Phase 8 gates both latency modes on every case as phase 4 gates the
+# sequential select: the misses (not exact-or-tied) lie within
+# REFERENCE_MISSES. scan_mode="associative" composes with explicit
+# inverses, as the JAX package's does, and may also miss ASSOC_MISSES
+# (ROADMAP.md Queue 3): PointMass 55, which the JAX package's associative
+# mode misses too (T* 56 for 68, on the CPU in f64), and the segway's 18
+# and 110, T* 89 for 90 with J* 2.6e-7 off the oracle's (the JAX mode and
+# the port's plain path on the CPU pick 90). Its cart-pole T* are tied on
+# the oracle's flat curve, with J* up to 68x off, in the JAX package too.
+ASSOC_MISSES = {"Segway_Balance": (18, 110), "PointMass_Navigation": (55,)}
+LATENCY_MODES = ("associative", "assoc_df")
 
 
 def kernel_sources(name: str, csrc: Path) -> set:
@@ -1098,7 +1134,9 @@ def phase_kernels(device) -> dict:
     ms = cuda_ms(lambda: cuda_forward.linesearch(*ls_args, x_start=x_start), reps=5)
     pms = cuda_ms(lambda: cuda_forward.linesearch_plain(*ls_args, x_start=x_start), reps=1)
     out["linesearch"]["onepass_rollout"] = dict(rollouts=nJ, alphas=len(ls_args[-1]), max_abs_err=err, ms=ms,
-                                                ms_back_to_back=b2b, plain_ms=pms)
+                                                ms_back_to_back=b2b, plain_ms=pms,
+                                                **work.linesearch(system.name, ls_args[6].tolist(), ls_args[2].shape[1] - 1,
+                                                                  system.n, system.m, len(ls_args[-1]), x_start=True))
     log(f"[kernels] line search from start states ({nJ} rollouts x {len(ls_args[-1])} alphas, {shifted} start states "
         f"off row 0 of X): kernel {ms:.3f} ms one call, {b2b:.3f} ms back to back, plain {pms:.3f} ms")
 
@@ -1199,20 +1237,21 @@ def score(T, T_o, curve_o, w: float):
     return exact, exact | (np.abs(curve_o[idx, T - 1] - curve_o[idx, T_o - 1]) <= w * (np.abs(T - T_o) + 1))
 
 
-def phase_oracle(case: str, device) -> dict:
-    """The 128 problems of the case's results/oracle_f64*.npz, solved on the
-    card and scored; returns the launch count of every kernel in the solve."""
+def solve_oracle_set(case: str, device, opts) -> dict:
+    """The 128 problems of the case's results/oracle_f64*.npz solved on the
+    card with `opts`, checked finite and of the expected shapes, and scored
+    against the oracle: the system, problems, result, seconds, launch
+    counts, exact and exact-or-tied arrays, J* gaps and success share."""
     import torch
     from timeopt_tpu_torch.models import get_system
     from timeopt_tpu_torch.ops.wrap import wrap_error
-    from timeopt_tpu_torch.solver.ilqr import SolveOptions, solve_batch
+    from timeopt_tpu_torch.solver.ilqr import solve_batch
 
     system, mk = get_system(case)
     orc = load_oracle(case)
     T_o, J_o, curve_o = orc["T"].astype(np.int64), orc["J"], orc["J_curve"]
     Bo = len(T_o)
     probs = oracle_problems(system, mk, Bo, device)
-    opts = SolveOptions(method="propagator", max_iter=MAX_ITER, psd_levels=1)
 
     reset_launches()
     t0 = time.perf_counter()
@@ -1220,9 +1259,6 @@ def phase_oracle(case: str, device) -> dict:
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = launches()
-    select = "lft_select" if system.extra_cost is None else "lft_select_generic"
-    for name in (select, "backward", "linesearch"):
-        require(counts[name] > 0, f"oracle solve {case}: kernel {name} was never launched")
 
     n, m, N = system.n, system.m, probs.N
     require(tuple(res.X.shape) == (Bo, N + 1, n) and tuple(res.U.shape) == (Bo, N, m), f"{case}: result shapes")
@@ -1231,18 +1267,33 @@ def phase_oracle(case: str, device) -> dict:
     T = res.T_star.cpu().numpy()
     J = res.J_star.cpu().numpy()
     exact, tied = score(T, T_o, curve_o, float(probs.w[0]))
-    gap = np.abs(J - J_o) / np.abs(J_o)
     eT = wrap_error(res.X[torch.arange(Bo, device=device), res.T_star] - probs.xg, probs.wrap_mask)
-    succ = float((eT.norm(dim=-1) <= 0.5).double().mean())
-    log(f"[oracle] {case} B={Bo}: T* exact {int(exact.sum())}/{Bo}, exact-or-tied {int((exact | tied).sum())}/{Bo} | "
-        f"J* rel gap median {np.median(gap):.3e} max {gap.max():.3e} | success@0.5 {succ:.3f} | "
-        f"{secs:.2f} s | launches {counts}")
-    bad = np.nonzero(~(exact | tied))[0]
+    return dict(system=system, probs=probs, res=res, secs=secs, counts=counts, T=T, T_o=T_o, exact=exact,
+                tied=exact | tied, gap=np.abs(J - J_o) / np.abs(J_o),
+                succ=float((eT.norm(dim=-1) <= 0.5).double().mean()))
+
+
+def phase_oracle(case: str, device) -> dict:
+    """The 128 problems of the case's results/oracle_f64*.npz, solved on the
+    card and scored; returns the launch count of every kernel in the solve
+    and records the exact-or-tied score in ORACLE_TIED."""
+    from timeopt_tpu_torch.solver.ilqr import SolveOptions
+
+    o = solve_oracle_set(case, device, SolveOptions(method="propagator", max_iter=MAX_ITER, psd_levels=1))
+    counts, Bo, T, T_o = o["counts"], len(o["T_o"]), o["T"], o["T_o"]
+    select = "lft_select" if o["system"].extra_cost is None else "lft_select_generic"
+    for name in (select, "backward", "linesearch"):
+        require(counts[name] > 0, f"oracle solve {case}: kernel {name} was never launched")
+    ORACLE_TIED[case] = int(o["tied"].sum())
+    log(f"[oracle] {case} B={Bo}: T* exact {int(o['exact'].sum())}/{Bo}, exact-or-tied {ORACLE_TIED[case]}/{Bo} | "
+        f"J* rel gap median {np.median(o['gap']):.3e} max {o['gap'].max():.3e} | success@0.5 {o['succ']:.3f} | "
+        f"{o['secs']:.2f} s | launches {counts}")
+    bad = np.nonzero(~o["tied"])[0]
     if len(bad):
         log(f"[oracle] {case} not tied: idx {bad.tolist()} T* {T[bad].tolist()} oracle {T_o[bad].tolist()}")
     allowed = set(REFERENCE_MISSES.get(case, ()))
     require(set(bad.tolist()) <= allowed,
-            f"oracle {case}: exact-or-tied {int((exact | tied).sum())}/{Bo}, misses {sorted(set(bad.tolist()) - allowed)} "
+            f"oracle {case}: exact-or-tied {ORACLE_TIED[case]}/{Bo}, misses {sorted(set(bad.tolist()) - allowed)} "
             "beyond the reference's own")
     return counts
 
@@ -1493,6 +1544,311 @@ def phase_throughput_onepass(device) -> dict:
         f"{counts['backward']} (all {counts}) | T* median {float(res.T_star.double().median()):g} | n_fallback total "
         f"{int(res.n_fallback.sum())} | success@0.5 {succ:.3f} | {smi()}")
     return counts
+
+
+def phase_latency_oracle(device) -> dict:
+    """Phase 8 (a): each oracle set solved in both latency modes
+    (scan_mode "associative": the plain tree scan, then the query kernel;
+    "assoc_df": the Hillis-Steele scan, then the query kernel), scored as
+    phase 4, the misses within REFERENCE_MISSES (and ASSOC_MISSES for
+    "associative"). Returns the launch counts summed over the runs."""
+    from timeopt_tpu_torch.solver.ilqr import SolveOptions
+
+    total = {name: 0 for name in KERNELS}
+    for mode in LATENCY_MODES:
+        for case in CASES:
+            o = solve_oracle_set(case, device, SolveOptions(method="propagator", max_iter=MAX_ITER, psd_levels=1,
+                                                            scan_mode=mode))
+            counts, Bo = o["counts"], len(o["T_o"])
+            for name in ("lft_query", "backward", "linesearch"):
+                require(counts[name] > 0, f"latency mode {mode} {case}: kernel {name} was never launched")
+            require(counts["lft_select"] == counts["lft_select_generic"] == 0,
+                    f"latency mode {mode} {case}: a sequential select kernel was launched")
+            tied = int(o["tied"].sum())
+            bad = np.nonzero(~o["tied"])[0]
+            log(f"[latency] {case} B={Bo} scan_mode={mode}: T* exact {int(o['exact'].sum())}/{Bo}, exact-or-tied "
+                f"{tied}/{Bo} (phase 4, sequential: {ORACLE_TIED.get(case)}/{Bo}) | J* rel gap max {o['gap'].max():.3e} "
+                f"| success@0.5 {o['succ']:.3f} | {o['secs']:.2f} s | launches {counts}"
+                + (f" | not tied: idx {bad.tolist()} T* {o['T'][bad].tolist()} oracle {o['T_o'][bad].tolist()}"
+                   if len(bad) else ""))
+            allowed = set(REFERENCE_MISSES.get(case, ()))
+            if mode == "associative":
+                allowed |= set(ASSOC_MISSES.get(case, ()))
+            require(set(bad.tolist()) <= allowed,
+                    f"latency mode {mode} {case}: exact-or-tied {tied}/{Bo}, misses "
+                    f"{sorted(set(bad.tolist()) - allowed)} beyond the allowed")
+            for name, v in counts.items():
+                total[name] += v
+    return total
+
+
+def phase_latency_b1(device) -> dict:
+    """Phase 8 (b): the quadrotor's oracle problem 0 (N=160, max_iter=12) as
+    one solve in each scan mode, the median of 5 synchronized runs after a
+    warm-up (the modes in turns), T* identical to the sequential solve's
+    and J* within rtol 1e-9;
+    then the select alone at B=1 on the first iterate: the fused kernel
+    (sequential), the plain tree scan + query kernel (associative), the
+    Hillis-Steele scan + query kernel (assoc_df), each also with its inputs'
+    assembly (solver/ilqr.py::_select_curve). Returns the timed solves'
+    launch counts."""
+    import torch
+    from timeopt_tpu_torch.models import get_system
+    from timeopt_tpu_torch.solver.augmented import build_augmented, build_terminal_factors
+    from timeopt_tpu_torch.solver.horizon import propagator_select
+    from timeopt_tpu_torch.solver.ilqr import SolveOptions, _select_curve, solve
+    from timeopt_tpu_torch.solver.select_assoc import propagator_select_assoc
+
+    system, mk = get_system("Quadrotor")
+    probs = oracle_problems(system, mk, B_ORACLE, device)
+    prob = probs.replace(**{f: t[:1].contiguous() for f, t in probs.tensors().items()})
+    total = {name: 0 for name in KERNELS}
+    modes = ("sequential",) + LATENCY_MODES
+    opts = {mode: SolveOptions(method="propagator", max_iter=MAX_ITER, psd_levels=1, scan_mode=mode) for mode in modes}
+    for mode in modes:
+        solve(system, prob, options=opts[mode])  # warm-up
+    torch.cuda.synchronize()
+    # five rounds, the modes in turns (rotated each round), so a drift of
+    # the host's speed meets every mode alike
+    out = {mode: dict(solve_s_all=[], counts={name: 0 for name in KERNELS}) for mode in modes}
+    for r in range(5):
+        for mode in modes[r % 3:] + modes[: r % 3]:
+            reset_launches()
+            t0 = time.perf_counter()
+            res = solve(system, prob, options=opts[mode])
+            torch.cuda.synchronize()
+            out[mode]["solve_s_all"].append(time.perf_counter() - t0)
+            for name, v in launches().items():
+                out[mode]["counts"][name] += v
+            out[mode]["res"] = (int(res.T_star), float(res.J_star))
+    for mode in modes:
+        o, counts = out[mode], out[mode]["counts"]
+        need = ("lft_select",) if mode == "sequential" else ("lft_query",)
+        for name in need + ("backward", "linesearch"):
+            require(counts[name] > 0, f"B=1 solve scan_mode={mode}: kernel {name} was never launched")
+        for name, v in counts.items():
+            total[name] += v
+        (T, J), (T0, J0) = o["res"], out["sequential"]["res"]
+        require(T == T0 and abs(J - J0) <= 1e-9 * abs(J0),
+                f"B=1 solve scan_mode={mode}: T* {T} J* {J!r} vs sequential {T0} {J0!r}")
+        o.update(solve_s=statistics.median(o["solve_s_all"]), T_star=T, J_star=J, iterations=counts["backward"] // 5,
+                 launches_per_solve={k: v // 5 for k, v in counts.items()})
+
+    X, U, A, Bj = first_iterate(system, prob)
+    kernel = select_pair(system, prob, SolveOptions(method="propagator", psd_levels=1), X, U, A, Bj)[0]
+    Tm = prob.T_max
+    blk = build_augmented(system, prob, X[:, : Tm + 1], U[:, :Tm], A[:, :Tm], Bj[:, :Tm], psd_levels=1)
+    C = build_terminal_factors(prob, X[:, : Tm + 1], s=blk.s)
+    bargs = [t.contiguous() for t in (blk.A_aug, blk.B_aug, blk.Q_aug, blk.R_inv, C)]
+    alone = {
+        "sequential": kernel,
+        "associative": lambda: propagator_select(*bargs, psd_levels=1, scan_mode="associative"),
+        "assoc_df": lambda: propagator_select_assoc(*bargs, prob.T_min),
+    }
+    J_seq = None
+    for mode, fn in alone.items():
+        J = fn()
+        torch.cuda.synchronize()
+        J = J[:, prob.T_min - 1:]
+        J_seq = J if J_seq is None else J_seq
+        rel = ((J - J_seq).abs() / J_seq.abs()).max().item()
+        full = lambda: _select_curve(system, prob, SolveOptions(psd_levels=1, scan_mode=mode), X, U, A, Bj)  # noqa: E731
+        out[mode].update(select_ms=cuda_ms(fn, reps=10), select_with_inputs_ms=cuda_ms(full, reps=10),
+                         select_rel_to_sequential=rel)
+    for mode, o in out.items():
+        log(f"[latency] Quadrotor B=1 N={prob.N} max_iter={MAX_ITER} scan_mode={mode}: solve {1e3 * o['solve_s']:.2f} ms "
+            f"(median of 5, modes in turns: {', '.join(f'{1e3 * t:.2f}' for t in o['solve_s_all'])}), T* {o['T_star']}, J* "
+            f"{o['J_star']!r}, {o['iterations']} outer iterations, launches per solve {o['launches_per_solve']} | "
+            f"select alone {o['select_ms']:.3f} ms, with its inputs' assembly {o['select_with_inputs_ms']:.3f} ms, "
+            f"J(T >= T_min) max rel to the sequential kernel's {o['select_rel_to_sequential']:.3e} | {smi()}")
+    return total
+
+
+def check_same_solve(got, want, label: str) -> None:
+    """T* and T_ties identical, J*, X and U within rtol 1e-12."""
+    import torch
+
+    got = {f: torch.as_tensor(getattr(got, f)).to(want.X.device) for f in ("T_star", "T_ties", "J_star", "X", "U")}
+    require(torch.equal(got["T_star"], want.T_star) and torch.equal(got["T_ties"], want.T_ties),
+            f"{label}: T* or T_ties differ")
+    for f in ("J_star", "X", "U"):
+        require(within(got[f], getattr(want, f), 1e-12, 0.0), f"{label}: {f} outside rtol 1e-12")
+    bitwise = all(torch.equal(got[f], getattr(want, f)) for f in ("J_star", "X", "U"))
+    log(f"[scale-out] {label}: T*, T_ties identical; J*, X, U within rtol 1e-12 (bitwise {bitwise})")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _rank_worker(rank: int, world: int, port: int, out: str) -> None:
+    """One rank of phase 9's multi-rank run (torch.multiprocessing): NCCL
+    over the cards, the quadrotor oracle set split over the ranks, gathered;
+    rank 0 saves T* and J*."""
+    import torch
+    from timeopt_tpu_torch.models import get_system
+    from timeopt_tpu_torch.parallel import distributed
+    from timeopt_tpu_torch.solver.ilqr import SolveOptions
+
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    distributed.initialize("cuda")
+    system, mk = get_system("Quadrotor")
+    probs = oracle_problems(system, mk, B_ORACLE, torch.device("cpu"))
+    lo, hi = distributed.process_batch_bounds(B_ORACLE)
+    local = probs.replace(**{f: t[lo:hi] for f, t in probs.tensors().items()})
+    res = distributed.gather_results(distributed.solve_batch_global(
+        system, local, options=SolveOptions(max_iter=MAX_ITER, psd_levels=1)))
+    if rank == 0:
+        np.savez(out, T_star=res.T_star, T_ties=res.T_ties, J_star=res.J_star, X=res.X, U=res.U)
+    distributed.sync_processes()
+    torch.distributed.destroy_process_group()
+
+
+def phase_scaleout(device) -> dict:
+    """Phase 9: parallel/ on the card. The batch over a mesh of every card
+    (solve_batch_sharded against solve_batch on the quadrotor and PointMass
+    oracle sets), the terminal queries over the cards
+    (propagator_select_sharded against propagator_select, rtol 1e-12), then
+    torch.distributed in this process at world size 1 with NCCL:
+    solve_batch_global + gather_results against the same solve, the
+    statistics against their local values (exactly), the runner with
+    --distributed against the runner without it (T* identical); with two
+    or more cards one NCCL rank a card as well. Returns the launch
+    counts."""
+    import csv
+    import tempfile
+    import types
+
+    import torch
+    import torch.multiprocessing as mp
+    from timeopt_tpu_torch.models import get_system
+    from timeopt_tpu_torch.ops.wrap import wrap_error
+    from timeopt_tpu_torch.parallel import (batch_summary, distributed, make_mesh, propagator_select_sharded,
+                                            solve_batch_sharded, t_star_histogram)
+    from timeopt_tpu_torch.runner import run_suite
+    from timeopt_tpu_torch.solver.augmented import build_augmented, build_terminal_factors
+    from timeopt_tpu_torch.solver.horizon import propagator_select
+    from timeopt_tpu_torch.solver.ilqr import SolveOptions, solve_batch
+
+    cards = torch.cuda.device_count()
+    mesh = make_mesh()
+    log(f"[scale-out] {cards} card(s): dp mesh {mesh.shape}")
+    opts = SolveOptions(max_iter=MAX_ITER, psd_levels=1)
+    total = {name: 0 for name in KERNELS}
+
+    def count(c: dict) -> None:
+        for name, v in c.items():
+            total[name] += v
+
+    solved = {}
+    for case in ("Quadrotor", "PointMass_Navigation"):
+        system, mk = get_system(case)
+        probs = oracle_problems(system, mk, B_ORACLE, device)
+        want = solve_batch(system, probs, options=opts)
+        reset_launches()
+        t0 = time.perf_counter()
+        got = solve_batch_sharded(system, probs, options=opts, mesh=mesh)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        c = launches()
+        select = "lft_select" if system.extra_cost is None else "lft_select_generic"
+        for name in (select, "backward", "linesearch"):
+            require(c[name] > 0, f"solve_batch_sharded {case}: kernel {name} was never launched")
+        count(c)
+        check_same_solve(got, want, f"solve_batch_sharded ({case} B={B_ORACLE}, {cards} card(s), {secs:.2f} s) vs "
+                                    f"solve_batch")
+        solved[case] = (system, probs, want)
+
+    system, probs, _ = solved["Quadrotor"]
+    X, U, A, Bj = first_iterate(system, probs)
+    Tm = probs.T_max
+    blk = build_augmented(system, probs, X[:, : Tm + 1], U[:, :Tm], A[:, :Tm], Bj[:, :Tm])
+    C = build_terminal_factors(probs, X[:, : Tm + 1], s=blk.s)
+    hs = make_mesh(axis_names=("dp", "hs"), shape=(1, cards))
+    for mode in ("sequential", "associative"):
+        want = propagator_select(blk.A_aug, blk.B_aug, blk.Q_aug, blk.R_inv, C, scan_mode=mode)
+        reset_launches()
+        got = propagator_select_sharded(blk, C, hs, scan_mode=mode)
+        torch.cuda.synchronize()
+        c = launches()
+        for name in (("lft_scan",) if mode == "sequential" else ()) + ("lft_query",):
+            require(c[name] > 0, f"propagator_select_sharded {mode}: kernel {name} was never launched")
+        count(c)
+        rel = ((got - want).abs() / want.abs()).max().item()
+        log(f"[scale-out] propagator_select_sharded (Quadrotor B={B_ORACLE} first iterate, scan_mode={mode}, hs over "
+            f"{cards} card(s)) vs propagator_select: max rel err {rel:.3e} (bound 1e-12), bitwise "
+            f"{bool(torch.equal(got, want))} | launches {c}")
+        require(within(got, want, 1e-12, 0.0), f"propagator_select_sharded {mode}: rel err {rel:.3e} > 1e-12")
+
+    system, probs, want = solved["Quadrotor"]
+    errs = wrap_error(want.X[torch.arange(B_ORACLE, device=device), want.T_star] - probs.xg, probs.wrap_mask).norm(dim=-1)
+    hist_local = t_star_histogram(want.T_star, probs.T_max)
+    summ_local = batch_summary(want.J_star, errs)
+    env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()), RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        distributed.initialize("cuda")
+        require(distributed.is_initialized() and torch.distributed.get_backend() == "nccl",
+                "torch.distributed: not initialized with NCCL")
+        reset_launches()
+        lo, hi = distributed.process_batch_bounds(B_ORACLE)
+        local = probs.replace(**{f: t[lo:hi] for f, t in probs.tensors().items()})
+        got = distributed.gather_results(distributed.solve_batch_global(system, local, options=opts))
+        c = launches()
+        for name in ("lft_select", "backward", "linesearch"):
+            require(c[name] > 0, f"solve_batch_global: kernel {name} was never launched")
+        count(c)
+        check_same_solve(got, want, f"solve_batch_global + gather_results (NCCL, world size "
+                                    f"{distributed.process_count()}, slice [{lo}, {hi}))")
+        hist = t_star_histogram(want.T_star, probs.T_max)
+        summ = batch_summary(want.J_star, errs)
+        require(torch.equal(hist, hist_local) and all(torch.equal(summ[k], summ_local[k]) for k in summ),
+                "t_star_histogram / batch_summary under NCCL differ from their local values")
+        log(f"[scale-out] t_star_histogram and batch_summary all-reduced under NCCL equal their local values: "
+            f"{int(hist.sum())} T*, n {int(summ['n'])}, n_success {int(summ['n_success'])}, success_rate "
+            f"{float(summ['success_rate'])!r}")
+        with tempfile.TemporaryDirectory() as tmp:
+            argv = ["--cases", "DoubleIntegrator", "--trials", "5", "--solvers", "ourmethod,baseline1"]
+            reset_launches()
+            run_suite.main(argv + ["--distributed", "--outdir", os.path.join(tmp, "dist")])
+            c = launches()
+            for name in ("lft_select", "backward", "linesearch"):
+                require(c[name] > 0, f"runner --distributed: kernel {name} was never launched")
+            count(c)
+            run_suite.main(argv + ["--outdir", os.path.join(tmp, "single")])
+            rows = {}
+            for k in ("dist", "single"):
+                with open(os.path.join(tmp, k, "summary_all.csv"), newline="") as f:
+                    rows[k] = [(r["solver"], r["trial"], r["T_star"]) for r in csv.DictReader(f)]
+            require(rows["dist"] == rows["single"], f"runner --distributed T* {rows['dist']} vs {rows['single']}")
+            log(f"[scale-out] runner --distributed (NCCL, DoubleIntegrator 5 trials, ourmethod,baseline1): T* "
+                f"identical to the runner without it on all {len(rows['dist'])} rows | launches {c}")
+    finally:
+        if distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if cards >= 2:
+        with tempfile.TemporaryDirectory() as tmp:
+            out = os.path.join(tmp, "ranks.npz")
+            t0 = time.perf_counter()
+            mp.spawn(_rank_worker, args=(cards, _free_port(), out), nprocs=cards, join=True)
+            z = np.load(out)
+            check_same_solve(types.SimpleNamespace(**z), want, f"{cards} NCCL ranks (torch.multiprocessing, one a "
+                                                               f"card, {time.perf_counter() - t0:.1f} s), gathered")
+    else:
+        log("[scale-out] one card: the multi-rank path was covered only on the CPU under gloo "
+            "(tests/test_torch_parallel.py) and is not gated here")
+    return total
 
 
 class ABRun:
@@ -1818,6 +2174,9 @@ def main() -> None:
     add(phase_runner())
     per_solve = {case: phase_throughput(case, device) for case in ("Quadrotor", "PointMass_Navigation")}
     per_solve["Quadrotor_onepass"] = phase_throughput_onepass(device)
+    add(phase_latency_oracle(device))
+    add(phase_latency_b1(device))
+    add(phase_scaleout(device))
 
     from timeopt_tpu_torch.ops import work
 
@@ -1836,8 +2195,11 @@ def main() -> None:
             f"{work.PEAK_FLOPS_CUDA_CORES / 1e12:g} TFLOP/s), share of bound {k['share_of_bound']:.4f}, "
             f"launches per B={B_FULL} solve {k['launches_per_solve']}")
     op = numbers["linesearch"]["onepass_rollout"]
-    log(f"[bounds] linesearch (one-pass rollouts from their start states, {op['rollouts']} x {op['alphas']} alphas): "
-        f"{op['ms_back_to_back']:.3f} ms back to back ({op['ms']:.3f} one call, plain {op['plain_ms']:.3f})")
+    op["share_of_bound"] = op["bound_ms"] / op["ms_back_to_back"]
+    log(f"[bounds] linesearch (one-pass rollouts from their start states, {op['rollouts']} x {op['alphas']} alphas, "
+        f"their own T*): {op['ms_back_to_back']:.3f} ms back to back ({op['ms']:.3f} one call, plain "
+        f"{op['plain_ms']:.3f}), bound {op['bound_ms']:.4f} ms by {op['bound_by']} ({op['flops'] / 1e9:.3f} GFLOP, "
+        f"{op['bytes'] / 1e6:.1f} MB), share of bound {op['share_of_bound']:.4f}")
     bpm = numbers["backward"]["pointmass"]
     bpm["share_of_bound"] = bpm["bound_ms"] / bpm["ms_back_to_back"]
     log(f"[bounds] backward (PointMass_Navigation B={B_FULL}, its own T*): {bpm['ms_back_to_back']:.3f} ms back to back "

@@ -26,7 +26,10 @@ search compares trajectories only where an alpha improves on J_old.
 The line search's start-state entry (the one-pass method's shifted-gain
 rollouts start at X_ext[:, S], not at row 0 of their reference rows) is
 held to the plain version at the same tolerance, and one-pass solves on
-the card to the CPU's.
+the card to the CPU's. So are latency-mode solves (scan_mode
+"associative" and "assoc_df": plain torch scans, then the query kernel),
+and parallel/'s sharded solve and select over every card to the
+unsharded ones (rtol 1e-12).
 """
 
 from __future__ import annotations
@@ -503,3 +506,53 @@ def test_solve_on_the_card_matches_cpu(dev, case):
     want = solve_batch(system, probs, options=opts)
     assert torch.equal(got.T_star.cpu(), want.T_star) and torch.equal(got.n_accept.cpu(), want.n_accept)
     _close(got.J_star.cpu(), want.J_star, 1e-8, 0.0)
+
+
+def _small_batch(case, seed):
+    system, mk = get_system(case)
+    base = (mk(N=24, device="cpu").replace(T_min=4, T_max=16) if case == "DoubleIntegrator"
+            else mk(N=40, device="cpu").replace(T_min=10, T_max=40))
+    rng = np.random.default_rng(seed)
+    sigma = torch.as_tensor(system.sigma_x0 if case != "DoubleIntegrator" else (0.2, 0.2))
+    return system, broadcast_problem(base, 3).replace(
+        x0=base.x0 + sigma * torch.as_tensor(rng.standard_normal((3, system.n))))
+
+
+@pytest.mark.parametrize("mode", ["associative", "assoc_df"])
+@pytest.mark.parametrize("case", ["DoubleIntegrator", "PointMass_Navigation"])
+def test_latency_mode_on_the_card_matches_cpu(dev, case, mode):
+    """Latency mode on the card (plain torch scans, then the query kernel;
+    no sequential select kernel) against the CPU's plain path."""
+    system, probs = _small_batch(case, 3)
+    opts = SolveOptions(max_iter=6, psd_levels=1, scan_mode=mode)
+    counts = (cuda_lft.LAUNCHES, cuda_lft_generic.LAUNCHES, cuda_lft_query.LAUNCHES)
+    got = solve_batch(system, probs.to(dev), options=opts)
+    assert (cuda_lft.LAUNCHES, cuda_lft_generic.LAUNCHES) == counts[:2] and cuda_lft_query.LAUNCHES > counts[2]
+    want = solve_batch(system, probs, options=opts)
+    assert torch.equal(got.T_star.cpu(), want.T_star) and torch.equal(got.n_accept.cpu(), want.n_accept)
+    _close(got.J_star.cpu(), want.J_star, 1e-8, 0.0)
+
+
+def test_sharded_solve_and_select_on_the_card(dev):
+    """parallel/ over every card: the sharded solve and the hs-sharded
+    select equal the unsharded ones (T* identical, J* and J(T) within rtol
+    1e-12)."""
+    from timeopt_tpu_torch.parallel import make_mesh, propagator_select_sharded, solve_batch_sharded
+
+    system, probs = _small_batch("DoubleIntegrator", 4)
+    probs = probs.to(dev)
+    opts = SolveOptions(max_iter=6, psd_levels=1)
+    got = solve_batch_sharded(system, probs, options=opts, mesh=make_mesh())
+    want = solve_batch(system, probs, options=opts)
+    assert torch.equal(got.T_star, want.T_star) and torch.equal(got.T_ties, want.T_ties)
+    _close(got.J_star, want.J_star, 1e-12, 0.0)
+    X, U = want.X[:, :17], want.U[:, :16]
+    A, Bj = linearize(system.step, want.X, want.U)
+    blk = build_augmented(system, probs, X, U, A[:, :16], Bj[:, :16])
+    C = build_terminal_factors(probs, X, s=blk.s)
+    from timeopt_tpu_torch.solver.horizon import propagator_select
+
+    mesh = make_mesh(axis_names=("dp", "hs"), shape=(1, torch.cuda.device_count()))
+    for mode in ("sequential", "associative"):
+        J = propagator_select_sharded(blk, C, mesh, scan_mode=mode)
+        _close(J, propagator_select(blk.A_aug, blk.B_aug, blk.Q_aug, blk.R_inv, C, scan_mode=mode), 1e-12, 0.0)

@@ -98,3 +98,15 @@ def test_main_path_bounds():
     assert work.backward([51] * 1024, 160, 12, 4)["bound_by"] == "bytes"
     for f in (work.lft_scan, work.lft_query):
         assert f(1024, 160, 12)["bound_by"] == "bytes"
+
+
+def test_start_state_linesearch_bound():
+    """The one-pass method's rollouts from their start states (quadrotor,
+    3 x 1024 rollouts, 4 alphas, each at its own T*): the same operations
+    as the ordinary entry at those T*, plus the start states read (8 B n
+    bytes more); bound by bytes."""
+    T = [40 + (i % 121) for i in range(3 * 1024)]
+    plain = work.linesearch("Quadrotor", T, 160, 12, 4, 4)
+    ls = work.linesearch("Quadrotor", T, 160, 12, 4, 4, x_start=True)
+    assert ls["flops"] == plain["flops"] and ls["bytes"] == plain["bytes"] + 8 * 3 * 1024 * 12
+    assert ls["bound_by"] == "bytes" and ls["bound_ms"] > plain["bound_ms"]

@@ -143,9 +143,12 @@ GUARD_FLOPS = {"Quadrotor": 2 * 12 + 6}
 EXTRA_COST_FLOPS = {"PointMass_Navigation": 3 * 11}
 
 
-def linesearch(case: str, T_star, N: int, n: int, m: int, A: int) -> dict:
+def linesearch(case: str, T_star, N: int, n: int, m: int, A: int, x_start: bool = False) -> dict:
     """csrc/linesearch.cu: A rollouts of N steps per problem; the stage cost
-    on the active steps k < T*, the terminal cost at min(T*, N)."""
+    on the active steps k < T*, the terminal cost at min(T*, N). With
+    x_start (the entry linesearch_rollout_from: each rollout starts at a
+    state of its own, e.g. the one-pass method's B = 3 x batch shifted-gain
+    rollouts at their own T*), those B start states are read as well."""
     B = len(T_star)
     active = sum(min(max(int(t), 0), N) for t in T_star)
     step = n + mm(m, 1, n) + 2 * m + XDOT_FLOPS[case] + GUARD_FLOPS.get(case, 0) + 2 * n
@@ -154,5 +157,5 @@ def linesearch(case: str, T_star, N: int, n: int, m: int, A: int) -> dict:
     n_term = sum(1 for t in T_star if int(t) > 0)
     flops = A * (B * N * step + active * stage + n_term * terminal)
     reads = B * ((N + 1) * n + N * (m + m * n + m)) + B * (n + m + 2 * n * n + m * m + 1) + A
-    nbytes = F64 * (reads + B * A * ((N + 1) * n + N * m + 1)) + 8 * B + B * n
+    nbytes = F64 * (reads + B * A * ((N + 1) * n + N * m + 1) + (B * n if x_start else 0)) + 8 * B + B * n
     return bound(flops, nbytes)

@@ -1,0 +1,180 @@
+"""Several devices in one process: a device mesh, the batch split over it
+(dp), and the terminal queries split over it (hs); port of
+timeopt_tpu/parallel/mesh.py.
+
+- **dp (batch axis):** the solves of a batch are independent, so each
+  device of the mesh's "dp" axis solves a contiguous chunk of it, with no
+  communication; the results are concatenated in mesh order on the mesh's
+  first device (JAX's `P("dp")` layout).
+- **hs (horizon-candidate axis):** the N terminal queries of the
+  propagator select split over the "hs" devices: the prefixes are computed
+  once, each device queries its slice of candidate horizons, and the
+  slices are gathered back in order.
+
+A mesh of CUDA devices covers the local cards; a mesh of k entries of
+`torch.device("cpu")` runs the same split and order on the CPU, as the JAX
+package's tests run its mesh on virtual CPU devices.
+
+One process drives the chunks' solves one after another: a solve waits on
+its card once an iteration and is host-bound (PERF.md section 5), and
+threads cannot share the work, because torch.func's forward-mode AD (the
+linearization's jacfwd) keeps process-global state (two threads
+linearizing at once fail). Several cards scale through several processes,
+one a card: parallel/distributed.py. The hs-sharded queries launch on
+their cards without waiting, so they overlap.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from contextlib import nullcontext
+from typing import Optional
+
+import numpy as np
+import torch
+
+from timeopt_tpu_torch.models.base import Problem, System
+from timeopt_tpu_torch.ops import cuda_lft_query
+from timeopt_tpu_torch.solver.augmented import AugmentedBlocks
+from timeopt_tpu_torch.solver.horizon import LFTElements, propagator_select_prefixes
+from timeopt_tpu_torch.solver.ilqr import SolveOptions, SolveResult, default_U_init, solve_batch
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """A grid of devices with named axes (a small stand-in for
+    jax.sharding.Mesh): `devices` is an object array of torch.device of
+    shape len(axis_names)."""
+
+    devices: np.ndarray
+    axis_names: tuple
+
+    @property
+    def shape(self) -> dict:
+        """Axis name -> size, as jax.sharding.Mesh.shape."""
+        return dict(zip(self.axis_names, self.devices.shape))
+
+    def axis_devices(self, axis: str) -> list:
+        """The devices along `axis`, the other axes at index 0 (a chunk
+        split over `axis` is replicated over the others)."""
+        i = self.axis_names.index(axis)
+        idx = tuple(slice(None) if k == i else 0 for k in range(len(self.axis_names)))
+        return list(self.devices[idx])
+
+
+def make_mesh(n_devices: Optional[int] = None, axis_names=("dp",), shape=None, device_type: str = "cuda") -> Mesh:
+    """A mesh over the local CUDA devices (or the first n_devices of them),
+    1D ("dp",) by default; pass shape=(a, b) and axis_names=("dp", "hs")
+    for a 2D mesh. device_type="cpu" makes a mesh of n_devices (default 1)
+    entries of the CPU."""
+    if device_type == "cuda":
+        count = torch.cuda.device_count()
+        if count == 0:
+            raise RuntimeError("make_mesh: no CUDA device (use device_type='cpu' for a CPU mesh)")
+        devs = [torch.device("cuda", i) for i in range(count)][:n_devices]
+    elif device_type == "cpu":
+        devs = [torch.device("cpu")] * (n_devices or 1)
+    else:
+        raise ValueError(f"make_mesh: unknown device_type {device_type!r}")
+    if shape is None:
+        if len(axis_names) != 1:
+            raise ValueError("shape required for multi-axis mesh")
+        shape = (len(devs),)
+    arr = np.empty(len(devs), dtype=object)
+    arr[:] = devs
+    return Mesh(arr.reshape(shape), tuple(axis_names))
+
+
+def _chunks(x: torch.Tensor, k: int) -> list:
+    """k contiguous chunks along axis 0, the first B mod k one longer."""
+    return list(torch.tensor_split(x, k, dim=0))
+
+
+def shard_problems(probs: Problem, mesh: Mesh, axis: str = "dp") -> list:
+    """The batch split into contiguous chunks, one for each device along
+    `axis` in mesh order, each moved to its device: a list of Problems
+    (empty chunks where the batch is smaller than the axis)."""
+    devs = mesh.axis_devices(axis)
+    parts = {f: _chunks(t, len(devs)) for f, t in probs.tensors().items()}
+    return [probs.replace(**{f: parts[f][i].to(d) for f in parts}) for i, d in enumerate(devs)]
+
+
+def device_context(device: torch.device):
+    """The current-device context for kernel launches on `device` (the
+    kernels launch on the current device's stream); nothing on the CPU."""
+    return torch.cuda.device(device) if device.type == "cuda" else nullcontext()
+
+
+def solve_batch_sharded(
+    system: System,
+    probs: Problem,
+    U_inits=None,
+    options: Optional[SolveOptions] = None,
+    mesh: Optional[Mesh] = None,
+    axis: str = "dp",
+) -> SolveResult:
+    """Batch-solve with the batch split over the mesh's `axis`: each device
+    solves its chunk (solver/ilqr.py::solve_batch), and the results come
+    back concatenated in batch order on the axis's first device. Without a
+    mesh, one solve_batch.
+
+    The chunks are solved one after another (see the module docstring), so
+    this gives solve_batch's results in no less time than one card: it
+    keeps the JAX package's entry point, not its scaling. To scale a batch
+    over cards, run one rank a card (parallel/distributed.py,
+    solve_batch_global; the runner's --distributed)."""
+    opts = options or SolveOptions()
+    if mesh is None:
+        return solve_batch(system, probs, U_inits, opts)
+    if U_inits is None:
+        U_inits = default_U_init(probs)
+    results = []
+    for p, U in zip(shard_problems(probs, mesh, axis), _chunks(U_inits, len(mesh.axis_devices(axis)))):
+        if p.batch:
+            dev = p.x0.device
+            with device_context(dev):
+                results.append(solve_batch(system, p, U.to(dev), opts))
+    home = mesh.axis_devices(axis)[0]
+    return SolveResult(**{
+        f.name: torch.cat([getattr(r, f.name).to(home) for r in results], dim=0)
+        for f in dataclasses.fields(SolveResult)
+    })
+
+
+def propagator_select_sharded(
+    blocks: AugmentedBlocks,
+    C: torch.Tensor,
+    mesh: Mesh,
+    *,
+    hs_axis: str = "hs",
+    scan_mode: str = "sequential",
+    psd_levels: int = 2,
+) -> torch.Tensor:
+    """The propagator's J(T) (B, N), unscaled, with the terminal queries
+    (the candidate-horizon axis) split over the mesh's `hs_axis`. `blocks`
+    are build_augmented's, C the factored terminal of
+    build_terminal_factors (B, N, n, p).
+
+    The prefixes are computed once, on the blocks' device (the scan kernel,
+    or the plain associative scan with scan_mode="associative"); the N
+    candidates are padded to a multiple of the hs devices (the padded C
+    rows the identity, so their queries stay well conditioned), each
+    device queries its contiguous slice (the query kernel on a card), and
+    the slices are gathered back in order on the blocks' device."""
+    pre = propagator_select_prefixes(blocks.A_aug, blocks.B_aug, blocks.Q_aug, blocks.R_inv,
+                                     scan_mode=scan_mode, psd_levels=psd_levels)
+    devs = mesh.axis_devices(hs_axis)
+    Bsz, N, n, p = C.shape
+    pad = (-N) % len(devs)
+    if pad:
+        eye = torch.eye(n, p, dtype=C.dtype, device=C.device).expand(Bsz, pad, n, p)
+        C = torch.cat([C, eye], dim=1)
+        pre = LFTElements(*(torch.cat([x, x.new_zeros((Bsz, pad, p, p))], dim=1) for x in pre))
+    width = (N + pad) // len(devs)
+    parts = []
+    for i, d in enumerate(devs):
+        sl = slice(i * width, (i + 1) * width)
+        with device_context(d):
+            parts.append(cuda_lft_query.lft_query(*(x[:, sl].to(d).contiguous() for x in pre),
+                                                  C[:, sl].to(d).contiguous(), levels=psd_levels))
+    return torch.cat([j.to(C.device) for j in parts], dim=1)[:, :N]

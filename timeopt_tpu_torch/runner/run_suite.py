@@ -20,8 +20,17 @@ through the host-driven phase profiler (utils/timing.py), a warm-up call
 and a reported one, which fills the t_linearize, t_select, t_backward and
 t_forward columns of its row.
 
-Not ported (ROADMAP.md): --distributed and --f32 fail at argument parsing;
-the plots (timeopt_tpu/runner/plot.py) need matplotlib.
+With --distributed (several processes, e.g. `torchrun --nproc_per_node=K
+-m timeopt_tpu_torch.runner.run_suite --distributed`) every rank builds the
+same trial problems, solves its contiguous slice of them on its own card
+(NCCL; gloo with --device cpu) through parallel/distributed.py, and
+all-gathers the results, so every rank computes the same rows; rank 0
+alone writes the CSV and .npz files. `total_time` is then the gathered
+batch's wall-clock on each rank divided by the trials.
+
+Not ported (ROADMAP.md): --f32 fails at argument parsing (float32 is wrong
+for these recursions, and the card has float64). The figures are
+runner/plot.py's (matplotlib).
 """
 
 from __future__ import annotations
@@ -53,7 +62,7 @@ SOLVER_METHODS = {
     "baseline2": "onepass",
 }
 
-_ROADMAP = "is not ported yet (ROADMAP.md, Queue 1)"
+_NOT_PORTED = "is not ported (ROADMAP.md: float32 is wrong for these recursions, and the card has float64)"
 
 
 def _case_rng(seed: int, case: str) -> np.random.Generator:
@@ -120,15 +129,32 @@ def run_case(
     save_jt: bool = False,
     consistency: bool = False,
     phase_timers: bool = False,
+    distributed: bool = False,
     outdir: str = ".",
 ):
     from timeopt_tpu_torch.ops.wrap import wrap_error
-    from timeopt_tpu_torch.solver.ilqr import SolveOptions, solve, solve_batch
+    from timeopt_tpu_torch.solver.ilqr import SolveOptions, SolveResult, solve, solve_batch
     from timeopt_tpu_torch.solver.verify import consistency_check
 
     device = torch.device(device)
     system, base, probs = build_trial_problems(case, trials, seed, device)
     lin_mode = "central" if use_central_diff else "ad"
+
+    if distributed:
+        # every rank builds the same trials, solves its slice and gathers all
+        from timeopt_tpu_torch.parallel import distributed as dist
+
+        lo, hi = dist.process_batch_bounds(trials)
+        local = probs.replace(**{f: t[lo:hi] for f, t in probs.tensors().items()})
+
+        def _solve_all(opts):
+            res = dist.gather_results(dist.solve_batch_global(system, local, options=opts, device=device))
+            return SolveResult(**{k: torch.as_tensor(v, device=device) for k, v in vars(res).items()})
+
+    else:
+
+        def _solve_all(opts):
+            return solve_batch(system, probs, options=opts)
 
     rows = []
     jt_cols = {}
@@ -137,7 +163,7 @@ def run_case(
         opts = SolveOptions(method=method, max_iter=max_iter, S_window=S_window, linearize_mode=lin_mode)
         print(f"[{case}] {solver_name}: solving {trials} trials (batched, max_iter={max_iter}) ...", flush=True)
         # the first solve of the batch builds any kernel not yet built; then time
-        res, compile_and_run = _timed(lambda: solve_batch(system, probs, options=opts), device)
+        res, compile_and_run = _timed(lambda: _solve_all(opts), device)
 
         if timing == "per-solve":
             per_trial_times = []
@@ -151,7 +177,7 @@ def run_case(
                     flush=True,
                 )
         else:
-            res, batch_time = _timed(lambda: solve_batch(system, probs, options=opts), device)
+            res, batch_time = _timed(lambda: _solve_all(opts), device)
             per_trial_times = [batch_time / trials] * trials
 
         T = res.T_star.cpu().numpy()
@@ -342,7 +368,7 @@ def parse_args(argv=None):
     ap.add_argument("--cases", type=str, default="")
     ap.add_argument("--timing", choices=["amortized", "per-solve"], default="amortized")
     ap.add_argument("--device", type=str, default="cuda", help="PyTorch device of the solves (default cuda)")
-    ap.add_argument("--f32", action="store_true", help=f"float32 solves: {_ROADMAP} (float32 is wrong for these recursions)")
+    ap.add_argument("--f32", action="store_true", help=f"float32 solves: {_NOT_PORTED}")
     ap.add_argument(
         "--save-trajectories", action="store_true",
         help="save per-case solved trajectories (X, U, T*, J*) to <outdir>/<case>/trajectories_<solver>.npz",
@@ -351,7 +377,12 @@ def parse_args(argv=None):
         "--save-jt", action="store_true",
         help="save the trial-0 J(T) selection curve per case/solver to <outdir>/<case>/<case>_Jt.csv",
     )
-    ap.add_argument("--distributed", action="store_true", help=f"multi-host run: {_ROADMAP}")
+    ap.add_argument(
+        "--distributed", action="store_true",
+        help="multi-process run (torchrun's environment: RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT): the trials "
+             "split over the ranks (NCCL on --device cuda, gloo on cpu), results all-gathered, files written by "
+             "rank 0 only",
+    )
     ap.add_argument(
         "--phase-timers", action="store_true",
         help="add trial-0 per-phase timer columns (t_linearize/t_select/t_backward/t_forward) from the host-driven "
@@ -363,9 +394,8 @@ def parse_args(argv=None):
     )
     args = ap.parse_args(argv)
 
-    for flag in ("f32", "distributed"):
-        if getattr(args, flag):
-            ap.error(f"--{flag.replace('_', '-')} {_ROADMAP}")
+    if args.f32:
+        ap.error(f"--f32 {_NOT_PORTED}")
     args.solvers = [s.strip() for s in args.solvers.split(",") if s.strip()]
     for s in args.solvers:
         if s not in SOLVER_METHODS:
@@ -382,6 +412,19 @@ def main(argv=None):
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available (use --device cpu for the plain CPU path)")
+    is_writer = True
+    if args.distributed:
+        from timeopt_tpu_torch.parallel import distributed as dist
+
+        dist.initialize(device)
+        if args.timing == "per-solve" or args.phase_timers:
+            raise ValueError(
+                "--distributed supports only amortized timing (per-solve/phase profiling is single-process "
+                "host-driven)"
+            )
+        device = dist.local_device(device)
+        # every rank computes the same rows from the gathered results; one writes
+        is_writer = dist.process_index() == 0
 
     all_rows = []
     for case in args.cases:
@@ -396,16 +439,20 @@ def main(argv=None):
             success_tol=args.success_tol,
             device=device,
             timing=args.timing,
-            save_trajectories=args.save_trajectories,
-            save_jt=args.save_jt,
+            save_trajectories=args.save_trajectories and is_writer,
+            save_jt=args.save_jt and is_writer,
             consistency=args.consistency,
             phase_timers=args.phase_timers,
+            distributed=args.distributed,
             outdir=args.outdir,
         )
-        _write_tables(os.path.join(args.outdir, case), *enrich_and_aggregate(rows, args.solvers))
+        if is_writer:
+            _write_tables(os.path.join(args.outdir, case), *enrich_and_aggregate(rows, args.solvers))
         all_rows.extend(rows)
 
     df_all, agg_all = enrich_and_aggregate(all_rows, args.solvers)
+    if not is_writer:
+        return
     _write_tables(args.outdir, df_all, agg_all)
     print("\nSaved:")
     print(" ", os.path.join(args.outdir, "summary_all.csv"))

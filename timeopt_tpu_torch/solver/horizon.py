@@ -2,19 +2,21 @@
 curve; port of timeopt_tpu/solver/horizon.py.
 
 Each step contributes an information-form LFT element (E, F, G); prefix
-composition of the elements is a sequential loop over the steps here, and
-the terminal query gives J(T) for every candidate horizon at once. All
-functions take a leading batch axis B. The propagator has four dispatch
-points, each the plain version below on the CPU and a hand-written kernel
-on the card:
+composition of the elements is a sequential loop over the steps or, with
+mode="associative", the up-sweep/down-sweep tree of `lax.associative_scan`
+(ceil(log2 N) levels of batched composes), and the terminal query gives
+J(T) for every candidate horizon at once. All functions take a leading
+batch axis B. The propagator has four dispatch points, each the plain
+version below on the CPU and a hand-written kernel on the card:
 
 - `propagator_select_fused` (ops/cuda_lft.py): the solve's select for a
   stationary stage cost;
 - `propagator_select_generic` (ops/cuda_lft_generic.py): the solve's select
   on the assembled blocks of an extra stage cost;
-- `propagator_select`, the unfused select (consistency_check and
-  terminal_mode="inverse"): every prefix from ops/cuda_lft_scan.py, then
-  the factored query of ops/cuda_lft_query.py or the plain inverse query.
+- `propagator_select`, the unfused select (consistency_check,
+  terminal_mode="inverse" and scan_mode="associative"): every prefix from
+  ops/cuda_lft_scan.py (or the plain associative scan), then the factored
+  query of ops/cuda_lft_query.py or the plain inverse query.
 
 The brute force (`bruteforce_J_curve`) has no kernel in the JAX package and
 stays plain PyTorch: one reverse loop over the steps that carries the value
@@ -70,15 +72,46 @@ def lft_compose(first: LFTElements, second: LFTElements, *, psd_levels: int = 2,
     return LFTElements(E=E, F=F, G=G)
 
 
-def lft_prefix_scan(elems: LFTElements, *, psd_levels: int = 2, jitter: float = 1e-9) -> LFTElements:
-    """All prefix compositions elem_0 o ... o elem_k for k = 0..N-1, as a
-    sequential loop over the step axis (axis 1)."""
+def lft_prefix_scan(
+    elems: LFTElements, *, mode: str = "sequential", psd_levels: int = 2, jitter: float = 1e-9
+) -> LFTElements:
+    """All prefix compositions elem_0 o ... o elem_k for k = 0..N-1 along the
+    step axis (axis 1): a sequential loop, or with mode="associative" the
+    tree of `_associative_scan`."""
+    if mode == "associative":
+        return _associative_scan(elems, psd_levels, jitter)
+    if mode != "sequential":
+        raise ValueError(f"unknown scan mode {mode!r}")
     carry = LFTElements(*(x[:, 0] for x in elems))
     out = [carry]
     for k in range(1, elems.E.shape[1]):
         carry = lft_compose(carry, LFTElements(*(x[:, k] for x in elems)), psd_levels=psd_levels, jitter=jitter)
         out.append(carry)
     return LFTElements(*(torch.stack(t, dim=1) for t in zip(*out)))
+
+
+def _associative_scan(elems: LFTElements, psd_levels: int, jitter: float) -> LFTElements:
+    """The algorithm of `lax.associative_scan` (the JAX package's
+    scan_mode="associative"): compose adjacent pairs (first, then second),
+    scan the half recursively, which gives the odd positions, then compose
+    each odd prefix with the next element for the even positions. Each level
+    is one batched compose over all its pairs; ceil(log2 N) levels."""
+    N = elems.E.shape[1]
+    if N < 2:
+        return elems
+    compose = lambda a, b: lft_compose(a, b, psd_levels=psd_levels, jitter=jitter)  # noqa: E731
+    pairs = compose(LFTElements(*(x[:, 0:N - 1:2] for x in elems)), LFTElements(*(x[:, 1::2] for x in elems)))
+    odd = _associative_scan(pairs, psd_levels, jitter)  # prefixes 1, 3, 5, ...
+    head = odd if N % 2 else LFTElements(*(x[:, :-1] for x in odd))
+    even = compose(head, LFTElements(*(x[:, 2::2] for x in elems)))  # prefixes 2, 4, ...
+    out = []
+    for x, e, o in zip(elems, even, odd):
+        y = torch.empty_like(x)
+        y[:, 0] = x[:, 0]
+        y[:, 2::2] = e
+        y[:, 1::2] = o
+        out.append(y)
+    return LFTElements(*out)
 
 
 def propagator_J_curve_factored(
@@ -117,18 +150,31 @@ def propagator_J_curve(prefixes: LFTElements, QT: torch.Tensor, *, psd_levels: i
     return 0.5 * _last_solve(X0, psd_levels)
 
 
+def propagator_select_prefixes(A_aug, B_aug, Q_aug, R_inv, *, scan_mode: str = "sequential",
+                               psd_levels: int = 2) -> LFTElements:
+    """Every prefix (E, F, G) of the blocks: the scan kernel (scan_mode=
+    "sequential"), or the plain associative scan ("associative")."""
+    if scan_mode == "sequential":
+        return LFTElements(*cuda_lft_scan.lft_scan(
+            A_aug.contiguous(), brb(B_aug, R_inv).contiguous(), Q_aug.contiguous(), levels=psd_levels
+        ))
+    elems = lft_elements(A_aug, B_aug, Q_aug, R_inv, psd_levels=psd_levels)
+    return lft_prefix_scan(elems, mode=scan_mode, psd_levels=psd_levels)
+
+
 def propagator_select(
-    A_aug, B_aug, Q_aug, R_inv, terminal, *, psd_levels: int = 2, terminal_mode: str = "factored"
+    A_aug, B_aug, Q_aug, R_inv, terminal, *, psd_levels: int = 2, terminal_mode: str = "factored",
+    scan_mode: str = "sequential",
 ) -> torch.Tensor:
     """The unfused propagator sweep: blocks -> J(T), T = 1..N (B, N),
-    unscaled. Every prefix comes from the scan kernel; `terminal` is C from
-    build_terminal_factors (terminal_mode="factored", the query kernel) or
-    QT from build_terminal_blocks ("inverse", the plain inverse query)."""
-    pre = LFTElements(*cuda_lft_scan.lft_scan(
-        A_aug.contiguous(), brb(B_aug, R_inv).contiguous(), Q_aug.contiguous(), levels=psd_levels
-    ))
+    unscaled. The prefixes come from the scan kernel (scan_mode=
+    "sequential") or the plain associative scan ("associative");
+    `terminal` is C from build_terminal_factors (terminal_mode="factored",
+    the query kernel) or QT from build_terminal_blocks ("inverse", the plain
+    inverse query)."""
+    pre = propagator_select_prefixes(A_aug, B_aug, Q_aug, R_inv, scan_mode=scan_mode, psd_levels=psd_levels)
     if terminal_mode == "factored":
-        return cuda_lft_query.lft_query(*pre, terminal.contiguous(), levels=psd_levels)
+        return cuda_lft_query.lft_query(*(t.contiguous() for t in pre), terminal.contiguous(), levels=psd_levels)
     if terminal_mode == "inverse":
         return propagator_J_curve(pre, terminal, psd_levels=psd_levels)
     raise ValueError(f"unknown terminal_mode {terminal_mode!r}")

@@ -34,18 +34,22 @@ from timeopt_tpu_torch.solver.horizon import (
     propagator_select_generic,
 )
 from timeopt_tpu_torch.solver.linearize import linearize
+from timeopt_tpu_torch.solver.select_assoc import propagator_select_assoc
 
-_ROADMAP = "not ported yet (ROADMAP.md, Queue 1)"
+SCAN_MODES = ("sequential", "associative", "assoc_df")
 
 
 @dataclasses.dataclass(frozen=True)
 class SolveOptions:
     """Solver configuration; the defaults are those of the JAX package.
-    Ported: the propagator (sequential scan; factored or reference-parity
-    inverse terminal query), the brute-force method and the one-pass method
-    (window S_window, prefix preimages by onepass_preimage; it ignores
+    Ported: the propagator (factored or reference-parity inverse terminal
+    query), the brute-force method and the one-pass method (window
+    S_window, prefix preimages by onepass_preimage; it ignores
     terminal_mode), with AD or finite-difference linearization. The
-    associative scan raises NotImplementedError."""
+    propagator's prefix scan (scan_mode): "sequential" (the select kernels),
+    "associative" (the tree of lax.associative_scan, plain torch, then the
+    query) or "assoc_df" (latency mode, solver/select_assoc.py; factored
+    query only); the other methods ignore scan_mode."""
 
     method: str = "propagator"  # "propagator" | "bruteforce" | "onepass"
     max_iter: int = 15
@@ -53,7 +57,7 @@ class SolveOptions:
     S_window: int = 20
     linearize_mode: str = "ad"  # "ad" | "central" | "forward"
     alphas: tuple = (1.0, 0.5, 0.25, 0.1, 0.05)
-    scan_mode: str = "sequential"
+    scan_mode: str = "sequential"  # "sequential" | "associative" | "assoc_df"
     terminal_mode: str = "factored"  # "factored" | "inverse"
     psd_levels: int = 2
     q_reg: Optional[float] = None  # None: 1e-9 in float64, 1e-5 otherwise
@@ -69,10 +73,12 @@ class SolveOptions:
             raise ValueError(f"unknown method {self.method!r}")
         if self.onepass_preimage not in ("fixedpoint", "newton", "copy"):
             raise ValueError(f"unknown onepass_preimage {self.onepass_preimage!r}")
-        if self.scan_mode != "sequential":
-            raise NotImplementedError(f"scan_mode={self.scan_mode!r} is {_ROADMAP}")
+        if self.scan_mode not in SCAN_MODES:
+            raise ValueError(f"unknown scan_mode {self.scan_mode!r}")
         if self.terminal_mode not in ("factored", "inverse"):
             raise ValueError(f"unknown terminal_mode {self.terminal_mode!r}")
+        if self.method == "propagator" and self.scan_mode == "assoc_df" and self.terminal_mode != "factored":
+            raise ValueError("scan_mode='assoc_df' requires terminal_mode='factored'")
         if self.linearize_mode not in ("ad", "central", "forward"):
             raise ValueError(f"unknown linearize_mode {self.linearize_mode!r}")
 
@@ -133,23 +139,31 @@ def select_inputs(system, prob, opts, X, U, A, B):
 
 
 def _select_curve(system, prob, opts, X, U, A, B) -> torch.Tensor:
-    """J(T) for T = 1..T_max: the brute-force curve, or the propagator's
-    through the fused or the generic select (factored query) or the unfused
-    select (inverse query), scaled by s_0^2."""
+    """J(T) for T = 1..T_max: the brute-force curve, or the propagator's,
+    scaled by s_0^2: through the fused or the generic select (sequential
+    scan, factored query), else on the assembled blocks through the unfused
+    select (the inverse query or the associative scan) or the latency-mode
+    select (assoc_df)."""
     Tm = prob.T_max
     Xh, Uh, Ah, Bh = X[:, : Tm + 1], U[:, :Tm], A[:, :Tm], B[:, :Tm]
     if opts.method == "bruteforce":
         return bruteforce_J_curve(system, prob, Ah, Bh, Xh, Uh, psd_levels=opts.psd_levels)
-    if opts.terminal_mode == "inverse":
-        blk = build_augmented(system, prob, Xh, Uh, Ah, Bh, q_reg=resolve_q_reg(opts, X.dtype), rho_reg=opts.rho_reg,
-                              psd_levels=opts.psd_levels, scale=opts.homogeneous_scaling)
-        QT = build_terminal_blocks(prob, Xh, rho_reg=opts.rho_reg, s=blk.s)
-        return blk.s[:, :1] ** 2 * propagator_select(
-            blk.A_aug, blk.B_aug, blk.Q_aug, blk.R_inv, QT, psd_levels=opts.psd_levels, terminal_mode="inverse"
-        )
-    generic, args, s = select_inputs(system, prob, opts, X, U, A, B)
-    select = propagator_select_generic if generic else propagator_select_fused
-    return s[:, :1] ** 2 * select(*args, prob.T_min)
+    if opts.scan_mode == "sequential" and opts.terminal_mode == "factored":
+        generic, args, s = select_inputs(system, prob, opts, X, U, A, B)
+        select = propagator_select_generic if generic else propagator_select_fused
+        return s[:, :1] ** 2 * select(*args, prob.T_min)
+    blk = build_augmented(system, prob, Xh, Uh, Ah, Bh, q_reg=resolve_q_reg(opts, X.dtype), rho_reg=opts.rho_reg,
+                          psd_levels=opts.psd_levels, scale=opts.homogeneous_scaling)
+    if opts.terminal_mode == "factored":
+        terminal = build_terminal_factors(prob, Xh, s=blk.s, rho_reg=opts.rho_reg)
+    else:
+        terminal = build_terminal_blocks(prob, Xh, rho_reg=opts.rho_reg, s=blk.s)
+    j_scale = blk.s[:, :1] ** 2
+    if opts.scan_mode == "assoc_df":
+        return j_scale * propagator_select_assoc(blk.A_aug, blk.B_aug, blk.Q_aug, blk.R_inv, terminal, prob.T_min)
+    return j_scale * propagator_select(blk.A_aug, blk.B_aug, blk.Q_aug, blk.R_inv, terminal,
+                                       psd_levels=opts.psd_levels, terminal_mode=opts.terminal_mode,
+                                       scan_mode=opts.scan_mode)
 
 
 def _solve_curve_methods(system: System, opts: SolveOptions, prob: Problem, U_init: torch.Tensor) -> SolveResult:
