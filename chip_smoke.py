@@ -5,9 +5,10 @@
 
 Drives the port's batched HOP-DDP solves and its one-pass baseline in
 float64 on the card through its six hand-written CUDA kernels, for every
-system of the model registry, then its latency mode and its scale-out
-layer, in nine phases; each prints its own lines and any failure raises
-(non-zero exit, no result line):
+system of the model registry, then its latency mode, its scale-out layer
+and its float32 path (float32 storage, float64 recursions), in ten
+phases; each prints its own lines and any failure raises (non-zero exit,
+no result line):
 
 1. device: the card, CUDA and nvcc versions (no CPU fallback);
 2. build: the six kernels from timeopt_tpu_torch/csrc/, one nvcc each, all
@@ -82,13 +83,28 @@ layer, in nine phases; each prints its own lines and any failure raises
    with --distributed against the runner without it (DoubleIntegrator, 5
    trials, ourmethod,baseline1: T* identical); with two or more cards,
    one NCCL rank a card by torch.multiprocessing against the one-process
-   solve. Solves: T* and T_ties identical, J*, X and U within rtol 1e-12.
+   solve. Solves: T* and T_ties identical, J*, X and U within rtol 1e-12;
+10. float32: (a) the float32 instantiations of the fused select, the
+   backward, the line search (both entries) and the generic select against
+   their plain versions at phase 3's shapes (F32_SELECT_BOUND, F32_REL,
+   F32_ATOL; PointMass's select also against a long-double witness,
+   F32_WITNESS_REL, beside the plain version computed in float32), timed,
+   with their bounds at float32 bytes; (b) the six oracle sets as float32
+   problems (oracle_problems' perturbation, rounded), scored against the
+   float64 oracle: exact-or-tied no lower than the JAX package's float32
+   pipeline (results/oracle_f32_dense*.npz against the same oracle),
+   phase 4's float64 score beside it; (c) phase 7's quadrotor and
+   PointMass solves at float32, beside phase 7's float64 solves/s of this
+   run, then `python3 bench_torch.py` at its defaults, its one JSON line
+   echoed; (d) the runner with --f32 on the double integrator and the
+   quadrotor (5 trials, three solvers), every row finite and each T*
+   printed beside results/tpu_f32/summary_all.csv.
 
 Each path resets the kernels' launch counts just before it runs and reads
 them just after; a kernel of the path that was not launched fails it. The
 line before the last is the card's name and power limit as nvidia-smi
 prints them; before that, one JSON line with each kernel's numbers: its
-launches summed over the paths of phases 4-6, 8 and 9 (`launches`) and in one
+launches summed over the paths of phases 4-6, 8, 9 and 10 (b), (d) (`launches`) and in one
 B=1024 solve of phase 7 (`launches_per_solve`, by case; `Quadrotor_onepass`
 the one-pass solve), its error and times from
 phase 3 (`ms` and `plain_ms` one call between two CUDA events, the
@@ -101,7 +117,9 @@ is null: no single PyTorch call computes any of these functions); the
 backward's entry also holds its numbers at PointMass B=1024 (`pointmass`,
 printed on a [bounds] line of its own), the line search's those of the
 one-pass rollouts from their start states, with their bound
-(`onepass_rollout`). The last line is
+(`onepass_rollout`); the four kernels with a float32 instantiation also
+hold its phase-10 numbers (`float32`: the same keys, bytes at float32,
+launches per float32 solve of phase 10 (c)). The last line is
 {"ok": true, "device": {...}}.
 Imports no JAX.
 
@@ -116,7 +134,10 @@ bitwise equal, then times one B=1024 solve with each version's kernels,
 and fails unless old and new are bitwise equal on every row (phase_ab).
 The line search's rows also run the new kernel through its start-state
 entry (start states X[:, 0], as a view of X and as a copy) against the old
-kernel's ordinary entry.
+kernel's ordinary entry. Where the old sources have a kernel's float32
+entry, that kernel's rows include its float32 instantiation too (the
+quadrotor, or PointMass, at B=1024; the line search also from the
+one-pass rollouts' start states).
 """
 
 from __future__ import annotations
@@ -259,6 +280,8 @@ RUNNER_CC_RTOL = {"DoubleIntegrator": 1e-3, "Quadrotor": 3e-2}
 COMMITTED_CSV = os.path.join(ROOT, "results", "cpu_f64_25", "summary_all.csv")
 # Phase 4's exact-or-tied score per case, printed beside phase 8's.
 ORACLE_TIED: dict = {}
+# Phase 7's and phase 10's solves/s, by (case, "f64" | "f32").
+THROUGHPUT: dict = {}
 # Phase 8 gates both latency modes on every case as phase 4 gates the
 # sequential select: the misses (not exact-or-tied) lie within
 # REFERENCE_MISSES. scan_mode="associative" composes with explicit
@@ -373,11 +396,14 @@ def within(a, b, rtol: float, atol: float) -> bool:
     return ok_fin and max_err(a, b)[1]
 
 
-def oracle_problems(system, mk, B: int, device):
+def oracle_problems(system, mk, B: int, device, dtype=None):
     """The problem sets of scripts/oracle_match.py, bit for bit: the default
     problem with x0[:, :3] += 0.4 N(0, 1) for the quadrotor and
-    x0 += sigma_x0 N(0, 1) for every other system, default_rng(0)."""
+    x0 += sigma_x0 N(0, 1) for every other system, default_rng(0), drawn in
+    float64; with `dtype` (float32) every float then rounded to it, as the
+    script makes its float32 sets."""
     import torch
+    from timeopt_tpu_torch.ops import _build
     from timeopt_tpu_torch.solver.ilqr import broadcast_problem
 
     base = mk(device=device)
@@ -387,7 +413,8 @@ def oracle_problems(system, mk, B: int, device):
         x0[:, :3] += 0.4 * rng.standard_normal((B, 3))
     else:
         x0 += np.asarray(system.sigma_x0, np.float64) * rng.standard_normal(x0.shape)
-    return broadcast_problem(base, B).replace(x0=torch.as_tensor(x0, device=device))
+    probs = broadcast_problem(base, B).replace(x0=torch.as_tensor(x0, device=device))
+    return probs if dtype is None else _build.cast(probs, dtype)
 
 
 def first_iterate(system, probs):
@@ -397,7 +424,7 @@ def first_iterate(system, probs):
     from timeopt_tpu_torch.solver.linearize import linearize
 
     U = default_U_init(probs)
-    X = rollout(system, probs, probs.x0, U)
+    X = rollout(system, probs, probs.x0, U)  # at float32 float64-carried, as in the solve
     A, Bj = linearize(system.step, X, U)
     return X, U, A, Bj
 
@@ -454,13 +481,13 @@ def residency() -> None:
 
 
 def check_select(J_k, J_p, s, probs, bound, label: str, inf_below: bool = True,
-                 ungated: str = "the gate is the oracle score of phase 4"):
+                 ungated: str = "the gate is the oracle score of phase 4", tie: float = 1e-9):
     """J of kernel and plain for T >= T_min: +inf below T_min from the
     kernel (with inf_below: the select kernels skip those queries), the same
-    non-finite pattern, and the errors and argmin T* agreement gated by
-    `bound` (see SELECT_BOUND); with no bound the log names the gate that
-    holds instead (`ungated`). Returns (max abs err, the plain version's
-    T*)."""
+    non-finite pattern, and the errors and argmin T* agreement (equal, or
+    tied within `tie` relative) gated by `bound` (see SELECT_BOUND); with no
+    bound the log names the gate that holds instead (`ungated`). Returns
+    (max abs err, the plain version's T*)."""
     import torch
     from timeopt_tpu_torch.solver.cost import argmin_T
 
@@ -477,14 +504,14 @@ def check_select(J_k, J_p, s, probs, bound, label: str, inf_below: bool = True,
     T_p = argmin_T(s0 * J_p, t_min, probs.T_max)
     rows = torch.arange(Bsz, device=J_k.device)
     Jpk, Jpp = J_p[rows, T_k - 1], J_p[rows, T_p - 1]
-    tied = (T_k == T_p) | ((Jpk - Jpp).abs() <= 1e-9 * Jpp.abs())
+    tied = (T_k == T_p) | ((Jpk - Jpp).abs() <= tie * Jpp.abs())
     log(f"[kernels] {label}: max abs err {err:.3e}, max rel err {errs['rel']:.3e}, normwise {errs['norm']:.3e} "
         f"(t >= T_min; bound {bound or 'none here: ' + ungated}), argmin equal {int((T_k == T_p).sum())}/{Bsz}, "
         f"tied {int(tied.sum())}/{Bsz}")
     if bound is not None:
         kind, r = bound
         require(errs[kind] <= r, f"{label}: J {kind} err {errs[kind]:.3e} > {r}")
-        require(bool(tied.all()), f"{label}: argmin T differs beyond a 1e-9 tie on {int((~tied).sum())} problems")
+        require(bool(tied.all()), f"{label}: argmin T differs beyond a {tie} tie on {int((~tied).sum())} problems")
     return err, T_p
 
 
@@ -502,11 +529,13 @@ def close_per_rollout(k, p, mask, rtol: float, atol: float) -> bool:
     return bool((d <= atol + rtol * ref).all())
 
 
-def check_linesearch(system, probs, X, U, K, kap, T, alphas, label: str, gate_all: bool):
+def check_linesearch(system, probs, X, U, K, kap, T, alphas, label: str, gate_all: bool, rtol: float = 1e-10,
+                     atol: float = 1e-12):
     """Line-search kernel vs plain: X, U, J within rtol 1e-10 / atol 1e-12
-    and identical accepted flags. With gate_all, elementwise on every alpha
-    and row. Otherwise on the alphas that improve on J_old (a diverging
-    rollout amplifies last-bit differences without bound), X on the rows
+    (or the given rtol, atol) and identical accepted flags. With gate_all,
+    elementwise on every alpha and row. Otherwise on the alphas that
+    improve on J_old (a diverging rollout amplifies last-bit differences
+    without bound), X on the rows
     k <= T* that the cost reads (beyond T* the rollout runs open loop on
     the nominal controls: on the segway a 1-ulp change of x0 moves those
     rows by 6.5e-6), and X and U relative to each rollout's largest entry
@@ -527,15 +556,15 @@ def check_linesearch(system, probs, X, U, K, kap, T, alphas, label: str, gate_al
     imp = Js_p < J_old[:, None]
     require(bool(torch.equal(Js_k < J_old[:, None], imp)), f"{label}: improving alphas differ")
     if gate_all:
-        ok = all(within(k, p, 1e-10, 1e-12) for k, p in ((Xs_k, Xs_p), (Us_k, Us_p), (Js_k, Js_p)))
+        ok = all(within(k, p, rtol, atol) for k, p in ((Xs_k, Xs_p), (Us_k, Us_p), (Js_k, Js_p)))
         gated = "all, elementwise"
     else:
         rows = torch.arange(probs.N + 1, device=X.device)[None, None] <= T[:, None, None]
-        ok = (close_per_rollout(Xs_k, Xs_p, imp[..., None] & rows, 1e-10, 1e-12)
-              and close_per_rollout(Us_k, Us_p, imp[..., None].expand(Us_p.shape[:3]), 1e-10, 1e-12)
-              and within(Js_k[imp], Js_p[imp], 1e-10, 1e-12))
+        ok = (close_per_rollout(Xs_k, Xs_p, imp[..., None] & rows, rtol, atol)
+              and close_per_rollout(Us_k, Us_p, imp[..., None].expand(Us_p.shape[:3]), rtol, atol)
+              and within(Js_k[imp], Js_p[imp], rtol, atol))
         gated = "the improving, X on rows <= T*, per rollout"
-    require(ok, f"{label}: X/U/J outside rtol 1e-10 atol 1e-12 (max abs over all {errs})")
+    require(ok, f"{label}: X/U/J outside rtol {rtol} atol {atol} (max abs over all {errs})")
     acc_k = select_first_improving(X, U, Xs_k, Us_k, Js_k, J_old).accepted
     acc_p = select_first_improving(X, U, Xs_p, Us_p, Js_p, J_old).accepted
     require(bool(torch.equal(acc_k, acc_p)), f"{label}: accepted flags differ")
@@ -581,7 +610,7 @@ def onepass_rollout_args(system, probs, X, U, A, Bj, S: int = 20):
     return (system, probJ, X_in, U_in, K_in, k_in, T_in, opts.alphas[:4]), x_start, J_prev.repeat(3)
 
 
-def check_onepass_rollout(ls_args, x_start, J_prev, label: str) -> float:
+def check_onepass_rollout(ls_args, x_start, J_prev, label: str, rtol: float = 1e-10, atol: float = 1e-12) -> float:
     """The line-search kernel from start states against its plain version
     on what the one-pass method reads of each rollout: whether its
     least-cost alpha improves on J_prev, the accept test (identical), and
@@ -591,7 +620,8 @@ def check_onepass_rollout(ls_args, x_start, J_prev, label: str) -> float:
     beyond T* the rollout runs open loop on nominal controls). A rollout
     that diverges amplifies last-bit differences without bound (as
     check_linesearch says), so the others are compared only in the
-    printed errors. Returns the max abs error over all alphas and rows."""
+    printed errors. At float32 rtol and atol (and the alpha tie) are the
+    given ones. Returns the max abs error over all alphas and rows."""
     import torch
     from timeopt_tpu_torch.ops import cuda_forward
 
@@ -604,16 +634,16 @@ def check_onepass_rollout(ls_args, x_start, J_prev, label: str) -> float:
     acc = Js_p[r, bp] < J_prev
     require(torch.equal(acc, Js_k[r, bk] < J_prev), f"{label}: the accept decisions differ")
     require(bool(acc.any()), f"{label}: no rollout improves on the warm start's cost, nothing to compare")
-    same = (bk == bp) | ((Js_p[r, bk] - Js_p[r, bp]).abs() <= 1e-10 * Js_p[r, bp].abs())
+    same = (bk == bp) | ((Js_p[r, bk] - Js_p[r, bp]).abs() <= rtol * Js_p[r, bp].abs())
     require(bool(same[acc].all()), f"{label}: the least-cost alpha differs on {int((~same & acc).sum())} rollouts")
     T = ls_args[6]
     rows = torch.arange(Xs_p.shape[2], device=T.device)[None, None] <= T[:, None, None]
     sel = torch.zeros_like(Js_p, dtype=torch.bool)
     sel[r, bp] = acc
-    gated = (close_per_rollout(Xs_k, Xs_p, sel[..., None] & rows, 1e-10, 1e-12)
-             and close_per_rollout(Us_k, Us_p, sel[..., None].expand(Us_p.shape[:3]), 1e-10, 1e-12)
-             and within(Js_k[sel], Js_p[sel], 1e-10, 1e-12))
-    require(gated, f"{label}: the accepted alpha's X/U/J outside rtol 1e-10 atol 1e-12 (max abs over all {errs})")
+    gated = (close_per_rollout(Xs_k, Xs_p, sel[..., None] & rows, rtol, atol)
+             and close_per_rollout(Us_k, Us_p, sel[..., None].expand(Us_p.shape[:3]), rtol, atol)
+             and within(Js_k[sel], Js_p[sel], rtol, atol))
+    require(gated, f"{label}: the accepted alpha's X/U/J outside rtol {rtol} atol {atol} (max abs over all {errs})")
     fin = torch.isfinite(Js_p).any(dim=1)
     log(f"[kernels] {label}: max abs err X {errs[0]:.3e}, U {errs[1]:.3e}, J {errs[2]:.3e} (all alphas and rows; "
         f"gated on the accepted rollouts' least-cost alpha, X on rows <= T*, per rollout), accepted identical "
@@ -712,7 +742,7 @@ def backward_args(system, probs, X, U, A, Bj, T, lm_init: float) -> list:
     import torch
     from timeopt_tpu_torch.solver.backward import backward_inputs
 
-    lm = torch.full((T.shape[0],), lm_init, dtype=torch.float64, device=X.device)
+    lm = torch.full((T.shape[0],), lm_init, dtype=X.dtype, device=X.device)
     return [A.contiguous(), Bj.contiguous(), *backward_inputs(system, probs, X, U), T.contiguous(), lm]
 
 
@@ -954,10 +984,12 @@ def backward_longdouble(bw_args, rows) -> tuple:
     return torch.as_tensor(kappa.astype(np.float64)), torch.as_tensor(K.astype(np.float64))
 
 
-def check_backward(bw_args, label: str, timed: bool = False, norm: float | None = None) -> tuple:
+def check_backward(bw_args, label: str, timed: bool = False, norm: float | None = None,
+                   witness: bool = True) -> tuple:
     """Backward kernel vs plain: ok identical, and kappa, K within rtol 1e-9
     / atol 1e-12 elementwise or, with `norm`, each problem's largest error
-    within `norm` of its largest |kappa| (|K|) (BACKWARD_NORM_B1024); both
+    within `norm` of its largest |kappa| (|K|) (BACKWARD_NORM_B1024, or
+    F32_REL at float32, there without the long-double witness); both
     readings are printed. Returns (kappa, K, ok) of the kernel and of the
     plain version, and the kernel's numbers: max abs error and, with
     `timed`, ms one call, back to back and plain."""
@@ -978,7 +1010,7 @@ def check_backward(bw_args, label: str, timed: bool = False, norm: float | None 
         require(max_err(kap_k, kap_p)[1] and max_err(K_k, K_p)[1] and nw <= norm,
                 f"{label}: kappa/K normwise {nw:.3e} > {norm} or non-finite patterns differ")
     require(bool(torch.equal(ok_k, ok_p)), f"{label}: ok flags differ")
-    if norm is not None:
+    if norm is not None and witness:
         witness_backward(bw_args, (kap_k, K_k), (kap_p, K_p), norm, label)
     out = dict(max_abs_err=max(e1, e2))
     timing = ""
@@ -1025,13 +1057,15 @@ def witness_backward(bw_args, kernel, plain, norm: float, label: str, n_rows: in
                                        f"witness > {norm}")
 
 
-def witness_select(args, J_k, J_p, s, probs, label: str) -> None:
+def witness_select(args, J_k, J_p, s, probs, label: str, rel: float = WITNESS_SELECT_REL,
+                   tie: float = 1e-9) -> dict:
     """The generic select kernel and its plain version against the
     long-double witness (select_generic_longdouble) on every problem, for
     T >= T_min: each side's largest relative and normwise error and its
-    argmin T* against the witness's (equal, or tied within 1e-9 of the
-    witness's J) printed; the kernel's J must be within WITNESS_SELECT_REL
-    of the witness's and its argmin tied on every problem."""
+    argmin T* against the witness's (equal, or tied within `tie` of the
+    witness's J) printed; the kernel's J must be within `rel` (by default
+    WITNESS_SELECT_REL) of the witness's and its argmin tied on every
+    problem. Returns the witness's J (float64, on J_k's device)."""
     import torch
     from timeopt_tpu_torch.solver.cost import argmin_T
 
@@ -1046,15 +1080,16 @@ def witness_select(args, J_k, J_p, s, probs, label: str) -> None:
         T = argmin_T(s0 * J, probs.T_min, probs.T_max)
         Jt, Jw = J_w[rows, T - 1], J_w[rows, T_w - 1]
         read[side] = ((d / J_w[:, t:].abs()).max().item(), (d.amax(1) / J_w[:, t:].abs().amax(1)).max().item(),
-                      int((T == T_w).sum()), int(((T == T_w) | ((Jt - Jw).abs() <= 1e-9 * Jw.abs())).sum()))
+                      int((T == T_w).sum()), int(((T == T_w) | ((Jt - Jw).abs() <= tie * Jw.abs())).sum()))
     log(f"[kernels] {label}: long-double witness (eps {float(np.finfo(np.longdouble).eps):.2e}): kernel max rel err "
         f"{read['kernel'][0]:.3e}, normwise {read['kernel'][1]:.3e}, argmin equal {read['kernel'][2]}/{Bsz}, tied "
         f"{read['kernel'][3]}/{Bsz}; plain max rel err {read['plain'][0]:.3e}, normwise {read['plain'][1]:.3e}, "
         f"argmin equal {read['plain'][2]}/{Bsz}, tied {read['plain'][3]}/{Bsz}")
-    require(read["kernel"][0] <= WITNESS_SELECT_REL, f"{label}: kernel J {read['kernel'][0]:.3e} relative off the "
-                                                     f"long-double witness > {WITNESS_SELECT_REL}")
+    require(read["kernel"][0] <= rel, f"{label}: kernel J {read['kernel'][0]:.3e} relative off the "
+                                      f"long-double witness > {rel}")
     require(read["kernel"][3] == Bsz, f"{label}: kernel argmin T* not tied to the long-double witness's on "
                                       f"{Bsz - read['kernel'][3]} problems")
+    return J_w
 
 
 def load_oracle(case: str) -> dict:
@@ -1230,6 +1265,14 @@ def launches() -> dict:
     return {name: mod.LAUNCHES for name, mod in _counted().items()}
 
 
+def oracle_w(case: str) -> float:
+    """The time weight w of the case's float64 default problem (the
+    oracle's scoring rule reads it there, at float32 too)."""
+    from timeopt_tpu_torch.models import get_system
+
+    return float(get_system(case)[1](device="cpu").w[0])
+
+
 def score(T, T_o, curve_o, w: float):
     """(exact, exact-or-tied) boolean arrays of T* against the oracle's."""
     idx = np.arange(len(T_o))
@@ -1237,10 +1280,11 @@ def score(T, T_o, curve_o, w: float):
     return exact, exact | (np.abs(curve_o[idx, T - 1] - curve_o[idx, T_o - 1]) <= w * (np.abs(T - T_o) + 1))
 
 
-def solve_oracle_set(case: str, device, opts) -> dict:
+def solve_oracle_set(case: str, device, opts, dtype=None) -> dict:
     """The 128 problems of the case's results/oracle_f64*.npz solved on the
-    card with `opts`, checked finite and of the expected shapes, and scored
-    against the oracle: the system, problems, result, seconds, launch
+    card with `opts` (in `dtype`, float32, if given), checked finite and of
+    the expected shapes, and scored against the oracle with the float64
+    default problem's w: the system, problems, result, seconds, launch
     counts, exact and exact-or-tied arrays, J* gaps and success share."""
     import torch
     from timeopt_tpu_torch.models import get_system
@@ -1251,7 +1295,7 @@ def solve_oracle_set(case: str, device, opts) -> dict:
     orc = load_oracle(case)
     T_o, J_o, curve_o = orc["T"].astype(np.int64), orc["J"], orc["J_curve"]
     Bo = len(T_o)
-    probs = oracle_problems(system, mk, Bo, device)
+    probs = oracle_problems(system, mk, Bo, device, dtype)
 
     reset_launches()
     t0 = time.perf_counter()
@@ -1266,7 +1310,7 @@ def solve_oracle_set(case: str, device, opts) -> dict:
     require(bool(torch.isfinite(res.J_star).all()), f"{case}: non-finite J*")
     T = res.T_star.cpu().numpy()
     J = res.J_star.cpu().numpy()
-    exact, tied = score(T, T_o, curve_o, float(probs.w[0]))
+    exact, tied = score(T, T_o, curve_o, oracle_w(case))
     eT = wrap_error(res.X[torch.arange(Bo, device=device), res.T_star] - probs.xg, probs.wrap_mask)
     return dict(system=system, probs=probs, res=res, secs=secs, counts=counts, T=T, T_o=T_o, exact=exact,
                 tied=exact | tied, gap=np.abs(J - J_o) / np.abs(J_o),
@@ -1472,9 +1516,10 @@ def phase_runner() -> dict:
     return counts
 
 
-def phase_throughput(case: str, device) -> dict:
-    """One timed solve_batch at B=1024 after a warm-up; returns its launch
-    counts (the launches of one main-path solve)."""
+def phase_throughput(case: str, device, dtype=None) -> dict:
+    """One timed solve_batch at B=1024 after a warm-up, in float64 or
+    `dtype` (float32); records its solves/s in THROUGHPUT and returns its
+    launch counts (the launches of one main-path solve)."""
     import torch
     from timeopt_tpu_torch.models import get_system
     from timeopt_tpu_torch.ops.wrap import wrap_error
@@ -1482,7 +1527,7 @@ def phase_throughput(case: str, device) -> dict:
     from timeopt_tpu_torch.solver.ilqr import SolveOptions, solve_batch
 
     system, mk = get_system(case)
-    probs = oracle_problems(system, mk, B_FULL, device)
+    probs = oracle_problems(system, mk, B_FULL, device, dtype)
     opts = SolveOptions(method="propagator", max_iter=MAX_ITER, psd_levels=1)
     solve_batch(system, probs, options=opts)  # warm-up
     torch.cuda.synchronize()
@@ -1504,7 +1549,10 @@ def phase_throughput(case: str, device) -> dict:
         X, U = res.X[:, :-1].contiguous(), res.U
         ems = cuda_ms(lambda: extra_cost_terms(system, X, U), reps=3)
         extra = f" | extra_cost_terms (B*N={B_FULL * probs.N} steps) {ems:.2f} ms per call"
-    log(f"[throughput] {case} B={B_FULL} max_iter={MAX_ITER} f64: {B_FULL / secs:.2f} solves/s | {secs:.3f} s | "
+    tag = "f64" if dtype is None else "f32"
+    THROUGHPUT[(case, tag)] = B_FULL / secs
+    beside = f" (f64 in this call: {THROUGHPUT[(case, 'f64')]:.2f})" if tag == "f32" else ""
+    log(f"[throughput] {case} B={B_FULL} max_iter={MAX_ITER} {tag}: {B_FULL / secs:.2f} solves/s{beside} | {secs:.3f} s | "
         f"{iters} outer iterations, {1e3 * secs / iters:.2f} ms/iteration | T* median "
         f"{float(res.T_star.double().median()):g} | success@0.5 {succ:.3f} | launches {counts}{extra} | {smi()}")
     return counts
@@ -1851,6 +1899,255 @@ def phase_scaleout(device) -> dict:
     return total
 
 
+# Phase 10, float32 (float32 in device memory, float64 in the kernels'
+# registers). Each kernel's float32 instantiation against its plain version
+# (float64 arithmetic on the same float32 inputs, one rounding on the way
+# out): where the two agree to ~1e-10 in float64 (phase 3's bounds) and
+# each rounds to float32 once (an ulp is 1.2e-7 relative), J within F32_REL
+# relative (F32_SELECT_BOUND) with argmin T* equal or tied within F32_REL; X, U and J of the
+# line search within F32_REL / F32_ATOL elementwise (the one-pass rows per
+# rollout, on the accepted alphas); kappa and K within F32_REL of each
+# problem's largest entry (a gain near zero carries the absolute error of
+# the terms that sum to it, as BACKWARD_NORM_B1024 reads in float64), ok
+# identical.
+F32_REL = 3e-7
+F32_ATOL = 1e-12
+# The selects at float32, read as SELECT_BOUND: the quadrotor within
+# F32_REL. On PointMass the plain version's explicit inverses lose digits
+# at the zero position weights, as SELECT_BOUND says of float64 (there the
+# pair reads 4.85e-4 normwise, 1.15e-3 elementwise; PERF.md section 6); at
+# the float32 path's q_reg 1e-5 the first reading on the card was 1.04e-5
+# normwise (9.3e-5 elementwise; argmin equal on all 1,024), and the bound
+# is 10 times that. The plain version computed in float32 arithmetic (no
+# upcast) is the reading above it: 57 normwise on the CPU, printed on the
+# card. Which side loses the digits is read against a long-double witness
+# of the kernel's math on the same float32 inputs (witness_select, every
+# problem): the kernel's order run in float64 on the CPU reads 1.04e-7
+# relative off it before its rounding to float32 and 1.01e-7 after, the
+# plain version 5.0e-5 (PERF.md section 6). The kernel's J must be within
+# F32_WITNESS_REL of the witness's, 10 times that CPU reading, with its
+# argmin T* tied within F32_REL; the plain version would fail it.
+F32_SELECT_BOUND = {"Quadrotor": ("rel", F32_REL), "PointMass_Navigation": ("norm", 1e-4)}
+F32_WITNESS_REL = 1e-6
+# The JAX package's float32 pipeline on a TPU: its T* for the same 128
+# problems of each oracle set; the port's float32 solve must score
+# exact-or-tied no lower against results/oracle_f64*.npz.
+F32_ARTIFACT = "oracle_f32_dense"
+F32_RUNNER_CASES = ("DoubleIntegrator", "Quadrotor")
+TPU_F32_CSV = os.path.join(ROOT, "results", "tpu_f32", "summary_all.csv")
+# bench.py's output keys, which bench_torch.py's one line must have
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "batch", "pipeline", "batch_time_s", "success_rate",
+              "T_star_median")
+
+
+def phase_f32_kernels(device) -> dict:
+    """Phase 10 (a): the four kernels' float32 instantiations against their
+    plain versions at phase 3's shapes, on the float32 first iterates of
+    the oracle problem sets at B=1024: the fused select, the backward (at
+    the plain select's T*), the line search and the line search from start
+    states (the one-pass method's rollouts, 3 x 1024) on the quadrotor
+    (N=160); the generic select and the backward on PointMass (N = T_max =
+    220 for the select). Each timed as phase 3 times it, with its bound at
+    float32 bytes (ops/work.py, itemsize 4). Returns the numbers by kernel."""
+    import torch
+    from timeopt_tpu_torch.models import get_system
+    from timeopt_tpu_torch.ops import cuda_forward, work
+    from timeopt_tpu_torch.solver.ilqr import SolveOptions
+
+    f32 = torch.float32
+    opts = SolveOptions(max_iter=MAX_ITER, psd_levels=1)
+    out, iters = {}, {}
+    for case, name in (("Quadrotor", "lft_select"), ("PointMass_Navigation", "lft_select_generic")):
+        system, mk = get_system(case)
+        probs = oracle_problems(system, mk, B_FULL, device, f32)
+        X, U, A, Bj = first_iterate(system, probs)
+        kernel, plain, s = select_pair(system, probs, opts, X, U, A, Bj)
+        J_k, J_p = kernel(), plain()
+        torch.cuda.synchronize()
+        require(J_k.dtype == J_p.dtype == f32 and X.dtype == A.dtype == f32, f"{name} float32: dtypes")
+        err, T_p = check_select(J_k, J_p, s, probs, F32_SELECT_BOUND[case], f"{name} float32 ({case} B={B_FULL})",
+                                tie=F32_REL)
+        if name == "lft_select_generic":
+            witness_f32_select(system, probs, opts, X, U, A, Bj, J_k, J_p, s, f"{name} float32 ({case} B={B_FULL})")
+        b2b, ms, pms = device_ms(kernel), cuda_ms(kernel, reps=5), cuda_ms(plain, reps=3)
+        count = work.select_fused if name == "lft_select" else work.select_generic
+        out[name] = dict(max_abs_err=err, ms=ms, ms_back_to_back=b2b, plain_ms=pms,
+                         **count(B_FULL, probs.N, system.n, system.m, probs.T_min, itemsize=4))
+        log(f"[float32] {name}: kernel {ms:.3f} ms one call, {b2b:.3f} ms back to back, plain {pms:.3f} ms")
+        iters[case] = (system, probs, X, U, A, Bj, T_p)
+    for case, (system, probs, X, U, A, Bj, T_p) in iters.items():
+        bw_args = backward_args(system, probs, X, U, A, Bj, T_p, opts.lm_init)
+        _, plain_out, nums = check_backward(bw_args, f"backward float32 ({case} B={B_FULL})", timed=True,
+                                            norm=F32_REL, witness=False)
+        nums.update(work.backward(T_p.tolist(), probs.N, system.n, system.m, itemsize=4))
+        if case == "Quadrotor":
+            out["backward"] = nums
+            kap_p, K_p, _ = plain_out
+            require(K_p.dtype == f32, "backward float32: K is not float32")
+        else:
+            out["backward"]["pointmass"] = nums
+
+    system, probs, X, U, A, Bj, T_p = iters["Quadrotor"]
+    ls_args = (system, probs, X, U, K_p, kap_p, T_p, opts.alphas)
+    err = check_linesearch(*ls_args, f"line search float32 (Quadrotor B={B_FULL})", gate_all=True, rtol=F32_REL,
+                           atol=F32_ATOL)
+    b2b = device_ms(lambda: cuda_forward.linesearch(*ls_args))
+    ms = cuda_ms(lambda: cuda_forward.linesearch(*ls_args), reps=5)
+    pms = cuda_ms(lambda: cuda_forward.linesearch_plain(*ls_args), reps=3)
+    out["linesearch"] = dict(max_abs_err=err, ms=ms, ms_back_to_back=b2b, plain_ms=pms,
+                             **work.linesearch(system.name, T_p.tolist(), probs.N, system.n, system.m,
+                                               len(opts.alphas), itemsize=4))
+    log(f"[float32] line search: kernel {ms:.3f} ms one call, {b2b:.3f} ms back to back, plain {pms:.3f} ms")
+
+    ls_args, x_start, J_prev = onepass_rollout_args(system, probs, X, U, A, Bj)
+    nJ = ls_args[2].shape[0]
+    require(x_start.dtype == f32, "one-pass rollouts float32: start states are not float32")
+    err = check_onepass_rollout(ls_args, x_start, J_prev, f"line search float32 from start states (one-pass "
+                                                          f"rollouts, Quadrotor {nJ} = 3 x {B_FULL})",
+                                rtol=F32_REL, atol=F32_ATOL)
+    b2b = device_ms(lambda: cuda_forward.linesearch(*ls_args, x_start=x_start))
+    ms = cuda_ms(lambda: cuda_forward.linesearch(*ls_args, x_start=x_start), reps=5)
+    pms = cuda_ms(lambda: cuda_forward.linesearch_plain(*ls_args, x_start=x_start), reps=1)
+    out["linesearch"]["onepass_rollout"] = dict(
+        rollouts=nJ, alphas=len(ls_args[-1]), max_abs_err=err, ms=ms, ms_back_to_back=b2b, plain_ms=pms,
+        **work.linesearch(system.name, ls_args[6].tolist(), ls_args[2].shape[1] - 1, system.n, system.m,
+                          len(ls_args[-1]), x_start=True, itemsize=4))
+    log(f"[float32] line search from start states: kernel {ms:.3f} ms one call, {b2b:.3f} ms back to back, "
+        f"plain {pms:.3f} ms")
+    return out
+
+
+def witness_f32_select(system, probs, opts, X, U, A, Bj, J_k, J_p, s, label: str) -> None:
+    """The float32 generic select's two readings around F32_SELECT_BOUND
+    and its witness: the plain version computed in float32 arithmetic
+    against the plain version (float64 inside), printed as the reading above
+    the bound; then kernel and plain against the long-double witness on
+    every problem (witness_select: F32_WITNESS_REL, argmin tied within
+    F32_REL), with the float32-arithmetic plain version's distance to the
+    witness printed beside them."""
+    import torch
+    from timeopt_tpu_torch.ops.precision import no_tf32
+    from timeopt_tpu_torch.solver.horizon import select_generic_plain
+    from timeopt_tpu_torch.solver.ilqr import select_inputs
+
+    _, args, _ = select_inputs(system, probs, opts, X, U, A, Bj)
+    with no_tf32():
+        J_32 = select_generic_plain(*args)
+    require(J_32.dtype == torch.float32, f"{label}: the float32-arithmetic plain version is not float32")
+    t = probs.T_min - 1
+
+    def reading(J, ref):
+        d = (J[:, t:].double() - ref[:, t:]).abs().nan_to_num(float("inf"))
+        return (d / ref[:, t:].abs()).max().item(), (d.amax(1) / ref[:, t:].abs().amax(1)).max().item()
+
+    up = reading(J_32, J_p.double())
+    log(f"[float32] {label}: the plain version in float32 arithmetic against the plain version (float64 inside): "
+        f"max rel err {up[0]:.3e}, normwise {up[1]:.3e} (the reading above F32_SELECT_BOUND "
+        f"{F32_SELECT_BOUND['PointMass_Navigation']})")
+    J_w = witness_select(args, J_k, J_p, s, probs, label, rel=F32_WITNESS_REL, tie=F32_REL)
+    w32 = reading(J_32, J_w)
+    log(f"[float32] {label}: the plain version in float32 arithmetic against the long-double witness: max rel err "
+        f"{w32[0]:.3e}, normwise {w32[1]:.3e}")
+
+
+def f32_artifact_tied(case: str) -> int:
+    """Exact-or-tied of the JAX package's float32 T* (results/
+    oracle_f32_dense*.npz) against the float64 oracle, by score's rule."""
+    suffix = "" if case == "Quadrotor" else f"_{case}"
+    T32 = np.load(os.path.join(ROOT, "results", f"{F32_ARTIFACT}{suffix}.npz"))["T"].astype(np.int64)
+    orc = load_oracle(case)
+    exact, tied = score(T32, orc["T"].astype(np.int64), orc["J_curve"], oracle_w(case))
+    return int((exact | tied).sum())
+
+
+def phase_f32_oracle(case: str, device) -> dict:
+    """Phase 10 (b): the case's 128 oracle problems as float32 problems
+    (oracle_problems' perturbation, then rounded), solved on the card,
+    scored against the float64 oracle: exact-or-tied no lower than the JAX
+    package's float32 pipeline scores (f32_artifact_tied), each kernel of
+    the case's path launched. Returns the launch counts."""
+    import torch
+    from timeopt_tpu_torch.solver.ilqr import SolveOptions
+
+    o = solve_oracle_set(case, device, SolveOptions(method="propagator", max_iter=MAX_ITER, psd_levels=1),
+                         dtype=torch.float32)
+    require(o["res"].X.dtype == o["res"].J_star.dtype == torch.float32, f"float32 oracle {case}: results not float32")
+    counts, Bo = o["counts"], len(o["T_o"])
+    select = "lft_select" if o["system"].extra_cost is None else "lft_select_generic"
+    for name in (select, "backward", "linesearch"):
+        require(counts[name] > 0, f"float32 oracle solve {case}: kernel {name} was never launched")
+    tied, want = int(o["tied"].sum()), f32_artifact_tied(case)
+    log(f"[float32] oracle {case} B={Bo}: T* exact {int(o['exact'].sum())}/{Bo}, exact-or-tied {tied}/{Bo} (the JAX "
+        f"float32 pipeline's {F32_ARTIFACT}: {want}/{Bo}; this port in float64, phase 4: {ORACLE_TIED.get(case)}/{Bo}) "
+        f"| J* rel gap median {np.median(o['gap']):.3e} max {o['gap'].max():.3e} | success@0.5 {o['succ']:.3f} | "
+        f"{o['secs']:.2f} s | launches {counts}")
+    bad = np.nonzero(~o["tied"])[0]
+    if len(bad):
+        log(f"[float32] oracle {case} not tied: idx {bad.tolist()} T* {o['T'][bad].tolist()} oracle "
+            f"{o['T_o'][bad].tolist()}")
+    require(tied >= want, f"float32 oracle {case}: exact-or-tied {tied}/{Bo} < the JAX float32 pipeline's {want}")
+    return counts
+
+
+def phase_bench_torch() -> None:
+    """Phase 10 (c), second half: `python3 bench_torch.py` at its defaults
+    (bench.py's configuration: quadrotor, float32, B=1024), its one JSON
+    line echoed here with bench.py's keys checked."""
+    proc = subprocess.run([sys.executable, os.path.join(ROOT, "bench_torch.py")], capture_output=True, text=True,
+                          cwd=ROOT, timeout=900)
+    for ln in proc.stderr.strip().splitlines()[-4:]:
+        log(f"[bench_torch] (stderr) {ln}")
+    require(proc.returncode == 0, f"bench_torch.py exited {proc.returncode}")
+    lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+    require(len(lines) == 1, f"bench_torch.py printed {len(lines)} lines on stdout, not one")
+    rec = json.loads(lines[0])
+    require(tuple(rec) == BENCH_KEYS, f"bench_torch.py's keys {tuple(rec)} are not bench.py's")
+    require("float32" in rec["metric"] and rec["success_rate"] > 0.0, "bench_torch.py: metric or success")
+    log(f"[bench_torch] {lines[0]} | {smi()}")
+
+
+def phase_f32_runner() -> dict:
+    """Phase 10 (d): the port's runner with --f32 in-process on the card,
+    the double integrator and the quadrotor, 5 trials, the three solvers:
+    every row finite (T*, J*, final_err), the kernels launched, and each
+    row's T* printed beside the JAX package's float32 run on a TPU
+    (results/tpu_f32/summary_all.csv). Returns the launch counts."""
+    import csv
+    import tempfile
+
+    from timeopt_tpu_torch.runner import run_suite
+
+    solvers = ("ourmethod", "baseline1", "baseline2")
+    with open(TPU_F32_CSV, newline="") as f:
+        want = {(r["case"], r["solver"], r["trial"]): r for r in csv.DictReader(f)}
+    with tempfile.TemporaryDirectory() as out:
+        reset_launches()
+        t0 = time.perf_counter()
+        run_suite.main(["--cases", ",".join(F32_RUNNER_CASES), "--trials", "5", "--solvers", ",".join(solvers),
+                        "--f32", "--outdir", out])
+        secs = time.perf_counter() - t0
+        counts = launches()
+        with open(os.path.join(out, "summary_all.csv"), newline="") as f:
+            got = list(csv.DictReader(f))
+    require(len(got) == len(F32_RUNNER_CASES) * len(solvers) * 5, f"runner --f32: {len(got)} rows")
+    for name in ("lft_select", "backward", "linesearch"):
+        require(counts[name] > 0, f"runner --f32: kernel {name} was never launched")
+    for r in got:
+        fin = all(np.isfinite(float(r[k])) for k in ("J_star", "final_err")) and int(r["T_star"]) > 0
+        require(fin, f"runner --f32: {r['case']} {r['solver']} trial {r['trial']} is not finite")
+    log(f"[float32] runner --f32, {','.join(F32_RUNNER_CASES)} x 5 trials x {solvers}: {secs:.1f} s | launches {counts}")
+    for case in F32_RUNNER_CASES:
+        for sv in solvers:
+            rows = [r for r in got if r["case"] == case and r["solver"] == sv]
+            mine = " ".join(r["T_star"] for r in rows)
+            tpu = " ".join(want[(case, sv, r["trial"])]["T_star"] for r in rows)
+            succ = sum(r["success"] == "True" for r in rows)
+            log(f"[float32] runner {case} {sv}: T* {mine} | the JAX package's float32 run on a TPU: {tpu} | "
+                f"success {succ}/5 | J* trial 0 {float(rows[0]['J_star']):.6g} (TPU "
+                f"{float(want[(case, sv, '0')]['J_star']):.6g})")
+    return counts
+
+
 class ABRun:
     """What phase_ab's rows share: the two versions' kernels (`kernels`),
     both versions' outputs on one input (`both`), their times in turns
@@ -1908,27 +2205,38 @@ class ABRun:
         o, n = outs
         diff, bitwise = 0.0, True
         for a, b in zip(o, n):
-            if a.dtype == torch.float64:
+            if a.is_floating_point():
                 diff = max(diff, max_err(a, b)[0])
-                bitwise = bitwise and bool(torch.equal(a.contiguous().view(torch.int64), b.contiguous().view(torch.int64)))
+                bits = torch.int64 if a.dtype == torch.float64 else torch.int32
+                bitwise = bitwise and bool(torch.equal(a.contiguous().view(bits), b.contiguous().view(bits)))
             else:
                 bitwise = bitwise and bool(torch.equal(a, b))
         return dict(kernel=name, case=case, B=BN[0], N=BN[1], max_abs_diff=diff, bitwise=bitwise,
                     **{f"{k}_ms": v for k, v in self.turns(fn, fn_new).items()})
 
-    def setup(self, case: str, Bsz: int):
-        """(system, probs, X, U, A, Bj, select kernel, its plain version, s, the select kernel's T*)."""
+    def setup(self, case: str, Bsz: int, dtype=None):
+        """(system, probs, X, U, A, Bj, select kernel, its plain version, s,
+        the select kernel's T*), in float64 or `dtype` (float32)."""
         from timeopt_tpu_torch.models import get_system
         from timeopt_tpu_torch.solver.cost import argmin_T
 
-        if (case, Bsz) not in self.cache:
+        if (case, Bsz, dtype) not in self.cache:
             system, mk = get_system(case)
-            probs = oracle_problems(system, mk, Bsz, self.device)
+            probs = oracle_problems(system, mk, Bsz, self.device, dtype)
             X, U, A, Bj = first_iterate(system, probs)
             kernel, plain, s = select_pair(system, probs, self.opts, X, U, A, Bj)
             T = argmin_T(s[:, :1] ** 2 * kernel(), probs.T_min, probs.T_max)
-            self.cache[(case, Bsz)] = (system, probs, X, U, A, Bj, kernel, plain, s, T)
-        return self.cache[(case, Bsz)]
+            self.cache[(case, Bsz, dtype)] = (system, probs, X, U, A, Bj, kernel, plain, s, T)
+        return self.cache[(case, Bsz, dtype)]
+
+    def f32(self, name: str, entry: str):
+        """float32 when the old sources' kernel `name` has the float32 entry
+        `entry` (its rows then compare old and new float32 instantiations),
+        else None."""
+        import torch
+        from timeopt_tpu_torch.ops import _build
+
+        return torch.float32 if hasattr(_build.load(name, self.old), entry) else None
 
 
 def ab_lft_select(ab: ABRun) -> list:
@@ -1936,7 +2244,15 @@ def ab_lft_select(ab: ABRun) -> list:
     system, probs, X, U, A, Bj, kernel, plain, s, _ = ab.setup("Quadrotor", B_FULL)
     J_o, J_n = ab.both(kernel)
     check_select(J_n, plain(), s, probs, SELECT_BOUND["Quadrotor"], f"ab: new lft_select vs plain (Quadrotor B={B_FULL})")
-    return [ab.row("lft_select", "Quadrotor", (B_FULL, probs.N), kernel, ((J_o,), (J_n,)))]
+    rows = [ab.row("lft_select", "Quadrotor", (B_FULL, probs.N), kernel, ((J_o,), (J_n,)))]
+    f32 = ab.f32("lft_select", "lft_select_fused_f32")
+    if f32 is not None:
+        system, probs, X, U, A, Bj, kernel, plain, s, _ = ab.setup("Quadrotor", B_FULL, f32)
+        J_o, J_n = ab.both(kernel)
+        check_select(J_n, plain(), s, probs, F32_SELECT_BOUND["Quadrotor"], "ab: new lft_select float32 vs plain",
+                     tie=F32_REL)
+        rows.append(ab.row("lft_select", "Quadrotor float32", (B_FULL, probs.N), kernel, ((J_o,), (J_n,))))
+    return rows
 
 
 def ab_linesearch(ab: ABRun) -> list:
@@ -1959,6 +2275,17 @@ def ab_linesearch(ab: ABRun) -> list:
             fn_new = lambda x0=x0: cuda_forward.linesearch(*args, x_start=x0)  # noqa: E731
             rows.append(ab.row("linesearch", f"{case}, new from x_start = X[:, 0] ({how})", (Bsz, probs.N), fn,
                                ab.both(fn, fn_new), fn_new))
+    f32 = ab.f32("linesearch", "linesearch_rollout_from_f32")
+    if f32 is not None:  # both entries at float32, the start states X_ext[:, S] of the one-pass rollouts
+        system, probs, X, U, A, Bj, _, _, _, T = ab.setup("Quadrotor", B_FULL, f32)
+        kap, K, _ = cuda_backward.backward_truncated_core(*backward_args(system, probs, X, U, A, Bj, T, ab.opts.lm_init))
+        args = (system, probs, X, U, K, kap, T, ab.opts.alphas)
+        fn = lambda: cuda_forward.linesearch(*args)  # noqa: E731
+        rows.append(ab.row("linesearch", "Quadrotor float32", (B_FULL, probs.N), fn, ab.both(fn)))
+        ls_args, x_start, _ = onepass_rollout_args(system, probs, X, U, A, Bj)
+        fn = lambda: cuda_forward.linesearch(*ls_args, x_start=x_start)  # noqa: E731
+        rows.append(ab.row("linesearch", "Quadrotor float32, one-pass rollouts from start states",
+                           (ls_args[2].shape[0], probs.N), fn, ab.both(fn)))
     return rows
 
 
@@ -1983,6 +2310,14 @@ def ab_lft_select_generic(ab: ABRun) -> list:
         fn = lambda: cuda_lft_generic.propagator_select_generic(*args, t_min=1)  # noqa: E731
         J_o, J_n = ab.both(fn)
         rows.append(ab.row("lft_select_generic", f"random p={p} m={m}", (B_OFF, N_OFF), fn, ((J_o,), (J_n,))))
+    f32 = ab.f32("lft_select_generic", "lft_select_generic_f32")
+    if f32 is not None:
+        system, probs, X, U, A, Bj, kernel, plain, s, _ = ab.setup("PointMass_Navigation", B_FULL, f32)
+        J_o, J_n = ab.both(kernel)
+        check_select(J_n, plain(), s, probs, F32_SELECT_BOUND["PointMass_Navigation"],
+                     "ab: new lft_select_generic float32 vs plain", tie=F32_REL)
+        rows.append(ab.row("lft_select_generic", "PointMass_Navigation float32", (B_FULL, probs.N), kernel,
+                           ((J_o,), (J_n,))))
     return rows
 
 
@@ -2004,6 +2339,12 @@ def ab_backward(ab: ABRun) -> list:
         bw_args = random_backward_args(n, m, B_OFF, N_OFF, ab.device)
         fn = lambda: cuda_backward.backward_truncated_core(*bw_args)  # noqa: E731
         rows.append(ab.row("backward", f"random n={n} m={m}", (B_OFF, N_OFF), fn, ab.both(fn)))
+    f32 = ab.f32("backward", "backward_truncated_f32")
+    for case in ("Quadrotor", "PointMass_Navigation") if f32 is not None else ():
+        system, probs, X, U, A, Bj, _, _, _, T = ab.setup(case, B_FULL, f32)
+        bw_args = backward_args(system, probs, X, U, A, Bj, T, ab.opts.lm_init)
+        fn = lambda: cuda_backward.backward_truncated_core(*bw_args)  # noqa: E731
+        rows.append(ab.row("backward", f"{case} float32", (B_FULL, probs.N), fn, ab.both(fn)))
     return rows
 
 
@@ -2177,6 +2518,13 @@ def main() -> None:
     add(phase_latency_oracle(device))
     add(phase_latency_b1(device))
     add(phase_scaleout(device))
+    f32_numbers = phase_f32_kernels(device)
+    for case in CASES:
+        add(phase_f32_oracle(case, device))
+    per_solve_f32 = {case: phase_throughput(case, device, torch.float32)
+                     for case in ("Quadrotor", "PointMass_Navigation")}
+    phase_bench_torch()
+    add(phase_f32_runner())
 
     from timeopt_tpu_torch.ops import work
 
@@ -2189,6 +2537,9 @@ def main() -> None:
                  launches_per_solve={case: c[name] for case, c in per_solve.items()}, **numbers[name],
                  library_ms=None, library="none: no single PyTorch call computes it")
         k["share_of_bound"] = k["bound_ms"] / k["ms_back_to_back"]
+        if name in f32_numbers:
+            k["float32"] = dict(**f32_numbers[name], launches_per_solve={c: v[name] for c, v in per_solve_f32.items()})
+            k["float32"]["share_of_bound"] = k["float32"]["bound_ms"] / k["float32"]["ms_back_to_back"]
         kernels.append(k)
         log(f"[bounds] {name}: {k['ms_back_to_back']:.3f} ms back to back ({k['ms']:.3f} one call), bound {k['bound_ms']:.4f} ms by {k['bound_by']} "
             f"({k['flops'] / 1e9:.3f} GFLOP, {k['bytes'] / 1e6:.1f} MB; {k['bound_ms_cuda_cores']:.4f} ms at "
@@ -2205,6 +2556,18 @@ def main() -> None:
     log(f"[bounds] backward (PointMass_Navigation B={B_FULL}, its own T*): {bpm['ms_back_to_back']:.3f} ms back to back "
         f"({bpm['ms']:.3f} one call, plain {bpm['plain_ms']:.3f}), bound {bpm['bound_ms']:.4f} ms by {bpm['bound_by']} "
         f"({bpm['flops'] / 1e9:.3f} GFLOP, {bpm['bytes'] / 1e6:.1f} MB), share of bound {bpm['share_of_bound']:.4f}")
+    for name, f in ((n, k["float32"]) for n, k in zip(KERNELS, kernels) if "float32" in k):
+        log(f"[bounds] {name} float32: {f['ms_back_to_back']:.3f} ms back to back ({f['ms']:.3f} one call, plain "
+            f"{f['plain_ms']:.3f}), bound {f['bound_ms']:.4f} ms by {f['bound_by']} ({f['flops'] / 1e9:.3f} GFLOP, "
+            f"{f['bytes'] / 1e6:.1f} MB at float32 storage), share of bound {f['share_of_bound']:.4f}, launches per "
+            f"B={B_FULL} float32 solve {f['launches_per_solve']}")
+        for sub in ("pointmass", "onepass_rollout"):
+            if sub in f:
+                g = f[sub]
+                g["share_of_bound"] = g["bound_ms"] / g["ms_back_to_back"]
+                log(f"[bounds] {name} float32 ({sub}): {g['ms_back_to_back']:.3f} ms back to back ({g['ms']:.3f} one "
+                    f"call, plain {g['plain_ms']:.3f}), bound {g['bound_ms']:.4f} ms by {g['bound_by']}, share of "
+                    f"bound {g['share_of_bound']:.4f}")
     print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {

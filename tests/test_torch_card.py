@@ -464,14 +464,94 @@ def test_onepass_solve_on_the_card_matches_cpu(dev, case):
     _close(got.J_star.cpu(), want.J_star, 1e-8, 0.0)
 
 
+F32_RTOL = 3e-7  # kernel and plain agree to ~1e-9 in float64; each rounds to float32 once (1 ulp = 1.2e-7)
+
+
+@pytest.mark.parametrize("case", ["Quadrotor", "DoubleIntegrator", "Cartpole_SwingUp", "PointMass_Navigation"])
+def test_float32_kernels_match_plain(dev, case):
+    """The float32 instantiations (float32 in device memory, float64 in
+    registers) of the select (fused, or generic for PointMass), the
+    backward pass and both line-search entries against their plain versions
+    (float64 on the float32 values, rounded once): within F32_RTOL, the
+    same non-finite pattern, ok and acceptance identical. Inputs: the
+    float64 iterate cast to float32, the select's at the float32 default
+    q_reg 1e-5."""
+    system, probs, X, U, A, Bj = _iterate(case, B=5)
+    f32 = lambda t: t.float().contiguous().to(dev)  # noqa: E731
+    p32 = probs.replace(**{f: (t.float() if t.is_floating_point() else t).to(dev) for f, t in probs.tensors().items()})
+    t = probs.T_min - 1
+    if system.extra_cost is None:
+        fi = build_fused_inputs(system, probs, X, U, A, Bj, q_reg=1e-5, psd_levels=1)
+        args = [f32(a) for a in (fi.A, fi.B, fi.vecs, fi.scal, fi.Qq, fi.R_inv, fi.Lt)]
+        mod, J_p = cuda_lft, cuda_lft.select_fused_plain(*args)
+        n0 = mod.LAUNCHES
+        J_k = cuda_lft.propagator_select_fused(*args, t_min=probs.T_min)
+    else:
+        blk = build_augmented(system, probs, X, U, A, Bj, q_reg=1e-5, psd_levels=1)
+        args = [f32(a) for a in (blk.A_aug, blk.B_aug, blk.Q_aug, blk.R_inv, build_terminal_factors(probs, X, s=blk.s))]
+        mod, J_p = cuda_lft_generic, cuda_lft_generic.select_generic_plain(*args)
+        n0 = mod.LAUNCHES
+        J_k = cuda_lft_generic.propagator_select_generic(*args, t_min=probs.T_min)
+    assert mod.LAUNCHES == n0 + 1 and J_k.dtype == torch.float32 and torch.isinf(J_k[:, :t]).all()
+    _close(J_k[:, t:], J_p[:, t:], F32_RTOL, 0.0)
+
+    N = U.shape[1]
+    Tst = torch.tensor([N // 2, 7, N - 3, 11, 0], device=dev)
+    bw = [f32(a) for a in (A, Bj, *backward_inputs(system, probs, X, U))] + [Tst, torch.full((5,), 1e-3, device=dev)]
+    kap_k, K_k, ok_k = cuda_backward.backward_truncated_core(*bw)
+    kap_p, K_p, ok_p = cuda_backward.backward_plain(*bw)
+    assert kap_k.dtype == K_k.dtype == torch.float32 and torch.equal(ok_k, ok_p) and ok_k.tolist()[-1] is False
+    _close(kap_k, kap_p, F32_RTOL, 1e-12)
+    _close(K_k, K_p, F32_RTOL, 1e-12)
+
+    J_old = cost_true(system, p32, f32(X), f32(U), Tst)
+    for x_start in (None, f32(X[:, 0] + 0.01)):
+        args = (system, p32, f32(X), f32(U), K_p, kap_p, Tst, ALPHAS)
+        Xs_k, Us_k, Js_k = cuda_forward.linesearch(*args, x_start=x_start)
+        Xs_p, Us_p, Js_p = cuda_forward.linesearch_plain(*args, x_start=x_start)
+        assert Xs_k.dtype == Us_k.dtype == Js_k.dtype == torch.float32
+        improving = Js_p < J_old[:, None]
+        assert torch.equal(Js_k < J_old[:, None], improving) and bool(improving.any())
+        for k, q in ((Xs_k, Xs_p), (Us_k, Us_p), (Js_k, Js_p)):
+            _close(k[improving], q[improving], F32_RTOL, 1e-12)
+
+
+@pytest.mark.parametrize("case", ["DoubleIntegrator", "PointMass_Navigation"])
+def test_float32_solve_on_the_card_matches_cpu(dev, case):
+    """A float32 solve on the card against the CPU's (plain versions, the
+    same float64 arithmetic): T* and acceptances identical, J* within
+    rtol 1e-5 (float32 results, different rounding paths in between)."""
+    system, mk = get_system(case)
+    base = (mk(N=24, device="cpu", dtype=torch.float32).replace(T_min=4, T_max=16) if case == "DoubleIntegrator"
+            else mk(N=40, device="cpu", dtype=torch.float32).replace(T_min=10, T_max=40))
+    rng = np.random.default_rng(1)
+    sigma = torch.as_tensor(system.sigma_x0 if case != "DoubleIntegrator" else (0.2, 0.2))
+    x0 = base.x0 + (sigma * torch.as_tensor(rng.standard_normal((3, system.n)))).float()
+    probs = broadcast_problem(base, 3).replace(x0=x0)
+    opts = SolveOptions(max_iter=6)
+    select = cuda_lft if system.extra_cost is None else cuda_lft_generic
+    counts = (select.LAUNCHES, cuda_backward.LAUNCHES, cuda_forward.LAUNCHES)
+    got = solve_batch(system, probs.to(dev), options=opts)
+    assert all(c1 > c0 for c0, c1 in zip(counts, (select.LAUNCHES, cuda_backward.LAUNCHES, cuda_forward.LAUNCHES)))
+    want = solve_batch(system, probs, options=opts)
+    assert got.J_star.dtype == torch.float32 and got.X.dtype == torch.float32
+    assert torch.equal(got.T_star.cpu(), want.T_star) and torch.equal(got.n_accept.cpu(), want.n_accept)
+    _close(got.J_star.cpu(), want.J_star, 1e-5, 0.0)
+
+
 def test_float32_on_the_card_raises(dev):
+    """Float32 raises on the kernels without a float32 instantiation (the
+    prefix scan and the query); float16 on every kernel."""
     x = torch.zeros((1, 2, 2, 2), dtype=torch.float32, device=dev)
-    with pytest.raises(TypeError):
-        cuda_lft.propagator_select_fused(x, x, x, x, x, x, x, t_min=1)
     with pytest.raises(TypeError):
         cuda_lft_scan.lft_scan(x, x, x, levels=1)
     with pytest.raises(TypeError):
-        cuda_backward.backward_truncated_core(*([x] * 12))
+        cuda_lft_query.lft_query(x, x, x, x, levels=1)
+    h = x.half()
+    with pytest.raises(TypeError):
+        cuda_lft.propagator_select_fused(h, h, h, h, h, h, h, t_min=1)
+    with pytest.raises(TypeError):
+        cuda_backward.backward_truncated_core(*([h] * 12))
 
 
 def test_system_without_device_dynamics_raises(dev):

@@ -94,13 +94,15 @@ def test_enrich_and_aggregate_matches_pandas(solvers, tmp_path):
 
 
 def test_unported_flags_fail_at_parsing():
-    """--f32 is not ported (float32 is wrong for these recursions); unknown
-    cases and solvers fail as well. --distributed is ported (its runs:
-    tests/test_torch_parallel.py)."""
-    for argv in (["--f32"], ["--cases", "Pendulum"], ["--solvers", "ourmethod,baseline3"]):
+    """--consistency with --f32 is not ported (it needs the float32
+    prefix-scan and query kernels); unknown cases and solvers fail as well.
+    --f32 alone and --distributed are ported (their runs:
+    tests/test_torch_f32_solve.py, tests/test_torch_parallel.py)."""
+    for argv in (["--f32", "--consistency"], ["--cases", "Pendulum"], ["--solvers", "ourmethod,baseline3"]):
         with pytest.raises(SystemExit):
             trun.parse_args(argv)
     assert trun.parse_args(["--distributed"]).distributed
+    assert trun.parse_args(["--f32"]).f32
     args = trun.parse_args(["--solvers", "ourmethod,baseline1", "--cases", "Quadrotor,PointMass_Navigation"])
     assert args.device == "cuda" and args.solvers == ["ourmethod", "baseline1"]
     assert args.cases == ["Quadrotor", "PointMass_Navigation"]

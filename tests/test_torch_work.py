@@ -110,3 +110,54 @@ def test_start_state_linesearch_bound():
     ls = work.linesearch("Quadrotor", T, 160, 12, 4, 4, x_start=True)
     assert ls["flops"] == plain["flops"] and ls["bytes"] == plain["bytes"] + 8 * 3 * 1024 * 12
     assert ls["bound_by"] == "bytes" and ls["bound_ms"] > plain["bound_ms"]
+
+
+@pytest.mark.parametrize("kernel", ["select_fused", "select_generic", "backward", "linesearch", "linesearch_from"])
+def test_float32_counts_the_storage_bytes(kernel):
+    """At float32 storage (itemsize 4) every float input and output counts
+    4 bytes, the float64 k-constants of the fused select and the alphas of
+    the line search 8, T* (int64) 8 and the wrap mask and ok (bool) 1; the
+    operations (float64 arithmetic on both paths) do not change. Counted by
+    hand on small shapes."""
+    B, N, n, m, t_min, A = 3, 7, 4, 2, 2, 5
+    T = [0, 4, 9]
+    act = sum(min(max(t, 0), N) for t in T)
+    calls = {
+        "select_fused": lambda i: work.select_fused(B, N, n, m, t_min, itemsize=i),
+        "select_generic": lambda i: work.select_generic(B, N, n, m, t_min, itemsize=i),
+        "backward": lambda i: work.backward(T, N, n, m, itemsize=i),
+        "linesearch": lambda i: work.linesearch("PointMass_Navigation", T, N, n, m, A, itemsize=i),
+        "linesearch_from": lambda i: work.linesearch("PointMass_Navigation", T, N, n, m, A, x_start=True,
+                                                    itemsize=i),
+    }
+    p = n + 1
+    floats = {  # float elements in storage type; the rest in bytes at fixed widths
+        "select_fused": (B * N * (n * n + n * m + 4 * n + 4) + B * N, 8 * B * (2 * n * n + m * m)),
+        "select_generic": (B * N * (2 * p * p + p * m + n * p) + B * m * m + B * N, 0),
+        "backward": (act * (2 * n * n + n * m + n + m + 1) + B * (n + 1 + n * n + m * m + 1) + B * N * (m + m * n),
+                     8 * B + B),
+        "linesearch": (B * ((N + 1) * n + N * (m + m * n + m)) + B * (n + m + 2 * n * n + m * m + 1)
+                       + B * A * ((N + 1) * n + N * m + 1), 8 * A + 8 * B + B * n),
+    }
+    floats["linesearch_from"] = (floats["linesearch"][0] + B * n, floats["linesearch"][1])
+    f64, f32 = calls[kernel](8), calls[kernel](4)
+    elems, fixed = floats[kernel]
+    assert f64["bytes"] == 8 * elems + fixed and f32["bytes"] == 4 * elems + fixed
+    assert f32["flops"] == f64["flops"]
+
+
+def test_float32_main_path_bounds():
+    """The quadrotor at B=1024 (select T_min 40, T* 51) and PointMass
+    (N=220): float32 storage halves every kernel's bytes but the fused
+    select's k-constants; the select stays bound by operations, so its
+    bound does not move; the line search and the backward stay bound by
+    bytes at about half their float64 bound."""
+    s64, s32 = work.select_fused(1024, 160, 12, 4, 40), work.select_fused(1024, 160, 12, 4, 40, itemsize=4)
+    assert s64 == work.select_fused(1024, 160, 12, 4, 40, itemsize=8)  # float64 is the default
+    assert s32["bound_by"] == "operations" and s32["bound_ms"] == s64["bound_ms"]
+    assert 0.5 < s32["bytes"] / s64["bytes"] < 0.51
+    for f in (lambda i: work.linesearch("Quadrotor", [51] * 1024, 160, 12, 4, 5, itemsize=i),
+              lambda i: work.backward([51] * 1024, 160, 12, 4, itemsize=i),
+              lambda i: work.select_generic(1024, 220, 4, 2, 50, itemsize=i)):
+        b64, b32 = f(8), f(4)
+        assert b32["bound_by"] == "bytes" and 0.49 < b32["bound_ms"] / b64["bound_ms"] < 0.52

@@ -2,11 +2,14 @@
 PyTorch, with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 A port of the JAX package `timeopt_tpu`, which stays the reference. The
-batch is an explicit leading axis everywhere and everything runs in
-float64. Each phase that the JAX package ran as Pallas TPU kernels has a
-dispatch point per kernel: on a CPU tensor it runs its plain PyTorch
-version; on a CUDA float64 tensor it launches its kernel (csrc/, built with
-nvcc at first use); on a CUDA tensor of any other dtype it raises.
+batch is an explicit leading axis everywhere. Problems solve in float64,
+or in float32 as the JAX package's f32 path does: float32 storage, every
+recursion in float64 and its result rounded once (where the JAX package
+runs df32 on the TPU). Each phase that the JAX package ran as Pallas TPU
+kernels has a dispatch point per kernel: on a CPU tensor it runs its plain
+PyTorch version; on a CUDA float64 or float32 tensor it launches its
+kernel (csrc/, built with nvcc at first use); any other dtype raises, and
+so does float32 on the prefix-scan and query kernels (not ported yet).
 
 - select, stationary stage cost: ops/cuda_lft.py         (csrc/lft_select.cu)
 - select, extra stage cost:      ops/cuda_lft_generic.py (csrc/lft_select_generic.cu)

@@ -2,7 +2,12 @@
 //
 // Replaces the TPU kernels timeopt_tpu/ops/pallas_backward.py
 // backward_lanes_df and backward_dense_df (body _backward_kernel ->
-// _backward_step_body); one kernel here, native float64 instead of df32.
+// _backward_step_body); one kernel here, native float64 instead of df32:
+// a template on the storage type of every floating input and of kappa and
+// K (backward_truncated float64, backward_truncated_f32 float32, the TPU
+// kernel's contract), staged as it is, converted as it is read; the
+// Riccati recursion runs in float64 on both, and each gain is rounded once,
+// on its store.
 // Contract of timeopt_tpu/solver/backward.py::_backward_arrays per problem:
 // ok starts as T* > 0; at t+1 == T* the terminal expansion (Vx = QfeT_t,
 // Vxx = Qf) is injected and ok &= eT_ok_t; each active step t < T* forms
@@ -60,6 +65,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "warpmat.cuh"
 
 namespace {
@@ -70,49 +77,51 @@ constexpr int NMAX = 12;
 constexpr int MMAX = 8;
 constexpr int WPB = 4;  // warps, hence problems, a block
 
-template <int NT, int MT>
-struct Stage {  // inputs of one step
-  double A[NT * NT], B[NT * MT], Qs[NT * NT], lx[NT], lu[MT], sok;
+// inputs of one step in the storage type Fp (double, or float on the float32
+// path, converted to double where they are read)
+template <typename Fp, int NT, int MT>
+struct Stage {
+  Fp A[NT * NT], B[NT * MT], Qs[NT * NT], lx[NT], lu[MT], sok;
 };
-template <int NT, int MT>
+template <typename Fp, int NT, int MT>
 struct WarpSmem {
-  Stage<NT, MT> st[2];
+  Stage<Fp, NT, MT> st[2];
   double Vxx[NT * NT], Vx[NT], R[MT * MT], Quu[MT * MT], K[MT * NT], Qux[MT * NT], Vraw[NT * NT];
 };
 
-template <int NT, int MT>
-__device__ __forceinline__ void load_step(Stage<NT, MT>& st, const double* A, const double* Bm, const double* Qs,
-                                          const double* lx, const double* lu, const double* step_ok, size_t bt,
-                                          int n, int m, int lane) {
+template <typename Fp, int NT, int MT>
+__device__ __forceinline__ void load_step(Stage<Fp, NT, MT>& st, const Fp* A, const Fp* Bm, const Fp* Qs, const Fp* lx,
+                                          const Fp* lu, const Fp* step_ok, size_t bt, int n, int m, int lane) {
   for (int i = lane; i < n * n; i += WARP) {
-    cp_async8(&st.A[i], A + bt * n * n + i);
-    cp_async8(&st.Qs[i], Qs + bt * n * n + i);
+    cp_async_el(&st.A[i], A + bt * n * n + i);
+    cp_async_el(&st.Qs[i], Qs + bt * n * n + i);
   }
-  for (int i = lane; i < n * m; i += WARP) cp_async8(&st.B[i], Bm + bt * n * m + i);
-  if (lane < n) cp_async8(&st.lx[lane], lx + bt * n + lane);
-  if (lane < m) cp_async8(&st.lu[lane], lu + bt * m + lane);
-  if (lane == 0) cp_async8(&st.sok, step_ok + bt);
+  for (int i = lane; i < n * m; i += WARP) cp_async_el(&st.B[i], Bm + bt * n * m + i);
+  if (lane < n) cp_async_el(&st.lx[lane], lx + bt * n + lane);
+  if (lane < m) cp_async_el(&st.lu[lane], lu + bt * m + lane);
+  if (lane == 0) cp_async_el(&st.sok, step_ok + bt);
   cp_async_commit();
 }
 
-// NT x MT register arrays; EXN: n = NT, EXM: m = MT, known to the compiler
-template <int NT, int MT, bool EXN, bool EXM>
+// Fp: the storage type of every floating input and of kappa and K (double,
+// or float on the float32 path: one rounding, as the gains are stored);
+// every operation is double. NT x MT register arrays; EXN: n = NT, EXM:
+// m = MT, known to the compiler
+template <typename Fp, int NT, int MT, bool EXN, bool EXM>
 __global__ void __launch_bounds__(WPB * WARP, 4)
-backward_kernel(const double* __restrict__ A, const double* __restrict__ Bm,
-                const double* __restrict__ lx, const double* __restrict__ lu,
-                const double* __restrict__ Qs, const double* __restrict__ QfeT,
-                const double* __restrict__ eT_ok, const double* __restrict__ step_ok,
-                const double* __restrict__ Qf, const double* __restrict__ R,
-                const int64_t* __restrict__ T_star, const double* __restrict__ lm,
-                double* __restrict__ kappa, double* __restrict__ Kout,
-                bool* __restrict__ ok_out, int Bsz, int N, int n_arg, int m_arg) {
+backward_kernel(const Fp* __restrict__ A, const Fp* __restrict__ Bm, const Fp* __restrict__ lx,
+                const Fp* __restrict__ lu, const Fp* __restrict__ Qs, const Fp* __restrict__ QfeT,
+                const Fp* __restrict__ eT_ok, const Fp* __restrict__ step_ok, const Fp* __restrict__ Qf,
+                const Fp* __restrict__ R, const int64_t* __restrict__ T_star, const Fp* __restrict__ lm,
+                Fp* __restrict__ kappa, Fp* __restrict__ Kout, bool* __restrict__ ok_out, int Bsz, int N,
+                int n_arg, int m_arg) {
   constexpr int GR = NT < 4 ? NT : 4;  // rows of Vxx_new a lane forms at a time
   const int n = EXN ? NT : n_arg, m = EXM ? MT : m_arg;
-  __shared__ WarpSmem<NT, MT> S[WPB];
+  __shared__ WarpSmem<Fp, NT, MT> S[WPB];
   const int warp = threadIdx.x / WARP, lane = threadIdx.x - warp * WARP;
   const int b = blockIdx.x * WPB + warp;
   if (b >= Bsz) return;
-  WarpSmem<NT, MT>& W = S[warp];
+  WarpSmem<Fp, NT, MT>& W = S[warp];
   const int64_t T = T_star[b];
   const int t_hi = (int)(T < 0 ? 0 : (T > N ? N : T));  // active steps: t < t_hi
   const double lam = lm[b];
@@ -130,12 +139,12 @@ backward_kernel(const double* __restrict__ A, const double* __restrict__ Bm,
   const int uc = lane, xj = lane - m - 1;
   const bool is_u = lane < m, is_qu = lane == m, is_x = xj >= 0 && xj < n;
 
-  if (t_hi > 0) load_step<NT, MT>(W.st[0], A, Bm, Qs, lx, lu, step_ok, (size_t)b * N + t_hi - 1, n, m, lane);
+  if (t_hi > 0) load_step<Fp, NT, MT>(W.st[0], A, Bm, Qs, lx, lu, step_ok, (size_t)b * N + t_hi - 1, n, m, lane);
   int it = 0;
   for (int t = t_hi - 1; t >= 0; --t, ++it) {
     const size_t bt = (size_t)b * N + t;
     if (t >= 1) {
-      load_step<NT, MT>(W.st[(it + 1) & 1], A, Bm, Qs, lx, lu, step_ok, bt - 1, n, m, lane);
+      load_step<Fp, NT, MT>(W.st[(it + 1) & 1], A, Bm, Qs, lx, lu, step_ok, bt - 1, n, m, lane);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -146,7 +155,7 @@ backward_kernel(const double* __restrict__ A, const double* __restrict__ Bm,
       ok = ok && (eT_ok[bt] > 0.5);
     }
     __syncwarp();
-    const Stage<NT, MT>& st = W.st[it & 1];
+    const Stage<Fp, NT, MT>& st = W.st[it & 1];
 
     // Z: column xj of A (x-lanes) or uc of B (u-lanes); VZ = Vxx Z (the Qu
     // lane takes Vx instead); x-lanes: Qx = lx + A'Vx, entry xj. Every sum
@@ -178,9 +187,8 @@ backward_kernel(const double* __restrict__ A, const double* __restrict__ Bm,
     // u-lanes: Quu = R + B'(Vxx B), column uc; the Qu lane: Qu = lu + B'Vx
     double Q1[NT], Q2[MT];
     {
-      const double* op = is_x ? st.A : st.B;
+      const Fp* op = is_x ? st.A : st.B;
       const int ld = is_x ? n : m, rows = is_x ? n : (is_u ? m : 0);
-      const double* base = is_x ? st.Qs + xj : W.R + uc;
       double s1[NT], s2[MT];
 #pragma unroll
       for (int i = 0; i < NT; ++i) s1[i] = 0.0;
@@ -198,8 +206,16 @@ backward_kernel(const double* __restrict__ A, const double* __restrict__ Bm,
             if (i < m) s2[i] += st.B[l * m + i] * v;
         }
       }
+      // float64: one pointer pick (a select per element cost the PointMass backward ~5%)
+      if constexpr (std::is_same_v<Fp, double>) {
+        const double* base = is_x ? st.Qs + xj : W.R + uc;
 #pragma unroll
-      for (int i = 0; i < NT; ++i) Q1[i] = (i < rows) ? __dadd_rn(base[i * ld], s1[i]) : 0.0;
+        for (int i = 0; i < NT; ++i) Q1[i] = (i < rows) ? __dadd_rn(base[i * ld], s1[i]) : 0.0;
+      } else {  // st.Qs float, W.R double: a select per element
+#pragma unroll
+        for (int i = 0; i < NT; ++i)
+          Q1[i] = (i < rows) ? __dadd_rn(is_x ? (double)st.Qs[xj + i * ld] : W.R[uc + i * ld], s1[i]) : 0.0;
+      }
 #pragma unroll
       for (int i = 0; i < MT; ++i) Q2[i] = (i < m && (is_x || is_qu)) ? (is_qu ? __dadd_rn(st.lu[i], s2[i]) : s2[i]) : 0.0;
     }
@@ -329,24 +345,20 @@ backward_kernel(const double* __restrict__ A, const double* __restrict__ Bm,
   if (lane == 0) ok_out[b] = ok;
 }
 
-template <int NT, int MT, bool EXN, bool EXM>
+template <typename Fp, int NT, int MT, bool EXN, bool EXM>
 void launch(const void* A, const void* Bm, const void* lx, const void* lu, const void* Qs, const void* QfeT,
             const void* eT_ok, const void* step_ok, const void* Qf, const void* R, const void* T_star,
             const void* lm, void* kappa, void* K, void* ok, int B, int N, int n, int m, cudaStream_t stream) {
-  backward_kernel<NT, MT, EXN, EXM><<<(B + WPB - 1) / WPB, WPB * WARP, 0, stream>>>(
-      (const double*)A, (const double*)Bm, (const double*)lx, (const double*)lu, (const double*)Qs,
-      (const double*)QfeT, (const double*)eT_ok, (const double*)step_ok, (const double*)Qf, (const double*)R,
-      (const int64_t*)T_star, (const double*)lm, (double*)kappa, (double*)K, (bool*)ok, B, N, n, m);
+  backward_kernel<Fp, NT, MT, EXN, EXM><<<(B + WPB - 1) / WPB, WPB * WARP, 0, stream>>>(
+      (const Fp*)A, (const Fp*)Bm, (const Fp*)lx, (const Fp*)lu, (const Fp*)Qs, (const Fp*)QfeT, (const Fp*)eT_ok,
+      (const Fp*)step_ok, (const Fp*)Qf, (const Fp*)R, (const int64_t*)T_star, (const Fp*)lm, (Fp*)kappa, (Fp*)K,
+      (bool*)ok, B, N, n, m);
 }
 
-}  // namespace
-
-extern "C" int backward_truncated(const void* A, const void* Bm, const void* lx,
-                                  const void* lu, const void* Qs, const void* QfeT,
-                                  const void* eT_ok, const void* step_ok, const void* Qf,
-                                  const void* R, const void* T_star, const void* lm,
-                                  void* kappa, void* K, void* ok, int B, int N, int n,
-                                  int m, void* stream) {
+template <typename Fp>
+int backward(const void* A, const void* Bm, const void* lx, const void* lu, const void* Qs, const void* QfeT,
+             const void* eT_ok, const void* step_ok, const void* Qf, const void* R, const void* T_star,
+             const void* lm, void* kappa, void* K, void* ok, int B, int N, int n, int m, void* stream) {
   if (n < 1 || n > NMAX || m < 1 || m > MMAX) return (int)cudaErrorInvalidValue;
   if (B > 0) {
     cudaStream_t s = (cudaStream_t)stream;
@@ -355,7 +367,7 @@ extern "C" int backward_truncated(const void* A, const void* Bm, const void* lx,
     // see the head of the file), (4, 2) PointMass, (12, 4) quadrotor; any
     // other shape at run time, in arrays of the bounds
 #define BW_LAUNCH(NT, MT, EXN, EXM) \
-  launch<NT, MT, EXN, EXM>(A, Bm, lx, lu, Qs, QfeT, eT_ok, step_ok, Qf, R, T_star, lm, kappa, K, ok, B, N, n, m, s)
+  launch<Fp, NT, MT, EXN, EXM>(A, Bm, lx, lu, Qs, QfeT, eT_ok, step_ok, Qf, R, T_star, lm, kappa, K, ok, B, N, n, m, s)
     if (n == 2 && m == 1) BW_LAUNCH(2, 1, true, false);
     else if (n == 4 && m == 1) BW_LAUNCH(4, 1, true, false);
     else if (n == 4 && m == 2) BW_LAUNCH(4, 2, true, true);
@@ -364,4 +376,28 @@ extern "C" int backward_truncated(const void* A, const void* Bm, const void* lx,
 #undef BW_LAUNCH
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// float64 inputs, kappa and K
+extern "C" int backward_truncated(const void* A, const void* Bm, const void* lx,
+                                  const void* lu, const void* Qs, const void* QfeT,
+                                  const void* eT_ok, const void* step_ok, const void* Qf,
+                                  const void* R, const void* T_star, const void* lm,
+                                  void* kappa, void* K, void* ok, int B, int N, int n,
+                                  int m, void* stream) {
+  return backward<double>(A, Bm, lx, lu, Qs, QfeT, eT_ok, step_ok, Qf, R, T_star, lm, kappa, K, ok, B, N, n, m,
+                          stream);
+}
+
+// float32 inputs, kappa and K (float64 arithmetic)
+extern "C" int backward_truncated_f32(const void* A, const void* Bm, const void* lx,
+                                      const void* lu, const void* Qs, const void* QfeT,
+                                      const void* eT_ok, const void* step_ok, const void* Qf,
+                                      const void* R, const void* T_star, const void* lm,
+                                      void* kappa, void* K, void* ok, int B, int N, int n,
+                                      int m, void* stream) {
+  return backward<float>(A, Bm, lx, lu, Qs, QfeT, eT_ok, step_ok, Qf, R, T_star, lm, kappa, K, ok, B, N, n, m,
+                         stream);
 }

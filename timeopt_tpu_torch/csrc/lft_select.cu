@@ -5,6 +5,14 @@
 // (body _df_select_fused_kernel -> _df_compose_query_w0). The lanes, dense
 // and trisym variants are TPU layouts of one function and become this one
 // kernel; the df32 (double-single) arithmetic becomes native float64.
+// The kernel is a template on the storage type of the step inputs and of
+// J: lft_select_fused takes float64, lft_select_fused_f32 float32, the TPU
+// kernel's own float32-in, float32-out contract. The float32 inputs are
+// staged in shared memory as they are (4-byte cp.async) and converted as
+// they are read, every operation is float64 (where the TPU ran df32), and
+// J is rounded once, on its store; the k-constants iQq, R^-1 and W0 are
+// float64 on both paths. At float32 the bytes halve but the bound is the
+// operations' (below), so the two instantiations take about the same time.
 //
 // Per problem and per step k: assemble A_aug and B R^-1 B' from the raw
 // step inputs, build the arrow-form LFT element (E, F, G), compose it onto
@@ -90,14 +98,23 @@ __device__ __forceinline__ void cp_async8(double* dst, const double* src) {
   const unsigned d = smem_addr(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(d), "l"(src) : "memory");
 }
+__device__ __forceinline__ void cp_async_el(double* dst, const double* src) { cp_async8(dst, src); }
+__device__ __forceinline__ void cp_async_el(float* dst, const float* src) {
+  const unsigned d = smem_addr(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src) : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
 template <int K>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(K) : "memory");
 }
 
-struct Stage {  // raw inputs of one step
-  double A[NMAX * NMAX], B[NMAX * MMAX], vecs[4 * NMAX], scal[4];
+// raw inputs of one step in the storage type Fp (double, or float on the
+// float32 path, converted to double where they are read); `zero` stands in
+// for the missing row n of A_left
+template <typename Fp>
+struct Stage {
+  Fp A[NMAX * NMAX], B[NMAX * MMAX], vecs[4 * NMAX], scal[4], zero[NMAX];
 };
 struct Elem {  // the element of one step; E = blkdiag(iQ, 0) + inv_s u u' is rebuilt from u
   double F[PP], G[PP], u[PMAX], et[NMAX], inv_s;
@@ -107,8 +124,7 @@ struct Carry {  // a prefix (Ebar, Fbar, Gbar) and the e~ of its last step
 };
 struct Smem {
   uint64_t elem_full[RING], elem_free[RING], carry_full[RING], carry_free[RING];
-  double iQ[NMAX * NMAX], W0[NMAX * NMAX], Ri[MMAX * MMAX], zero[NMAX];
-  Stage stage[2];
+  double iQ[NMAX * NMAX], W0[NMAX * NMAX], Ri[MMAX * MMAX];
   double BR[NMAX * MMAX], DAt[NMAX * PMAX], q[NMAX], v[PMAX];  // element scratch
   Elem elem[RING];
   Carry carry[RING];
@@ -116,7 +132,8 @@ struct Smem {
 };
 
 // A_aug = [[A, atil/s_k], [0, s_{k+1}/s_k]], entry (i, j)
-__device__ __forceinline__ double aug(const Stage& st, int n, double inv_sk, double s_kp1, int i, int j) {
+template <typename Fp>
+__device__ __forceinline__ double aug(const Stage<Fp>& st, int n, double inv_sk, double s_kp1, int i, int j) {
   if (i < n) return (j < n) ? st.A[i * n + j] : st.vecs[2 * n + i] * inv_sk;
   return (j < n) ? 0.0 : s_kp1 * inv_sk;
 }
@@ -138,17 +155,19 @@ __device__ __forceinline__ void sym_inplace(double* M, int p, int lane) {
   }
 }
 
-__device__ void load_stage(Stage& st, const double* A, const double* Bm, const double* vecs,
-                           const double* scal, size_t bk, int n, int m, int lane) {
-  for (int i = lane; i < n * n; i += WARP) cp_async8(&st.A[i], A + bk * n * n + i);
-  for (int i = lane; i < n * m; i += WARP) cp_async8(&st.B[i], Bm + bk * n * m + i);
-  for (int i = lane; i < 4 * n; i += WARP) cp_async8(&st.vecs[i], vecs + bk * 4 * n + i);
-  if (lane < 4) cp_async8(&st.scal[lane], scal + bk * 4 + lane);
+template <typename Fp>
+__device__ void load_stage(Stage<Fp>& st, const Fp* A, const Fp* Bm, const Fp* vecs, const Fp* scal, size_t bk,
+                           int n, int m, int lane) {
+  for (int i = lane; i < n * n; i += WARP) cp_async_el(&st.A[i], A + bk * n * n + i);
+  for (int i = lane; i < n * m; i += WARP) cp_async_el(&st.B[i], Bm + bk * n * m + i);
+  for (int i = lane; i < 4 * n; i += WARP) cp_async_el(&st.vecs[i], vecs + bk * 4 * n + i);
+  if (lane < 4) cp_async_el(&st.scal[lane], scal + bk * 4 + lane);
   cp_async_commit();
 }
 
 // ---- element warp: the arrow element of one step into slot el
-__device__ void build_element(Smem& S, const Stage& st, Elem& el, int n, int m, double jitter, int lane) {
+template <typename Fp>
+__device__ void build_element(Smem& S, const Stage<Fp>& st, Elem& el, int n, int m, double jitter, int lane) {
   const int p = n + 1, pp = p * p;
   const double corner = st.scal[0], inv_sk = st.scal[1], s_kp1 = st.scal[2], inv_skp1 = st.scal[3];
   // B R^-1, q = Qe/s_k, e~
@@ -185,7 +204,7 @@ __device__ void build_element(Smem& S, const Stage& st, Elem& el, int n, int m, 
   }
   for (int idx = lane; idx < n * p; idx += WARP) {
     const int i = idx / p, j = idx - (idx / p) * p;
-    const double* arow = (j < n) ? st.A + j * n : S.zero;
+    const Fp* arow = (j < n) ? st.A + j * n : st.zero;
     double sum = 0.0;
 #pragma unroll 4
     for (int l = 0; l < n; ++l) sum += S.iQ[i * n + l] * arow[l];
@@ -198,7 +217,7 @@ __device__ void build_element(Smem& S, const Stage& st, Elem& el, int n, int m, 
     const int i = idx / p, j = idx - (idx / p) * p;
     const double ui = el.u[i] * inv_s;
     el.F[idx] = ((i < n) ? S.DAt[i * p + j] : 0.0) + ui * S.v[j];
-    const double* arow = (i < n) ? st.A + i * n : S.zero;
+    const Fp* arow = (i < n) ? st.A + i * n : st.zero;
     double g = 0.0;
 #pragma unroll 4
     for (int l = 0; l < n; ++l) g += arow[l] * S.DAt[l * p + j];
@@ -411,14 +430,17 @@ __device__ __noinline__ double query(Smem& S, const Carry& cc, int n, double jit
 __device__ __forceinline__ unsigned use_parity(int k) { return (unsigned)(k / RING) & 1u; }
 __device__ __forceinline__ unsigned prev_parity(int k) { return (unsigned)(k / RING - 1) & 1u; }
 
-template <int PM>
+// Fp: the storage type of the step inputs and of J (double, or float on the
+// float32 path: one rounding, as J is stored); the k-constants iQq, R^-1
+// and W0 are double on both paths, and every operation is double.
+template <typename Fp, int PM>
 __global__ void __launch_bounds__(THREADS, 8)
-lft_select_kernel(const double* __restrict__ A, const double* __restrict__ Bm,
-                  const double* __restrict__ vecs, const double* __restrict__ scal,
-                  const double* __restrict__ iQq, const double* __restrict__ Rinv,
-                  const double* __restrict__ W0g, double* __restrict__ J, int N, int n, int m,
-                  int t_min, double jitter) {
+lft_select_kernel(const Fp* __restrict__ A, const Fp* __restrict__ Bm, const Fp* __restrict__ vecs,
+                  const Fp* __restrict__ scal, const double* __restrict__ iQq, const double* __restrict__ Rinv,
+                  const double* __restrict__ W0g, Fp* __restrict__ J, int N, int n, int m, int t_min,
+                  double jitter) {
   __shared__ Smem S;
+  __shared__ Stage<Fp> stage[2];
   const int b = blockIdx.x;
   const int tid = threadIdx.x, warp = tid / WARP, lane = tid - warp * WARP;
 
@@ -427,7 +449,7 @@ lft_select_kernel(const double* __restrict__ A, const double* __restrict__ Bm,
     S.W0[i] = W0g[(size_t)b * n * n + i];
   }
   for (int i = tid; i < m * m; i += THREADS) S.Ri[i] = Rinv[(size_t)b * m * m + i];
-  for (int i = tid; i < NMAX; i += THREADS) S.zero[i] = 0.0;
+  for (int i = tid; i < 2 * NMAX; i += THREADS) stage[i / NMAX].zero[i % NMAX] = 0.0;
   if (tid == 0) {
     for (int s = 0; s < RING; ++s) {
       mbar_init(&S.elem_full[s], WARP);         // the element warp
@@ -439,10 +461,10 @@ lft_select_kernel(const double* __restrict__ A, const double* __restrict__ Bm,
   __syncthreads();  // the only block-wide barrier
 
   if (warp == 0) {  // element warp: step k+1's inputs in flight while step k is built
-    load_stage(S.stage[0], A, Bm, vecs, scal, (size_t)b * N, n, m, lane);
+    load_stage(stage[0], A, Bm, vecs, scal, (size_t)b * N, n, m, lane);
     for (int k = 0; k < N; ++k) {
       if (k + 1 < N) {
-        load_stage(S.stage[(k + 1) & 1], A, Bm, vecs, scal, (size_t)b * N + k + 1, n, m, lane);
+        load_stage(stage[(k + 1) & 1], A, Bm, vecs, scal, (size_t)b * N + k + 1, n, m, lane);
         cp_async_wait<1>();
       } else {
         cp_async_wait<0>();
@@ -450,7 +472,7 @@ lft_select_kernel(const double* __restrict__ A, const double* __restrict__ Bm,
       __syncwarp();
       const int e = k % RING;
       if (k >= RING) mbar_wait(&S.elem_free[e], prev_parity(k));
-      build_element(S, S.stage[k & 1], S.elem[e], n, m, jitter, lane);
+      build_element(S, stage[k & 1], S.elem[e], n, m, jitter, lane);
       __syncwarp();
       mbar_arrive(&S.elem_full[e]);
     }
@@ -506,27 +528,42 @@ lft_select_kernel(const double* __restrict__ A, const double* __restrict__ Bm,
   }
 }
 
-template <int PM>
+template <typename Fp, int PM>
 void launch(const void* A, const void* Bm, const void* vecs, const void* scal, const void* iQq,
             const void* Rinv, const void* W0, void* J, int B, int N, int n, int m, int t_min,
             double jitter, cudaStream_t stream) {
-  lft_select_kernel<PM><<<B, THREADS, 0, stream>>>(
-      (const double*)A, (const double*)Bm, (const double*)vecs, (const double*)scal,
-      (const double*)iQq, (const double*)Rinv, (const double*)W0, (double*)J, N, n, m, t_min,
-      jitter);
+  lft_select_kernel<Fp, PM><<<B, THREADS, 0, stream>>>(
+      (const Fp*)A, (const Fp*)Bm, (const Fp*)vecs, (const Fp*)scal, (const double*)iQq, (const double*)Rinv,
+      (const double*)W0, (Fp*)J, N, n, m, t_min, jitter);
+}
+
+template <typename Fp>
+int select_fused(const void* A, const void* Bm, const void* vecs, const void* scal, const void* iQq,
+                 const void* Rinv, const void* W0, void* J, int B, int N, int n, int m, int t_min, double jitter,
+                 void* stream) {
+  if (n < 1 || n > NMAX || m < 1 || m > MMAX) return (int)cudaErrorInvalidValue;
+  if (B > 0 && N > 0) {
+    // p <= 5 (n <= 4) takes the narrow instantiation
+    if (n + 1 <= 5) launch<Fp, 5>(A, Bm, vecs, scal, iQq, Rinv, W0, J, B, N, n, m, t_min, jitter, (cudaStream_t)stream);
+    else launch<Fp, PMAX>(A, Bm, vecs, scal, iQq, Rinv, W0, J, B, N, n, m, t_min, jitter, (cudaStream_t)stream);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// float64 step inputs and J
 extern "C" int lft_select_fused(const void* A, const void* Bm, const void* vecs,
                                 const void* scal, const void* iQq, const void* Rinv,
                                 const void* W0, void* J, int B, int N, int n, int m,
                                 int t_min, double jitter, void* stream) {
-  if (n < 1 || n > NMAX || m < 1 || m > MMAX) return (int)cudaErrorInvalidValue;
-  if (B > 0 && N > 0) {
-    // p <= 5 (n <= 4) takes the narrow instantiation
-    if (n + 1 <= 5) launch<5>(A, Bm, vecs, scal, iQq, Rinv, W0, J, B, N, n, m, t_min, jitter, (cudaStream_t)stream);
-    else launch<PMAX>(A, Bm, vecs, scal, iQq, Rinv, W0, J, B, N, n, m, t_min, jitter, (cudaStream_t)stream);
-  }
-  return (int)cudaGetLastError();
+  return select_fused<double>(A, Bm, vecs, scal, iQq, Rinv, W0, J, B, N, n, m, t_min, jitter, stream);
+}
+
+// float32 step inputs and J (float64 k-constants, float64 arithmetic)
+extern "C" int lft_select_fused_f32(const void* A, const void* Bm, const void* vecs,
+                                    const void* scal, const void* iQq, const void* Rinv,
+                                    const void* W0, void* J, int B, int N, int n, int m,
+                                    int t_min, double jitter, void* stream) {
+  return select_fused<float>(A, Bm, vecs, scal, iQq, Rinv, W0, J, B, N, n, m, t_min, jitter, stream);
 }

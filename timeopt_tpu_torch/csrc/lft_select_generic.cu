@@ -6,6 +6,10 @@
 // _df_select_kernel -> _df_select_step + _df_compose_query). The lanes,
 // dense and trisym variants are TPU layouts of one function and become this
 // one kernel; the df32 (double-single) arithmetic becomes native float64.
+// A template on the storage type of every input and of J
+// (lft_select_generic float64, lft_select_generic_f32 float32, the TPU
+// kernel's contract): float32 inputs staged as they are and converted as
+// they are read, float64 arithmetic, J rounded once on its store.
 // The path that reaches it is a system with an extra stage cost (PointMass),
 // whose Hessian makes Q_aug vary with k, so the k-constant arrow element and
 // W0 query of the fused kernel (lft_select.cu) do not apply.
@@ -83,42 +87,45 @@ constexpr int ROLES = 2 + NQ;   // element, compose, queries
 constexpr int RE = 2;           // element ring
 constexpr int RC = 2 * NQ;      // carry ring; a multiple of NQ, so a slot always feeds the same query warp
 
-template <int PM>
-struct Stage {  // raw inputs of one step
-  double Q[PM * PM], A[PM * PM], B[PM * MMAX];
+// raw inputs of one step in the storage type Fp (double, or float on the
+// float32 path, converted to double where they are read)
+template <typename Fp, int PM>
+struct Stage {
+  Fp Q[PM * PM], A[PM * PM], B[PM * MMAX];
 };
 template <int PM>
 struct Mats {  // an element (E, F, G) or a prefix carry (Ebar, Fbar, Gbar)
   double E[PM * PM], F[PM * PM], G[PM * PM];
 };
-template <int PM>
-struct QueryScratch {  // one query warp's C ring and products
-  double C[2][(PM - 1) * PM], CG[(PM - 1) * PM], FC[PM * (PM - 1)], QS[PM * PM];
+template <typename Fp, int PM>
+struct QueryScratch {  // one query warp's C ring (storage type) and products
+  Fp C[2][(PM - 1) * PM];
+  double CG[(PM - 1) * PM], FC[PM * (PM - 1)], QS[PM * PM];
 };
-template <int PM>
+template <typename Fp, int PM>
 struct Problem {
   uint64_t elem_full[RE], elem_free[RE], carry_full[RC], carry_free[RC];
   double Ri[MMAX * MMAX], BR[PM * MMAX];
-  Stage<PM> stage[2];
+  Stage<Fp, PM> stage[2];
   Mats<PM> elem[RE], carry[RC];
-  QueryScratch<PM> qs[NQ];
+  QueryScratch<Fp, PM> qs[NQ];
 };
 
-template <int PM>
-__device__ __forceinline__ void load_stage(Stage<PM>& st, const double* Ag, const double* Bg, const double* Qg,
-                                           size_t bk, int p, int m, int lane) {
+template <typename Fp, int PM>
+__device__ __forceinline__ void load_stage(Stage<Fp, PM>& st, const Fp* Ag, const Fp* Bg, const Fp* Qg, size_t bk, int p,
+                                           int m, int lane) {
   const int pp = p * p;
   for (int i = lane; i < pp; i += WARP) {
-    cp_async8(&st.Q[i], Qg + bk * pp + i);
-    cp_async8(&st.A[i], Ag + bk * pp + i);
+    cp_async_el(&st.Q[i], Qg + bk * pp + i);
+    cp_async_el(&st.A[i], Ag + bk * pp + i);
   }
-  for (int i = lane; i < p * m; i += WARP) cp_async8(&st.B[i], Bg + bk * p * m + i);
+  for (int i = lane; i < p * m; i += WARP) cp_async_el(&st.B[i], Bg + bk * p * m + i);
   cp_async_commit();
 }
 
 // ---- element warp: step k's element from its staged inputs
-template <int PM, int CPL, bool EXACT>
-__device__ __noinline__ void build_element(Problem<PM>& P, const Stage<PM>& st, Mats<PM>& el, int n, int m,
+template <typename Fp, int PM, int CPL, bool EXACT>
+__device__ __noinline__ void build_element(Problem<Fp, PM>& P, const Stage<Fp, PM>& st, Mats<PM>& el, int n, int m,
                                            double jitter, int lane) {
   const int p = EXACT ? PM : n + 1;
   // B R^-1 (p x m)
@@ -137,7 +144,7 @@ __device__ __noinline__ void build_element(Problem<PM>& P, const Stage<PM>& st, 
     for (int i = 0; i < PM; ++i) {
       double x = 0.0;
       if (i < p && col < 3 * p) {
-        if (col < p) x = 0.5 * (st.Q[i * p + col] + st.Q[col * p + i]) + (i == col ? jitter : 0.0);
+        if (col < p) x = 0.5 * ((double)st.Q[i * p + col] + (double)st.Q[col * p + i]) + (i == col ? jitter : 0.0);
         else if (col < 2 * p) x = st.A[(col - p) * p + i];
         else x = (i == col - 2 * p) ? 1.0 : 0.0;
       }
@@ -295,8 +302,8 @@ __device__ __noinline__ void compose(const Mats<PM>& el, const Mats<PM>& pc, Mat
 }
 
 // ---- query warp: J of the prefix cc with the terminal factor C (C form)
-template <int PM, bool EXACT>
-__device__ __noinline__ double query(QueryScratch<PM>& Qs, const double* C, const Mats<PM>& cc, int n_arg,
+template <typename Fp, int PM, bool EXACT>
+__device__ __noinline__ double query(QueryScratch<Fp, PM>& Qs, const Fp* C, const Mats<PM>& cc, int n_arg,
                                      double jitter, int lane) {
   constexpr int NM = PM - 1;
   const int n = EXACT ? NM : n_arg;
@@ -379,20 +386,21 @@ __device__ __noinline__ double query(QueryScratch<PM>& Qs, const double* C, cons
 }
 
 // PPB problems a block, ROLES warps each: element, compose, NQ queries.
-// EXACT: p = PM, known to the compiler.
-template <int PM, int CPL, int PPB, bool EXACT>
+// EXACT: p = PM, known to the compiler. Fp: the storage type of every input
+// and of J (double, or float on the float32 path: one rounding, as J is
+// stored); every operation is double.
+template <typename Fp, int PM, int CPL, int PPB, bool EXACT>
 __global__ void __launch_bounds__(PPB * ROLES * WARP, PM <= 5 ? 4 : 3)
-lft_select_generic_kernel(const double* __restrict__ Ag, const double* __restrict__ Bg,
-                          const double* __restrict__ Qg, const double* __restrict__ Rinv,
-                          const double* __restrict__ Cg, double* __restrict__ J, int Bsz, int N, int n_arg,
-                          int m, int t_min, double jitter) {
+lft_select_generic_kernel(const Fp* __restrict__ Ag, const Fp* __restrict__ Bg, const Fp* __restrict__ Qg,
+                          const Fp* __restrict__ Rinv, const Fp* __restrict__ Cg, Fp* __restrict__ J, int Bsz, int N,
+                          int n_arg, int m, int t_min, double jitter) {
   const int n = EXACT ? PM - 1 : n_arg;
-  __shared__ Problem<PM> S[PPB];
+  __shared__ Problem<Fp, PM> S[PPB];
   const int tid = threadIdx.x, warp = tid / WARP, lane = tid - warp * WARP;
   const int slot = warp / ROLES, role = warp - slot * ROLES;
   const int b = blockIdx.x * PPB + slot;
   const bool live = b < Bsz;
-  Problem<PM>& P = S[slot];
+  Problem<Fp, PM>& P = S[slot];
   const int p = n + 1, pp = p * p;
 
   if (live && role == 0) {
@@ -412,10 +420,10 @@ lft_select_generic_kernel(const double* __restrict__ Ag, const double* __restric
   if (!live) return;
 
   if (role == 0) {  // element warp: step k+1's inputs in flight while step k is built
-    load_stage<PM>(P.stage[0], Ag, Bg, Qg, (size_t)b * N, p, m, lane);
+    load_stage<Fp, PM>(P.stage[0], Ag, Bg, Qg, (size_t)b * N, p, m, lane);
     for (int k = 0; k < N; ++k) {
       if (k + 1 < N) {
-        load_stage<PM>(P.stage[(k + 1) & 1], Ag, Bg, Qg, (size_t)b * N + k + 1, p, m, lane);
+        load_stage<Fp, PM>(P.stage[(k + 1) & 1], Ag, Bg, Qg, (size_t)b * N + k + 1, p, m, lane);
         cp_async_wait<1>();
       } else {
         cp_async_wait<0>();
@@ -423,7 +431,7 @@ lft_select_generic_kernel(const double* __restrict__ Ag, const double* __restric
       __syncwarp();
       const int e = k % RE;
       if (k >= RE) mbar_wait(&P.elem_free[e], prev_parity(k, RE));
-      build_element<PM, CPL, EXACT>(P, P.stage[k & 1], P.elem[e], n, m, jitter, lane);
+      build_element<Fp, PM, CPL, EXACT>(P, P.stage[k & 1], P.elem[e], n, m, jitter, lane);
       __syncwarp();
       mbar_arrive(&P.elem_full[e]);
     }
@@ -449,17 +457,17 @@ lft_select_generic_kernel(const double* __restrict__ Ag, const double* __restric
     }
   } else {  // query warp q: the steps k = q, q + NQ, ... off the chain
     const int q = role - 2;
-    QueryScratch<PM>& Qs = P.qs[q];
+    QueryScratch<Fp, PM>& Qs = P.qs[q];
     const int np = n * p;
     if (q < N) {
-      for (int i = lane; i < np; i += WARP) cp_async8(&Qs.C[0][i], Cg + ((size_t)b * N + q) * np + i);
+      for (int i = lane; i < np; i += WARP) cp_async_el(&Qs.C[0][i], Cg + ((size_t)b * N + q) * np + i);
       cp_async_commit();
     }
     int it = 0;
     for (int k = q; k < N; k += NQ, ++it) {
       if (k + NQ < N) {
-        double* dst = Qs.C[(it + 1) & 1];
-        for (int i = lane; i < np; i += WARP) cp_async8(dst + i, Cg + ((size_t)b * N + k + NQ) * np + i);
+        Fp* dst = Qs.C[(it + 1) & 1];
+        for (int i = lane; i < np; i += WARP) cp_async_el(dst + i, Cg + ((size_t)b * N + k + NQ) * np + i);
         cp_async_commit();
         cp_async_wait<1>();
       } else {
@@ -472,7 +480,7 @@ lft_select_generic_kernel(const double* __restrict__ Ag, const double* __restric
       if (k + 1 < t_min) {
         if (lane == 0) J[bk] = INFINITY;
       } else {
-        const double jv = query<PM, EXACT>(Qs, Qs.C[it & 1], P.carry[c], n, jitter, lane);
+        const double jv = query<Fp, PM, EXACT>(Qs, Qs.C[it & 1], P.carry[c], n, jitter, lane);
         if (lane == 0) J[bk] = jv;
       }
       __syncwarp();
@@ -481,19 +489,16 @@ lft_select_generic_kernel(const double* __restrict__ Ag, const double* __restric
   }
 }
 
-template <int PM, int CPL, int PPB, bool EXACT>
+template <typename Fp, int PM, int CPL, int PPB, bool EXACT>
 void launch(const void* A, const void* B, const void* Q, const void* Rinv, const void* C, void* J, int Bsz, int N,
             int n, int m, int t_min, double jitter, cudaStream_t stream) {
-  lft_select_generic_kernel<PM, CPL, PPB, EXACT><<<(Bsz + PPB - 1) / PPB, PPB * ROLES * WARP, 0, stream>>>(
-      (const double*)A, (const double*)B, (const double*)Q, (const double*)Rinv, (const double*)C, (double*)J,
-      Bsz, N, n, m, t_min, jitter);
+  lft_select_generic_kernel<Fp, PM, CPL, PPB, EXACT><<<(Bsz + PPB - 1) / PPB, PPB * ROLES * WARP, 0, stream>>>(
+      (const Fp*)A, (const Fp*)B, (const Fp*)Q, (const Fp*)Rinv, (const Fp*)C, (Fp*)J, Bsz, N, n, m, t_min, jitter);
 }
 
-}  // namespace
-
-extern "C" int lft_select_generic(const void* A, const void* B, const void* Q, const void* Rinv,
-                                  const void* C, void* J, int Bsz, int N, int n, int m, int t_min,
-                                  double jitter, void* stream) {
+template <typename Fp>
+int select_generic(const void* A, const void* B, const void* Q, const void* Rinv, const void* C, void* J, int Bsz,
+                   int N, int n, int m, int t_min, double jitter, void* stream) {
   if (n < 1 || n > NMAX || m < 1 || m > MMAX) return (int)cudaErrorInvalidValue;
   if (Bsz > 0 && N > 0) {
     // the registry's p = 3 (double integrator) and p = 5 (PointMass,
@@ -501,9 +506,25 @@ extern "C" int lft_select_generic(const void* A, const void* B, const void* Q, c
     // and two problems a block; any other p <= 13 at run time, two columns
     // a lane (3p > 32 from p = 11 on) and one problem a block
     cudaStream_t s = (cudaStream_t)stream;
-    if (n + 1 == 3) launch<3, 1, 2, true>(A, B, Q, Rinv, C, J, Bsz, N, n, m, t_min, jitter, s);
-    else if (n + 1 == 5) launch<5, 1, 2, true>(A, B, Q, Rinv, C, J, Bsz, N, n, m, t_min, jitter, s);
-    else launch<PMAX, 2, 1, false>(A, B, Q, Rinv, C, J, Bsz, N, n, m, t_min, jitter, s);
+    if (n + 1 == 3) launch<Fp, 3, 1, 2, true>(A, B, Q, Rinv, C, J, Bsz, N, n, m, t_min, jitter, s);
+    else if (n + 1 == 5) launch<Fp, 5, 1, 2, true>(A, B, Q, Rinv, C, J, Bsz, N, n, m, t_min, jitter, s);
+    else launch<Fp, PMAX, 2, 1, false>(A, B, Q, Rinv, C, J, Bsz, N, n, m, t_min, jitter, s);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// float64 blocks and J
+extern "C" int lft_select_generic(const void* A, const void* B, const void* Q, const void* Rinv,
+                                  const void* C, void* J, int Bsz, int N, int n, int m, int t_min,
+                                  double jitter, void* stream) {
+  return select_generic<double>(A, B, Q, Rinv, C, J, Bsz, N, n, m, t_min, jitter, stream);
+}
+
+// float32 blocks and J (float64 arithmetic)
+extern "C" int lft_select_generic_f32(const void* A, const void* B, const void* Q, const void* Rinv,
+                                      const void* C, void* J, int Bsz, int N, int n, int m, int t_min,
+                                      double jitter, void* stream) {
+  return select_generic<float>(A, B, Q, Rinv, C, J, Bsz, N, n, m, t_min, jitter, stream);
 }

@@ -3,7 +3,11 @@
 //
 // Replaces the TPU kernels timeopt_tpu/ops/pallas_forward.py
 // linesearch_lanes_df and linesearch_dense_df (body _fwd_kernel); one kernel
-// here, native float64 instead of the compensated df32 rollout. The
+// here, native float64 instead of the compensated df32 rollout; a template
+// on the storage type of the data (linesearch_rollout[_from] float64, their
+// _f32 twins float32, the TPU kernel's contract): each rollout carries its
+// state in float64 across all N steps and stores only its float32
+// rounding, as the df32 rollout lets only its high word leave. The
 // first-improving-alpha selection stays outside the kernel, in torch, as
 // _select_first_improving stayed outside the TPU kernel.
 //
@@ -254,6 +258,11 @@ __device__ __forceinline__ void cp_async8(double* dst, const double* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(d), "l"(src) : "memory");
 }
+__device__ __forceinline__ void cp_async_el(double* dst, const double* src) { cp_async8(dst, src); }
+__device__ __forceinline__ void cp_async_el(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src) : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
 template <int K>
 __device__ __forceinline__ void cp_async_wait() {
@@ -341,45 +350,50 @@ __device__ __forceinline__ double xdot_lane<Quadrotor>(int i, double xi, const d
 // One chunk of per-step inputs of the block's problems: for each problem
 // [X_k (CH x n) | U_k (CH x m) | K_k (CH x m x n) | kappa_k (CH x m)],
 // steps k0 .. k0 + CH - 1 (fewer at the end), each a contiguous run of
-// global memory copied 8 bytes a thread, in one loop over the slots of all
-// the block's problems.
-template <int n, int m, int PB, int D>
-__device__ void load_chunk(double (*buf)[CH * D], const double* X, const double* U, const double* K,
-                           const double* kap, int b0, int B, int N, int k0) {
+// global memory copied one element (8 or 4 bytes) a thread, in one loop
+// over the slots of all the block's problems.
+template <typename Fp, int n, int m, int PB, int D>
+__device__ void load_chunk(Fp (*buf)[CH * D], const Fp* X, const Fp* U, const Fp* K, const Fp* kap, int b0, int B, int N,
+                           int k0) {
   constexpr int PER = CH * D;  // slots of one problem
   const int len = min(CH, N - k0);
   const int nq = min(PB, B - b0);
   for (int idx = threadIdx.x; idx < nq * PER; idx += blockDim.x) {
     const int q = idx / PER, i = idx - q * PER;
     const size_t bq = (size_t)(b0 + q);
-    double* d = buf[q] + i;
+    Fp* d = buf[q] + i;
     if (i < CH * n) {
-      if (i < len * n) cp_async8(d, X + (bq * (N + 1) + k0) * n + i);
+      if (i < len * n) cp_async_el(d, X + (bq * (N + 1) + k0) * n + i);
     } else if (i < CH * (n + m)) {
       const int j = i - CH * n;
-      if (j < len * m) cp_async8(d, U + (bq * N + k0) * m + j);
+      if (j < len * m) cp_async_el(d, U + (bq * N + k0) * m + j);
     } else if (i < CH * (n + m + m * n)) {
       const int j = i - CH * (n + m);
-      if (j < len * m * n) cp_async8(d, K + (bq * N + k0) * m * n + j);
+      if (j < len * m * n) cp_async_el(d, K + (bq * N + k0) * m * n + j);
     } else {
       const int j = i - CH * (n + m + m * n);
-      if (j < len * m) cp_async8(d, kap + (bq * N + k0) * m + j);
+      if (j < len * m) cp_async_el(d, kap + (bq * N + k0) * m + j);
     }
   }
   cp_async_commit();
 }
 
-template <class S>
-__global__ void __launch_bounds__(WARP * A_BLOCK, 4) linesearch_kernel(const double* __restrict__ X, const double* __restrict__ U,
-                                  const double* __restrict__ K, const double* __restrict__ kap,
+// Fp: the storage type of every floating input but the alphas, and of Xs,
+// Us and Js (double, or float on the float32 path). Every operation is
+// double: the state is carried in double across all N steps, and only
+// its rounding to Fp is stored (the counterpart of the JAX package's df32
+// rollout, which lets only the high word leave).
+template <class S, typename Fp>
+__global__ void __launch_bounds__(WARP * A_BLOCK, 4) linesearch_kernel(const Fp* __restrict__ X, const Fp* __restrict__ U,
+                                  const Fp* __restrict__ K, const Fp* __restrict__ kap,
                                   const int64_t* __restrict__ T_star,
-                                  const double* __restrict__ xg, const double* __restrict__ u_ref,
-                                  const double* __restrict__ Q, const double* __restrict__ R,
-                                  const double* __restrict__ Qf, const double* __restrict__ w,
+                                  const Fp* __restrict__ xg, const Fp* __restrict__ u_ref,
+                                  const Fp* __restrict__ Q, const Fp* __restrict__ R,
+                                  const Fp* __restrict__ Qf, const Fp* __restrict__ w,
                                   const bool* __restrict__ wrap_mask,
-                                  const double* __restrict__ alphas, double* __restrict__ Xs,
-                                  double* __restrict__ Us, double* __restrict__ Js,
-                                  const double* __restrict__ x0, long long x0_stride, int B, int N,
+                                  const double* __restrict__ alphas, Fp* __restrict__ Xs,
+                                  Fp* __restrict__ Us, Fp* __restrict__ Js,
+                                  const Fp* __restrict__ x0, long long x0_stride, int B, int N,
                                   int A, double dt, int state_wrap_bits) {
   constexpr int n = S::n, m = S::m;
   constexpr int G = group_width(n);
@@ -387,7 +401,7 @@ __global__ void __launch_bounds__(WARP * A_BLOCK, 4) linesearch_kernel(const dou
   constexpr int D = n + m + m * n + m;  // doubles of one step's shared inputs
   constexpr int LQ = n + 1;             // padded row of Q and Qf (no bank conflicts)
   static_assert(m <= G, "lane j < m forms control j");
-  __shared__ double chunk[2][PB][CH * D];
+  __shared__ Fp chunk[2][PB][CH * D];
   __shared__ double sQ[PB][n * LQ], sQf[PB][n * LQ], sR[PB][m * m], sxg[PB][n], sur[PB][m];
 
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -413,7 +427,7 @@ __global__ void __launch_bounds__(WARP * A_BLOCK, 4) linesearch_kernel(const dou
     if (b0 + q < B) sur[q][idx - q * m] = u_ref[(size_t)(b0 + q) * m + idx - q * m];
   }
   const int nch = (N + CH - 1) / CH;
-  if (nch > 0) load_chunk<n, m, PB, D>(chunk[0], X, U, K, kap, b0, B, N, 0);
+  if (nch > 0) load_chunk<Fp, n, m, PB, D>(chunk[0], X, U, K, kap, b0, B, N, 0);
 
   // this thread: lane li of the group of rollout (problem b, alpha a)
   const int ab = blockDim.x / WARP;  // alphas in this block's rows
@@ -427,8 +441,8 @@ __global__ void __launch_bounds__(WARP * A_BLOCK, 4) linesearch_kernel(const dou
   const double wb = valid ? w[b] : 0.0;
   int wm = 0;  // wrap_mask of the problem, one bit per state
   for (int i = 0; i < n && valid; ++i) wm |= (int)wrap_mask[(size_t)b * n + i] << i;
-  double* Xo = Xs + ((size_t)(valid ? b : 0) * A + a) * (N + 1) * n;
-  double* Uo = Us + ((size_t)(valid ? b : 0) * A + a) * N * m;
+  Fp* Xo = Xs + ((size_t)(valid ? b : 0) * A + a) * (N + 1) * n;
+  Fp* Uo = Us + ((size_t)(valid ? b : 0) * A + a) * N * m;
 
   const bool wmi = (wm >> li) & 1;
   const bool wrapi = li < n && ((state_wrap_bits >> li) & 1);
@@ -440,22 +454,22 @@ __global__ void __launch_bounds__(WARP * A_BLOCK, 4) linesearch_kernel(const dou
 
   for (int c = 0; c < nch; ++c) {
     if (c + 1 < nch) {
-      load_chunk<n, m, PB, D>(chunk[(c + 1) & 1], X, U, K, kap, b0, B, N, (c + 1) * CH);
+      load_chunk<Fp, n, m, PB, D>(chunk[(c + 1) & 1], X, U, K, kap, b0, B, N, (c + 1) * CH);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
     {  // every group, idle ones too: they read stale rows and store nothing
-      const double* d = chunk[c & 1][pb];
+      const Fp* d = chunk[c & 1][pb];
       const int k0 = c * CH, len = min(CH, N - k0);
       for (int kk = 0; kk < len; ++kk) {
         const int k = k0 + kk;
         const bool active = k < T;
-        const double* Xk = d + kk * n;
-        const double* Uk = d + CH * n + kk * m;
-        const double* Kk = d + CH * (n + m) + kk * m * n;
-        const double* ck = d + CH * (n + m + m * n) + kk * m;
+        const Fp* Xk = d + kk * n;
+        const Fp* Uk = d + CH * n + kk * m;
+        const Fp* Kk = d + CH * (n + m) + kk * m * n;
+        const Fp* ck = d + CH * (n + m + m * n) + kk * m;
 
         // the state whole on every lane; each lane forms the error vectors
         // itself, with lane i's arithmetic for entry i
@@ -548,7 +562,7 @@ __global__ void __launch_bounds__(WARP * A_BLOCK, 4) linesearch_kernel(const dou
   }
 }
 
-template <class S>
+template <class S, typename Fp>
 int launch(const void* X, const void* U, const void* K, const void* kap, const void* T_star,
            const void* xg, const void* u_ref, const void* Q, const void* R, const void* Qf,
            const void* w, const void* wrap_mask, const void* alphas, void* Xs, void* Us,
@@ -559,32 +573,26 @@ int launch(const void* X, const void* U, const void* K, const void* kap, const v
   const int ab = A < A_BLOCK ? A : A_BLOCK;
   const dim3 grid((B + PB - 1) / PB, (A + ab - 1) / ab);
   if (grid.x > 0) {
-    linesearch_kernel<S><<<grid, WARP * ab, 0, stream>>>(
-        (const double*)X, (const double*)U, (const double*)K, (const double*)kap,
-        (const int64_t*)T_star, (const double*)xg, (const double*)u_ref, (const double*)Q,
-        (const double*)R, (const double*)Qf, (const double*)w, (const bool*)wrap_mask,
-        (const double*)alphas, (double*)Xs, (double*)Us, (double*)Js, (const double*)x0,
-        x0_stride, B, N, A, dt, state_wrap_bits);
+    linesearch_kernel<S, Fp><<<grid, WARP * ab, 0, stream>>>(
+        (const Fp*)X, (const Fp*)U, (const Fp*)K, (const Fp*)kap, (const int64_t*)T_star, (const Fp*)xg,
+        (const Fp*)u_ref, (const Fp*)Q, (const Fp*)R, (const Fp*)Qf, (const Fp*)w, (const bool*)wrap_mask,
+        (const double*)alphas, (Fp*)Xs, (Fp*)Us, (Fp*)Js, (const Fp*)x0, x0_stride, B, N, A, dt, state_wrap_bits);
   }
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
 // system_id (System.device_id): 0 = DoubleIntegrator, 1 = Quadrotor,
 // 2 = Cartpole, 3 = Segway, 4 = Ballbot, 5 = PointMass. Each rollout of
 // problem b starts at x0 + b * x0_stride.
-extern "C" int linesearch_rollout_from(const void* X, const void* U, const void* K,
-                                       const void* kap, const void* T_star, const void* xg,
-                                       const void* u_ref, const void* Q, const void* R,
-                                       const void* Qf, const void* w, const void* wrap_mask,
-                                       const void* alphas, void* Xs, void* Us, void* Js,
-                                       const void* x0, int B, int N, int n, int m, int A,
-                                       int system_id, double dt, int state_wrap_bits,
-                                       long long x0_stride, void* stream) {
+template <typename Fp>
+int rollout_from(const void* X, const void* U, const void* K, const void* kap, const void* T_star, const void* xg,
+                 const void* u_ref, const void* Q, const void* R, const void* Qf, const void* w,
+                 const void* wrap_mask, const void* alphas, void* Xs, void* Us, void* Js, const void* x0, int B,
+                 int N, int n, int m, int A, int system_id, double dt, int state_wrap_bits, long long x0_stride,
+                 void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
 #define LS_LAUNCH(SYS)                                                                          \
-  return launch<SYS>(X, U, K, kap, T_star, xg, u_ref, Q, R, Qf, w, wrap_mask, alphas, Xs, Us, Js, \
+  return launch<SYS, Fp>(X, U, K, kap, T_star, xg, u_ref, Q, R, Qf, w, wrap_mask, alphas, Xs, Us, Js, \
                      x0, x0_stride, B, N, n, m, A, dt, state_wrap_bits, s)
   switch (system_id) {
     case 0:
@@ -605,6 +613,21 @@ extern "C" int linesearch_rollout_from(const void* X, const void* U, const void*
 #undef LS_LAUNCH
 }
 
+}  // namespace
+
+// float64 data: from start states
+extern "C" int linesearch_rollout_from(const void* X, const void* U, const void* K,
+                                       const void* kap, const void* T_star, const void* xg,
+                                       const void* u_ref, const void* Q, const void* R,
+                                       const void* Qf, const void* w, const void* wrap_mask,
+                                       const void* alphas, void* Xs, void* Us, void* Js,
+                                       const void* x0, int B, int N, int n, int m, int A,
+                                       int system_id, double dt, int state_wrap_bits,
+                                       long long x0_stride, void* stream) {
+  return rollout_from<double>(X, U, K, kap, T_star, xg, u_ref, Q, R, Qf, w, wrap_mask, alphas, Xs, Us, Js, x0, B,
+                              N, n, m, A, system_id, dt, state_wrap_bits, x0_stride, stream);
+}
+
 // The ordinary line search: every rollout starts at its own X[0].
 extern "C" int linesearch_rollout(const void* X, const void* U, const void* K, const void* kap,
                                   const void* T_star, const void* xg, const void* u_ref,
@@ -615,4 +638,28 @@ extern "C" int linesearch_rollout(const void* X, const void* U, const void* K, c
   return linesearch_rollout_from(X, U, K, kap, T_star, xg, u_ref, Q, R, Qf, w, wrap_mask, alphas,
                                  Xs, Us, Js, X, B, N, n, m, A, system_id, dt, state_wrap_bits,
                                  (long long)(N + 1) * n, stream);
+}
+
+// float32 data (float64 arithmetic and state): the two entries above
+extern "C" int linesearch_rollout_from_f32(const void* X, const void* U, const void* K,
+                                           const void* kap, const void* T_star, const void* xg,
+                                           const void* u_ref, const void* Q, const void* R,
+                                           const void* Qf, const void* w, const void* wrap_mask,
+                                           const void* alphas, void* Xs, void* Us, void* Js,
+                                           const void* x0, int B, int N, int n, int m, int A,
+                                           int system_id, double dt, int state_wrap_bits,
+                                           long long x0_stride, void* stream) {
+  return rollout_from<float>(X, U, K, kap, T_star, xg, u_ref, Q, R, Qf, w, wrap_mask, alphas, Xs, Us, Js, x0, B,
+                             N, n, m, A, system_id, dt, state_wrap_bits, x0_stride, stream);
+}
+
+extern "C" int linesearch_rollout_f32(const void* X, const void* U, const void* K, const void* kap,
+                                      const void* T_star, const void* xg, const void* u_ref,
+                                      const void* Q, const void* R, const void* Qf, const void* w,
+                                      const void* wrap_mask, const void* alphas, void* Xs, void* Us,
+                                      void* Js, int B, int N, int n, int m, int A, int system_id,
+                                      double dt, int state_wrap_bits, void* stream) {
+  return linesearch_rollout_from_f32(X, U, K, kap, T_star, xg, u_ref, Q, R, Qf, w, wrap_mask, alphas,
+                                     Xs, Us, Js, X, B, N, n, m, A, system_id, dt, state_wrap_bits,
+                                     (long long)(N + 1) * n, stream);
 }

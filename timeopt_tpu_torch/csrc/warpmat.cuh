@@ -47,6 +47,13 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
 __device__ __forceinline__ void cp_async8(double* dst, const double* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(smem_addr(dst)), "l"(src) : "memory");
 }
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_addr(dst)), "l"(src) : "memory");
+}
+// one element of either storage type (the float32 path keeps its inputs
+// float32 in shared memory and converts them to float64 as it reads them)
+__device__ __forceinline__ void cp_async_el(double* dst, const double* src) { cp_async8(dst, src); }
+__device__ __forceinline__ void cp_async_el(float* dst, const float* src) { cp_async4(dst, src); }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
 // wait until at most K of this thread's committed groups are in flight
 template <int K>

@@ -122,11 +122,13 @@ def euler_step_fn(xdot: StepFn, dt: float, n: int, wrap_idx: tuple = (), guard=N
 
 def make_problem(
     *, x0, xg, u_ref, Q, R, alpha, w, N: int, T_min: int, T_max: int,
-    wrap_idx=(), device="cuda",
+    wrap_idx=(), device="cuda", dtype=torch.float64,
 ) -> Problem:
-    """Assemble a batch-of-1 float64 Problem from reference-style ingredients,
-    on `device`: the card unless the caller passes device="cpu" (with no card
-    the default raises, as torch does; nothing falls back to the CPU)."""
+    """Assemble a batch-of-1 Problem from reference-style ingredients, on
+    `device`: the card unless the caller passes device="cpu" (with no card
+    the default raises, as torch does; nothing falls back to the CPU). The
+    floats are formed in float64 and stored in `dtype` (float64, or float32
+    for the float32 path), as the JAX builders take `dtype`."""
     x0 = np.asarray(x0, dtype=np.float64).reshape(-1)
     n = x0.size
     leaves = dict(
@@ -139,16 +141,22 @@ def make_problem(
         w=np.asarray(w, np.float64),
         wrap_mask=wrap_mask_from_idx(wrap_idx, n),
     )
-    return problem_from_numpy({k: v[None] for k, v in leaves.items()}, N, T_min, T_max, device)
+    return problem_from_numpy({k: v[None] for k, v in leaves.items()}, N, T_min, T_max, device, dtype)
 
 
-def problem_from_numpy(leaves: dict, N: int, T_min: int, T_max: int, device) -> Problem:
+def problem_from_numpy(leaves: dict, N: int, T_min: int, T_max: int, device, dtype=None) -> Problem:
     """Build a Problem from numpy arrays with a leading batch axis, e.g. the
-    leaves of a batched JAX Problem (`np.asarray(leaf)`). Floats become
-    float64 and the wrap mask bool."""
+    leaves of a batched JAX Problem (`np.asarray(leaf)`). Without `dtype` a
+    float32 or float64 leaf keeps its dtype (any other becomes float64);
+    with it every float leaf takes `dtype`. The wrap mask becomes bool."""
     t = {}
     for f in PROBLEM_FIELDS:
         a = np.asarray(leaves[f])
-        dtype = torch.bool if f == "wrap_mask" else torch.float64
-        t[f] = torch.as_tensor(np.array(a), dtype=dtype, device=device)
+        if f == "wrap_mask":
+            dt = torch.bool
+        elif dtype is not None:
+            dt = dtype
+        else:
+            dt = torch.float32 if a.dtype == np.float32 else torch.float64
+        t[f] = torch.as_tensor(np.array(a), dtype=dt, device=device)
     return Problem(**t, N=int(N), T_min=int(T_min), T_max=int(T_max))

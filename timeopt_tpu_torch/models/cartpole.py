@@ -59,7 +59,7 @@ SYSTEM = System(
 )
 
 
-def default_problem(N: int = 360, device="cuda") -> Problem:
+def default_problem(N: int = 360, device="cuda", dtype=torch.float64) -> Problem:
     return make_problem(
         x0=[0.0, 0.0, 0.0, 0.0],
         xg=[0.0, 0.0, math.pi, 0.0],
@@ -73,4 +73,5 @@ def default_problem(N: int = 360, device="cuda") -> Problem:
         T_max=320,
         wrap_idx=(2,),
         device=device,
+        dtype=dtype,
     )

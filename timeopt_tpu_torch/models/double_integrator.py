@@ -32,7 +32,7 @@ SYSTEM = System(
 )
 
 
-def default_problem(N: int = 120, device="cuda") -> Problem:
+def default_problem(N: int = 120, device="cuda", dtype=torch.float64) -> Problem:
     return make_problem(
         x0=[1.0, 0.0],
         xg=[2.0, 0.0],
@@ -46,4 +46,5 @@ def default_problem(N: int = 120, device="cuda") -> Problem:
         T_max=80,
         wrap_idx=(),
         device=device,
+        dtype=dtype,
     )

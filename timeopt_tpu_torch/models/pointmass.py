@@ -56,7 +56,7 @@ SYSTEM = System(
 )
 
 
-def default_problem(N: int = 240, device="cuda") -> Problem:
+def default_problem(N: int = 240, device="cuda", dtype=torch.float64) -> Problem:
     return make_problem(
         x0=[-2.0, -2.0, 0.0, 0.0],
         xg=[2.0, 2.0, 0.0, 0.0],
@@ -70,4 +70,5 @@ def default_problem(N: int = 240, device="cuda") -> Problem:
         T_max=220,
         wrap_idx=(),
         device=device,
+        dtype=dtype,
     )

@@ -96,7 +96,7 @@ SYSTEM = System(
 )
 
 
-def default_problem(N: int = 160, device="cuda") -> Problem:
+def default_problem(N: int = 160, device="cuda", dtype=torch.float64) -> Problem:
     return make_problem(
         x0=[2.0, 2.0, 2.0] + [0.0] * 9,
         xg=[0.0] * 12,
@@ -110,4 +110,5 @@ def default_problem(N: int = 160, device="cuda") -> Problem:
         T_max=160,
         wrap_idx=(6, 7, 8),
         device=device,
+        dtype=dtype,
     )

@@ -57,7 +57,7 @@ SYSTEM = System(
 )
 
 
-def default_problem(N: int = 240, device="cuda") -> Problem:
+def default_problem(N: int = 240, device="cuda", dtype=torch.float64) -> Problem:
     return make_problem(
         x0=[0.05, 0.0, 0.08, 0.0],
         xg=[0.0, 0.0, 0.0, 0.0],
@@ -71,4 +71,5 @@ def default_problem(N: int = 240, device="cuda") -> Problem:
         T_max=200,
         wrap_idx=(2,),
         device=device,
+        dtype=dtype,
     )

@@ -91,20 +91,57 @@ def bind(lib: ctypes.CDLL, fn: str, n_ptr: int, tail: list) -> ctypes._CFuncPtr:
     return f
 
 
-def on_card(x: torch.Tensor, phase: str) -> bool:
+# The storage dtypes of the kernels that have a float32 instantiation (f32
+# in device memory, float64 in registers); the others take float64 only.
+STORAGE_DTYPES = (torch.float64, torch.float32)
+F32_LATER = "float32 through this kernel is not ported yet (ROADMAP.md, Queue 1: the next slice)"
+
+
+def on_card(x: torch.Tensor, phase: str, f32: bool = True) -> bool:
     """The dispatch rule of every phase: False for a CPU tensor (plain
-    PyTorch version), True for a CUDA float64 tensor (the kernel). A CUDA
-    tensor of another dtype raises: plain f32 is wrong for these recursions."""
+    PyTorch version), True for a CUDA tensor (the kernel). The dtype must be
+    float64, or float32 where the kernel has a float32 instantiation
+    (`f32`); any other raises TypeError, on every device, so that nothing
+    is upcast or sent to the CPU silently."""
+    if x.dtype not in (STORAGE_DTYPES if f32 else (torch.float64,)):
+        why = F32_LATER if x.dtype == torch.float32 else "the kernels store float64 or float32"
+        raise TypeError(f"{phase}: dtype {x.dtype}: {why}")
     if x.device.type == "cpu":
         return False
     if x.device.type != "cuda":
         raise ValueError(f"{phase}: unsupported device {x.device}")
-    if x.dtype != torch.float64:
-        raise TypeError(
-            f"{phase}: CUDA tensors must be float64 (got {x.dtype}); float32 is wrong "
-            "for the propagator and Riccati recursions"
-        )
     return True
+
+
+def cast(a, dtype: torch.dtype):
+    """A floating tensor, or a Problem's floating tensors (anything with
+    .tensors()), cast to dtype; anything else as it is."""
+    if isinstance(a, torch.Tensor):
+        return a.to(dtype) if a.is_floating_point() else a
+    if hasattr(a, "tensors"):
+        return a.replace(**{f: cast(t, dtype) for f, t in a.tensors().items()})
+    return a
+
+
+def in_f64(fn, *args, **kw):
+    """fn on its arguments upcast to float64, its floating outputs cast back
+    to the dtype of the first floating tensor argument: the rule of the
+    float32 path's plain versions (float32 storage, float64 arithmetic, one
+    rounding on the way out). On float64 arguments it is fn itself."""
+    dtype = next(a.dtype for a in args if isinstance(a, torch.Tensor) and a.is_floating_point())
+    if dtype == torch.float64:
+        return fn(*args, **kw)
+
+    def down(o):
+        if isinstance(o, torch.Tensor) and o.is_floating_point():
+            return o.to(dtype)
+        if isinstance(o, tuple):  # a NamedTuple keeps its type
+            vals = [down(v) for v in o]
+            return type(o)(*vals) if hasattr(o, "_fields") else tuple(vals)
+        return o
+
+    f64 = torch.float64
+    return down(fn(*(cast(a, f64) for a in args), **{k: cast(v, f64) for k, v in kw.items()}))
 
 
 def check(t: torch.Tensor, shape: tuple, dtype: torch.dtype, device: torch.device, name: str) -> None:

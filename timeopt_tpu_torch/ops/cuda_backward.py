@@ -2,12 +2,16 @@
 
 Replaces timeopt_tpu/ops/pallas_backward.py::backward_lanes_df and
 ::backward_dense_df (kernel body _backward_kernel -> _backward_step_body).
-Kernel: csrc/backward.cu, float64, sm_90a; its header says what bounds it
-on the H100 and how the design answers that.
+Kernel: csrc/backward.cu, sm_90a, float64 arithmetic on float64 or float32
+inputs; its header says what bounds it on the H100 and how the design
+answers that.
 
 `backward_truncated_core` has the contract of the JAX `_backward_arrays`
 with a leading batch axis. On a CPU tensor it runs the plain version; on a
-CUDA float64 tensor it launches the kernel; any other CUDA dtype raises.
+CUDA float64 or float32 tensor it launches the kernel; any other dtype
+raises. kappa and K come out in the inputs' dtype: on float32 inputs both
+run the Riccati recursion in float64 and round the gains once, as the TPU
+kernel (df32 inside) writes them in float32.
 """
 
 from __future__ import annotations
@@ -22,10 +26,11 @@ LAUNCHES = 0  # kernel launches since the last reset
 
 
 def backward_plain(A, B, lx, lu, Qstage, QfeT, eT_ok, step_ok, Qf, R, T_star, lm):
-    """Plain PyTorch version of the kernel (solver/backward.py)."""
+    """Plain PyTorch version of the kernel (solver/backward.py), in float64
+    on float32 inputs (_build.in_f64)."""
     from timeopt_tpu_torch.solver.backward import _backward_arrays
 
-    return _backward_arrays(A, B, lx, lu, Qstage, QfeT, eT_ok, step_ok, Qf, R, T_star, lm)
+    return _build.in_f64(_backward_arrays, A, B, lx, lu, Qstage, QfeT, eT_ok, step_ok, Qf, R, T_star, lm)
 
 
 def backward_truncated_core(A, B, lx, lu, Qstage, QfeT, eT_ok, step_ok, Qf, R, T_star, lm):
@@ -38,25 +43,26 @@ def backward_truncated_core(A, B, lx, lu, Qstage, QfeT, eT_ok, step_ok, Qf, R, T
     global LAUNCHES
     Bsz, N, n, _ = A.shape
     m = B.shape[-1]
-    f64, dev = torch.float64, A.device
+    dtype, dev = A.dtype, A.device
     for t, shape, name in (
         (A, (Bsz, N, n, n), "A"), (B, (Bsz, N, n, m), "B"), (lx, (Bsz, N, n), "lx"),
         (lu, (Bsz, N, m), "lu"), (Qstage, (Bsz, N, n, n), "Qstage"), (QfeT, (Bsz, N, n), "QfeT"),
         (eT_ok, (Bsz, N), "eT_ok"), (step_ok, (Bsz, N), "step_ok"), (Qf, (Bsz, n, n), "Qf"),
         (R, (Bsz, m, m), "R"), (lm, (Bsz,), "lm"),
     ):
-        _build.check(t, shape, f64, dev, name)
+        _build.check(t, shape, dtype, dev, name)
     _build.check(T_star, (Bsz,), torch.int64, dev, "T_star")
-    kappa = torch.empty((Bsz, N, m), dtype=f64, device=dev)
-    K = torch.empty((Bsz, N, m, n), dtype=f64, device=dev)
+    kappa = torch.empty((Bsz, N, m), dtype=dtype, device=dev)
+    K = torch.empty((Bsz, N, m, n), dtype=dtype, device=dev)
     ok = torch.empty((Bsz,), dtype=torch.bool, device=dev)
-    fn = _build.bind(_build.load("backward"), "backward_truncated", 15, [ctypes.c_int] * 4)
+    entry = "backward_truncated" if dtype == torch.float64 else "backward_truncated_f32"
+    fn = _build.bind(_build.load("backward"), entry, 15, [ctypes.c_int] * 4)
     rc = fn(
         A.data_ptr(), B.data_ptr(), lx.data_ptr(), lu.data_ptr(), Qstage.data_ptr(),
         QfeT.data_ptr(), eT_ok.data_ptr(), step_ok.data_ptr(), Qf.data_ptr(), R.data_ptr(),
         T_star.data_ptr(), lm.data_ptr(), kappa.data_ptr(), K.data_ptr(), ok.data_ptr(),
         Bsz, N, n, m, _build.stream_ptr(dev),
     )
-    _build.raise_on_error(rc, "backward_truncated")
+    _build.raise_on_error(rc, entry)
     LAUNCHES += 1
     return kappa, K, ok

@@ -2,7 +2,7 @@
 
 Replaces timeopt_tpu/ops/pallas_forward.py::linesearch_lanes_df and
 ::linesearch_dense_df (kernel body _fwd_kernel). Kernel: csrc/linesearch.cu,
-float64, sm_90a, with the dynamics (and extra stage cost) of each system
+sm_90a, float64 arithmetic on float64 or float32 data, with the dynamics (and extra stage cost) of each system
 with a `device_id` compiled in; the JAX package kept PointMass off its TPU
 kernel for want of a layout twin of its xdot, which this kernel does not
 need. Its header says what bounds it on the H100 and how the design
@@ -13,8 +13,11 @@ answers that. The first-improving selection stays in torch
 Us (B, A, N, m) and costs Js (B, A). Each rollout starts at X[:, 0], or at
 `x_start` (B, n), whose rows may lie a batch stride apart (a view such as
 X_ext[:, S]); the one-pass method's shifted-gain rollout starts there. On a CPU tensor it runs the plain
-version; on a CUDA float64 tensor it launches the kernel; any other CUDA
-dtype, or a system without device dynamics, raises.
+version; on a CUDA float64 or float32 tensor it launches the kernel; any
+other dtype, or a system without device dynamics, raises. On float32 data
+both carry each rollout's state in float64 across all N steps and store
+its rounding (Xs, Us, Js in float32): the counterpart of the TPU kernel's
+df32 rollout, which lets only the high word leave.
 """
 
 from __future__ import annotations
@@ -29,10 +32,11 @@ LAUNCHES = 0  # kernel launches since the last reset
 
 
 def linesearch_plain(system, prob, X, U, K, kappa, T_star, alphas, x_start=None):
-    """Plain PyTorch version of the kernel (solver/forward.py)."""
+    """Plain PyTorch version of the kernel (solver/forward.py), in float64
+    on float32 data (_build.in_f64)."""
     from timeopt_tpu_torch.solver.forward import linesearch_plain as plain
 
-    return plain(system, prob, X, U, K, kappa, T_star, alphas, x_start)
+    return _build.in_f64(plain, system, prob, X, U, K, kappa, T_star, alphas, x_start)
 
 
 def linesearch(system, prob, X, U, K, kappa, T_star, alphas, x_start=None):
@@ -40,7 +44,8 @@ def linesearch(system, prob, X, U, K, kappa, T_star, alphas, x_start=None):
     T_star (B,) int64, problem data from `prob`, alphas a sequence of A
     floats, x_start None or (B, n) with unit stride along n -> (Xs, Us, Js).
     Without x_start the kernel's entry `linesearch_rollout` starts at
-    X[:, 0]; with it, `linesearch_rollout_from`."""
+    X[:, 0]; with it, `linesearch_rollout_from` (each with a `_f32` twin
+    for float32 data). The alphas are float64 on both paths."""
     if not _build.on_card(X, "line search"):
         return linesearch_plain(system, prob, X, U, K, kappa, T_star, alphas, x_start)
     if system.device_id is None:
@@ -50,25 +55,25 @@ def linesearch(system, prob, X, U, K, kappa, T_star, alphas, x_start=None):
     global LAUNCHES
     Bsz, Np1, n = X.shape
     N, m, A = Np1 - 1, U.shape[-1], len(alphas)
-    f64, dev = torch.float64, X.device
+    f64, dtype, dev = torch.float64, X.dtype, X.device
     for t, shape, name in (
         (X, (Bsz, N + 1, n), "X"), (U, (Bsz, N, m), "U"), (K, (Bsz, N, m, n), "K"),
         (kappa, (Bsz, N, m), "kappa"), (prob.xg, (Bsz, n), "xg"), (prob.u_ref, (Bsz, m), "u_ref"),
         (prob.Q, (Bsz, n, n), "Q"), (prob.R, (Bsz, m, m), "R"), (prob.Qf, (Bsz, n, n), "Qf"),
         (prob.w, (Bsz,), "w"),
     ):
-        _build.check(t, shape, f64, dev, name)
+        _build.check(t, shape, dtype, dev, name)
     _build.check(T_star, (Bsz,), torch.int64, dev, "T_star")
     _build.check(prob.wrap_mask, (Bsz, n), torch.bool, dev, "wrap_mask")
     if x_start is not None:
         # rows a batch stride apart, each row contiguous
-        _build.check(x_start[0], (n,), f64, dev, "x_start")
+        _build.check(x_start[0], (n,), dtype, dev, "x_start")
         if tuple(x_start.shape) != (Bsz, n):
             raise ValueError(f"x_start: shape {tuple(x_start.shape)}, expected {(Bsz, n)}")
     a_vec = torch.tensor([float(a) for a in alphas], dtype=f64, device=dev)
-    Xs = torch.empty((Bsz, A, N + 1, n), dtype=f64, device=dev)
-    Us = torch.empty((Bsz, A, N, m), dtype=f64, device=dev)
-    Js = torch.empty((Bsz, A), dtype=f64, device=dev)
+    Xs = torch.empty((Bsz, A, N + 1, n), dtype=dtype, device=dev)
+    Us = torch.empty((Bsz, A, N, m), dtype=dtype, device=dev)
+    Js = torch.empty((Bsz, A), dtype=dtype, device=dev)
     wrap_bits = sum(1 << int(i) for i in system.wrap_idx)
     lib = _build.load("linesearch")
     ptrs = [X.data_ptr(), U.data_ptr(), K.data_ptr(), kappa.data_ptr(), T_star.data_ptr(),
@@ -77,11 +82,12 @@ def linesearch(system, prob, X, U, K, kappa, T_star, alphas, x_start=None):
             Xs.data_ptr(), Us.data_ptr(), Js.data_ptr()]
     tail = [Bsz, N, n, m, A, int(system.device_id), float(system.dt), wrap_bits]
     tail_types = [ctypes.c_int] * 6 + [ctypes.c_double, ctypes.c_int]
+    suffix = "" if dtype == f64 else "_f32"
     if x_start is None:
-        entry = "linesearch_rollout"
+        entry = "linesearch_rollout" + suffix
         fn = _build.bind(lib, entry, 16, tail_types)
     else:
-        entry = "linesearch_rollout_from"
+        entry = "linesearch_rollout_from" + suffix
         fn = _build.bind(lib, entry, 17, tail_types + [ctypes.c_longlong])
         ptrs.append(x_start.data_ptr())
         tail.append(x_start.stride(0))

@@ -2,14 +2,17 @@
 
 Replaces timeopt_tpu/ops/pallas_lft.py::propagator_select_lanes_df_fused and
 ::propagator_select_dense_df_fused (kernel body _df_select_fused_kernel).
-Kernel: csrc/lft_select.cu, float64, sm_90a; its header says what bounds it
-on the H100 and how the design answers that.
+Kernel: csrc/lft_select.cu, sm_90a, float64 arithmetic on float64 or
+float32 inputs; its header says what bounds it on the H100 and how the
+design answers that.
 
 `propagator_select_fused` takes the FusedInputs of solver/augmented.py with
-a leading batch axis and returns J (B, N), unscaled (the caller multiplies
-by s_0^2). On a CPU tensor it runs the plain version (which evaluates every
-horizon); on a CUDA float64 tensor it launches the kernel, which writes
-+inf below T_min; any other CUDA dtype raises.
+a leading batch axis and returns J (B, N) in the inputs' dtype, unscaled
+(the caller multiplies by s_0^2). On a CPU tensor it runs the plain version
+(which evaluates every horizon); on a CUDA float64 or float32 tensor it
+launches the kernel, which writes +inf below T_min; any other dtype raises.
+On float32 inputs both compute in float64 and round J once, on the way
+out: the TPU kernel computes in df32 and returns float32.
 """
 
 from __future__ import annotations
@@ -25,10 +28,11 @@ LAUNCHES = 0  # kernel launches since the last reset
 
 
 def select_fused_plain(A, Bm, vecs, scal, Qq, R_inv, Lt) -> torch.Tensor:
-    """Plain PyTorch version of the kernel (solver/horizon.py)."""
+    """Plain PyTorch version of the kernel (solver/horizon.py), in float64
+    on float32 inputs (_build.in_f64)."""
     from timeopt_tpu_torch.solver.horizon import select_fused_plain as plain
 
-    return plain(A, Bm, vecs, scal, Qq, R_inv, Lt)
+    return _build.in_f64(plain, A, Bm, vecs, scal, Qq, R_inv, Lt)
 
 
 def propagator_select_fused(A, Bm, vecs, scal, Qq, R_inv, Lt, *, t_min: int, jitter: float = 1e-9):
@@ -39,28 +43,28 @@ def propagator_select_fused(A, Bm, vecs, scal, Qq, R_inv, Lt, *, t_min: int, jit
     global LAUNCHES
     Bsz, N, n, _ = A.shape
     m = Bm.shape[-1]
-    f64, dev = torch.float64, A.device
+    f64, dtype, dev = torch.float64, A.dtype, A.device
     for t, shape, name in (
         (A, (Bsz, N, n, n), "A"), (Bm, (Bsz, N, n, m), "Bm"), (vecs, (Bsz, N, 4, n), "vecs"),
         (scal, (Bsz, N, 4), "scal"), (Qq, (Bsz, n, n), "Qq"), (R_inv, (Bsz, m, m), "R_inv"),
         (Lt, (Bsz, n, n), "Lt"),
     ):
-        _build.check(t, shape, f64, dev, name)
-    # k-constant inverses, computed once outside the kernel as the JAX
-    # wrapper does: iQq = (Qq + jitter I)^-1, W0 = (Lt' Lt)^-1 = (Qf + rho I)^-1
+        _build.check(t, shape, dtype, dev, name)
+    # k-constant inverses, computed once outside the kernel in float64 (on
+    # float32 inputs too; the JAX wrapper forms them in df32): iQq =
+    # (Qq + jitter I)^-1, W0 = (Lt' Lt)^-1 = (Qf + rho I)^-1, and R^-1
+    Qq, R_inv, Lt = (t.to(f64) for t in (Qq, R_inv, Lt))
     eye = torch.eye(n, dtype=f64, device=dev)
     iQq = sym(gj_inv(Qq + jitter * eye)).contiguous()
     W0 = sym(gj_inv(Lt.transpose(-1, -2) @ Lt)).contiguous()
-    J = torch.empty((Bsz, N), dtype=f64, device=dev)
-    fn = _build.bind(
-        _build.load("lft_select"), "lft_select_fused", 8,
-        [ctypes.c_int] * 5 + [ctypes.c_double],
-    )
+    J = torch.empty((Bsz, N), dtype=dtype, device=dev)
+    entry = "lft_select_fused" if dtype == f64 else "lft_select_fused_f32"
+    fn = _build.bind(_build.load("lft_select"), entry, 8, [ctypes.c_int] * 5 + [ctypes.c_double])
     rc = fn(
         A.data_ptr(), Bm.data_ptr(), vecs.data_ptr(), scal.data_ptr(), iQq.data_ptr(),
         R_inv.data_ptr(), W0.data_ptr(), J.data_ptr(),
         Bsz, N, n, m, int(t_min), float(jitter), _build.stream_ptr(dev),
     )
-    _build.raise_on_error(rc, "lft_select_fused")
+    _build.raise_on_error(rc, entry)
     LAUNCHES += 1
     return J

@@ -12,7 +12,9 @@ design's bit for bit (`chip_smoke.py --ab`).
 terminal factors C of solver/augmented.py::build_terminal_factors, with a
 leading batch axis, and returns J (B, N) for every horizon, unscaled (the
 caller multiplies by s_0^2). On a CPU tensor it runs the plain version; on
-a CUDA float64 tensor it launches the kernel; any other CUDA dtype raises.
+a CUDA float64 tensor it launches the kernel. Float32 raises TypeError on
+every device: its float32 instantiation is the next slice of the port
+(ROADMAP.md); any other dtype raises too.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ def lft_query(E, F, G, C, *, jitter: float = 1e-9, levels: int):
     """E, F, G (B, N, p, p), C (B, N, n, p) with p = n + 1 -> J (B, N).
     `levels` (1 or 2 on the card) is the jitter ladder of the X0 solve; the
     S solve has jitter 0, so its rungs are one matrix."""
-    if not _build.on_card(E, "terminal query"):
+    if not _build.on_card(E, "terminal query", f32=False):
         return lft_query_plain(E, F, G, C, jitter=jitter, levels=levels)
     if levels not in (1, 2):
         raise ValueError(f"terminal query: levels must be 1 or 2 on the card, got {levels}")

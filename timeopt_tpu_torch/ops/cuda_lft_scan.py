@@ -13,7 +13,9 @@ first (block-per-problem) design's bit for bit (`chip_smoke.py --ab`).
 B_aug' (formed outside the kernel, as the JAX wrapper does) with a leading
 batch axis, and returns the prefix compositions (E, F, G) of every step.
 On a CPU tensor it runs the plain version; on a CUDA float64 tensor it
-launches the kernel; any other CUDA dtype raises.
+launches the kernel. Float32 raises TypeError on every device: its
+float32 instantiation is the next slice of the port (ROADMAP.md); any
+other dtype raises too.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ def lft_scan(A_aug, BRB, Q_aug, *, jitter: float = 1e-9, levels: int):
     """A_aug, BRB, Q_aug (B, N, p, p) -> prefixes (E, F, G), each
     (B, N, p, p). `levels` (1 or 2 on the card) is the jitter ladder of
     ops/linalg.py::psd_inv for the element and the compose inverses."""
-    if not _build.on_card(A_aug, "LFT prefix scan"):
+    if not _build.on_card(A_aug, "LFT prefix scan", f32=False):
         return lft_scan_plain(A_aug, BRB, Q_aug, jitter=jitter, levels=levels)
     if levels not in (1, 2):
         raise ValueError(f"LFT prefix scan: levels must be 1 or 2 on the card, got {levels}")

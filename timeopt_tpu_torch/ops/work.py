@@ -3,7 +3,11 @@
 For each kernel: the floating-point operations its algorithm needs on given
 inputs (a multiply-add counts 2, an add, multiply, divide or square root 1,
 a sine or cosine 1) and the bytes it must move (each input read once, each
-output written once, 8 bytes a double). Work that depends on the data
+output written once, each float at its storage dtype's `itemsize`: 8 on
+the float64 path, 4 on the float32 path, whose arithmetic is float64 all
+the same, so the operations meet the float64 peak on both; the fused
+select's k-constants and the line search's alphas are float64 on both, the
+T* and wrap-mask inputs int64 and bool). Work that depends on the data
 is counted from the data: the select's queries run for horizons
 t >= T_min only, the backward pass reads and eliminates only the steps
 t < T* of each problem. The counts are of what the algorithm needs, not
@@ -76,7 +80,7 @@ def _c_form(n: int, p: int) -> int:
     return mm(n, p, p) + mm(p, n, p) + mm(n, n, p) + n + sym(n)
 
 
-def select_fused(B: int, N: int, n: int, m: int, t_min: int) -> dict:
+def select_fused(B: int, N: int, n: int, m: int, t_min: int, itemsize: int = F64) -> dict:
     """csrc/lft_select.cu on (B, N) steps of dimension n, m."""
     p = n + 1
     elem = (mm(n, m, m) + 2 * n  # B R^-1; q = Qe / s_k and e~
@@ -88,18 +92,18 @@ def select_fused(B: int, N: int, n: int, m: int, t_min: int) -> dict:
     w0_form = 6 * n * n + n + 2 * n * p  # K = W0 + G11 + e~ g' + g e~' + g22 e~ e~'; FEt = Fbar[:, :n] + Fbar[:, n] e~'
     n_query = B * max(0, N - max(t_min, 1) + 1)
     flops = B * N * elem + B * max(0, N - 1) * _compose(p) + n_query * (_query(n, p) + w0_form)
-    nbytes = F64 * (B * N * (n * n + n * m + 4 * n + 4) + B * (2 * n * n + m * m) + B * N)
+    nbytes = itemsize * (B * N * (n * n + n * m + 4 * n + 4) + B * N) + F64 * B * (2 * n * n + m * m)
     return bound(flops, nbytes)
 
 
-def select_generic(B: int, N: int, n: int, m: int, t_min: int) -> dict:
+def select_generic(B: int, N: int, n: int, m: int, t_min: int, itemsize: int = F64) -> dict:
     """csrc/lft_select_generic.cu on assembled blocks (B, N, p, p)."""
     p = n + 1
     # [sym(Q) + jitter I | A' | I] sweep, B R^-1, G = sym(A F + B R^-1 B')
     elem = sym(p) + p + gj(p, 3 * p) + mm(p, m, m) + mm(p, p, p) + mm(p, p, m) + p * p + sym(p)
     n_query = B * max(0, N - max(t_min, 1) + 1)
     flops = B * N * elem + B * max(0, N - 1) * _compose(p) + n_query * (_query(n, p) + _c_form(n, p))
-    nbytes = F64 * (B * N * (2 * p * p + p * m + n * p) + B * m * m + B * N)
+    nbytes = itemsize * (B * N * (2 * p * p + p * m + n * p) + B * m * m + B * N)
     return bound(flops, nbytes)
 
 
@@ -121,7 +125,7 @@ def lft_query(B: int, N: int, n: int) -> dict:
     return bound(flops, nbytes)
 
 
-def backward(T_star, N: int, n: int, m: int) -> dict:
+def backward(T_star, N: int, n: int, m: int, itemsize: int = F64) -> dict:
     """csrc/backward.cu: the active steps t < T* of each problem (T_star a
     sequence of ints); gains written for all N steps."""
     active = sum(min(max(int(t), 0), N) for t in T_star)
@@ -131,8 +135,8 @@ def backward(T_star, N: int, n: int, m: int) -> dict:
             + mm(m, n, n) + 3 * m * m + mm(m, 1, n) + m + gj(m, w) + mm(m, 1 + n, m)
             + 6 * m * n + 3 * n + 6 * m * n * n + 3 * n * n + 2 * n * n)
     flops = active * step
-    reads = active * (2 * n * n + n * m + n + m + 1) + B * (n + 1 + n * n + m * m + 1) + B
-    nbytes = F64 * (reads + B * N * (m + m * n)) + B
+    reads = active * (2 * n * n + n * m + n + m + 1) + B * (n + 1 + n * n + m * m + 1)
+    nbytes = itemsize * (reads + B * N * (m + m * n)) + 8 * B + B  # + T* (int64), ok (bool)
     return bound(flops, nbytes)
 
 
@@ -143,7 +147,7 @@ GUARD_FLOPS = {"Quadrotor": 2 * 12 + 6}
 EXTRA_COST_FLOPS = {"PointMass_Navigation": 3 * 11}
 
 
-def linesearch(case: str, T_star, N: int, n: int, m: int, A: int, x_start: bool = False) -> dict:
+def linesearch(case: str, T_star, N: int, n: int, m: int, A: int, x_start: bool = False, itemsize: int = F64) -> dict:
     """csrc/linesearch.cu: A rollouts of N steps per problem; the stage cost
     on the active steps k < T*, the terminal cost at min(T*, N). With
     x_start (the entry linesearch_rollout_from: each rollout starts at a
@@ -156,6 +160,8 @@ def linesearch(case: str, T_star, N: int, n: int, m: int, A: int, x_start: bool 
     terminal = n + mm(n, 1, n) + 2 * n + 2
     n_term = sum(1 for t in T_star if int(t) > 0)
     flops = A * (B * N * step + active * stage + n_term * terminal)
-    reads = B * ((N + 1) * n + N * (m + m * n + m)) + B * (n + m + 2 * n * n + m * m + 1) + A
-    nbytes = F64 * (reads + B * A * ((N + 1) * n + N * m + 1) + (B * n if x_start else 0)) + 8 * B + B * n
+    reads = B * ((N + 1) * n + N * (m + m * n + m)) + B * (n + m + 2 * n * n + m * m + 1)
+    writes = B * A * ((N + 1) * n + N * m + 1)
+    # + the alphas (float64), T* (int64) and the wrap mask (bool)
+    nbytes = itemsize * (reads + writes + (B * n if x_start else 0)) + F64 * A + 8 * B + B * n
     return bound(flops, nbytes)

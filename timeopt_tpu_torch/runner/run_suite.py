@@ -28,9 +28,12 @@ all-gathers the results, so every rank computes the same rows; rank 0
 alone writes the CSV and .npz files. `total_time` is then the gathered
 batch's wall-clock on each rank divided by the trials.
 
-Not ported (ROADMAP.md): --f32 fails at argument parsing (float32 is wrong
-for these recursions, and the card has float64). The figures are
-runner/plot.py's (matplotlib).
+With --f32 the trial problems are float32 and solve on the port's float32
+path (float32 storage, float64 recursions; SolveOptions' df_forward and
+select_dtype at their defaults), as the JAX runner's --f32 solves in
+float32. --consistency needs the float32 prefix-scan and query kernels,
+which are not ported yet (ROADMAP.md), so the two flags together fail at
+parsing. The figures are runner/plot.py's (matplotlib).
 """
 
 from __future__ import annotations
@@ -62,23 +65,21 @@ SOLVER_METHODS = {
     "baseline2": "onepass",
 }
 
-_NOT_PORTED = "is not ported (ROADMAP.md: float32 is wrong for these recursions, and the card has float64)"
-
-
 def _case_rng(seed: int, case: str) -> np.random.Generator:
     return np.random.default_rng(int(seed) + zlib.crc32(case.encode()) % 10_000)
 
 
-def build_trial_problems(case: str, trials: int, seed: int, device="cuda"):
+def build_trial_problems(case: str, trials: int, seed: int, device="cuda", dtype=torch.float64):
     """(system, base, probs): trial 0 is the nominal x0/xg, trials 1.. are
     Gaussian-perturbed with the case's sigmas, drawn as the JAX runner
-    draws them. `base` is the batch-of-1 default problem, on the CPU; the
-    trials go to `device`."""
+    draws them (in float64, then stored in `dtype`). `base` is the
+    batch-of-1 default problem in `dtype`, on the CPU; the trials go to
+    `device`."""
     from timeopt_tpu_torch.models import get_system
     from timeopt_tpu_torch.solver.ilqr import broadcast_problem
 
     system, mk = get_system(case)
-    base = mk(device="cpu")
+    base = mk(device="cpu", dtype=dtype)
     rng = _case_rng(seed, case)
 
     sx = np.asarray(system.sigma_x0, float)
@@ -90,7 +91,7 @@ def build_trial_problems(case: str, trials: int, seed: int, device="cuda"):
         xgs.append(xg + sg * rng.standard_normal(system.n))
 
     probs = broadcast_problem(base, trials).replace(
-        x0=torch.as_tensor(np.stack(x0s)), xg=torch.as_tensor(np.stack(xgs))
+        x0=torch.as_tensor(np.stack(x0s)).to(dtype), xg=torch.as_tensor(np.stack(xgs)).to(dtype)
     )
     return system, base, probs.to(device)
 
@@ -124,6 +125,7 @@ def run_case(
     use_central_diff: bool,
     success_tol: float,
     device,
+    dtype=torch.float64,
     timing: str = "amortized",
     save_trajectories: bool = False,
     save_jt: bool = False,
@@ -137,7 +139,7 @@ def run_case(
     from timeopt_tpu_torch.solver.verify import consistency_check
 
     device = torch.device(device)
-    system, base, probs = build_trial_problems(case, trials, seed, device)
+    system, base, probs = build_trial_problems(case, trials, seed, device, dtype)
     lin_mode = "central" if use_central_diff else "ad"
 
     if distributed:
@@ -368,7 +370,8 @@ def parse_args(argv=None):
     ap.add_argument("--cases", type=str, default="")
     ap.add_argument("--timing", choices=["amortized", "per-solve"], default="amortized")
     ap.add_argument("--device", type=str, default="cuda", help="PyTorch device of the solves (default cuda)")
-    ap.add_argument("--f32", action="store_true", help=f"float32 solves: {_NOT_PORTED}")
+    ap.add_argument("--f32", action="store_true",
+                    help="solve in float32 (float32 storage, float64 recursions); not with --consistency")
     ap.add_argument(
         "--save-trajectories", action="store_true",
         help="save per-case solved trajectories (X, U, T*, J*) to <outdir>/<case>/trajectories_<solver>.npz",
@@ -394,8 +397,9 @@ def parse_args(argv=None):
     )
     args = ap.parse_args(argv)
 
-    if args.f32:
-        ap.error(f"--f32 {_NOT_PORTED}")
+    if args.f32 and args.consistency:
+        ap.error("--consistency with --f32 needs the float32 prefix-scan and query kernels, not ported yet "
+                 "(ROADMAP.md, Queue 1)")
     args.solvers = [s.strip() for s in args.solvers.split(",") if s.strip()]
     for s in args.solvers:
         if s not in SOLVER_METHODS:
@@ -438,6 +442,7 @@ def main(argv=None):
             use_central_diff=args.use_central_diff,
             success_tol=args.success_tol,
             device=device,
+            dtype=torch.float32 if args.f32 else torch.float64,
             timing=args.timing,
             save_trajectories=args.save_trajectories and is_writer,
             save_jt=args.save_jt and is_writer,

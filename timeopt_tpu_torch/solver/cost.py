@@ -12,7 +12,12 @@ from timeopt_tpu_torch.ops.wrap import wrap_error
 
 def rollout(system: System, prob: Problem, x0: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
     """x0 (B, n), U (B, N, m) -> X (B, N+1, n) through `safe_step`: once a
-    state goes non-finite or exceeds the norm guard, every later state is NaN."""
+    state goes non-finite or exceeds the norm guard, every later state is NaN.
+    A float32 rollout integrates in float64 and stores each state rounded to
+    float32, the rounding never fed back (the counterpart of the JAX
+    package's df32 rollout_df)."""
+    if x0.dtype == torch.float32:
+        return rollout(system, prob, x0.to(torch.float64), U.to(torch.float64)).to(x0.dtype)
     xs = [x0]
     for k in range(U.shape[1]):
         xs.append(system.safe_step(xs[-1], U[:, k]))

@@ -29,7 +29,7 @@ from typing import NamedTuple
 
 import torch
 
-from timeopt_tpu_torch.ops import cuda_lft, cuda_lft_generic, cuda_lft_query, cuda_lft_scan
+from timeopt_tpu_torch.ops import _build, cuda_lft, cuda_lft_generic, cuda_lft_query, cuda_lft_scan
 from timeopt_tpu_torch.ops.linalg import psd_inv, psd_solve, sym
 from timeopt_tpu_torch.ops.wrap import wrap_error
 
@@ -302,14 +302,17 @@ def value_expansion_V0(system, prob, A, B, X, U, T, *, lm_lambda: float = 1e-6, 
     """V0(0) of the full quadratic value expansion with the terminal at
     step T (B,) of each problem -> (B,)."""
     args = _bruteforce_inputs(system, prob, X, U)
-    return _value_expansion_arrays(A, B, *args, T[:, None], lm_lambda=lm_lambda, psd_levels=psd_levels)[:, 0]
+    return _build.in_f64(_value_expansion_arrays, A, B, *args, T[:, None], lm_lambda=lm_lambda,
+                         psd_levels=psd_levels)[:, 0]
 
 
 def bruteforce_J_curve(system, prob, A, B, X, U, *, lm_lambda: float = 1e-6, psd_levels: int = 2) -> torch.Tensor:
     """J(T) for every T = 1..N of the given window (A, B, U (B, N, .),
     X (B, N+1, n)): the exact quadratic-model curve (B, N), with no T_min
-    mask (argmin_T applies it)."""
+    mask (argmin_T applies it). On float32 inputs the recursion runs in
+    float64 and the curve comes back in float32 (the counterpart of the JAX
+    package's df32 brute force, solver/bruteforce_df.py)."""
     Bsz, N = U.shape[:2]
     T = torch.arange(1, N + 1, device=X.device).expand(Bsz, N)
     args = _bruteforce_inputs(system, prob, X, U)
-    return _value_expansion_arrays(A, B, *args, T, lm_lambda=lm_lambda, psd_levels=psd_levels)
+    return _build.in_f64(_value_expansion_arrays, A, B, *args, T, lm_lambda=lm_lambda, psd_levels=psd_levels)

@@ -8,6 +8,13 @@ accept and x10 on reject, convergence when the relative cost change is below
 rel_tol and the last three accepted horizons agree. A converged problem
 freezes all its state; with early_exit the loop stops once every problem of
 the batch is done (one host check per iteration), which changes no result.
+
+Problems solve in their own dtype, float64 or float32. A float32 solve
+stores its trajectories, linearizations, select inputs, gains and results
+in float32, as the JAX package's f32 path does, and runs every recursion
+(select, backward pass, rollouts, brute force, one-pass sweep) in float64,
+rounding each result to float32 once, where the JAX package runs df32 on
+the TPU. No float32 product runs in TF32 (ops/precision.py).
 """
 
 from __future__ import annotations
@@ -18,6 +25,8 @@ from typing import Optional
 import torch
 
 from timeopt_tpu_torch.models.base import PROBLEM_FIELDS, Problem, System
+from timeopt_tpu_torch.ops import _build
+from timeopt_tpu_torch.ops.precision import full_matmul_precision
 from timeopt_tpu_torch.solver.augmented import (
     build_augmented,
     build_fused_inputs,
@@ -49,7 +58,19 @@ class SolveOptions:
     propagator's prefix scan (scan_mode): "sequential" (the select kernels),
     "associative" (the tree of lax.associative_scan, plain torch, then the
     query) or "assoc_df" (latency mode, solver/select_assoc.py; factored
-    query only); the other methods ignore scan_mode."""
+    query only); the other methods ignore scan_mode.
+
+    Two options act on float32 problems only. df_forward is kept for the
+    JAX package's API: "auto" and "on" both name what the port always does,
+    every float32 rollout carrying its state in float64 and storing its
+    float32 rounding; "off" (the JAX package's plain float32 rollouts, a
+    diagnostic of a chip without float64) is not ported and raises
+    ValueError. select_dtype, with the JAX semantics
+    (None: the problem's dtype; "float64" or "float32"), casts the select's
+    inputs to that dtype and its curve back. A float32 select takes the
+    sequential scan and the factored query only: the float32 prefix-scan and
+    query kernels are the next slice of the port (ROADMAP.md); other modes
+    raise TypeError unless select_dtype="float64"."""
 
     method: str = "propagator"  # "propagator" | "bruteforce" | "onepass"
     max_iter: int = 15
@@ -67,6 +88,8 @@ class SolveOptions:
     early_exit: bool = True
     onepass_preimage: str = "fixedpoint"  # "fixedpoint" | "newton" | "copy"
     preimage_iters: int = 4  # fixed-point preimage iterations (onepass.fixedpoint_preimage_step)
+    df_forward: str = "auto"  # "auto" | "on": float64-carried rollouts of float32 problems
+    select_dtype: Optional[str] = None  # None | "float64" | "float32": the select's dtype
 
     def check(self) -> None:
         if self.method not in ("propagator", "bruteforce", "onepass"):
@@ -81,6 +104,13 @@ class SolveOptions:
             raise ValueError("scan_mode='assoc_df' requires terminal_mode='factored'")
         if self.linearize_mode not in ("ad", "central", "forward"):
             raise ValueError(f"unknown linearize_mode {self.linearize_mode!r}")
+        if self.df_forward == "off":
+            raise ValueError("df_forward='off' (plain float32 rollouts) is not ported: float32 rollouts "
+                             "always carry their state in float64")
+        if self.df_forward not in ("auto", "on"):
+            raise ValueError(f"unknown df_forward {self.df_forward!r}")
+        if self.select_dtype not in (None, "float64", "float32"):
+            raise ValueError(f"unknown select_dtype {self.select_dtype!r}")
 
 
 @dataclasses.dataclass
@@ -143,7 +173,20 @@ def _select_curve(system, prob, opts, X, U, A, B) -> torch.Tensor:
     scaled by s_0^2: through the fused or the generic select (sequential
     scan, factored query), else on the assembled blocks through the unfused
     select (the inverse query or the associative scan) or the latency-mode
-    select (assoc_df)."""
+    select (assoc_df). With select_dtype the inputs are cast to that dtype
+    and the curve back to X's."""
+    sd = getattr(torch, opts.select_dtype) if opts.select_dtype else X.dtype
+    if sd != X.dtype:
+        inner = dataclasses.replace(opts, select_dtype=None)
+        prob_sd, X_sd, U_sd, A_sd, B_sd = (_build.cast(t, sd) for t in (prob, X, U, A, B))
+        return _select_curve(system, prob_sd, inner, X_sd, U_sd, A_sd, B_sd).to(X.dtype)
+    if (X.dtype == torch.float32 and opts.method == "propagator"
+            and (opts.scan_mode != "sequential" or opts.terminal_mode != "factored")):
+        raise TypeError(
+            f"a float32 select with scan_mode={opts.scan_mode!r}, terminal_mode={opts.terminal_mode!r} needs the "
+            "prefix-scan and query kernels in float32, which are not ported yet (ROADMAP.md, Queue 1: the next "
+            "slice); take the default sequential scan and factored query, or select_dtype='float64'"
+        )
     Tm = prob.T_max
     Xh, Uh, Ah, Bh = X[:, : Tm + 1], U[:, :Tm], A[:, :Tm], B[:, :Tm]
     if opts.method == "bruteforce":
@@ -263,6 +306,7 @@ def _pad_U(U: torch.Tensor, N: int) -> torch.Tensor:
     return U[:N]
 
 
+@full_matmul_precision
 def solve_batch(
     system: System,
     probs: Problem,
@@ -270,7 +314,8 @@ def solve_batch(
     options: Optional[SolveOptions] = None,
 ) -> SolveResult:
     """Solve a batch of problems (every Problem tensor has a leading batch
-    axis) by opts.method. Runs on the device of the problem's tensors."""
+    axis) by opts.method. Runs on the device of the problem's tensors, in
+    their dtype (float64 or float32), with TF32 off."""
     opts = options or SolveOptions()
     opts.check()
     probs = probs.replace(**{f: t.contiguous() for f, t in probs.tensors().items()})

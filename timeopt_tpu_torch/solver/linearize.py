@@ -19,7 +19,10 @@ def linearize_ad(step, X: torch.Tensor, U: torch.Tensor):
     def joint(v):
         return step(v[:n], v[n:])
 
-    J = torch.func.vmap(torch.func.jacfwd(joint))(xu)  # (B*N, n, n+m)
+    # (B*N, n, n+m) in the problem dtype: torch's forward AD promotes the
+    # tangent of a 0-dim float32 tensor times a Python float to float64
+    # (x[..., i] * dt under vmap), so a float32 Jacobian may come out float64
+    J = torch.func.vmap(torch.func.jacfwd(joint))(xu).to(X.dtype)
     return J[..., :n].reshape(Bsz, N, n, n), J[..., n:].reshape(Bsz, N, n, m)
 
 

@@ -11,9 +11,10 @@ accepted kept; where the sweep goes numerically bad (`ok` False) the
 fixed-T-bar update of the backward pass and line search is taken instead,
 computed every iteration as the JAX package computes it.
 
-The sweep is plain torch: one-pass has no TPU kernel of its own (the JAX
-package's df32 twin, solver/sweep_df.py, is not ported: the port runs in
-float64). Its line-search launches are the line-search kernel's
+The sweep is plain torch: one-pass has no TPU kernel of its own. On
+float32 problems it runs in float64 and returns float32 values, the
+counterpart of the JAX package's df32 sweep (solver/sweep_df.py). Its
+line-search launches are the line-search kernel's
 (ops/cuda_forward.py): the warm start and the fallback through
 `forward_linesearch`, the shifted-gain rollout through the kernel's
 start-state entry on idx-shifted inputs, the three window shrinks of one
@@ -27,7 +28,7 @@ from typing import NamedTuple
 import torch
 
 from timeopt_tpu_torch.models.base import Problem, System
-from timeopt_tpu_torch.ops import cuda_forward
+from timeopt_tpu_torch.ops import _build, cuda_forward
 from timeopt_tpu_torch.ops.linalg import gj_solve, spd_check, sym
 from timeopt_tpu_torch.ops.wrap import wrap_error
 from timeopt_tpu_torch.solver.backward import stage_expansion
@@ -137,7 +138,8 @@ def value_sweep_prefix(
     the value through with zero gains. `ok` is False where an input (e, du,
     A, B) or the terminal error is non-finite, where no rung of the LM
     ladder is SPD, or where a value (Vx, Vxx, V0) goes non-finite at an
-    active step."""
+    active step. On float32 inputs the sweep runs in float64 and its
+    values come back in float32."""
     L = prob.T_max + S
     e, du, lx, lu, l0, Qstage = stage_expansion(system, prob, X_ext[:, : L + 1], U_ext[:, :L])
     eT = wrap_error(X_ext[:, 1 : L + 1] - prob.xg[:, None], prob.wrap_mask[:, None])  # (B, L, n)
@@ -147,8 +149,8 @@ def value_sweep_prefix(
         & torch.isfinite(A_ext[:, :L]).flatten(2).all(dim=-1)
         & torch.isfinite(B_ext[:, :L]).flatten(2).all(dim=-1)
     )
-    return _sweep_arrays(
-        A_ext[:, :L], B_ext[:, :L], lx, lu, l0, Qstage, eT, torch.isfinite(eT).all(dim=-1), fin_in,
+    return _build.in_f64(
+        _sweep_arrays, A_ext[:, :L], B_ext[:, :L], lx, lu, l0, Qstage, eT, torch.isfinite(eT).all(dim=-1), fin_in,
         sym(prob.Qf), prob.R, T_bar.to(torch.int64) + S, torch.clamp(lm_lambda, min=1e-12),
     )
 

@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 
 from timeopt_tpu_torch.models.base import Problem, System
+from timeopt_tpu_torch.ops.precision import full_matmul_precision
 from timeopt_tpu_torch.solver.backward import backward_truncated
 from timeopt_tpu_torch.solver.cost import argmin_T, nominal_cost_curve, rollout
 from timeopt_tpu_torch.solver.forward import forward_linesearch
@@ -196,6 +197,7 @@ def profile_solve_onepass(system: System, prob: Problem, options: Optional[Solve
     return dict(X=X, U=U, J_hist=J_hist, T_hist=T_hist, T_star=T_out, timers=t), t
 
 
+@full_matmul_precision
 def profile_any(system: System, prob: Problem, options: SolveOptions, U_init=None):
     """The phase profiler of options.method."""
     if options.method == "onepass":
