@@ -76,7 +76,8 @@ no result line):
 9. scale-out (timeopt_tpu_torch.parallel): solve_batch_sharded over a
    mesh of every card against solve_batch on the quadrotor and PointMass
    oracle sets, propagator_select_sharded with the queries over the cards
-   against propagator_select (both scan modes), then torch.distributed
+   against propagator_select (both scan modes; at float32 bit for bit),
+   then torch.distributed
    in this process at world size 1 with NCCL: solve_batch_global +
    gather_results against the same solve, t_star_histogram and
    batch_summary against their local values (exactly), and the runner
@@ -88,17 +89,26 @@ no result line):
    backward, the line search (both entries) and the generic select against
    their plain versions at phase 3's shapes (F32_SELECT_BOUND, F32_REL,
    F32_ATOL; PointMass's select also against a long-double witness,
-   F32_WITNESS_REL, beside the plain version computed in float32), timed,
-   with their bounds at float32 bytes; (b) the six oracle sets as float32
-   problems (oracle_problems' perturbation, rounded), scored against the
-   float64 oracle: exact-or-tied no lower than the JAX package's float32
-   pipeline (results/oracle_f32_dense*.npz against the same oracle),
-   phase 4's float64 score beside it; (c) phase 7's quadrotor and
-   PointMass solves at float32, beside phase 7's float64 solves/s of this
-   run, then `python3 bench_torch.py` at its defaults, its one JSON line
-   echoed; (d) the runner with --f32 on the double integrator and the
-   quadrotor (5 trials, three solvers), every row finite and each T*
-   printed beside results/tpu_f32/summary_all.csv.
+   F32_WITNESS_REL, beside the plain version computed in float32), and
+   the scan's and the query's on the quadrotor's float32 blocks
+   (f32_scan_query: phase 3's gates, and bit for bit their float64 entries
+   on the upcast inputs), timed, with their bounds at float32 bytes; (b)
+   the six oracle sets as float32 problems (oracle_problems' perturbation,
+   rounded), scored against the float64 oracle: exact-or-tied no lower
+   than the JAX package's float32 pipeline (results/oracle_f32_dense*.npz
+   against the same oracle), phase 4's float64 score beside it, with the
+   J(T) change from rounding the prefixes to float32 printed on the segway
+   and the quadrotor (prefix_rounding, a diagnostic); then the same sets
+   through #9 and #10 at float32 (F32_MODES: the inverse query and both
+   latency modes), gated as phase 8 and each result's consistency_check as
+   phase 5, the argmins at float32 resolution (tied_f32); (c) phase 7's quadrotor and PointMass
+   solves and the quadrotor's one-pass solve at float32, beside phase 7's
+   float64 solves/s of this run, then `python3 bench_torch.py` at its
+   defaults, its one JSON line echoed; (d) the runner with --f32
+   --consistency on the double integrator and the quadrotor (5 trials,
+   three solvers), every row finite, each T* printed beside
+   results/tpu_f32/summary_all.csv and each trial-0 consistency_max_abs no
+   larger than that file's.
 
 Each path resets the kernels' launch counts just before it runs and reads
 them just after; a kernel of the path that was not launched fails it. The
@@ -117,9 +127,10 @@ is null: no single PyTorch call computes any of these functions); the
 backward's entry also holds its numbers at PointMass B=1024 (`pointmass`,
 printed on a [bounds] line of its own), the line search's those of the
 one-pass rollouts from their start states, with their bound
-(`onepass_rollout`); the four kernels with a float32 instantiation also
-hold its phase-10 numbers (`float32`: the same keys, bytes at float32,
-launches per float32 solve of phase 10 (c)). The last line is
+(`onepass_rollout`); every kernel also holds its float32 instantiation's
+phase-10 numbers (`float32`: the same keys, bytes at float32, launches
+per float32 solve of phase 10 (c); the scan and the query also their
+float64 entries' times on the same blocks). The last line is
 {"ok": true, "device": {...}}.
 Imports no JAX.
 
@@ -137,7 +148,8 @@ entry (start states X[:, 0], as a view of X and as a copy) against the old
 kernel's ordinary entry. Where the old sources have a kernel's float32
 entry, that kernel's rows include its float32 instantiation too (the
 quadrotor, or PointMass, at B=1024; the line search also from the
-one-pass rollouts' start states).
+one-pass rollouts' start states; the scan and the query also the random
+blocks of the run-time-size paths).
 """
 
 from __future__ import annotations
@@ -293,6 +305,11 @@ THROUGHPUT: dict = {}
 # the oracle's flat curve, with J* up to 68x off, in the JAX package too.
 ASSOC_MISSES = {"Segway_Balance": (18, 110), "PointMass_Navigation": (55,)}
 LATENCY_MODES = ("associative", "assoc_df")
+# Phase 8's exact-or-tied score per (scan mode, case) and phase 5's inverse
+# query's (quadrotor), printed beside phase 10 (b)'s float32 modes; phase
+# 5's largest J_prop vs J_bf normwise reading per case, beside phase 10's.
+MODE_TIED: dict = {}
+CC_READ: dict = {}
 
 
 def kernel_sources(name: str, csrc: Path) -> set:
@@ -459,8 +476,8 @@ def phase_build():
 
 def residency() -> None:
     """Blocks an SM holds at once of the scan kernel (two problems a block)
-    at each p and of the query kernel (one warp a block) at each n, as the
-    built kernels report them (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
+    at each p and of the query kernel (one warp a block) at each n, float64
+    and float32 instantiations, as the built kernels report them (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
     from their registers and shared memory): the scan's B=1024 quadrotor
     problems run in one wave if 2 x blocks x SMs >= 1,024."""
     import ctypes
@@ -469,15 +486,16 @@ def residency() -> None:
     from timeopt_tpu_torch.ops import _build
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    scan = _build.load("lft_scan").lft_scan_blocks_per_sm
-    query = _build.load("lft_query").lft_query_blocks_per_sm
-    for f in (scan, query):
-        f.argtypes, f.restype = [ctypes.c_int], ctypes.c_int
-    s = {p: scan(p) for p in (3, 5, 13, 4)}
-    log("[build] lft_scan blocks an SM (two problems each): " + ", ".join(f"p={p} {v}" for p, v in s.items())
-        + f"; at p=13 {2 * s[13] * sms} problems at once on {sms} SMs (quadrotor B={B_FULL})")
-    log("[build] lft_query blocks an SM (one warp each): "
-        + ", ".join(f"n={n} {query(n)}" for n in (2, 4, 12, 3)))
+    for suffix, tag in (("", "float64"), ("_f32", "float32")):
+        scan = getattr(_build.load("lft_scan"), f"lft_scan_blocks_per_sm{suffix}")
+        query = getattr(_build.load("lft_query"), f"lft_query_blocks_per_sm{suffix}")
+        for f in (scan, query):
+            f.argtypes, f.restype = [ctypes.c_int], ctypes.c_int
+        s = {p: scan(p) for p in (3, 5, 13, 4)}
+        log(f"[build] lft_scan {tag} blocks an SM (two problems each): " + ", ".join(f"p={p} {v}" for p, v in s.items())
+            + f"; at p=13 {2 * s[13] * sms} problems at once on {sms} SMs (quadrotor B={B_FULL})")
+        log(f"[build] lft_query {tag} blocks an SM (one warp each): "
+            + ", ".join(f"n={n} {query(n)}" for n in (2, 4, 12, 3)))
 
 
 def check_select(J_k, J_p, s, probs, bound, label: str, inf_below: bool = True,
@@ -1280,6 +1298,22 @@ def score(T, T_o, curve_o, w: float):
     return exact, exact | (np.abs(curve_o[idx, T - 1] - curve_o[idx, T_o - 1]) <= w * (np.abs(T - T_o) + 1))
 
 
+def tied_f32(T, T_o, curve_o, w: float):
+    """Exact-or-tied at float32 resolution: the flat-tie rule widened by two
+    float32 ulps of J(T_o). A float32 curve stores each J(T) rounded to
+    float32 (half an ulp), and both the curve that picked T and the one
+    that picked T_o do, so two horizons whose J differ by up to two ulps
+    may compare equal or swap order. Where w (|T - T_o| + 1) is below that
+    (the ballbot: w = 1e-4, J ~2600, ulp 2.4e-4; J(199) and J(200) of the
+    oracle differ by 1.2-1.3 ulps, and the float32 J_prop holds them
+    equal, PERF.md section 2) the flat-tie rule asks for more than a
+    float32 curve can tell."""
+    idx = np.arange(len(T_o))
+    ref = curve_o[idx, T_o - 1]
+    ulp = np.spacing(np.abs(ref).astype(np.float32)).astype(np.float64)
+    return (T == T_o) | (np.abs(curve_o[idx, T - 1] - ref) <= w * (np.abs(T - T_o) + 1) + 2 * ulp)
+
+
 def solve_oracle_set(case: str, device, opts, dtype=None) -> dict:
     """The 128 problems of the case's results/oracle_f64*.npz solved on the
     card with `opts` (in `dtype`, float32, if given), checked finite and of
@@ -1349,9 +1383,7 @@ def phase_bruteforce(case: str, device) -> dict:
     paths."""
     import torch
     from timeopt_tpu_torch.models import get_system
-    from timeopt_tpu_torch.solver.cost import argmin_T
     from timeopt_tpu_torch.solver.ilqr import SolveOptions, solve_batch
-    from timeopt_tpu_torch.solver.verify import consistency_check
 
     system, mk = get_system(case)
     orc = load_oracle(case)
@@ -1381,35 +1413,55 @@ def phase_bruteforce(case: str, device) -> dict:
     require(len(bad) == 0, f"brute force {case}: not exact or tied on {bad.tolist()} (T* {T[bad].tolist()}, "
             f"oracle {T_o[bad].tolist()})")
 
+    cc_counts, CC_READ[case] = check_consistency(system, probs, res.X, res.U, CC_NORM_BOUND[case],
+                                                 f"[consistency] {case} B={Bo}")
+    return {k: counts[k] + cc_counts[k] for k in counts}
+
+
+def check_consistency(system, probs, X, U, bound: float, label: str) -> tuple:
+    """consistency_check on the trajectories (X, U): the scan and query
+    kernels' J_prop(T) against the plain brute force's J_bf(T), every
+    problem's argmin T* tied to J_bf's by the oracle's rule (on float32
+    curves at float32 resolution, tied_f32) and the largest normwise
+    difference within `bound`. Returns (launch counts, that largest
+    normwise difference)."""
+    import torch
+    from timeopt_tpu_torch.solver.cost import argmin_T
+    from timeopt_tpu_torch.solver.verify import consistency_check
+
+    Bo = probs.batch
     reset_launches()
     t0 = time.perf_counter()
-    cc = consistency_check(system, probs, res.X, res.U)
+    cc = consistency_check(system, probs, X, U)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     cc_counts = launches()
     for name in ("lft_scan", "lft_query"):
-        require(cc_counts[name] > 0, f"consistency_check {case}: kernel {name} was never launched")
+        require(cc_counts[name] > 0, f"{label}: kernel {name} was never launched")
     mx = cc["max_abs"].cpu().numpy()
-    require(np.isfinite(mx).all() and bool(torch.isfinite(cc["rmse"]).all()), f"consistency_check {case}: non-finite")
-    require(bool(torch.isfinite(cc["J_prop"][:, probs.T_min - 1 :]).all()), f"consistency_check {case}: J_prop non-finite")
+    require(np.isfinite(mx).all() and bool(torch.isfinite(cc["rmse"]).all()), f"{label}: non-finite")
+    require(bool(torch.isfinite(cc["J_prop"][:, probs.T_min - 1 :]).all()), f"{label}: J_prop non-finite")
     # the kernels' curve against the brute force's on the same trajectories
     J_prop, J_bf = cc["J_prop"], cc["J_bf"]
-    a, b = J_prop[:, probs.T_min - 1 :], J_bf[:, probs.T_min - 1 :]
+    a, b = J_prop[:, probs.T_min - 1 :].double(), J_bf[:, probs.T_min - 1 :].double()
     nw = ((a - b).abs().amax(1) / b.abs().amax(1)).cpu().numpy()
     T_prop = argmin_T(J_prop, probs.T_min, probs.T_max).cpu().numpy()
     T_bf = argmin_T(J_bf, probs.T_min, probs.T_max).cpu().numpy()
-    exact_bf, tied_bf = score(T_prop, T_bf, J_bf.cpu().numpy(), float(probs.w[0]))
+    curve, w = J_bf.double().cpu().numpy(), oracle_w(system.name)
+    exact_bf, tied_bf = score(T_prop, T_bf, curve, w)
+    f32 = J_bf.dtype == torch.float32
+    gate = tied_f32(T_prop, T_bf, curve, w) if f32 else tied_bf
     q = np.quantile(mx, [0.0, 0.5, 0.9, 1.0])
-    log(f"[consistency] {case} B={Bo}: max_abs min {q[0]:.3e} median {q[1]:.3e} p90 {q[2]:.3e} max {q[3]:.3e} | "
+    log(f"{label}: max_abs min {q[0]:.3e} median {q[1]:.3e} p90 {q[2]:.3e} max {q[3]:.3e} | "
         f"rmse median {float(cc['rmse'].median()):.3e} | J_prop vs J_bf normwise median {np.median(nw):.3e} max "
-        f"{nw.max():.3e} (bound {CC_NORM_BOUND[case]}), argmin exact {int(exact_bf.sum())}/{Bo}, tied "
-        f"{int(tied_bf.sum())}/{Bo} | {secs:.2f} s | launches {cc_counts}")
-    require(nw.max() <= CC_NORM_BOUND[case],
-            f"consistency_check {case}: J_prop vs J_bf normwise {nw.max():.3e} > {CC_NORM_BOUND[case]}")
-    bad = np.nonzero(~tied_bf)[0]
-    require(len(bad) == 0, f"consistency_check {case}: the kernels' argmin T* is not tied to the brute force's on "
+        f"{nw.max():.3e} (bound {bound}), argmin exact {int(exact_bf.sum())}/{Bo}, tied "
+        f"{int(tied_bf.sum())}/{Bo}" + (f", tied at float32 resolution {int(gate.sum())}/{Bo}" if f32 else "")
+        + f" | {secs:.2f} s | launches {cc_counts}")
+    require(nw.max() <= bound, f"{label}: J_prop vs J_bf normwise {nw.max():.3e} > {bound}")
+    bad = np.nonzero(~gate)[0]
+    require(len(bad) == 0, f"{label}: the kernels' argmin T* is not tied to the brute force's on "
             f"{bad.tolist()} (T* {T_prop[bad].tolist()}, brute force {T_bf[bad].tolist()})")
-    return {k: counts[k] + cc_counts[k] for k in counts}
+    return cc_counts, float(nw.max())
 
 
 def phase_inverse(device) -> dict:
@@ -1434,6 +1486,7 @@ def phase_inverse(device) -> dict:
     T_o = orc["T"].astype(np.int64)
     exact, tied = score(res.T_star.cpu().numpy(), T_o, orc["J_curve"], float(probs.w[0]))
     gap = np.abs(res.J_star.cpu().numpy() - orc["J"]) / np.abs(orc["J"])
+    MODE_TIED[("inverse", "Quadrotor")] = int(tied.sum())
     log(f"[inverse] Quadrotor B={B_ORACLE} terminal_mode=inverse: T* exact {int(exact.sum())}/{B_ORACLE}, "
         f"exact-or-tied {int(tied.sum())}/{B_ORACLE} | J* rel gap max {gap.max():.3e} | {secs:.2f} s | launches {counts}")
     return counts
@@ -1558,9 +1611,10 @@ def phase_throughput(case: str, device, dtype=None) -> dict:
     return counts
 
 
-def phase_throughput_onepass(device) -> dict:
+def phase_throughput_onepass(device, dtype=None) -> dict:
     """One timed one-pass solve (baseline2) of the quadrotor at B=1024,
-    N=160, max_iter=12, after a warm-up; returns its launch counts. The
+    N=160, max_iter=12, after a warm-up, in float64 or `dtype` (float32);
+    records its solves/s in THROUGHPUT and returns its launch counts. The
     one-pass method launches the backward and the line-search kernels: the
     warm start and the fixed-T-bar fallback (computed every iteration), and
     the three window shrinks' shifted-gain rollouts of each iteration
@@ -1571,7 +1625,7 @@ def phase_throughput_onepass(device) -> dict:
     from timeopt_tpu_torch.solver.ilqr import SolveOptions, solve_batch
 
     system, mk = get_system("Quadrotor")
-    probs = oracle_problems(system, mk, B_FULL, device)
+    probs = oracle_problems(system, mk, B_FULL, device, dtype)
     opts = SolveOptions(method="onepass", max_iter=MAX_ITER, S_window=20)
     solve_batch(system, probs, options=opts)  # warm-up
     torch.cuda.synchronize()
@@ -1587,7 +1641,11 @@ def phase_throughput_onepass(device) -> dict:
     eT = wrap_error(res.X[torch.arange(B_FULL, device=device), res.T_star] - probs.xg, probs.wrap_mask)
     succ = float((eT.norm(dim=-1) <= 0.5).double().mean())
     iters = counts["backward"] - 1  # the warm start's and one fallback backward an iteration
-    log(f"[throughput] Quadrotor one-pass B={B_FULL} max_iter={MAX_ITER} S_window=20 f64: {B_FULL / secs:.2f} solves/s | "
+    tag = "f64" if dtype is None else "f32"
+    THROUGHPUT[("Quadrotor_onepass", tag)] = B_FULL / secs
+    beside = f" (f64 in this call: {THROUGHPUT[('Quadrotor_onepass', 'f64')]:.2f})" if tag == "f32" else ""
+    log(f"[throughput] Quadrotor one-pass B={B_FULL} max_iter={MAX_ITER} S_window=20 {tag}: {B_FULL / secs:.2f} "
+        f"solves/s{beside} | "
         f"{secs:.3f} s | {iters} outer iterations | launches per solve: linesearch {counts['linesearch']}, backward "
         f"{counts['backward']} (all {counts}) | T* median {float(res.T_star.double().median()):g} | n_fallback total "
         f"{int(res.n_fallback.sum())} | success@0.5 {succ:.3f} | {smi()}")
@@ -1612,7 +1670,7 @@ def phase_latency_oracle(device) -> dict:
                 require(counts[name] > 0, f"latency mode {mode} {case}: kernel {name} was never launched")
             require(counts["lft_select"] == counts["lft_select_generic"] == 0,
                     f"latency mode {mode} {case}: a sequential select kernel was launched")
-            tied = int(o["tied"].sum())
+            tied = MODE_TIED[(mode, case)] = int(o["tied"].sum())
             bad = np.nonzero(~o["tied"])[0]
             log(f"[latency] {case} B={Bo} scan_mode={mode}: T* exact {int(o['exact'].sum())}/{Bo}, exact-or-tied "
                 f"{tied}/{Bo} (phase 4, sequential: {ORACLE_TIED.get(case)}/{Bo}) | J* rel gap max {o['gap'].max():.3e} "
@@ -1761,7 +1819,8 @@ def phase_scaleout(device) -> dict:
     """Phase 9: parallel/ on the card. The batch over a mesh of every card
     (solve_batch_sharded against solve_batch on the quadrotor and PointMass
     oracle sets), the terminal queries over the cards
-    (propagator_select_sharded against propagator_select, rtol 1e-12), then
+    (propagator_select_sharded against propagator_select, rtol 1e-12; at
+    float32 on the float32 first iterate, bitwise), then
     torch.distributed in this process at world size 1 with NCCL:
     solve_batch_global + gather_results against the same solve, the
     statistics against their local values (exactly), the runner with
@@ -1775,6 +1834,7 @@ def phase_scaleout(device) -> dict:
     import torch
     import torch.multiprocessing as mp
     from timeopt_tpu_torch.models import get_system
+    from timeopt_tpu_torch.ops import _build
     from timeopt_tpu_torch.ops.wrap import wrap_error
     from timeopt_tpu_torch.parallel import (batch_summary, distributed, make_mesh, propagator_select_sharded,
                                             solve_batch_sharded, t_star_histogram)
@@ -1832,6 +1892,27 @@ def phase_scaleout(device) -> dict:
             f"{cards} card(s)) vs propagator_select: max rel err {rel:.3e} (bound 1e-12), bitwise "
             f"{bool(torch.equal(got, want))} | launches {c}")
         require(within(got, want, 1e-12, 0.0), f"propagator_select_sharded {mode}: rel err {rel:.3e} > 1e-12")
+    # at float32: the float32 blocks of the float32 problems' first iterate,
+    # float64 prefixes and float32 C sent to the cards, float32 J back
+    probs32 = _build.cast(probs, torch.float32)
+    X, U, A, Bj = first_iterate(system, probs32)
+    blk = build_augmented(system, probs32, X[:, : Tm + 1], U[:, :Tm], A[:, :Tm], Bj[:, :Tm])
+    C = build_terminal_factors(probs32, X[:, : Tm + 1], s=blk.s)
+    require(blk.A_aug.dtype == C.dtype == torch.float32, "propagator_select_sharded float32: blocks not float32")
+    for mode in ("sequential", "associative"):
+        want = propagator_select(blk.A_aug, blk.B_aug, blk.Q_aug, blk.R_inv, C, scan_mode=mode)
+        reset_launches()
+        got = propagator_select_sharded(blk, C, hs, scan_mode=mode)
+        torch.cuda.synchronize()
+        c = launches()
+        for name in (("lft_scan",) if mode == "sequential" else ()) + ("lft_query",):
+            require(c[name] > 0, f"propagator_select_sharded float32 {mode}: kernel {name} was never launched")
+        count(c)
+        same = got.dtype == want.dtype == torch.float32 and bool(torch.equal(got.view(torch.int32),
+                                                                             want.view(torch.int32)))
+        log(f"[scale-out] propagator_select_sharded float32 (Quadrotor B={B_ORACLE} float32 first iterate, "
+            f"scan_mode={mode}, hs over {cards} card(s)) vs propagator_select float32: bitwise {same} | launches {c}")
+        require(same, f"propagator_select_sharded float32 {mode}: not bitwise equal to propagator_select")
 
     system, probs, want = solved["Quadrotor"]
     errs = wrap_error(want.X[torch.arange(B_ORACLE, device=device), want.T_star] - probs.xg, probs.wrap_mask).norm(dim=-1)
@@ -2014,6 +2095,97 @@ def phase_f32_kernels(device) -> dict:
                           len(ls_args[-1]), x_start=True, itemsize=4))
     log(f"[float32] line search from start states: kernel {ms:.3f} ms one call, {b2b:.3f} ms back to back, "
         f"plain {pms:.3f} ms")
+    out.update(f32_scan_query(*iters["Quadrotor"][:6]))
+    return out
+
+
+def bitwise(a, b) -> bool:
+    """a and b of one dtype, equal bit for bit (NaNs included)."""
+    import torch
+
+    bits = torch.int64 if a.dtype == torch.float64 else torch.int32
+    return a.dtype == b.dtype and bool(torch.equal(a.contiguous().view(bits), b.contiguous().view(bits)))
+
+
+def f32_scan_query(system, probs, X, U, A, Bj, levels: int = 2) -> dict:
+    """Phase 10 (a), the unfused select's kernels at float32 on the float32
+    blocks of (X, U, A, B) at consistency_check's levels 2, as phase 3:
+    - the scan's float32 entry (float64 prefixes) against its plain version
+      through phase 3's gate of the chain, SCAN_QUERY_FIRST_BOUND on J in
+      float64 (the query's float64 entry on each side's prefixes, C
+      upcast), E, F, G normwise printed;
+    - the query's float32 entry on the plain prefixes against the plain
+      query, within F32_REL (phase 3's QUERY_BOUND, then one rounding);
+    - each against its own float64 entry on the upcast inputs, bit for bit:
+      the prefixes, and J the float64 J rounded once (float32 to float64 is
+      exact and the arithmetic is the same code);
+    - both entries of each timed in turns (float32, float64, float64,
+      float32), with their bounds at float32 bytes (ops/work.py).
+    Returns the float32 entries' numbers by kernel."""
+    import torch
+    from timeopt_tpu_torch.ops import cuda_lft_query, cuda_lft_scan, work
+    from timeopt_tpu_torch.solver.augmented import build_augmented, build_terminal_factors
+    from timeopt_tpu_torch.solver.horizon import brb
+
+    f32, f64 = torch.float32, torch.float64
+    Bsz = probs.batch
+    blk = build_augmented(system, probs, X, U, A, Bj, psd_levels=levels)
+    C = build_terminal_factors(probs, X, s=blk.s).contiguous()
+    args = [t.contiguous() for t in (blk.A_aug, brb(blk.B_aug, blk.R_inv), blk.Q_aug)]
+    require(all(t.dtype == f32 for t in (*args, C)), "scan+query float32: the blocks are not float32")
+    args64, C64 = [t.double() for t in args], C.double()
+    pre_k = cuda_lft_scan.lft_scan(*args, levels=levels)
+    pre_p = cuda_lft_scan.lft_scan_plain(*args, levels=levels)
+    pre_64 = cuda_lft_scan.lft_scan(*args64, levels=levels)
+    J_k = cuda_lft_query.lft_query(*pre_k, C, levels=levels)
+    J_64 = cuda_lft_query.lft_query(*pre_k, C64, levels=levels)
+    J_kq = cuda_lft_query.lft_query(*pre_p, C, levels=levels)
+    J_p = cuda_lft_query.lft_query_plain(*pre_p, C, levels=levels)
+    J_p64 = cuda_lft_query.lft_query_plain(*pre_p, C64, levels=levels)
+    torch.cuda.synchronize()
+    require(all(t.dtype == f64 for t in pre_k) and J_k.dtype == J_kq.dtype == J_p.dtype == f32,
+            "scan+query float32: the prefixes are not float64 or J not float32")
+    label = f"(Quadrotor B={Bsz}, float32 first iterate, levels {levels})"
+    efg = [normwise(k, p, f"lft_scan float32 {label}") for k, p in zip(pre_k, pre_p)]
+    log(f"[float32] lft_scan {label}: prefixes (float64) vs the plain scan's normwise E {efg[0]:.3e}, F {efg[1]:.3e}, "
+        f"G {efg[2]:.3e}")
+    scan_err, _ = check_select(J_64, J_p64, blk.s, probs, SCAN_QUERY_FIRST_BOUND,
+                               f"lft_scan float32 {label}: the chain's J in float64 vs the plain chain's",
+                               inf_below=False)
+    q_err, _ = check_select(J_kq, J_p, blk.s, probs, ("rel", F32_REL),
+                            f"lft_query float32 {label} on the plain prefixes vs the plain query", inf_below=False,
+                            tie=F32_REL)
+    same_scan = all(bitwise(a, b) for a, b in zip(pre_k, pre_64))
+    same_query = bitwise(J_k, J_64.float())
+    log(f"[float32] {label}: lft_scan_f32 prefixes bitwise the float64 entry's on the upcast blocks: {same_scan} "
+        f"(max |diff| {max(max_err(a, b)[0] for a, b in zip(pre_k, pre_64)):.3e}); lft_query_f32 J bitwise the "
+        f"float64 entry's J rounded once: {same_query}")
+    require(same_scan and same_query, f"scan+query float32 {label}: not bitwise the float64 entries on upcast inputs")
+
+    calls = {"lft_scan": (lambda: cuda_lft_scan.lft_scan(*args, levels=levels),
+                          lambda: cuda_lft_scan.lft_scan(*args64, levels=levels),
+                          lambda: cuda_lft_scan.lft_scan_plain(*args, levels=levels)),
+             "lft_query": (lambda: cuda_lft_query.lft_query(*pre_k, C, levels=levels),
+                           lambda: cuda_lft_query.lft_query(*pre_k, C64, levels=levels),
+                           lambda: cuda_lft_query.lft_query_plain(*pre_k, C, levels=levels))}
+    count = {"lft_scan": work.lft_scan, "lft_query": work.lft_query}
+    out = {}
+    for name, (k32, k64, plain) in calls.items():
+        t = {"f32": [], "f64": [], "f32_one_call": [], "f64_one_call": []}
+        for tag in ("f32", "f64", "f64", "f32"):
+            fn = k32 if tag == "f32" else k64
+            t[tag].append(device_ms(fn))
+            t[tag + "_one_call"].append(cuda_ms(fn, reps=5))
+        pms = cuda_ms(plain, reps=3)
+        out[name] = dict(max_abs_err=scan_err if name == "lft_scan" else q_err, ms=statistics.mean(t["f32_one_call"]),
+                         ms_back_to_back=statistics.mean(t["f32"]), plain_ms=pms,
+                         float64_entry_ms=statistics.mean(t["f64_one_call"]),
+                         float64_entry_ms_back_to_back=statistics.mean(t["f64"]),
+                         **count[name](Bsz, probs.N, system.n, itemsize=4))
+        log(f"[float32] {name} {label}, back to back in turns: float32 {t['f32'][0]:.3f} / float64 {t['f64'][0]:.3f} / "
+            f"float64 {t['f64'][1]:.3f} / float32 {t['f32'][1]:.3f} ms; one call: {t['f32_one_call'][0]:.3f} / "
+            f"{t['f64_one_call'][0]:.3f} / {t['f64_one_call'][1]:.3f} / {t['f32_one_call'][1]:.3f} ms; plain "
+            f"{pms:.3f} ms | {smi()}")
     return out
 
 
@@ -2086,7 +2258,115 @@ def phase_f32_oracle(case: str, device) -> dict:
         log(f"[float32] oracle {case} not tied: idx {bad.tolist()} T* {o['T'][bad].tolist()} oracle "
             f"{o['T_o'][bad].tolist()}")
     require(tied >= want, f"float32 oracle {case}: exact-or-tied {tied}/{Bo} < the JAX float32 pipeline's {want}")
+    if case in PREFIX_ROUNDING_CPU:
+        prefix_rounding(o["system"], o["probs"], o["res"])
     return counts
+
+
+# The largest relative change of J(T), T >= T_min, when the float64
+# prefixes are rounded to float32 before the query (prefix_rounding), read
+# on the CPU with the plain versions on 8 float32 oracle problems of each
+# system at the final iterate of their float32 solve: why the float32 path
+# keeps its prefixes in float64 (PERF.md section 6).
+PREFIX_ROUNDING_CPU = {"Segway_Balance": 2.2e-2, "Quadrotor": 1.4e-5}
+
+
+def prefix_rounding(system, probs, res) -> None:
+    """Diagnostic, not gated: the blocks of the float32 solve's final
+    iterate built in float64 (the float32 select's q_reg, psd_levels 1),
+    their prefixes by the scan kernel, then J by the query kernel's float64
+    entry twice, on the prefixes and on the prefixes rounded to float32;
+    prints the largest relative change of J(T), T >= T_min."""
+    import torch
+    from timeopt_tpu_torch.ops import _build, cuda_lft_query, cuda_lft_scan
+    from timeopt_tpu_torch.solver.augmented import build_augmented, build_terminal_factors
+    from timeopt_tpu_torch.solver.horizon import brb
+    from timeopt_tpu_torch.solver.ilqr import SolveOptions, resolve_q_reg
+    from timeopt_tpu_torch.solver.linearize import linearize
+
+    Tm, f64 = probs.T_max, torch.float64
+    p64 = _build.cast(probs, f64)
+    X, U = res.X[:, : Tm + 1].double(), res.U[:, :Tm].double()
+    A, Bj = linearize(system.step, X, U)
+    q_reg = resolve_q_reg(SolveOptions(), torch.float32)
+    blk = build_augmented(system, p64, X, U, A, Bj, q_reg=q_reg, psd_levels=1)
+    C = build_terminal_factors(p64, X, s=blk.s).contiguous()
+    pre = cuda_lft_scan.lft_scan(*(t.contiguous() for t in (blk.A_aug, brb(blk.B_aug, blk.R_inv), blk.Q_aug)),
+                                 levels=1)
+    J = cuda_lft_query.lft_query(*pre, C, levels=1)[:, probs.T_min - 1 :]
+    J_r = cuda_lft_query.lft_query(*(t.float().double() for t in pre), C, levels=1)[:, probs.T_min - 1 :]
+    change = ((J_r - J).abs() / J.abs()).max().item()
+    log(f"[float32] diagnostic {system.name} B={probs.batch}: J(T) change from rounding the float64 prefixes to "
+        f"float32 (blocks in float64 at the float32 final iterates, q_reg {q_reg:g}, levels 1): max rel "
+        f"{change:.3e} (the CPU's reading on 8 problems: {PREFIX_ROUNDING_CPU[system.name]:.1e})")
+
+
+# Phase 10 (b)'s float32 modes: each oracle set as float32 problems solved
+# through the scan and query kernels' float32 entries (the inverse query
+# with the sequential scan) or the plain latency-mode scans and the query.
+F32_MODES = (("inverse", dict(terminal_mode="inverse")), ("associative", dict(scan_mode="associative")),
+             ("assoc_df", dict(scan_mode="assoc_df")))
+
+
+def phase_f32_modes(device) -> dict:
+    """Phase 10 (b), the float32 paths through #9 and #10: each oracle set as
+    float32 problems solved in each of F32_MODES, scored against the
+    float64 oracle and gated as phase 8 gates its modes, at float32
+    resolution (tied_f32: the misses within REFERENCE_MISSES, and
+    ASSOC_MISSES for "associative"; PointMass exact-or-tied no lower than
+    the JAX float32 pipeline's, as phase 10 (b)'s sequential solve), the
+    same mode's float64 score beside (phase 8; the inverse query's from
+    phase 5, the quadrotor only); then consistency_check on each result
+    (check_consistency: phase 5's CC_NORM_BOUND, its float64 reading
+    beside). Returns the launch counts summed over both paths."""
+    import torch
+    from timeopt_tpu_torch.solver.ilqr import SolveOptions
+
+    total = {name: 0 for name in KERNELS}
+
+    def add(c: dict) -> None:
+        for name, v in c.items():
+            total[name] += v
+
+    for mode, kw in F32_MODES:
+        for case in CASES:
+            o = solve_oracle_set(case, device, SolveOptions(method="propagator", max_iter=MAX_ITER, psd_levels=1, **kw),
+                                 dtype=torch.float32)
+            counts, Bo = o["counts"], len(o["T_o"])
+            require(o["res"].J_star.dtype == torch.float32, f"float32 {mode} {case}: results not float32")
+            path = ("lft_scan",) if mode == "inverse" else ("lft_query",)
+            for name in path + ("backward", "linesearch"):
+                require(counts[name] > 0, f"float32 {mode} {case}: kernel {name} was never launched")
+            require(counts["lft_select"] == counts["lft_select_generic"] == 0,
+                    f"float32 {mode} {case}: a sequential select kernel was launched")
+            add(counts)
+            tied = int(o["tied"].sum())
+            res32 = tied_f32(o["T"], o["T_o"], load_oracle(case)["J_curve"], oracle_w(case))
+            bad = np.nonzero(~res32)[0]
+            f64 = MODE_TIED.get((mode, case))
+            log(f"[float32] {mode} {case} B={Bo}: T* exact {int(o['exact'].sum())}/{Bo}, exact-or-tied {tied}/{Bo}, at "
+                f"float32 resolution {int(res32.sum())}/{Bo} (this mode in float64: "
+                f"{f'{f64}/{Bo}' if f64 is not None else 'not run'}) | J* rel gap max "
+                f"{o['gap'].max():.3e} | success@0.5 {o['succ']:.3f} | {o['secs']:.2f} s | launches {counts}"
+                + (f" | not tied: idx {bad.tolist()} T* {o['T'][bad].tolist()} oracle {o['T_o'][bad].tolist()}"
+                   if len(bad) else ""))
+            if case == "PointMass_Navigation":
+                want = f32_artifact_tied(case)
+                require(tied >= want, f"float32 {mode} {case}: exact-or-tied {tied}/{Bo} < the JAX float32 "
+                                      f"pipeline's {want}")
+            else:
+                allowed = set(REFERENCE_MISSES.get(case, ()))
+                if mode == "associative":
+                    allowed |= set(ASSOC_MISSES.get(case, ()))
+                require(set(bad.tolist()) <= allowed, f"float32 {mode} {case}: exact-or-tied at float32 resolution "
+                                                      f"{int(res32.sum())}/{Bo}, misses "
+                                                      f"{sorted(set(bad.tolist()) - allowed)} beyond the allowed")
+            cc_counts, _ = check_consistency(
+                o["system"], o["probs"], o["res"].X, o["res"].U, CC_NORM_BOUND[case],
+                f"[float32] consistency {mode} {case} B={Bo} (phase 5's float64 reading "
+                f"{CC_READ.get(case, float('nan')):.3e})")
+            add(cc_counts)
+    return total
 
 
 def phase_bench_torch() -> None:
@@ -2107,11 +2387,15 @@ def phase_bench_torch() -> None:
 
 
 def phase_f32_runner() -> dict:
-    """Phase 10 (d): the port's runner with --f32 in-process on the card,
-    the double integrator and the quadrotor, 5 trials, the three solvers:
-    every row finite (T*, J*, final_err), the kernels launched, and each
-    row's T* printed beside the JAX package's float32 run on a TPU
-    (results/tpu_f32/summary_all.csv). Returns the launch counts."""
+    """Phase 10 (d): the port's runner with --f32 --consistency in-process
+    on the card, the double integrator and the quadrotor, 5 trials, the
+    three solvers: every row finite (T*, J*, final_err), the kernels
+    launched (#9 and #10 by the consistency check), each row's T* printed
+    beside the JAX package's float32 run on a TPU
+    (results/tpu_f32/summary_all.csv), and each solver's trial-0
+    consistency_max_abs finite and no larger than that run's, the
+    committed float64 run's (results/cpu_f64_25) beside it. Returns the
+    launch counts."""
     import csv
     import tempfile
 
@@ -2120,22 +2404,25 @@ def phase_f32_runner() -> dict:
     solvers = ("ourmethod", "baseline1", "baseline2")
     with open(TPU_F32_CSV, newline="") as f:
         want = {(r["case"], r["solver"], r["trial"]): r for r in csv.DictReader(f)}
+    with open(COMMITTED_CSV, newline="") as f:
+        f64_rows = {(r["case"], r["solver"], r["trial"]): r for r in csv.DictReader(f)}
     with tempfile.TemporaryDirectory() as out:
         reset_launches()
         t0 = time.perf_counter()
         run_suite.main(["--cases", ",".join(F32_RUNNER_CASES), "--trials", "5", "--solvers", ",".join(solvers),
-                        "--f32", "--outdir", out])
+                        "--f32", "--consistency", "--outdir", out])
         secs = time.perf_counter() - t0
         counts = launches()
         with open(os.path.join(out, "summary_all.csv"), newline="") as f:
             got = list(csv.DictReader(f))
     require(len(got) == len(F32_RUNNER_CASES) * len(solvers) * 5, f"runner --f32: {len(got)} rows")
-    for name in ("lft_select", "backward", "linesearch"):
-        require(counts[name] > 0, f"runner --f32: kernel {name} was never launched")
+    for name in ("lft_select", "backward", "linesearch", "lft_scan", "lft_query"):
+        require(counts[name] > 0, f"runner --f32 --consistency: kernel {name} was never launched")
     for r in got:
         fin = all(np.isfinite(float(r[k])) for k in ("J_star", "final_err")) and int(r["T_star"]) > 0
         require(fin, f"runner --f32: {r['case']} {r['solver']} trial {r['trial']} is not finite")
-    log(f"[float32] runner --f32, {','.join(F32_RUNNER_CASES)} x 5 trials x {solvers}: {secs:.1f} s | launches {counts}")
+    log(f"[float32] runner --f32 --consistency, {','.join(F32_RUNNER_CASES)} x 5 trials x {solvers}: {secs:.1f} s | "
+        f"launches {counts}")
     for case in F32_RUNNER_CASES:
         for sv in solvers:
             rows = [r for r in got if r["case"] == case and r["solver"] == sv]
@@ -2145,6 +2432,12 @@ def phase_f32_runner() -> dict:
             log(f"[float32] runner {case} {sv}: T* {mine} | the JAX package's float32 run on a TPU: {tpu} | "
                 f"success {succ}/5 | J* trial 0 {float(rows[0]['J_star']):.6g} (TPU "
                 f"{float(want[(case, sv, '0')]['J_star']):.6g})")
+            cc, tpu_cc = float(rows[0]["consistency_max_abs"]), float(want[(case, sv, "0")]["consistency_max_abs"])
+            log(f"[float32] runner {case} {sv}: trial-0 consistency_max_abs {cc!r} (the JAX package's float32 run on "
+                f"a TPU: {tpu_cc!r}; the committed float64 run, results/cpu_f64_25: "
+                f"{float(f64_rows[(case, sv, '0')]['consistency_max_abs'])!r}), rmse {float(rows[0]['consistency_rmse'])!r}")
+            require(np.isfinite(cc) and cc <= tpu_cc, f"runner --f32 --consistency {case} {sv}: trial-0 "
+                                                      f"consistency_max_abs {cc!r} is not finite or above {tpu_cc!r}")
     return counts
 
 
@@ -2203,15 +2496,9 @@ class ABRun:
         import torch
 
         o, n = outs
-        diff, bitwise = 0.0, True
-        for a, b in zip(o, n):
-            if a.is_floating_point():
-                diff = max(diff, max_err(a, b)[0])
-                bits = torch.int64 if a.dtype == torch.float64 else torch.int32
-                bitwise = bitwise and bool(torch.equal(a.contiguous().view(bits), b.contiguous().view(bits)))
-            else:
-                bitwise = bitwise and bool(torch.equal(a, b))
-        return dict(kernel=name, case=case, B=BN[0], N=BN[1], max_abs_diff=diff, bitwise=bitwise,
+        diff = max((max_err(a, b)[0] for a, b in zip(o, n) if a.is_floating_point()), default=0.0)
+        same = all(bitwise(a, b) if a.is_floating_point() else bool(torch.equal(a, b)) for a, b in zip(o, n))
+        return dict(kernel=name, case=case, B=BN[0], N=BN[1], max_abs_diff=diff, bitwise=same,
                     **{f"{k}_ms": v for k, v in self.turns(fn, fn_new).items()})
 
     def setup(self, case: str, Bsz: int, dtype=None):
@@ -2379,6 +2666,28 @@ def scan_sets(ab: ABRun) -> list:
     return ab.cache["scan_sets"]
 
 
+def scan_sets_f32(ab: ABRun) -> list:
+    """scan_sets' float32 rows: the quadrotor's float32 first-iterate blocks
+    at B=1024 and the random blocks of OFF_REGISTRY_SELECT rounded to
+    float32 (the run-time-size paths)."""
+    import torch
+    from timeopt_tpu_torch.solver.augmented import build_augmented, build_terminal_factors
+    from timeopt_tpu_torch.solver.horizon import brb
+
+    if "scan_sets_f32" not in ab.cache:
+        system, probs, X, U, A, Bj, *_ = ab.setup("Quadrotor", B_FULL, torch.float32)
+        blk = build_augmented(system, probs, X, U, A, Bj)
+        sets = [("Quadrotor float32 blocks", tuple(t.contiguous() for t in (blk.A_aug, brb(blk.B_aug, blk.R_inv),
+                                                                             blk.Q_aug)),
+                 build_terminal_factors(probs, X, s=blk.s).contiguous())]
+        for p, m in OFF_REGISTRY_SELECT:
+            A, Bm, Q, Ri, C = random_select_args(p, m, B_OFF, N_OFF, ab.device)
+            sets.append((f"random p={p} m={m} float32", tuple(t.float().contiguous() for t in (A, brb(Bm, Ri), Q)),
+                         C.float().contiguous()))
+        ab.cache["scan_sets_f32"] = sets
+    return ab.cache["scan_sets_f32"]
+
+
 def _hold_unfused_b1024(ab: ABRun) -> None:
     """The new scan and query at B=1024 against the plain versions and the
     generic select kernel, as phase 3 holds them."""
@@ -2389,12 +2698,14 @@ def _hold_unfused_b1024(ab: ABRun) -> None:
 
 
 def ab_lft_scan(ab: ABRun) -> list:
-    """E, F, G on every set of scan_sets, at levels 1 and 2."""
+    """E, F, G on every set of scan_sets, at levels 1 and 2 (and of
+    scan_sets_f32 where the old sources have the float32 entry)."""
     from timeopt_tpu_torch.ops import cuda_lft_scan
 
     _hold_unfused_b1024(ab)
     rows = []
-    for label, args, _ in scan_sets(ab):
+    f32 = scan_sets_f32(ab) if ab.f32("lft_scan", "lft_scan_f32") is not None else []
+    for label, args, _ in scan_sets(ab) + f32:
         for levels in (1, 2):
             fn = lambda: cuda_lft_scan.lft_scan(*args, levels=levels)  # noqa: E731
             rows.append(ab.row("lft_scan", f"{label} levels {levels}", args[0].shape[:2], fn, ab.both(fn)))
@@ -2403,12 +2714,14 @@ def ab_lft_scan(ab: ABRun) -> list:
 
 def ab_lft_query(ab: ABRun) -> list:
     """J on every set of scan_sets, at levels 1 and 2, on the new scan's
-    prefixes of that set."""
+    prefixes of that set (and of scan_sets_f32, float32 C, where the old
+    sources have the float32 entry)."""
     from timeopt_tpu_torch.ops import cuda_lft_query, cuda_lft_scan
 
     _hold_unfused_b1024(ab)
     rows = []
-    for label, args, C in scan_sets(ab):
+    f32 = scan_sets_f32(ab) if ab.f32("lft_query", "lft_query_f32") is not None else []
+    for label, args, C in scan_sets(ab) + f32:
         for levels in (1, 2):
             pre = cuda_lft_scan.lft_scan(*args, levels=levels)
             fn = lambda: cuda_lft_query.lft_query(*pre, C, levels=levels)  # noqa: E731
@@ -2521,8 +2834,10 @@ def main() -> None:
     f32_numbers = phase_f32_kernels(device)
     for case in CASES:
         add(phase_f32_oracle(case, device))
+    add(phase_f32_modes(device))
     per_solve_f32 = {case: phase_throughput(case, device, torch.float32)
                      for case in ("Quadrotor", "PointMass_Navigation")}
+    per_solve_f32["Quadrotor_onepass"] = phase_throughput_onepass(device, torch.float32)
     phase_bench_torch()
     add(phase_f32_runner())
 

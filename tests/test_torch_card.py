@@ -23,6 +23,10 @@ compose is off by 2e-10, so there the bound is rtol 1e-7. A diverging
 rollout amplifies the last-bit differences without bound, so the line
 search compares trajectories only where an alpha improves on J_old.
 
+The scan's and the query's float32 entries are held to their plain
+versions as above (J within F32_RTOL, one float32 rounding) and to their
+float64 entries on the upcast inputs bit for bit.
+
 The line search's start-state entry (the one-pass method's shifted-gain
 rollouts start at X_ext[:, S], not at row 0 of their reference rows) is
 held to the plain version at the same tolerance, and one-pass solves on
@@ -516,6 +520,47 @@ def test_float32_kernels_match_plain(dev, case):
             _close(k[improving], q[improving], F32_RTOL, 1e-12)
 
 
+def _bits(a):
+    return a.contiguous().view(torch.int64 if a.dtype == torch.float64 else torch.int32)
+
+
+@pytest.mark.parametrize("levels", [1, 2])
+@pytest.mark.parametrize("shape", ["Quadrotor", "DoubleIntegrator", "random p=4", "random p=9"])
+def test_float32_scan_and_query_match_plain_and_the_float64_entries(dev, shape, levels):
+    """The float32 entries of the scan and the query (float32 blocks and C
+    read from device memory, float64 arithmetic, float64 prefixes, J
+    rounded to float32 once), on a registry shape (p = 13, 3) and on the
+    run-time-size path (p = 4, 9; B = 37, so the scan's last block holds
+    one problem): against their plain versions, prefixes within 1e-9 of
+    each matrix's largest entry and J within F32_RTOL; and bit for bit
+    equal to the float64 entries on the upcast inputs (the float32 to
+    float64 conversion is exact and the arithmetic the same code), J to the
+    float64 J rounded once."""
+    if shape.startswith("random"):
+        A, Bm, Q, Ri, C = _chip_smoke().random_select_args(int(shape[-1]), 2, 37, 48, dev)
+        args = [t.float().contiguous() for t in (A, brb(Bm, Ri), Q)]
+        C, t = C.float().contiguous(), 0
+    else:
+        system, probs, X, U, A, Bj = _iterate(shape, noise=0.0)
+        blk = build_augmented(system, probs, X, U, A, Bj, psd_levels=levels)
+        C = build_terminal_factors(probs, X, s=blk.s).float().contiguous().to(dev)
+        args = [x.float().contiguous().to(dev) for x in (blk.A_aug, brb(blk.B_aug, blk.R_inv), blk.Q_aug)]
+        t = probs.T_min - 1
+    n0 = (cuda_lft_scan.LAUNCHES, cuda_lft_query.LAUNCHES)
+    pre = cuda_lft_scan.lft_scan(*args, levels=levels)
+    J = cuda_lft_query.lft_query(*pre, C, levels=levels)
+    assert (cuda_lft_scan.LAUNCHES, cuda_lft_query.LAUNCHES) == (n0[0] + 1, n0[1] + 1)
+    assert all(x.dtype == torch.float64 for x in pre) and J.dtype == torch.float32
+    pre_p = cuda_lft_scan.lft_scan_plain(*args, levels=levels)
+    for k, q in zip(pre, pre_p):
+        assert _normwise(k, q) <= 1e-9
+    _close(J[:, t:], cuda_lft_query.lft_query_plain(*pre_p, C, levels=levels)[:, t:], F32_RTOL, 0.0)
+    pre64 = cuda_lft_scan.lft_scan(*(x.double() for x in args), levels=levels)
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(pre, pre64))
+    J64 = cuda_lft_query.lft_query(*pre, C.double(), levels=levels)
+    assert torch.equal(_bits(J), _bits(J64.float()))
+
+
 @pytest.mark.parametrize("case", ["DoubleIntegrator", "PointMass_Navigation"])
 def test_float32_solve_on_the_card_matches_cpu(dev, case):
     """A float32 solve on the card against the CPU's (plain versions, the
@@ -540,14 +585,17 @@ def test_float32_solve_on_the_card_matches_cpu(dev, case):
 
 
 def test_float32_on_the_card_raises(dev):
-    """Float32 raises on the kernels without a float32 instantiation (the
-    prefix scan and the query); float16 on every kernel."""
+    """What the float32 entries refuse: float32 prefixes into the query (the
+    prefixes are float64 on both paths), a scan's blocks of mixed dtypes;
+    and float16 on every kernel."""
     x = torch.zeros((1, 2, 2, 2), dtype=torch.float32, device=dev)
     with pytest.raises(TypeError):
-        cuda_lft_scan.lft_scan(x, x, x, levels=1)
+        cuda_lft_query.lft_query(x, x, x, x[..., :1, :], levels=1)
     with pytest.raises(TypeError):
-        cuda_lft_query.lft_query(x, x, x, x, levels=1)
+        cuda_lft_scan.lft_scan(x, x.double(), x, levels=1)
     h = x.half()
+    with pytest.raises(TypeError):
+        cuda_lft_scan.lft_scan(h, h, h, levels=1)
     with pytest.raises(TypeError):
         cuda_lft.propagator_select_fused(h, h, h, h, h, h, h, t_min=1)
     with pytest.raises(TypeError):

@@ -16,9 +16,11 @@
 - df_forward ("auto" and "on" alike, "off" not ported) and select_dtype
   with the JAX semantics; TF32 off inside a
   solve and the caller's settings restored; --f32 through the runner;
-  bench_torch.main on the CPU; and the float32 requests that need the
-  prefix-scan and query kernels in float32 (not ported yet) raise
-  TypeError naming ROADMAP.md.
+  bench_torch.main on the CPU; and the float32 requests through the
+  prefix-scan and query kernels (consistency_check, the sharded select,
+  both latency modes, the inverse query) against the same calls in
+  float64 (tests/test_torch_f32_scan_query.py holds them to the JAX
+  package).
 """
 
 from __future__ import annotations
@@ -178,36 +180,53 @@ def test_select_dtype_casts_the_select(sd, dt):
 
 
 def test_float32_requests_of_the_unported_kernels_raise():
-    """The prefix-scan (#9) and query (#10) kernels have no float32
-    instantiation yet: they, consistency_check, both latency modes and the
-    inverse terminal query raise TypeError naming ROADMAP.md on float32, on
-    the CPU as on the card; select_dtype="float64" takes them in float64."""
+    """Once refused, now ported: the prefix-scan (#9) and query (#10)
+    kernels at float32 (float32 blocks and C, float64 prefixes, float32 J),
+    consistency_check, propagator_select_sharded, both latency modes and the
+    inverse terminal query run on float32 problems and agree with the same
+    calls on the float64 values (the solves: with select_dtype="float64"):
+    T* equal or tied, J within rtol 1e-5."""
     from timeopt_tpu_torch.parallel import make_mesh, propagator_select_sharded
     from timeopt_tpu_torch.solver.augmented import build_augmented, build_terminal_factors
+    from timeopt_tpu_torch.solver.horizon import brb
     from timeopt_tpu_torch.solver.verify import consistency_check
 
-    x = torch.zeros((1, 2, 3, 3), dtype=F32)
-    for call in (lambda: cuda_lft_scan.lft_scan(x, x, x, levels=1),
-                 lambda: cuda_lft_query.lft_query(x, x, x, x[..., :2, :], levels=1)):
-        with pytest.raises(TypeError, match="ROADMAP"):
-            call()
     ts, mk = get_system("DoubleIntegrator")
     p = tilqr.broadcast_problem(mk(N=16, device="cpu", dtype=F32).replace(T_min=4, T_max=16), 2)
     U = tilqr.default_U_init(p)
     X = rollout(ts, p, p.x0, U)
-    with pytest.raises(TypeError, match="ROADMAP"):
-        consistency_check(ts, p, X, U)
     A, B = linearize(ts.step, X, U)
     blk = build_augmented(ts, p, X, U, A, B)
-    with pytest.raises(TypeError, match="ROADMAP"):
-        propagator_select_sharded(blk, build_terminal_factors(p, X, s=blk.s), mesh=make_mesh(device_type="cpu",
-                                                                                             n_devices=2))
+    C = build_terminal_factors(p, X, s=blk.s)
+    up = lambda t: t.double()  # noqa: E731
+    pre = cuda_lft_scan.lft_scan(blk.A_aug, brb(blk.B_aug, blk.R_inv), blk.Q_aug, levels=1)
+    J = cuda_lft_query.lft_query(*pre, C, levels=1)
+    assert all(t.dtype == torch.float64 for t in pre) and J.dtype == F32
+    J64 = cuda_lft_query.lft_query(*cuda_lft_scan.lft_scan(up(blk.A_aug), brb(up(blk.B_aug), up(blk.R_inv)),
+                                                           up(blk.Q_aug), levels=1), up(C), levels=1)
+    np.testing.assert_allclose(J.numpy(), J64.numpy(), rtol=1e-5)
+
+    p64 = _build.cast(p, torch.float64)
+    cc, cc64 = consistency_check(ts, p, X, U), consistency_check(ts, p64, up(X), up(U))
+    assert cc["J_prop"].dtype == cc["max_abs"].dtype == F32
+    for k in ("J_prop", "J_bf"):
+        np.testing.assert_allclose(cc[k].numpy(), cc64[k].numpy(), rtol=1e-5)
+    mesh = make_mesh(device_type="cpu", n_devices=2, axis_names=("hs",))
+    J_sh = propagator_select_sharded(blk, C, mesh=mesh)
+    J_sh64 = propagator_select_sharded(type(blk)(*map(up, blk)), up(C), mesh=mesh)
+    assert J_sh.dtype == F32
+    np.testing.assert_allclose(J_sh.numpy(), J_sh64.numpy(), rtol=1e-5)
+
+    w = float(p.w[0])
     for kw in (dict(scan_mode="associative"), dict(scan_mode="assoc_df"), dict(terminal_mode="inverse"),
                dict(scan_mode="associative", terminal_mode="inverse")):
-        with pytest.raises(TypeError, match="ROADMAP"):
-            tilqr.solve_batch(ts, p, options=tilqr.SolveOptions(max_iter=2, **kw))
-        res = tilqr.solve_batch(ts, p, options=tilqr.SolveOptions(max_iter=2, select_dtype="float64", **kw))
+        res = tilqr.solve_batch(ts, p, options=tilqr.SolveOptions(max_iter=2, **kw))
+        want = tilqr.solve_batch(ts, p, options=tilqr.SolveOptions(max_iter=2, select_dtype="float64", **kw))
         assert res.J_curve.dtype == F32 and bool(torch.isfinite(res.J_star).all())
+        T, T_o, curve = res.T_star.numpy(), want.T_star.numpy(), want.J_curve.double().numpy()
+        idx = np.arange(len(T))
+        assert ((T == T_o) | (np.abs(curve[idx, T - 1] - curve[idx, T_o - 1]) <= w * (np.abs(T - T_o) + 1))).all()
+        np.testing.assert_allclose(res.J_star.numpy(), want.J_star.numpy(), rtol=1e-5)
 
 
 def test_no_tf32_inside_a_solve_and_the_settings_restored(monkeypatch):

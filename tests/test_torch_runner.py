@@ -94,15 +94,17 @@ def test_enrich_and_aggregate_matches_pandas(solvers, tmp_path):
 
 
 def test_unported_flags_fail_at_parsing():
-    """--consistency with --f32 is not ported (it needs the float32
-    prefix-scan and query kernels); unknown cases and solvers fail as well.
-    --f32 alone and --distributed are ported (their runs:
-    tests/test_torch_f32_solve.py, tests/test_torch_parallel.py)."""
-    for argv in (["--f32", "--consistency"], ["--cases", "Pendulum"], ["--solvers", "ourmethod,baseline3"]):
+    """Unknown cases and solvers fail at parsing. --f32 (alone and with
+    --consistency) and --distributed are ported (their runs:
+    tests/test_torch_f32_solve.py, tests/test_torch_f32_scan_query.py,
+    tests/test_torch_parallel.py)."""
+    for argv in (["--cases", "Pendulum"], ["--solvers", "ourmethod,baseline3"]):
         with pytest.raises(SystemExit):
             trun.parse_args(argv)
     assert trun.parse_args(["--distributed"]).distributed
     assert trun.parse_args(["--f32"]).f32
+    both = trun.parse_args(["--f32", "--consistency"])
+    assert both.f32 and both.consistency
     args = trun.parse_args(["--solvers", "ourmethod,baseline1", "--cases", "Quadrotor,PointMass_Navigation"])
     assert args.device == "cuda" and args.solvers == ["ourmethod", "baseline1"]
     assert args.cases == ["Quadrotor", "PointMass_Navigation"]

@@ -8,13 +8,14 @@ recursion in float64 and its result rounded once (where the JAX package
 runs df32 on the TPU). Each phase that the JAX package ran as Pallas TPU
 kernels has a dispatch point per kernel: on a CPU tensor it runs its plain
 PyTorch version; on a CUDA float64 or float32 tensor it launches its
-kernel (csrc/, built with nvcc at first use); any other dtype raises, and
-so does float32 on the prefix-scan and query kernels (not ported yet).
+kernel (csrc/, built with nvcc at first use); any other dtype raises.
 
 - select, stationary stage cost: ops/cuda_lft.py         (csrc/lft_select.cu)
 - select, extra stage cost:      ops/cuda_lft_generic.py (csrc/lft_select_generic.cu)
 - backward:                      ops/cuda_backward.py    (csrc/backward.cu)
 - line search:                   ops/cuda_forward.py     (csrc/linesearch.cu)
+- every prefix (unfused select): ops/cuda_lft_scan.py    (csrc/lft_scan.cu)
+- terminal queries:              ops/cuda_lft_query.py   (csrc/lft_query.cu)
 
 This package never imports jax.
 """

@@ -1,5 +1,11 @@
 // The factored terminal queries of the propagator in float64 for Hopper.
 //
+// Two entries, one template on C's and J's storage type: lft_query (float64)
+// and lft_query_f32 (float32 C and J, the float32 path; the prefixes of
+// lft_scan.cu stay float64 on both). The float32 instantiation stages C as
+// it is (4-byte cp.async), converts it to double where it is read, and
+// rounds J to float32 once, on its store.
+//
 // Replaces the TPU kernel timeopt_tpu/ops/pallas_lft.py lft_query_lanes
 // (body _query_kernel), which computes in the lanes layout (N, p, p, B) and
 // forms explicit inverses (_inv_lanes); here the layout is the port's
@@ -64,27 +70,31 @@ using namespace warpmat;
 
 constexpr int NMAX = 12;
 
-template <int NM>
-struct Slot {  // one query's inputs
+// one query's inputs: the prefix in double, C in the storage type Fp
+// (double, or float on the float32 path, converted to double where it is
+// read)
+template <typename Fp, int NM>
+struct Slot {
   static constexpr int PM = NM + 1;
-  double E[PM * PM], F[PM * PM], G[PM * PM], C[NM * PM];
+  double E[PM * PM], F[PM * PM], G[PM * PM];
+  Fp C[NM * PM];
 };
-template <int NM>
+template <typename Fp, int NM>
 struct WarpRegion {  // one warp's input ring and products
   static constexpr int PM = NM + 1;
-  Slot<NM> slot[2];
+  Slot<Fp, NM> slot[2];
   double CG[NM * PM], FC[PM * NM];
 };
 
-template <int NM>
-__device__ __forceinline__ void load_slot(Slot<NM>& sl, const double* Eg, const double* Fg, const double* Gg,
-                                          const double* Cg, size_t q, int pp, int np, int lane) {
+template <typename Fp, int NM>
+__device__ __forceinline__ void load_slot(Slot<Fp, NM>& sl, const double* Eg, const double* Fg, const double* Gg,
+                                          const Fp* Cg, size_t q, int pp, int np, int lane) {
   for (int i = lane; i < pp; i += WARP) {
     cp_async8(&sl.E[i], Eg + q * pp + i);
     cp_async8(&sl.F[i], Fg + q * pp + i);
     cp_async8(&sl.G[i], Gg + q * pp + i);
   }
-  for (int i = lane; i < np; i += WARP) cp_async8(&sl.C[i], Cg + q * np + i);
+  for (int i = lane; i < np; i += WARP) cp_async_el(&sl.C[i], Cg + q * np + i);
   cp_async_commit();
 }
 
@@ -129,21 +139,23 @@ __device__ __forceinline__ void fill_x(double (&X)[1][PM], const double* X0, int
 
 // J of one query. The slot's G holds C G C' once C G is formed, its F the
 // unsymmetrized X0 once F C' is formed, and the warp's CG holds Y.
-template <int NM, bool EXACT>
-__device__ __noinline__ double query(WarpRegion<NM>& R, Slot<NM>& in, int n_arg, int levels, double jitter,
+template <typename Fp, int NM, bool EXACT>
+__device__ __noinline__ double query(WarpRegion<Fp, NM>& R, Slot<Fp, NM>& in, int n_arg, int levels, double jitter,
                                      int lane) {
   constexpr int PM = NM + 1;
   const int n = EXACT ? NM : n_arg;
   const int p = n + 1;
   // C G (n x p) and F C' (p x n)
-  entrywise<NM * PM>(n, p, p, lane, [&](int i, int l) { return in.C[i * p + l]; },
+  entrywise<NM * PM>(n, p, p, lane, [&](int i, int l) { return (double)in.C[i * p + l]; },
                      [&](int l, int j) { return in.G[l * p + j]; }, [&](int idx, double v) { R.CG[idx] = v; });
   entrywise<PM * NM>(p, n, p, lane, [&](int i, int l) { return in.F[i * p + l]; },
-                     [&](int l, int j) { return in.C[j * p + l]; }, [&](int idx, double v) { R.FC[idx] = v; });
+                     [&](int l, int j) { return (double)in.C[j * p + l]; },
+                     [&](int idx, double v) { R.FC[idx] = v; });
   __syncwarp();
   // C G C' (n x n) -> in.G
   entrywise<NM * NM>(n, n, p, lane, [&](int i, int l) { return R.CG[i * p + l]; },
-                     [&](int l, int j) { return in.C[j * p + l]; }, [&](int idx, double v) { in.G[idx] = v; });
+                     [&](int l, int j) { return (double)in.C[j * p + l]; },
+                     [&](int idx, double v) { in.G[idx] = v; });
   __syncwarp();
   // [sym(I + C G C') | C F'] -> [I | Y], lane j holding column j (n + p <= 25)
   const int j = lane;
@@ -201,41 +213,43 @@ __device__ __noinline__ double query(WarpRegion<NM>& R, Slot<NM>& in, int n_arg,
 // while it computes query q. The loop runs on the block index, which the
 // compiler knows every lane shares: a loop whose exit hangs on the thread
 // index would have it compile every shuffle for a diverged warp, at several
-// instructions each. EXACT: n = NM, known to the compiler.
-template <int NM, bool EXACT>
+// instructions each. EXACT: n = NM, known to the compiler. Fp: the storage
+// type of C and J (double, or float on the float32 path: J one rounding of
+// the double result); the prefixes are double either way.
+template <typename Fp, int NM, bool EXACT>
 __global__ void __launch_bounds__(WARP, NM >= 12 ? 16 : 32)
 lft_query_kernel(const double* __restrict__ Eg, const double* __restrict__ Fg, const double* __restrict__ Gg,
-                 const double* __restrict__ Cg, double* __restrict__ J, long long pairs, int n_arg, int levels,
+                 const Fp* __restrict__ Cg, Fp* __restrict__ J, long long pairs, int n_arg, int levels,
                  double jitter) {
   const int n = EXACT ? NM : n_arg;
   const int p = n + 1, pp = p * p, np = n * p;
-  __shared__ WarpRegion<NM> R;
+  __shared__ WarpRegion<Fp, NM> R;
   const int lane = threadIdx.x;
   const long long stride = gridDim.x;
   long long q = blockIdx.x;
-  if (q < pairs) load_slot<NM>(R.slot[0], Eg, Fg, Gg, Cg, (size_t)q, pp, np, lane);
+  if (q < pairs) load_slot<Fp, NM>(R.slot[0], Eg, Fg, Gg, Cg, (size_t)q, pp, np, lane);
   for (int it = 0; q < pairs; q += stride, ++it) {
     if (q + stride < pairs) {
-      load_slot<NM>(R.slot[(it + 1) & 1], Eg, Fg, Gg, Cg, (size_t)(q + stride), pp, np, lane);
+      load_slot<Fp, NM>(R.slot[(it + 1) & 1], Eg, Fg, Gg, Cg, (size_t)(q + stride), pp, np, lane);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncwarp();
-    const double jv = query<NM, EXACT>(R, R.slot[it & 1], n, levels, jitter, lane);
-    if (lane == 0) J[q] = jv;
+    const double jv = query<Fp, NM, EXACT>(R, R.slot[it & 1], n, levels, jitter, lane);
+    if (lane == 0) J[q] = (Fp)jv;
     __syncwarp();  // every lane is done with the slot before it is refilled
   }
 }
 
-template <int NM, bool EXACT>
+template <typename Fp, int NM, bool EXACT>
 int blocks_per_sm() {
   int n = 0;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, lft_query_kernel<NM, EXACT>, WARP, 0);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, lft_query_kernel<Fp, NM, EXACT>, WARP, 0);
   return n;
 }
 
-template <int NM, bool EXACT>
+template <typename Fp, int NM, bool EXACT>
 int launch(const void* E, const void* F, const void* G, const void* C, void* J, long long pairs, int n, int levels,
            double jitter, cudaStream_t stream) {
   static int resident = 0;  // blocks the card holds at once
@@ -243,31 +257,29 @@ int launch(const void* E, const void* F, const void* G, const void* C, void* J, 
     int dev = 0, sms = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    const int per_sm = blocks_per_sm<NM, EXACT>();
+    const int per_sm = blocks_per_sm<Fp, NM, EXACT>();
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     resident = sms * (per_sm > 0 ? per_sm : 1);
   }
   const int grid = (int)(pairs < resident ? pairs : resident);
-  lft_query_kernel<NM, EXACT><<<grid, WARP, 0, stream>>>(
-      (const double*)E, (const double*)F, (const double*)G, (const double*)C, (double*)J, pairs, n, levels, jitter);
+  lft_query_kernel<Fp, NM, EXACT><<<grid, WARP, 0, stream>>>(
+      (const double*)E, (const double*)F, (const double*)G, (const Fp*)C, (Fp*)J, pairs, n, levels, jitter);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// Blocks (one warp each) an SM holds at once at this n, as the launch below
-// takes it; -1 for an n it refuses.
-extern "C" int lft_query_blocks_per_sm(int n) {
+template <typename Fp>
+int query_blocks_per_sm(int n) {
   if (n < 1 || n > NMAX) return -1;
-  if (n == 2) return blocks_per_sm<2, true>();
-  if (n == 4) return blocks_per_sm<4, true>();
-  if (n == 12) return blocks_per_sm<12, true>();
-  return blocks_per_sm<NMAX, false>();
+  if (n == 2) return blocks_per_sm<Fp, 2, true>();
+  if (n == 4) return blocks_per_sm<Fp, 4, true>();
+  if (n == 12) return blocks_per_sm<Fp, 12, true>();
+  return blocks_per_sm<Fp, NMAX, false>();
 }
 
-extern "C" int lft_query(const void* E, const void* F, const void* G, const void* C, void* J,
-                         int Bsz, int N, int n, int levels, double jitter, void* stream) {
+template <typename Fp>
+int query_all(const void* E, const void* F, const void* G, const void* C, void* J, int Bsz, int N, int n, int levels,
+              double jitter, void* stream) {
   if (n < 1 || n > NMAX || levels < 1 || levels > 2) return (int)cudaErrorInvalidValue;
   const long long pairs = (long long)Bsz * N;
   if (pairs <= 0) return (int)cudaGetLastError();
@@ -275,8 +287,28 @@ extern "C" int lft_query(const void* E, const void* F, const void* G, const void
   // PointMass) and 12 (quadrotor) as compile-time sizes; any other n <= 12
   // at run time
   cudaStream_t s = (cudaStream_t)stream;
-  if (n == 2) return launch<2, true>(E, F, G, C, J, pairs, n, levels, jitter, s);
-  if (n == 4) return launch<4, true>(E, F, G, C, J, pairs, n, levels, jitter, s);
-  if (n == 12) return launch<12, true>(E, F, G, C, J, pairs, n, levels, jitter, s);
-  return launch<NMAX, false>(E, F, G, C, J, pairs, n, levels, jitter, s);
+  if (n == 2) return launch<Fp, 2, true>(E, F, G, C, J, pairs, n, levels, jitter, s);
+  if (n == 4) return launch<Fp, 4, true>(E, F, G, C, J, pairs, n, levels, jitter, s);
+  if (n == 12) return launch<Fp, 12, true>(E, F, G, C, J, pairs, n, levels, jitter, s);
+  return launch<Fp, NMAX, false>(E, F, G, C, J, pairs, n, levels, jitter, s);
+}
+
+}  // namespace
+
+// Blocks (one warp each) an SM holds at once at this n, as the launch below
+// takes it; -1 for an n it refuses. The float32 instantiation stages C in
+// half the bytes.
+extern "C" int lft_query_blocks_per_sm(int n) { return query_blocks_per_sm<double>(n); }
+extern "C" int lft_query_blocks_per_sm_f32(int n) { return query_blocks_per_sm<float>(n); }
+
+// float64 prefixes, C and J
+extern "C" int lft_query(const void* E, const void* F, const void* G, const void* C, void* J,
+                         int Bsz, int N, int n, int levels, double jitter, void* stream) {
+  return query_all<double>(E, F, G, C, J, Bsz, N, n, levels, jitter, stream);
+}
+
+// float64 prefixes, float32 C and J (float64 arithmetic, J rounded once)
+extern "C" int lft_query_f32(const void* E, const void* F, const void* G, const void* C, void* J,
+                             int Bsz, int N, int n, int levels, double jitter, void* stream) {
+  return query_all<float>(E, F, G, C, J, Bsz, N, n, levels, jitter, stream);
 }

@@ -5,8 +5,15 @@
 // (body _lft_scan_kernel), which computes in the lanes layout (N, p, p, B);
 // here the layout is the port's (B, N, p, p) and the arithmetic native
 // float64. The path that reaches it is the unfused propagator select
-// (solver/horizon.py::propagator_select): consistency_check and the solve
-// with terminal_mode="inverse".
+// (solver/horizon.py::propagator_select): consistency_check, the solve
+// with terminal_mode="inverse" and parallel/mesh.py's sharded select.
+//
+// Two entries, one template on the inputs' storage type: lft_scan (float64
+// blocks) and lft_scan_f32 (float32 blocks, as the TPU kernel takes them).
+// The float32 instantiation stages its inputs as they are (4-byte cp.async)
+// and converts each to double where it is read; everything after, the
+// prefixes it writes included, is double, so a float32 problem's scan and
+// query stay one float64 recursion rounded once, in J (lft_query.cu).
 //
 // Per problem and per step k, with p = n + 1 and eps the ladder's rung:
 //   element  E = (sym(Q_aug,k) + eps I)^-1,  F = E A',  G = sym(A F + BRB)
@@ -48,8 +55,9 @@
 // problem has two warps, two problems a block:
 // - the element warp loads step k+1's Q_aug, A_aug and BRB with cp.async
 //   (8-byte copies: a step's three matrices are 1,352 B at p = 13, and a
-//   step starts on an 8-byte boundary only) while it builds step k's element
-//   (it does not depend on the carry) into a ring of two slots. It also
+//   step starts on an 8-byte boundary only; 4-byte copies at float32)
+//   while it builds step k's element (it does not depend on the carry)
+//   into a ring of two slots. It also
 //   streams the prefixes out (coalesced, evict-first stores): at step k the
 //   carry of step k - 2, complete once the compose of step k - 2 has freed
 //   its element slot, so the compose warp never waits on device memory;
@@ -100,28 +108,30 @@ constexpr int THREADS = 2 * PPB * WARP;  // an element and a compose warp each
 constexpr int RE = 2;                    // element ring
 constexpr int RC = 2;                    // carry ring
 
-template <int PM>
-struct Stage {  // raw inputs of one step
-  double Q[PM * PM], A[PM * PM], BRB[PM * PM];
+// raw inputs of one step in the storage type Fp (double, or float on the
+// float32 path, converted to double where they are read)
+template <typename Fp, int PM>
+struct Stage {
+  Fp Q[PM * PM], A[PM * PM], BRB[PM * PM];
 };
 template <int PM>
 struct Mats {  // an element (E, F, G) or a prefix carry (Ebar, Fbar, Gbar)
   double E[PM * PM], F[PM * PM], G[PM * PM];
 };
-template <int PM>
+template <typename Fp, int PM>
 struct Problem {
   uint64_t elem_full[RE], elem_free[RE];
-  Stage<PM> stage[2];
+  Stage<Fp, PM> stage[2];
   Mats<PM> elem[RE], carry[RC];
 };
 
-template <int PM>
-__device__ __forceinline__ void load_stage(Stage<PM>& st, const double* Ag, const double* BRBg, const double* Qg,
-                                           size_t bk, int pp, int lane) {
+template <typename Fp, int PM>
+__device__ __forceinline__ void load_stage(Stage<Fp, PM>& st, const Fp* Ag, const Fp* BRBg, const Fp* Qg, size_t bk,
+                                           int pp, int lane) {
   for (int i = lane; i < pp; i += WARP) {
-    cp_async8(&st.Q[i], Qg + bk * pp + i);
-    cp_async8(&st.A[i], Ag + bk * pp + i);
-    cp_async8(&st.BRB[i], BRBg + bk * pp + i);
+    cp_async_el(&st.Q[i], Qg + bk * pp + i);
+    cp_async_el(&st.A[i], Ag + bk * pp + i);
+    cp_async_el(&st.BRB[i], BRBg + bk * pp + i);
   }
   cp_async_commit();
 }
@@ -171,8 +181,8 @@ __device__ __forceinline__ void sym_entries(double* M, int p, int lane) {
 // [sym(Q) + eps I | A' | I] into registers, lane = column (CPL a lane). A
 // lane's column range is decided once, outside the loop over rows, so each
 // branch's loads go out together.
-template <int PM, int CPL>
-__device__ __forceinline__ void fill_element(double (&M)[CPL][PM], const Stage<PM>& st, int p, double eps,
+template <typename Fp, int PM, int CPL>
+__device__ __forceinline__ void fill_element(double (&M)[CPL][PM], const Stage<Fp, PM>& st, int p, double eps,
                                              int lane) {
 #pragma unroll
   for (int s = 0; s < CPL; ++s) {
@@ -180,9 +190,10 @@ __device__ __forceinline__ void fill_element(double (&M)[CPL][PM], const Stage<P
     if (col < p) {
 #pragma unroll
       for (int i = 0; i < PM; ++i)
-        M[s][i] = i < p ? 0.5 * (st.Q[i * p + col] + st.Q[col * p + i]) + (i == col ? eps : 0.0) : 0.0;
+        M[s][i] = i < p ? 0.5 * ((double)st.Q[i * p + col] + (double)st.Q[col * p + i]) + (i == col ? eps : 0.0)
+                        : 0.0;
     } else if (col < 2 * p) {
-      const double* a = st.A + (col - p) * p;
+      const Fp* a = st.A + (col - p) * p;
 #pragma unroll
       for (int i = 0; i < PM; ++i) M[s][i] = i < p ? a[i] : 0.0;
     } else {
@@ -196,17 +207,17 @@ __device__ __forceinline__ void fill_element(double (&M)[CPL][PM], const Stage<P
 // second rung is written out rather than looped: a shuffle inside a loop
 // whose exit hangs on a vote is compiled for a diverged warp, and costs
 // several instructions.
-template <int PM, int CPL, bool EXACT>
-__device__ __forceinline__ void build_element(const Stage<PM>& st, Mats<PM>& el, int p_arg, int levels, double jitter,
-                                           int lane) {
+template <typename Fp, int PM, int CPL, bool EXACT>
+__device__ __forceinline__ void build_element(const Stage<Fp, PM>& st, Mats<PM>& el, int p_arg, int levels,
+                                              double jitter, int lane) {
   const int p = EXACT ? PM : p_arg;
   const int pp = p * p;
   // [sym(Q) + eps I | A' | I] -> [I | Q^-1 A' | Q^-1] = [I | F | E]
   double M[CPL][PM];
-  fill_element<PM, CPL>(M, st, p, jitter, lane);
+  fill_element<Fp, PM, CPL>(M, st, p, jitter, lane);
   gj_sweep<PM, CPL, true>(M, p, lane);
   if (levels > 1 && !cols_finite<PM, CPL>(M, p, 2 * p, lane)) {
-    fill_element<PM, CPL>(M, st, p, jitter * 1e4, lane);
+    fill_element<Fp, PM, CPL>(M, st, p, jitter * 1e4, lane);
     gj_sweep<PM, CPL, true>(M, p, lane);
   }
   __syncwarp();
@@ -343,10 +354,10 @@ __device__ __forceinline__ void compose(Mats<PM>& el, const Mats<PM>& pc, Mats<P
 
 // The element and the compose as calls at two columns a lane (inlined into
 // the kernel, their registers would spill), inlined at one.
-template <int PM, int CPL, bool EXACT>
-__device__ __noinline__ void build_element_call(const Stage<PM>& st, Mats<PM>& el, int p, int levels, double jitter,
-                                                int lane) {
-  build_element<PM, CPL, EXACT>(st, el, p, levels, jitter, lane);
+template <typename Fp, int PM, int CPL, bool EXACT>
+__device__ __noinline__ void build_element_call(const Stage<Fp, PM>& st, Mats<PM>& el, int p, int levels,
+                                                double jitter, int lane) {
+  build_element<Fp, PM, CPL, EXACT>(st, el, p, levels, jitter, lane);
 }
 template <int PM, int CPL, bool EXACT>
 __device__ __noinline__ void compose_call(Mats<PM>& el, const Mats<PM>& pc, Mats<PM>& nc, int p, int levels,
@@ -370,16 +381,18 @@ __device__ __forceinline__ void store_carry(const Mats<PM>& cc, double* Eo, doub
 // step k, once the compose of step k - RE has freed its element slot, the
 // carry of step k - RE is complete, and the compose overwrites that carry
 // slot only after element k, built after the store, is handed over.
-// EXACT: p = PM, known to the compiler.
-template <int PM, int CPL, bool EXACT>
+// EXACT: p = PM, known to the compiler. Fp: the storage type of the inputs
+// (double, or float on the float32 path); the prefixes are written in
+// double either way, and every operation is double.
+template <typename Fp, int PM, int CPL, bool EXACT>
 __global__ void __launch_bounds__(THREADS, 4)
-lft_scan_kernel(const double* __restrict__ Ag, const double* __restrict__ BRBg, const double* __restrict__ Qg,
+lft_scan_kernel(const Fp* __restrict__ Ag, const Fp* __restrict__ BRBg, const Fp* __restrict__ Qg,
                 double* __restrict__ Eo, double* __restrict__ Fo, double* __restrict__ Go, int Bsz, int N, int p_arg,
                 int levels, double jitter) {
   static_assert(RC >= RE, "the carry of step k - RE is stored before the compose of step k may reuse its slot");
   const int p = EXACT ? PM : p_arg;
   const int pp = p * p;
-  __shared__ Problem<PM> S[PPB];
+  __shared__ Problem<Fp, PM> S[PPB];
   // the warp's index through a shuffle, which the compiler knows every lane
   // shares: a branch on the thread index (the roles below) would have it
   // compile every shuffle in the branch for a diverged warp, at several
@@ -397,13 +410,13 @@ lft_scan_kernel(const double* __restrict__ Ag, const double* __restrict__ BRBg, 
   }
   __syncthreads();  // the only block-wide barrier, before the step loops
   if (b >= Bsz) return;
-  Problem<PM>& P = S[sl];
+  Problem<Fp, PM>& P = S[sl];
 
   if (warp < PPB) {  // element warp: step k+1's inputs in flight while step k is built
-    load_stage<PM>(P.stage[0], Ag, BRBg, Qg, (size_t)b * N, pp, lane);
+    load_stage<Fp, PM>(P.stage[0], Ag, BRBg, Qg, (size_t)b * N, pp, lane);
     for (int k = 0; k < N; ++k) {
       if (k + 1 < N) {
-        load_stage<PM>(P.stage[(k + 1) & 1], Ag, BRBg, Qg, (size_t)b * N + k + 1, pp, lane);
+        load_stage<Fp, PM>(P.stage[(k + 1) & 1], Ag, BRBg, Qg, (size_t)b * N + k + 1, pp, lane);
         cp_async_wait<1>();
       } else {
         cp_async_wait<0>();
@@ -415,8 +428,9 @@ lft_scan_kernel(const double* __restrict__ Ag, const double* __restrict__ BRBg, 
         __syncwarp();
         store_carry<PM>(P.carry[(k - RE) % RC], Eo, Fo, Go, ((size_t)b * N + k - RE) * pp, pp, lane);
       }
-      if constexpr (CPL > 1) build_element_call<PM, CPL, EXACT>(P.stage[k & 1], P.elem[e], p, levels, jitter, lane);
-      else build_element<PM, CPL, EXACT>(P.stage[k & 1], P.elem[e], p, levels, jitter, lane);
+      if constexpr (CPL > 1)
+        build_element_call<Fp, PM, CPL, EXACT>(P.stage[k & 1], P.elem[e], p, levels, jitter, lane);
+      else build_element<Fp, PM, CPL, EXACT>(P.stage[k & 1], P.elem[e], p, levels, jitter, lane);
       __syncwarp();
       mbar_arrive(&P.elem_full[e]);
     }
@@ -448,35 +462,32 @@ lft_scan_kernel(const double* __restrict__ Ag, const double* __restrict__ BRBg, 
   }
 }
 
-template <int PM, int CPL, bool EXACT>
+template <typename Fp, int PM, int CPL, bool EXACT>
 int blocks_per_sm() {
   int n = 0;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, lft_scan_kernel<PM, CPL, EXACT>, THREADS, 0);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, lft_scan_kernel<Fp, PM, CPL, EXACT>, THREADS, 0);
   return n;
 }
 
-template <int PM, int CPL, bool EXACT>
+template <typename Fp, int PM, int CPL, bool EXACT>
 void launch(const void* A, const void* BRB, const void* Q, void* E, void* F, void* G, int Bsz, int N, int p,
             int levels, double jitter, cudaStream_t stream) {
-  lft_scan_kernel<PM, CPL, EXACT><<<(Bsz + PPB - 1) / PPB, THREADS, 0, stream>>>(
-      (const double*)A, (const double*)BRB, (const double*)Q, (double*)E, (double*)F, (double*)G, Bsz, N, p, levels,
-      jitter);
+  lft_scan_kernel<Fp, PM, CPL, EXACT><<<(Bsz + PPB - 1) / PPB, THREADS, 0, stream>>>(
+      (const Fp*)A, (const Fp*)BRB, (const Fp*)Q, (double*)E, (double*)F, (double*)G, Bsz, N, p, levels, jitter);
 }
 
-}  // namespace
-
-// Blocks (of two problems) an SM holds at once at this p, as the launch
-// below takes it; -1 for a p it refuses.
-extern "C" int lft_scan_blocks_per_sm(int p) {
+template <typename Fp>
+int scan_blocks_per_sm(int p) {
   if (p < 2 || p > PMAX) return -1;
-  if (p == 3) return blocks_per_sm<3, 1, true>();
-  if (p == 5) return blocks_per_sm<5, 1, true>();
-  if (p == 13) return blocks_per_sm<13, 2, true>();
-  return blocks_per_sm<PMAX, 2, false>();
+  if (p == 3) return blocks_per_sm<Fp, 3, 1, true>();
+  if (p == 5) return blocks_per_sm<Fp, 5, 1, true>();
+  if (p == 13) return blocks_per_sm<Fp, 13, 2, true>();
+  return blocks_per_sm<Fp, PMAX, 2, false>();
 }
 
-extern "C" int lft_scan(const void* A, const void* BRB, const void* Q, void* E, void* F, void* G,
-                        int Bsz, int N, int p, int levels, double jitter, void* stream) {
+template <typename Fp>
+int scan(const void* A, const void* BRB, const void* Q, void* E, void* F, void* G, int Bsz, int N, int p, int levels,
+         double jitter, void* stream) {
   if (p < 2 || p > PMAX || levels < 1 || levels > 2) return (int)cudaErrorInvalidValue;
   if (Bsz > 0 && N > 0) {
     // the registry's p = 3 (double integrator), 5 (cart-pole, segway,
@@ -484,10 +495,30 @@ extern "C" int lft_scan(const void* A, const void* BRB, const void* Q, void* E, 
     // column a lane at p <= 5 (4p <= 32) and two at p = 13; any other
     // p <= 13 at run time, two columns a lane
     cudaStream_t s = (cudaStream_t)stream;
-    if (p == 3) launch<3, 1, true>(A, BRB, Q, E, F, G, Bsz, N, p, levels, jitter, s);
-    else if (p == 5) launch<5, 1, true>(A, BRB, Q, E, F, G, Bsz, N, p, levels, jitter, s);
-    else if (p == 13) launch<13, 2, true>(A, BRB, Q, E, F, G, Bsz, N, p, levels, jitter, s);
-    else launch<PMAX, 2, false>(A, BRB, Q, E, F, G, Bsz, N, p, levels, jitter, s);
+    if (p == 3) launch<Fp, 3, 1, true>(A, BRB, Q, E, F, G, Bsz, N, p, levels, jitter, s);
+    else if (p == 5) launch<Fp, 5, 1, true>(A, BRB, Q, E, F, G, Bsz, N, p, levels, jitter, s);
+    else if (p == 13) launch<Fp, 13, 2, true>(A, BRB, Q, E, F, G, Bsz, N, p, levels, jitter, s);
+    else launch<Fp, PMAX, 2, false>(A, BRB, Q, E, F, G, Bsz, N, p, levels, jitter, s);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Blocks (of two problems) an SM holds at once at this p, as the launch
+// below takes it; -1 for a p it refuses. The float32 instantiation stages
+// half the bytes.
+extern "C" int lft_scan_blocks_per_sm(int p) { return scan_blocks_per_sm<double>(p); }
+extern "C" int lft_scan_blocks_per_sm_f32(int p) { return scan_blocks_per_sm<float>(p); }
+
+// float64 blocks, float64 prefixes
+extern "C" int lft_scan(const void* A, const void* BRB, const void* Q, void* E, void* F, void* G,
+                        int Bsz, int N, int p, int levels, double jitter, void* stream) {
+  return scan<double>(A, BRB, Q, E, F, G, Bsz, N, p, levels, jitter, stream);
+}
+
+// float32 blocks, float64 prefixes (float64 arithmetic)
+extern "C" int lft_scan_f32(const void* A, const void* BRB, const void* Q, void* E, void* F, void* G,
+                            int Bsz, int N, int p, int levels, double jitter, void* stream) {
+  return scan<float>(A, BRB, Q, E, F, G, Bsz, N, p, levels, jitter, stream);
 }

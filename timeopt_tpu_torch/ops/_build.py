@@ -91,21 +91,18 @@ def bind(lib: ctypes.CDLL, fn: str, n_ptr: int, tail: list) -> ctypes._CFuncPtr:
     return f
 
 
-# The storage dtypes of the kernels that have a float32 instantiation (f32
-# in device memory, float64 in registers); the others take float64 only.
+# The storage dtypes of the kernels: each has a float64 and a float32
+# instantiation (f32 in device memory, float64 in registers).
 STORAGE_DTYPES = (torch.float64, torch.float32)
-F32_LATER = "float32 through this kernel is not ported yet (ROADMAP.md, Queue 1: the next slice)"
 
 
-def on_card(x: torch.Tensor, phase: str, f32: bool = True) -> bool:
+def on_card(x: torch.Tensor, phase: str) -> bool:
     """The dispatch rule of every phase: False for a CPU tensor (plain
     PyTorch version), True for a CUDA tensor (the kernel). The dtype must be
-    float64, or float32 where the kernel has a float32 instantiation
-    (`f32`); any other raises TypeError, on every device, so that nothing
-    is upcast or sent to the CPU silently."""
-    if x.dtype not in (STORAGE_DTYPES if f32 else (torch.float64,)):
-        why = F32_LATER if x.dtype == torch.float32 else "the kernels store float64 or float32"
-        raise TypeError(f"{phase}: dtype {x.dtype}: {why}")
+    float64 or float32; any other raises TypeError, on every device, so
+    that nothing is upcast or sent to the CPU silently."""
+    if x.dtype not in STORAGE_DTYPES:
+        raise TypeError(f"{phase}: dtype {x.dtype}: the kernels store float64 or float32")
     if x.device.type == "cpu":
         return False
     if x.device.type != "cuda":

@@ -107,21 +107,23 @@ def select_generic(B: int, N: int, n: int, m: int, t_min: int, itemsize: int = F
     return bound(flops, nbytes)
 
 
-def lft_scan(B: int, N: int, n: int) -> dict:
+def lft_scan(B: int, N: int, n: int, itemsize: int = F64) -> dict:
     """csrc/lft_scan.cu: element and compose of every step, every prefix
-    written (the first jitter rung)."""
+    written (the first jitter rung); the blocks at `itemsize`, the prefixes
+    float64 on both paths."""
     p = n + 1
     elem = sym(p) + p + gj(p, 3 * p) + mm(p, p, p) + p * p + sym(p)  # as select_generic's, B R^-1 B' given
     flops = B * N * elem + B * max(0, N - 1) * _compose(p)
-    nbytes = F64 * (3 * B * N * p * p + 3 * B * N * p * p)
+    nbytes = itemsize * 3 * B * N * p * p + F64 * 3 * B * N * p * p
     return bound(flops, nbytes)
 
 
-def lft_query(B: int, N: int, n: int) -> dict:
-    """csrc/lft_query.cu: the C-form query of every (problem, horizon)."""
+def lft_query(B: int, N: int, n: int, itemsize: int = F64) -> dict:
+    """csrc/lft_query.cu: the C-form query of every (problem, horizon); the
+    prefixes float64, C and J at `itemsize`."""
     p = n + 1
     flops = B * N * (_query(n, p) + _c_form(n, p))
-    nbytes = F64 * (B * N * (3 * p * p + n * p) + B * N)
+    nbytes = B * N * (F64 * 3 * p * p + itemsize * (n * p + 1))
     return bound(flops, nbytes)
 
 

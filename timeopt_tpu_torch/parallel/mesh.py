@@ -35,6 +35,7 @@ import torch
 
 from timeopt_tpu_torch.models.base import Problem, System
 from timeopt_tpu_torch.ops import cuda_lft_query
+from timeopt_tpu_torch.ops.precision import full_matmul_precision
 from timeopt_tpu_torch.solver.augmented import AugmentedBlocks
 from timeopt_tpu_torch.solver.horizon import LFTElements, propagator_select_prefixes
 from timeopt_tpu_torch.solver.ilqr import SolveOptions, SolveResult, default_U_init, solve_batch
@@ -141,6 +142,7 @@ def solve_batch_sharded(
     })
 
 
+@full_matmul_precision
 def propagator_select_sharded(
     blocks: AugmentedBlocks,
     C: torch.Tensor,
@@ -160,7 +162,10 @@ def propagator_select_sharded(
     candidates are padded to a multiple of the hs devices (the padded C
     rows the identity, so their queries stay well conditioned), each
     device queries its contiguous slice (the query kernel on a card), and
-    the slices are gathered back in order on the blocks' device."""
+    the slices are gathered back in order on the blocks' device. On
+    float32 blocks the prefixes travel in float64 and C in float32 (each
+    padding keeps its operand's dtype), and J comes back in float32, as
+    horizon.propagator_select gives it; TF32 is off inside."""
     pre = propagator_select_prefixes(blocks.A_aug, blocks.B_aug, blocks.Q_aug, blocks.R_inv,
                                      scan_mode=scan_mode, psd_levels=psd_levels)
     devs = mesh.axis_devices(hs_axis)

@@ -31,9 +31,9 @@ batch's wall-clock on each rank divided by the trials.
 With --f32 the trial problems are float32 and solve on the port's float32
 path (float32 storage, float64 recursions; SolveOptions' df_forward and
 select_dtype at their defaults), as the JAX runner's --f32 solves in
-float32. --consistency needs the float32 prefix-scan and query kernels,
-which are not ported yet (ROADMAP.md), so the two flags together fail at
-parsing. The figures are runner/plot.py's (matplotlib).
+float32; with --consistency, trial 0's consistency_max_abs and
+consistency_rmse then come from consistency_check's float32 curves, as the
+JAX runner's do. The figures are runner/plot.py's (matplotlib).
 """
 
 from __future__ import annotations
@@ -371,7 +371,7 @@ def parse_args(argv=None):
     ap.add_argument("--timing", choices=["amortized", "per-solve"], default="amortized")
     ap.add_argument("--device", type=str, default="cuda", help="PyTorch device of the solves (default cuda)")
     ap.add_argument("--f32", action="store_true",
-                    help="solve in float32 (float32 storage, float64 recursions); not with --consistency")
+                    help="solve in float32 (float32 storage, float64 recursions)")
     ap.add_argument(
         "--save-trajectories", action="store_true",
         help="save per-case solved trajectories (X, U, T*, J*) to <outdir>/<case>/trajectories_<solver>.npz",
@@ -397,9 +397,6 @@ def parse_args(argv=None):
     )
     args = ap.parse_args(argv)
 
-    if args.f32 and args.consistency:
-        ap.error("--consistency with --f32 needs the float32 prefix-scan and query kernels, not ported yet "
-                 "(ROADMAP.md, Queue 1)")
     args.solvers = [s.strip() for s in args.solvers.split(",") if s.strip()]
     for s in args.solvers:
         if s not in SOLVER_METHODS:

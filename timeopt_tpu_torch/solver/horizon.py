@@ -18,6 +18,13 @@ version below on the CPU and a hand-written kernel on the card:
   ops/cuda_lft_scan.py (or the plain associative scan), then the factored
   query of ops/cuda_lft_query.py or the plain inverse query.
 
+On float32 blocks (the float32 path) the unfused select stores what the JAX
+package's float32 select takes in and gives out, blocks, C or QT and J in
+float32, and keeps every recursion in float64: B R^-1 B' is formed in
+float64 and rounded once, the prefixes (the scan kernel's float32 entry,
+or the associative scan on the upcast blocks) stay float64, and J is
+rounded to float32 once, on the way out of the query.
+
 The brute force (`bruteforce_J_curve`) has no kernel in the JAX package and
 stays plain PyTorch: one reverse loop over the steps that carries the value
 expansion of every candidate horizon at once.
@@ -31,6 +38,7 @@ import torch
 
 from timeopt_tpu_torch.ops import _build, cuda_lft, cuda_lft_generic, cuda_lft_query, cuda_lft_scan
 from timeopt_tpu_torch.ops.linalg import psd_inv, psd_solve, sym
+from timeopt_tpu_torch.ops.precision import full_matmul_precision
 from timeopt_tpu_torch.ops.wrap import wrap_error
 
 
@@ -41,8 +49,9 @@ class LFTElements(NamedTuple):
 
 
 def brb(B_aug: torch.Tensor, R_inv: torch.Tensor) -> torch.Tensor:
-    """B_aug R^-1 B_aug' (B, N, p, p) for B_aug (B, N, p, m), R_inv (B, m, m)."""
-    return torch.einsum("bkim,bmn,bkjn->bkij", B_aug, R_inv, B_aug)
+    """B_aug R^-1 B_aug' (B, N, p, p) for B_aug (B, N, p, m), R_inv (B, m, m),
+    formed in float64 (on float32 inputs rounded to float32 once)."""
+    return _build.in_f64(torch.einsum, "bkim,bmn,bkjn->bkij", B_aug, R_inv, B_aug)
 
 
 def lft_elements_brb(A_aug, BRB, Q_aug, *, psd_levels: int = 2, jitter: float = 1e-9) -> LFTElements:
@@ -142,36 +151,40 @@ def propagator_J_curve(prefixes: LFTElements, QT: torch.Tensor, *, psd_levels: i
     terminal block QT (B, N, p, p) (build_terminal_blocks),
       X0 = E - F (QT^-1 + G)^-1 F',  J(T) = 0.5 (X0^-1)[p-1, p-1].
     QT is rank-deficient by construction, so this query carries the
-    reference's O(1e-4) regularization error."""
+    reference's O(1e-4) regularization error. In float64 on the float64
+    prefixes, J in QT's dtype: on float32 QT, QT upcast and J rounded once."""
     Eb, Fb, Gb = prefixes
-    Xt = psd_inv(QT, levels=psd_levels)
+    Xt = psd_inv(QT.double(), levels=psd_levels)
     Wt = psd_inv(Xt + Gb, levels=psd_levels)
     X0 = sym(Eb - Fb @ Wt @ Fb.transpose(-1, -2))
-    return 0.5 * _last_solve(X0, psd_levels)
+    return (0.5 * _last_solve(X0, psd_levels)).to(QT.dtype)
 
 
 def propagator_select_prefixes(A_aug, B_aug, Q_aug, R_inv, *, scan_mode: str = "sequential",
                                psd_levels: int = 2) -> LFTElements:
-    """Every prefix (E, F, G) of the blocks: the scan kernel (scan_mode=
-    "sequential"), or the plain associative scan ("associative")."""
+    """Every prefix (E, F, G) of the blocks, float64: the scan kernel
+    (scan_mode="sequential"; its float32 entry on float32 blocks), or the
+    plain associative scan ("associative") on the blocks upcast to float64."""
     if scan_mode == "sequential":
         return LFTElements(*cuda_lft_scan.lft_scan(
             A_aug.contiguous(), brb(B_aug, R_inv).contiguous(), Q_aug.contiguous(), levels=psd_levels
         ))
-    elems = lft_elements(A_aug, B_aug, Q_aug, R_inv, psd_levels=psd_levels)
+    elems = lft_elements(*(t.double() for t in (A_aug, B_aug, Q_aug, R_inv)), psd_levels=psd_levels)
     return lft_prefix_scan(elems, mode=scan_mode, psd_levels=psd_levels)
 
 
+@full_matmul_precision
 def propagator_select(
     A_aug, B_aug, Q_aug, R_inv, terminal, *, psd_levels: int = 2, terminal_mode: str = "factored",
     scan_mode: str = "sequential",
 ) -> torch.Tensor:
     """The unfused propagator sweep: blocks -> J(T), T = 1..N (B, N),
-    unscaled. The prefixes come from the scan kernel (scan_mode=
-    "sequential") or the plain associative scan ("associative");
-    `terminal` is C from build_terminal_factors (terminal_mode="factored",
-    the query kernel) or QT from build_terminal_blocks ("inverse", the plain
-    inverse query)."""
+    unscaled, in the terminal's dtype. The prefixes come from the scan
+    kernel (scan_mode="sequential") or the plain associative scan
+    ("associative"); `terminal` is C from build_terminal_factors
+    (terminal_mode="factored", the query kernel) or QT from
+    build_terminal_blocks ("inverse", the plain inverse query). TF32 is off
+    inside (ops/precision.py), as in the JAX package's propagator_select."""
     pre = propagator_select_prefixes(A_aug, B_aug, Q_aug, R_inv, scan_mode=scan_mode, psd_levels=psd_levels)
     if terminal_mode == "factored":
         return cuda_lft_query.lft_query(*(t.contiguous() for t in pre), terminal.contiguous(), levels=psd_levels)

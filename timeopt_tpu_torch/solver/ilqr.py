@@ -67,10 +67,7 @@ class SolveOptions:
     diagnostic of a chip without float64) is not ported and raises
     ValueError. select_dtype, with the JAX semantics
     (None: the problem's dtype; "float64" or "float32"), casts the select's
-    inputs to that dtype and its curve back. A float32 select takes the
-    sequential scan and the factored query only: the float32 prefix-scan and
-    query kernels are the next slice of the port (ROADMAP.md); other modes
-    raise TypeError unless select_dtype="float64"."""
+    inputs to that dtype and its curve back."""
 
     method: str = "propagator"  # "propagator" | "bruteforce" | "onepass"
     max_iter: int = 15
@@ -180,13 +177,6 @@ def _select_curve(system, prob, opts, X, U, A, B) -> torch.Tensor:
         inner = dataclasses.replace(opts, select_dtype=None)
         prob_sd, X_sd, U_sd, A_sd, B_sd = (_build.cast(t, sd) for t in (prob, X, U, A, B))
         return _select_curve(system, prob_sd, inner, X_sd, U_sd, A_sd, B_sd).to(X.dtype)
-    if (X.dtype == torch.float32 and opts.method == "propagator"
-            and (opts.scan_mode != "sequential" or opts.terminal_mode != "factored")):
-        raise TypeError(
-            f"a float32 select with scan_mode={opts.scan_mode!r}, terminal_mode={opts.terminal_mode!r} needs the "
-            "prefix-scan and query kernels in float32, which are not ported yet (ROADMAP.md, Queue 1: the next "
-            "slice); take the default sequential scan and factored query, or select_dtype='float64'"
-        )
     Tm = prob.T_max
     Xh, Uh, Ah, Bh = X[:, : Tm + 1], U[:, :Tm], A[:, :Tm], B[:, :Tm]
     if opts.method == "bruteforce":

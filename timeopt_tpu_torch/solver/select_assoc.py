@@ -23,7 +23,8 @@ The JAX module runs this math in double-single (df32) arithmetic with time
 on the TPU's lane axis, because the TPU has no float64 and plain float32
 picks wrong horizons. That is TPU mechanics: the port runs it in float64
 (the H100 has float64 units), with time on axis 1 of the usual
-(B, N, p, p) layout. The mode keeps its name, so a SolveOptions carries
+(B, N, p, p) layout, on float32 problems too (float32 blocks and C in,
+float32 J out). The mode keeps its name, so a SolveOptions carries
 over between the packages.
 """
 
@@ -127,8 +128,11 @@ def lft_prefix_scan_hillis_steele(elems: LFTElements) -> LFTElements:
 
 def propagator_select_assoc(A_aug, B_aug, Q_aug, R_inv, C, t_min: int) -> torch.Tensor:
     """The whole latency-mode select: blocks and factored terminal C
-    (B, N, n, p) -> J (B, N), unscaled, +inf below t_min."""
-    pre = lft_prefix_scan_hillis_steele(lft_elements_time(A_aug, B_aug, Q_aug, R_inv))
+    (B, N, n, p) -> J (B, N) in C's dtype, unscaled, +inf below t_min. The
+    elements and the rounds run in float64 (on float32 blocks, upcast);
+    the query kernel takes C as it is and rounds J once."""
+    blocks = (t.double() for t in (A_aug, B_aug, Q_aug, R_inv))
+    pre = lft_prefix_scan_hillis_steele(lft_elements_time(*blocks))
     J = cuda_lft_query.lft_query(*(t.contiguous() for t in pre), C.contiguous(), jitter=JITTER, levels=1)
     Ts = torch.arange(1, J.shape[1] + 1, device=J.device)
     return torch.where(Ts >= t_min, J, torch.full_like(J, float("inf")))

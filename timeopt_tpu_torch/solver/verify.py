@@ -5,18 +5,24 @@ quadratic-model curve of the brute force on the same trajectories, the
 
 The propagator curve comes from the unfused select
 (solver/horizon.py::propagator_select with the factored query), so on the
-card it runs the prefix-scan and terminal-query kernels."""
+card it runs the prefix-scan and terminal-query kernels. On a float32
+trajectory both curves are float32, as in the JAX function: the blocks,
+C and the propagator's J in float32 around float64 recursions (the
+kernels' float32 entries), and the brute force's float64 recursion with
+its curve rounded to float32 (horizon.bruteforce_J_curve)."""
 
 from __future__ import annotations
 
 import torch
 
 from timeopt_tpu_torch.models.base import Problem, System
+from timeopt_tpu_torch.ops.precision import full_matmul_precision
 from timeopt_tpu_torch.solver.augmented import build_augmented, build_terminal_factors
 from timeopt_tpu_torch.solver.horizon import bruteforce_J_curve, propagator_select
 from timeopt_tpu_torch.solver.linearize import linearize
 
 
+@full_matmul_precision
 def consistency_check(
     system: System,
     prob: Problem,
@@ -34,7 +40,8 @@ def consistency_check(
     (B, T_max)), the differences taken over T in [T_min, T_max]. With the
     brute force's regularization lm_lambda = 1e-6 the difference is that
     regularization; with lm_lambda = 0 the factored propagator matches the
-    exact quadratic model up to the q_reg and jitter regularization."""
+    exact quadratic model up to the q_reg and jitter regularization. TF32
+    is off inside (ops/precision.py)."""
     Tm = prob.T_max
     A, B = linearize(system.step, X, U, linearize_mode)
     Xh, Uh, Ah, Bh = X[:, : Tm + 1], U[:, :Tm], A[:, :Tm], B[:, :Tm]
