@@ -105,8 +105,8 @@ def main(device: str = "cuda") -> dict:
         return J, T, err, checksum
 
     t0 = time.perf_counter()
-    float(bench_fn()[3])  # the first call builds the kernels
-    log(f"first call (kernel builds + run): {time.perf_counter() - t0:.1f}s")
+    float(bench_fn()[3])  # the first call builds the kernels and captures the solve's graphs
+    log(f"first call (kernel builds, capture + run): {time.perf_counter() - t0:.1f}s")
 
     times = []
     for _ in range(k["reps"]):

@@ -8,7 +8,18 @@ float64 on the card through its six hand-written CUDA kernels, for every
 system of the model registry, then its latency mode, its scale-out layer
 and its float32 path (float32 storage, float64 recursions), in ten
 phases; each prints its own lines and any failure raises (non-zero exit,
-no result line):
+no result line). Every solve runs as `solve_batch` runs it on the card:
+captured CUDA graphs (timeopt_tpu_torch/solver/compiled.py), each
+program's warm-up, capture seconds and pool bytes printed; the solves of
+phases 4, 5, 8 and 10 (b) (of the float32 modes, the F32_MODES_EAGER
+sets) are each also run by the eager driver `compiled._solve_traced` and
+must equal it bit for bit with the same launches, and phases 7, 8 (b) and
+10 (c) time captured against eager in turns. Every program built on the
+main path has one replay of each of its two graphs traced with
+torch.profiler (observe_programs): the kernels the trace shows on the
+card, kernel by kernel, must equal the launches the program adds to the
+wrappers' counts per replay of that graph. The captured programs are
+dropped between phases, and a `[time]` line follows each phase:
 
 1. device: the card, CUDA and nvcc versions (no CPU fallback);
 2. build: the six kernels from timeopt_tpu_torch/csrc/, one nvcc each, all
@@ -41,7 +52,9 @@ no result line):
 4. the solve of the 128 problems of each results/oracle_f64*.npz (six
    systems), scored against that f64 brute-force oracle (exact and
    exact-or-tied T*, every problem but REFERENCE_MISSES), with the launch
-   count of every kernel in each run;
+   count of every kernel in each run; the double integrator's set by the
+   same system with device_id None must raise (its line search has no
+   kernel: ROADMAP P1), not run eagerly;
 5. brute force: the oracle's own computation, solve_batch(method=
    "bruteforce", max_iter=12, psd_levels=1), on each of the six oracle
    problem sets, exact-or-tied 128/128 with no exception, the J* and J(T)
@@ -60,17 +73,19 @@ no result line):
    rtol 1e-6, and its success share per case at least the committed one;
    the other mismatches printed (baseline2's with their J* gap), and each
    case's trial-0 phase timers beside the committed CPU values;
-7. throughput: one timed solve_batch at B=1024 of the quadrotor and of
-   PointMass, and one one-pass solve of the quadrotor, each after a
-   warm-up; the kernels of each path must launch;
+7. throughput: solve_batch at B=1024 of the quadrotor and of PointMass,
+   and the one-pass solve of the quadrotor, each timed captured, eager,
+   eager, captured after the program's build (bitwise equal, the same
+   launches); the kernels of each path must launch;
 8. latency mode: the six oracle sets at B=128 solved with
    scan_mode="associative" and "assoc_df" (plain torch scans, then the
    query kernel), scored and gated as phase 4 (misses within
    REFERENCE_MISSES, and for "associative" within ASSOC_MISSES) and
    printed beside phase 4's score; then the
    quadrotor's oracle problem 0 at B=1 (N=160, max_iter=12) solved in the
-   three scan modes (median of 5 synchronized solves after a warm-up, the
-   modes in turns; T* identical to the sequential solve's, J* within rtol
+   three scan modes, captured and eager (median of 5 synchronized solves
+   of each after a warm-up, the modes and the drivers in turns; captured
+   bitwise eager; T* identical to the sequential solve's, J* within rtol
    1e-9) and its
    select alone timed on the first iterate in each mode;
 9. scale-out (timeopt_tpu_torch.parallel): solve_batch_sharded over a
@@ -84,7 +99,9 @@ no result line):
    with --distributed against the runner without it (DoubleIntegrator, 5
    trials, ourmethod,baseline1: T* identical); with two or more cards,
    one NCCL rank a card by torch.multiprocessing against the one-process
-   solve. Solves: T* and T_ties identical, J*, X and U within rtol 1e-12;
+   solve. Solves: T* and T_ties identical, J*, X and U within rtol 1e-12,
+   the sharded solve (its chunks' captured programs driven together)
+   bit for bit, timed against the one-card solve in turns;
 10. float32: (a) the float32 instantiations of the fused select, the
    backward, the line search (both entries) and the generic select against
    their plain versions at phase 3's shapes (F32_SELECT_BOUND, F32_REL,
@@ -102,7 +119,8 @@ no result line):
    through #9 and #10 at float32 (F32_MODES: the inverse query and both
    latency modes), gated as phase 8 and each result's consistency_check as
    phase 5, the argmins at float32 resolution (tied_f32); (c) phase 7's quadrotor and PointMass
-   solves and the quadrotor's one-pass solve at float32, beside phase 7's
+   solves and the quadrotor's one-pass solve at float32, captured and
+   eager in turns, beside phase 7's
    float64 solves/s of this run, then `python3 bench_torch.py` at its
    defaults, its one JSON line echoed; (d) the runner with --f32
    --consistency on the double integrator and the quadrotor (5 trials,
@@ -294,6 +312,8 @@ COMMITTED_CSV = os.path.join(ROOT, "results", "cpu_f64_25", "summary_all.csv")
 ORACLE_TIED: dict = {}
 # Phase 7's and phase 10's solves/s, by (case, "f64" | "f32").
 THROUGHPUT: dict = {}
+# The eager driver's solves/s in the same phases (captured_vs_eager).
+THROUGHPUT_EAGER: dict = {}
 # Phase 8 gates both latency modes on every case as phase 4 gates the
 # sequential select: the misses (not exact-or-tied) lie within
 # REFERENCE_MISSES. scan_mode="associative" composes with explicit
@@ -1283,6 +1303,149 @@ def launches() -> dict:
     return {name: mod.LAUNCHES for name, mod in _counted().items()}
 
 
+def differing(got, want) -> list:
+    """The SolveResult fields in which got and want differ in any bit (NaN
+    where NaN counts as equal)."""
+    import dataclasses
+
+    import torch
+
+    out = []
+    for f in dataclasses.fields(want):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if a.dtype != b.dtype or a.shape != b.shape:
+            out.append(f.name)
+            continue
+        if a.is_floating_point():
+            same = torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0))
+        else:
+            same = torch.equal(a, b)
+        if not same:
+            out.append(f.name)
+    return out
+
+
+KERNEL_SYMBOL = {"lft_select": "lft_select_kernel", "lft_select_generic": "lft_select_generic_kernel",
+                 "backward": "backward_kernel", "linesearch": "linesearch_kernel", "lft_scan": "lft_scan_kernel",
+                 "lft_query": "lft_query_kernel"}  # each kernel's __global__ function in its .cu
+TRACED = {"programs": 0, "events": 0, "secs": 0.0, "retraced": 0}
+TRACE_TRIES = 3  # traces of one graph before a shortfall fails
+
+
+def traced_launches(fn) -> tuple:
+    """fn() under torch.profiler: the kernel events on the card whose name
+    holds each kernel's function (KERNEL_SYMBOL), counted by kernel, and the
+    number of device events in the trace."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name() for e in prof.profiler.kineto_results.events() if e.device_type() == DeviceType.CUDA]
+    return {k: sum(1 for n in names if re.search(rf"\b{sym}\b", n)) for k, sym in KERNEL_SYMBOL.items()}, len(names)
+
+
+def observe_programs() -> None:
+    """From here on, every program that compiled.program builds has one
+    replay of its init graph and one of its step graph run under
+    torch.profiler (traced_launches): the kernels each trace shows must
+    equal, kernel by kernel, the launches the program adds to the wrappers'
+    counts on a replay of that graph (recorded at its capture). So every
+    launch count of a captured solve rests on kernels seen on the card.
+    A trace can come back short (the profiler lost device events: on an
+    H100 one step graph's trace once held 184 of its ~860 events, the
+    other traces of that run whole), so a graph whose trace shows fewer
+    kernels than booked is
+    traced again, up to TRACE_TRIES times; a trace that shows more than
+    booked, or TRACE_TRIES short ones, fails. These traced replays count
+    nowhere; the next solve reloads the inputs."""
+    import torch
+    from timeopt_tpu_torch.solver import compiled
+
+    build = compiled.program
+    name_of = {mod: name for name, mod in _counted().items()}
+
+    def program(system, opts, probs, U_init):
+        cached = {id(p) for p in compiled.programs()}
+        prog = build(system, opts, probs, U_init)
+        if id(prog) in cached or prog.graphs is None:
+            return prog
+        t0 = time.perf_counter()
+        seen = []
+        with torch.cuda.device(prog.device):
+            for graph_name, (graph, counted) in prog.graphs.items():
+                booked = {name_of[mod]: c for mod, c in zip(compiled._launch_modules(), counted)}
+                for attempt in range(1, TRACE_TRIES + 1):
+                    traced, events = traced_launches(graph.replay)
+                    short = all(traced[k] <= booked[k] for k in booked) and traced != booked
+                    if not short or attempt == TRACE_TRIES:
+                        break
+                    TRACED["retraced"] += 1
+                    log(f"[trace] program {prog.label}, {graph_name} graph: trace {attempt} short ({traced} in "
+                        f"{events} device events, booked {booked}), traced again")
+                require(events > 0 and traced == booked,
+                        f"program {prog.label}, {graph_name} graph: the trace shows {traced} in {events} device "
+                        f"events (trace {attempt} of {TRACE_TRIES}), the program books {booked} a replay")
+                seen.append(f"{graph_name} {events} events, {dict((k, v) for k, v in traced.items() if v)}")
+                TRACED["events"] += events
+        TRACED["programs"] += 1
+        TRACED["secs"] += time.perf_counter() - t0
+        log(f"[trace] program {prog.label}: one replay of each graph traced, the kernels seen equal the launches "
+            f"booked ({'; '.join(seen)}; {time.perf_counter() - t0:.2f} s)")
+        return prog
+
+    compiled.program = program
+
+
+def program_line(prog) -> str:
+    """A captured program's build: its eager warm-up, its two captures and
+    its graphs' memory pool."""
+    return (f"program {prog.label}: warm-up {prog.warmup_s:.3f} s, capture {prog.capture_s:.3f} s, pool "
+            f"{prog.pool_bytes / 2**20:.1f} MiB")
+
+
+def solve_captured(system, probs, opts, label: str, eager: bool = True) -> dict:
+    """One solve_batch on the card through its captured program (built
+    first, untimed: the warm-up's launches are not the solve's), timed and
+    its launches counted; with `eager`, then the eager driver
+    compiled._solve_traced on the same inputs, which it must equal bit for
+    bit, launch for launch. Returns the result, seconds, launch counts and
+    the program (and the eager seconds)."""
+    import torch
+    from timeopt_tpu_torch.solver import compiled
+    from timeopt_tpu_torch.solver.ilqr import prepare, solve_batch
+
+    p, U = prepare(probs, None)
+    prog = compiled.program(system, opts, p, U)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = solve_batch(system, probs, options=opts)
+    torch.cuda.synchronize()
+    out = dict(res=res, secs=time.perf_counter() - t0, counts=launches(), prog=prog, eager_secs=None)
+    if eager:
+        reset_launches()
+        t0 = time.perf_counter()
+        want = compiled._solve_traced(system, opts, p, U)
+        torch.cuda.synchronize()
+        out["eager_secs"] = time.perf_counter() - t0
+        counts = launches()
+        diff = differing(res, want)
+        require(not diff, f"{label}: the captured solve differs from _solve_traced in {diff}")
+        require(counts == out["counts"], f"{label}: launches captured {out['counts']}, eager {counts}")
+    return out
+
+
+def captured_note(o: dict) -> str:
+    """The log fragment of a solve_captured run."""
+    eager = ("" if o["eager_secs"] is None else
+             f", eager _solve_traced {o['eager_secs']:.2f} s: bitwise equal, the same launches")
+    return f"captured {o['secs']:.2f} s{eager} ({program_line(o['prog'])})"
+
+
 def oracle_w(case: str) -> float:
     """The time weight w of the case's float64 default problem (the
     oracle's scoring rule reads it there, at float32 too)."""
@@ -1314,16 +1477,17 @@ def tied_f32(T, T_o, curve_o, w: float):
     return (T == T_o) | (np.abs(curve_o[idx, T - 1] - ref) <= w * (np.abs(T - T_o) + 1) + 2 * ulp)
 
 
-def solve_oracle_set(case: str, device, opts, dtype=None) -> dict:
+def solve_oracle_set(case: str, device, opts, dtype=None, eager: bool = True) -> dict:
     """The 128 problems of the case's results/oracle_f64*.npz solved on the
-    card with `opts` (in `dtype`, float32, if given), checked finite and of
-    the expected shapes, and scored against the oracle with the float64
-    default problem's w: the system, problems, result, seconds, launch
-    counts, exact and exact-or-tied arrays, J* gaps and success share."""
+    card with `opts` (in `dtype`, float32, if given) through the captured
+    program, with `eager` held bitwise to the eager driver (solve_captured),
+    checked finite and of the expected shapes, and scored against the oracle
+    with the float64 default problem's w: the system, problems, result,
+    seconds, launch counts, exact and exact-or-tied arrays, J* gaps, success
+    share and the compiled note."""
     import torch
     from timeopt_tpu_torch.models import get_system
     from timeopt_tpu_torch.ops.wrap import wrap_error
-    from timeopt_tpu_torch.solver.ilqr import solve_batch
 
     system, mk = get_system(case)
     orc = load_oracle(case)
@@ -1331,12 +1495,9 @@ def solve_oracle_set(case: str, device, opts, dtype=None) -> dict:
     Bo = len(T_o)
     probs = oracle_problems(system, mk, Bo, device, dtype)
 
-    reset_launches()
-    t0 = time.perf_counter()
-    res = solve_batch(system, probs, options=opts)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    counts = launches()
+    o = solve_captured(system, probs, opts, f"{case} {opts.method} scan_mode={opts.scan_mode} "
+                                            f"terminal_mode={opts.terminal_mode} {dtype or 'float64'}", eager)
+    res, secs, counts = o["res"], o["secs"], o["counts"]
 
     n, m, N = system.n, system.m, probs.N
     require(tuple(res.X.shape) == (Bo, N + 1, n) and tuple(res.U.shape) == (Bo, N, m), f"{case}: result shapes")
@@ -1348,7 +1509,7 @@ def solve_oracle_set(case: str, device, opts, dtype=None) -> dict:
     eT = wrap_error(res.X[torch.arange(Bo, device=device), res.T_star] - probs.xg, probs.wrap_mask)
     return dict(system=system, probs=probs, res=res, secs=secs, counts=counts, T=T, T_o=T_o, exact=exact,
                 tied=exact | tied, gap=np.abs(J - J_o) / np.abs(J_o),
-                succ=float((eT.norm(dim=-1) <= 0.5).double().mean()))
+                succ=float((eT.norm(dim=-1) <= 0.5).double().mean()), note=captured_note(o))
 
 
 def phase_oracle(case: str, device) -> dict:
@@ -1365,7 +1526,7 @@ def phase_oracle(case: str, device) -> dict:
     ORACLE_TIED[case] = int(o["tied"].sum())
     log(f"[oracle] {case} B={Bo}: T* exact {int(o['exact'].sum())}/{Bo}, exact-or-tied {ORACLE_TIED[case]}/{Bo} | "
         f"J* rel gap median {np.median(o['gap']):.3e} max {o['gap'].max():.3e} | success@0.5 {o['succ']:.3f} | "
-        f"{o['secs']:.2f} s | launches {counts}")
+        f"{o['note']} | launches {counts}")
     bad = np.nonzero(~o["tied"])[0]
     if len(bad):
         log(f"[oracle] {case} not tied: idx {bad.tolist()} T* {T[bad].tolist()} oracle {T_o[bad].tolist()}")
@@ -1373,7 +1534,26 @@ def phase_oracle(case: str, device) -> dict:
     require(set(bad.tolist()) <= allowed,
             f"oracle {case}: exact-or-tied {ORACLE_TIED[case]}/{Bo}, misses {sorted(set(bad.tolist()) - allowed)} "
             "beyond the reference's own")
+    if case == "DoubleIntegrator":
+        without_device_dynamics_raises(o)
     return counts
+
+
+def without_device_dynamics_raises(o: dict) -> None:
+    """The oracle set of `o` solved by the same system with device_id None:
+    the line search has no kernel for it (ROADMAP P1), so solve_batch must
+    raise on the card rather than run the plain version there."""
+    import dataclasses
+
+    from timeopt_tpu_torch.solver.ilqr import SolveOptions, solve_batch
+
+    system = dataclasses.replace(o["system"], name=f"{o['system'].name}_no_device_dynamics", device_id=None)
+    try:
+        solve_batch(system, o["probs"], options=SolveOptions(method="propagator", max_iter=MAX_ITER, psd_levels=1))
+    except NotImplementedError as exc:
+        log(f"[oracle] {system.name}: raises on the card as it must ({exc})")
+        return
+    require(False, f"{system.name}: solved on the card without a line-search kernel")
 
 
 def phase_bruteforce(case: str, device) -> dict:
@@ -1383,7 +1563,7 @@ def phase_bruteforce(case: str, device) -> dict:
     paths."""
     import torch
     from timeopt_tpu_torch.models import get_system
-    from timeopt_tpu_torch.solver.ilqr import SolveOptions, solve_batch
+    from timeopt_tpu_torch.solver.ilqr import SolveOptions
 
     system, mk = get_system(case)
     orc = load_oracle(case)
@@ -1391,12 +1571,9 @@ def phase_bruteforce(case: str, device) -> dict:
     Bo = len(T_o)
     probs = oracle_problems(system, mk, Bo, device)
 
-    reset_launches()
-    t0 = time.perf_counter()
-    res = solve_batch(system, probs, options=SolveOptions(method="bruteforce", max_iter=MAX_ITER, psd_levels=1))
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    counts = launches()
+    o = solve_captured(system, probs, SolveOptions(method="bruteforce", max_iter=MAX_ITER, psd_levels=1),
+                       f"brute force {case}")
+    res, secs, counts = o["res"], o["secs"], o["counts"]
     for name in ("backward", "linesearch"):
         require(counts[name] > 0, f"brute-force solve {case}: kernel {name} was never launched")
     require(bool(torch.isfinite(res.J_star).all()), f"brute-force {case}: non-finite J*")
@@ -1407,8 +1584,8 @@ def phase_bruteforce(case: str, device) -> dict:
     cgap = np.abs(c - co).max(axis=1) / np.abs(co).max(axis=1)
     log(f"[bruteforce] {case} B={Bo}: T* exact {int(exact.sum())}/{Bo}, exact-or-tied {int(tied.sum())}/{Bo} | "
         f"J* rel gap median {np.median(gap):.3e} max {gap.max():.3e} | J(T) normwise gap to the oracle's curve "
-        f"median {np.median(cgap):.3e} max {cgap.max():.3e} | {secs:.2f} s, {counts['backward']} outer iterations, "
-        f"{1e3 * secs / counts['backward']:.1f} ms/iteration | {smi()}")
+        f"median {np.median(cgap):.3e} max {cgap.max():.3e} | {counts['backward']} outer iterations, "
+        f"{1e3 * secs / counts['backward']:.1f} ms/iteration captured | {captured_note(o)} | {smi()}")
     bad = np.nonzero(~tied)[0]
     require(len(bad) == 0, f"brute force {case}: not exact or tied on {bad.tolist()} (T* {T[bad].tolist()}, "
             f"oracle {T_o[bad].tolist()})")
@@ -1469,18 +1646,14 @@ def phase_inverse(device) -> dict:
     the scan kernel inside a solve. Returns its launch counts."""
     import torch
     from timeopt_tpu_torch.models import get_system
-    from timeopt_tpu_torch.solver.ilqr import SolveOptions, solve_batch
+    from timeopt_tpu_torch.solver.ilqr import SolveOptions
 
     system, mk = get_system("Quadrotor")
     orc = load_oracle("Quadrotor")
     probs = oracle_problems(system, mk, B_ORACLE, device)
     opts = SolveOptions(method="propagator", terminal_mode="inverse", max_iter=MAX_ITER, psd_levels=1)
-    reset_launches()
-    t0 = time.perf_counter()
-    res = solve_batch(system, probs, options=opts)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    counts = launches()
+    o = solve_captured(system, probs, opts, "inverse-query solve")
+    res, counts = o["res"], o["counts"]
     require(counts["lft_scan"] > 0, "inverse-query solve: kernel lft_scan was never launched")
     require(bool(torch.isfinite(res.J_star).all()), "inverse-query solve: non-finite J*")
     T_o = orc["T"].astype(np.int64)
@@ -1488,7 +1661,8 @@ def phase_inverse(device) -> dict:
     gap = np.abs(res.J_star.cpu().numpy() - orc["J"]) / np.abs(orc["J"])
     MODE_TIED[("inverse", "Quadrotor")] = int(tied.sum())
     log(f"[inverse] Quadrotor B={B_ORACLE} terminal_mode=inverse: T* exact {int(exact.sum())}/{B_ORACLE}, "
-        f"exact-or-tied {int(tied.sum())}/{B_ORACLE} | J* rel gap max {gap.max():.3e} | {secs:.2f} s | launches {counts}")
+        f"exact-or-tied {int(tied.sum())}/{B_ORACLE} | J* rel gap max {gap.max():.3e} | {captured_note(o)} | "
+        f"launches {counts}")
     return counts
 
 
@@ -1569,27 +1743,61 @@ def phase_runner() -> dict:
     return counts
 
 
+def captured_vs_eager(system, probs, opts, label: str, dtype=None) -> dict:
+    """Phase 7 and 10 (c): the captured solve and the eager driver, timed in
+    turns captured, eager, eager, captured after the program's build (its
+    warm-up and capture timed on their own): the captured result bitwise
+    the eager one, the same launches. Returns the captured result, its
+    launch counts, the seconds of each turn by kind and the program."""
+    import torch
+    from timeopt_tpu_torch.solver import compiled
+    from timeopt_tpu_torch.solver.ilqr import prepare, solve_batch
+
+    compiled.clear_compiled()
+    p, U = prepare(probs, None)
+    prog = compiled.program(system, opts, p, U)
+    torch.cuda.synchronize()
+    secs, res, counts = {"captured": [], "eager": []}, {}, {}
+    for kind in ("captured", "eager", "eager", "captured"):
+        reset_launches()
+        t0 = time.perf_counter()
+        res[kind] = (solve_batch(system, probs, options=opts) if kind == "captured"
+                     else compiled._solve_traced(system, opts, p, U))
+        torch.cuda.synchronize()
+        secs[kind].append(time.perf_counter() - t0)
+        counts[kind] = launches()
+    diff = differing(res["captured"], res["eager"])
+    require(not diff, f"{label}: the captured solve differs from _solve_traced in {diff}")
+    require(counts["captured"] == counts["eager"],
+            f"{label}: launches captured {counts['captured']}, eager {counts['eager']}")
+    return dict(res=res["captured"], counts=counts["captured"], secs=secs, prog=prog)
+
+
+def turns_line(o: dict, B: int) -> str:
+    """Solves/s of each turn of captured_vs_eager, in the order run."""
+    c, e = (o["secs"][k] for k in ("captured", "eager"))
+    return (f"solves/s in turns captured / eager / eager / captured: {B / c[0]:.2f} / {B / e[0]:.2f} / "
+            f"{B / e[1]:.2f} / {B / c[1]:.2f} (bitwise equal, the same launches; {program_line(o['prog'])})")
+
+
 def phase_throughput(case: str, device, dtype=None) -> dict:
-    """One timed solve_batch at B=1024 after a warm-up, in float64 or
-    `dtype` (float32); records its solves/s in THROUGHPUT and returns its
-    launch counts (the launches of one main-path solve)."""
+    """solve_batch at B=1024 in float64 or `dtype` (float32), captured and
+    eager in turns (captured_vs_eager); records the captured solves/s (the
+    mean of its two turns) in THROUGHPUT and the eager in THROUGHPUT_EAGER,
+    and returns the captured solve's launch counts (the launches of one
+    main-path solve)."""
     import torch
     from timeopt_tpu_torch.models import get_system
     from timeopt_tpu_torch.ops.wrap import wrap_error
     from timeopt_tpu_torch.solver.cost import extra_cost_terms
-    from timeopt_tpu_torch.solver.ilqr import SolveOptions, solve_batch
+    from timeopt_tpu_torch.solver.ilqr import SolveOptions
 
     system, mk = get_system(case)
     probs = oracle_problems(system, mk, B_FULL, device, dtype)
     opts = SolveOptions(method="propagator", max_iter=MAX_ITER, psd_levels=1)
-    solve_batch(system, probs, options=opts)  # warm-up
-    torch.cuda.synchronize()
-    reset_launches()
-    t0 = time.perf_counter()
-    res = solve_batch(system, probs, options=opts)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    counts = launches()
+    o = captured_vs_eager(system, probs, opts, f"throughput {case}")
+    res, counts = o["res"], o["counts"]
+    secs = statistics.mean(o["secs"]["captured"])
     select = "lft_select" if system.extra_cost is None else "lft_select_generic"
     for name in (select, "backward", "linesearch"):
         require(counts[name] > 0, f"throughput {case}: kernel {name} was never launched")
@@ -1604,8 +1812,11 @@ def phase_throughput(case: str, device, dtype=None) -> dict:
         extra = f" | extra_cost_terms (B*N={B_FULL * probs.N} steps) {ems:.2f} ms per call"
     tag = "f64" if dtype is None else "f32"
     THROUGHPUT[(case, tag)] = B_FULL / secs
-    beside = f" (f64 in this call: {THROUGHPUT[(case, 'f64')]:.2f})" if tag == "f32" else ""
-    log(f"[throughput] {case} B={B_FULL} max_iter={MAX_ITER} {tag}: {B_FULL / secs:.2f} solves/s{beside} | {secs:.3f} s | "
+    THROUGHPUT_EAGER[(case, tag)] = B_FULL / statistics.mean(o["secs"]["eager"])
+    beside = (f" (f64 in this call: captured {THROUGHPUT[(case, 'f64')]:.2f}, eager "
+              f"{THROUGHPUT_EAGER[(case, 'f64')]:.2f})" if tag == "f32" else "")
+    log(f"[throughput] {case} B={B_FULL} max_iter={MAX_ITER} {tag}: captured {B_FULL / secs:.2f}, eager "
+        f"{THROUGHPUT_EAGER[(case, tag)]:.2f} solves/s{beside} | {turns_line(o, B_FULL)} | captured {secs:.3f} s, "
         f"{iters} outer iterations, {1e3 * secs / iters:.2f} ms/iteration | T* median "
         f"{float(res.T_star.double().median()):g} | success@0.5 {succ:.3f} | launches {counts}{extra} | {smi()}")
     return counts
@@ -1622,19 +1833,14 @@ def phase_throughput_onepass(device, dtype=None) -> dict:
     import torch
     from timeopt_tpu_torch.models import get_system
     from timeopt_tpu_torch.ops.wrap import wrap_error
-    from timeopt_tpu_torch.solver.ilqr import SolveOptions, solve_batch
+    from timeopt_tpu_torch.solver.ilqr import SolveOptions
 
     system, mk = get_system("Quadrotor")
     probs = oracle_problems(system, mk, B_FULL, device, dtype)
     opts = SolveOptions(method="onepass", max_iter=MAX_ITER, S_window=20)
-    solve_batch(system, probs, options=opts)  # warm-up
-    torch.cuda.synchronize()
-    reset_launches()
-    t0 = time.perf_counter()
-    res = solve_batch(system, probs, options=opts)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    counts = launches()
+    o = captured_vs_eager(system, probs, opts, "throughput one-pass")
+    res, counts = o["res"], o["counts"]
+    secs = statistics.mean(o["secs"]["captured"])
     for name in ("backward", "linesearch"):
         require(counts[name] > 0, f"throughput one-pass: kernel {name} was never launched")
     require(bool(torch.isfinite(res.J_star).all()), "throughput one-pass: non-finite J*")
@@ -1642,11 +1848,14 @@ def phase_throughput_onepass(device, dtype=None) -> dict:
     succ = float((eT.norm(dim=-1) <= 0.5).double().mean())
     iters = counts["backward"] - 1  # the warm start's and one fallback backward an iteration
     tag = "f64" if dtype is None else "f32"
-    THROUGHPUT[("Quadrotor_onepass", tag)] = B_FULL / secs
-    beside = f" (f64 in this call: {THROUGHPUT[('Quadrotor_onepass', 'f64')]:.2f})" if tag == "f32" else ""
-    log(f"[throughput] Quadrotor one-pass B={B_FULL} max_iter={MAX_ITER} S_window=20 {tag}: {B_FULL / secs:.2f} "
-        f"solves/s{beside} | "
-        f"{secs:.3f} s | {iters} outer iterations | launches per solve: linesearch {counts['linesearch']}, backward "
+    key = ("Quadrotor_onepass", tag)
+    THROUGHPUT[key] = B_FULL / secs
+    THROUGHPUT_EAGER[key] = B_FULL / statistics.mean(o["secs"]["eager"])
+    beside = (f" (f64 in this call: captured {THROUGHPUT[('Quadrotor_onepass', 'f64')]:.2f}, eager "
+              f"{THROUGHPUT_EAGER[('Quadrotor_onepass', 'f64')]:.2f})" if tag == "f32" else "")
+    log(f"[throughput] Quadrotor one-pass B={B_FULL} max_iter={MAX_ITER} S_window=20 {tag}: captured "
+        f"{B_FULL / secs:.2f}, eager {THROUGHPUT_EAGER[key]:.2f} solves/s{beside} | {turns_line(o, B_FULL)} | "
+        f"captured {secs:.3f} s | {iters} outer iterations | launches per solve: linesearch {counts['linesearch']}, backward "
         f"{counts['backward']} (all {counts}) | T* median {float(res.T_star.double().median()):g} | n_fallback total "
         f"{int(res.n_fallback.sum())} | success@0.5 {succ:.3f} | {smi()}")
     return counts
@@ -1674,7 +1883,7 @@ def phase_latency_oracle(device) -> dict:
             bad = np.nonzero(~o["tied"])[0]
             log(f"[latency] {case} B={Bo} scan_mode={mode}: T* exact {int(o['exact'].sum())}/{Bo}, exact-or-tied "
                 f"{tied}/{Bo} (phase 4, sequential: {ORACLE_TIED.get(case)}/{Bo}) | J* rel gap max {o['gap'].max():.3e} "
-                f"| success@0.5 {o['succ']:.3f} | {o['secs']:.2f} s | launches {counts}"
+                f"| success@0.5 {o['succ']:.3f} | {o['note']} | launches {counts}"
                 + (f" | not tied: idx {bad.tolist()} T* {o['T'][bad].tolist()} oracle {o['T_o'][bad].tolist()}"
                    if len(bad) else ""))
             allowed = set(REFERENCE_MISSES.get(case, ()))
@@ -1690,9 +1899,10 @@ def phase_latency_oracle(device) -> dict:
 
 def phase_latency_b1(device) -> dict:
     """Phase 8 (b): the quadrotor's oracle problem 0 (N=160, max_iter=12) as
-    one solve in each scan mode, the median of 5 synchronized runs after a
-    warm-up (the modes in turns), T* identical to the sequential solve's
-    and J* within rtol 1e-9;
+    one solve in each scan mode, captured and eager, the median of 5
+    synchronized runs of each after a warm-up (the modes and the drivers in
+    turns), each captured result bitwise the eager one, T* identical to the
+    sequential solve's and J* within rtol 1e-9;
     then the select alone at B=1 on the first iterate: the fused kernel
     (sequential), the plain tree scan + query kernel (associative), the
     Hillis-Steele scan + query kernel (assoc_df), each also with its inputs'
@@ -1701,32 +1911,44 @@ def phase_latency_b1(device) -> dict:
     import torch
     from timeopt_tpu_torch.models import get_system
     from timeopt_tpu_torch.solver.augmented import build_augmented, build_terminal_factors
+    from timeopt_tpu_torch.solver import compiled
     from timeopt_tpu_torch.solver.horizon import propagator_select
-    from timeopt_tpu_torch.solver.ilqr import SolveOptions, _select_curve, solve
+    from timeopt_tpu_torch.solver.ilqr import SolveOptions, _select_curve, prepare, solve_batch
     from timeopt_tpu_torch.solver.select_assoc import propagator_select_assoc
 
     system, mk = get_system("Quadrotor")
     probs = oracle_problems(system, mk, B_ORACLE, device)
-    prob = probs.replace(**{f: t[:1].contiguous() for f, t in probs.tensors().items()})
+    prob, U = prepare(probs.replace(**{f: t[:1].contiguous() for f, t in probs.tensors().items()}), None)
     total = {name: 0 for name in KERNELS}
     modes = ("sequential",) + LATENCY_MODES
     opts = {mode: SolveOptions(method="propagator", max_iter=MAX_ITER, psd_levels=1, scan_mode=mode) for mode in modes}
+    run = {"captured": lambda mode: solve_batch(system, prob, options=opts[mode]),
+           "eager": lambda mode: compiled._solve_traced(system, opts[mode], prob, U)}
     for mode in modes:
-        solve(system, prob, options=opts[mode])  # warm-up
+        for kind in run:
+            run[kind](mode)  # warm-up; the captured one builds its program
     torch.cuda.synchronize()
-    # five rounds, the modes in turns (rotated each round), so a drift of
-    # the host's speed meets every mode alike
-    out = {mode: dict(solve_s_all=[], counts={name: 0 for name in KERNELS}) for mode in modes}
+    # five rounds, the modes in turns (rotated each round), captured and
+    # eager in turns within a mode (swapped each round), so a drift of the
+    # host's speed meets every mode and both drivers alike
+    out = {mode: dict(solve_s_all=[], captured_s_all=[], counts={name: 0 for name in KERNELS}) for mode in modes}
     for r in range(5):
         for mode in modes[r % 3:] + modes[: r % 3]:
-            reset_launches()
-            t0 = time.perf_counter()
-            res = solve(system, prob, options=opts[mode])
-            torch.cuda.synchronize()
-            out[mode]["solve_s_all"].append(time.perf_counter() - t0)
-            for name, v in launches().items():
+            res, counts = {}, {}
+            for kind in (("captured", "eager") if r % 2 == 0 else ("eager", "captured")):
+                reset_launches()
+                t0 = time.perf_counter()
+                res[kind] = run[kind](mode)
+                torch.cuda.synchronize()
+                out[mode]["captured_s_all" if kind == "captured" else "solve_s_all"].append(time.perf_counter() - t0)
+                counts[kind] = launches()
+            diff = differing(res["captured"], res["eager"])
+            require(not diff and counts["captured"] == counts["eager"],
+                    f"B=1 solve scan_mode={mode}: captured vs _solve_traced differ in {diff}, launches "
+                    f"{counts['captured']} vs {counts['eager']}")
+            for name, v in counts["captured"].items():
                 out[mode]["counts"][name] += v
-            out[mode]["res"] = (int(res.T_star), float(res.J_star))
+            out[mode]["res"] = (int(res["captured"].T_star[0]), float(res["captured"].J_star[0]))
     for mode in modes:
         o, counts = out[mode], out[mode]["counts"]
         need = ("lft_select",) if mode == "sequential" else ("lft_query",)
@@ -1737,7 +1959,8 @@ def phase_latency_b1(device) -> dict:
         (T, J), (T0, J0) = o["res"], out["sequential"]["res"]
         require(T == T0 and abs(J - J0) <= 1e-9 * abs(J0),
                 f"B=1 solve scan_mode={mode}: T* {T} J* {J!r} vs sequential {T0} {J0!r}")
-        o.update(solve_s=statistics.median(o["solve_s_all"]), T_star=T, J_star=J, iterations=counts["backward"] // 5,
+        o.update(solve_s=statistics.median(o["solve_s_all"]), captured_s=statistics.median(o["captured_s_all"]),
+                 T_star=T, J_star=J, iterations=counts["backward"] // 5,
                  launches_per_solve={k: v // 5 for k, v in counts.items()})
 
     X, U, A, Bj = first_iterate(system, prob)
@@ -1762,16 +1985,19 @@ def phase_latency_b1(device) -> dict:
         out[mode].update(select_ms=cuda_ms(fn, reps=10), select_with_inputs_ms=cuda_ms(full, reps=10),
                          select_rel_to_sequential=rel)
     for mode, o in out.items():
-        log(f"[latency] Quadrotor B=1 N={prob.N} max_iter={MAX_ITER} scan_mode={mode}: solve {1e3 * o['solve_s']:.2f} ms "
-            f"(median of 5, modes in turns: {', '.join(f'{1e3 * t:.2f}' for t in o['solve_s_all'])}), T* {o['T_star']}, J* "
+        log(f"[latency] Quadrotor B=1 N={prob.N} max_iter={MAX_ITER} scan_mode={mode}: solve captured "
+            f"{1e3 * o['captured_s']:.2f} ms, eager {1e3 * o['solve_s']:.2f} ms (medians of 5, modes and drivers in "
+            f"turns; captured {', '.join(f'{1e3 * t:.2f}' for t in o['captured_s_all'])}; eager "
+            f"{', '.join(f'{1e3 * t:.2f}' for t in o['solve_s_all'])}; bitwise equal), T* {o['T_star']}, J* "
             f"{o['J_star']!r}, {o['iterations']} outer iterations, launches per solve {o['launches_per_solve']} | "
             f"select alone {o['select_ms']:.3f} ms, with its inputs' assembly {o['select_with_inputs_ms']:.3f} ms, "
             f"J(T >= T_min) max rel to the sequential kernel's {o['select_rel_to_sequential']:.3e} | {smi()}")
     return total
 
 
-def check_same_solve(got, want, label: str) -> None:
-    """T* and T_ties identical, J*, X and U within rtol 1e-12."""
+def check_same_solve(got, want, label: str, exact: bool = False) -> None:
+    """T* and T_ties identical, J*, X and U within rtol 1e-12; with
+    `exact`, J*, X and U bit for bit."""
     import torch
 
     got = {f: torch.as_tensor(getattr(got, f)).to(want.X.device) for f in ("T_star", "T_ties", "J_star", "X", "U")}
@@ -1780,6 +2006,7 @@ def check_same_solve(got, want, label: str) -> None:
     for f in ("J_star", "X", "U"):
         require(within(got[f], getattr(want, f), 1e-12, 0.0), f"{label}: {f} outside rtol 1e-12")
     bitwise = all(torch.equal(got[f], getattr(want, f)) for f in ("J_star", "X", "U"))
+    require(bitwise or not exact, f"{label}: J*, X or U not bitwise equal")
     log(f"[scale-out] {label}: T*, T_ties identical; J*, X, U within rtol 1e-12 (bitwise {bitwise})")
 
 
@@ -1857,19 +2084,30 @@ def phase_scaleout(device) -> dict:
     for case in ("Quadrotor", "PointMass_Navigation"):
         system, mk = get_system(case)
         probs = oracle_problems(system, mk, B_ORACLE, device)
-        want = solve_batch(system, probs, options=opts)
-        reset_launches()
-        t0 = time.perf_counter()
-        got = solve_batch_sharded(system, probs, options=opts, mesh=mesh)
+        solve = {"sharded": lambda: solve_batch_sharded(system, probs, options=opts, mesh=mesh),
+                 "one card": lambda: solve_batch(system, probs, options=opts)}
+        for fn in solve.values():
+            fn()  # builds the programs: one a card, and the whole batch's
         torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        c = launches()
+        secs, res = {kind: [] for kind in solve}, {}
+        for kind in ("sharded", "one card", "one card", "sharded"):
+            reset_launches()
+            t0 = time.perf_counter()
+            res[kind] = solve[kind]()
+            torch.cuda.synchronize()
+            secs[kind].append(time.perf_counter() - t0)
+            if kind == "sharded":
+                c = launches()
+        got, want = res["sharded"], res["one card"]
         select = "lft_select" if system.extra_cost is None else "lft_select_generic"
         for name in (select, "backward", "linesearch"):
             require(c[name] > 0, f"solve_batch_sharded {case}: kernel {name} was never launched")
         count(c)
-        check_same_solve(got, want, f"solve_batch_sharded ({case} B={B_ORACLE}, {cards} card(s), {secs:.2f} s) vs "
-                                    f"solve_batch")
+        check_same_solve(got, want, f"solve_batch_sharded ({case} B={B_ORACLE}, {cards} card(s), captured, every "
+                                    f"card's step replayed before any done check) vs solve_batch; in turns sharded / "
+                                    f"one card / one card / sharded {1e3 * secs['sharded'][0]:.1f} / "
+                                    f"{1e3 * secs['one card'][0]:.1f} / {1e3 * secs['one card'][1]:.1f} / "
+                                    f"{1e3 * secs['sharded'][1]:.1f} ms", exact=True)
         solved[case] = (system, probs, want)
 
     system, probs, _ = solved["Quadrotor"]
@@ -2252,7 +2490,7 @@ def phase_f32_oracle(case: str, device) -> dict:
     log(f"[float32] oracle {case} B={Bo}: T* exact {int(o['exact'].sum())}/{Bo}, exact-or-tied {tied}/{Bo} (the JAX "
         f"float32 pipeline's {F32_ARTIFACT}: {want}/{Bo}; this port in float64, phase 4: {ORACLE_TIED.get(case)}/{Bo}) "
         f"| J* rel gap median {np.median(o['gap']):.3e} max {o['gap'].max():.3e} | success@0.5 {o['succ']:.3f} | "
-        f"{o['secs']:.2f} s | launches {counts}")
+        f"{o['note']} | launches {counts}")
     bad = np.nonzero(~o["tied"])[0]
     if len(bad):
         log(f"[float32] oracle {case} not tied: idx {bad.tolist()} T* {o['T'][bad].tolist()} oracle "
@@ -2306,6 +2544,12 @@ def prefix_rounding(system, probs, res) -> None:
 # with the sequential scan) or the plain latency-mode scans and the query.
 F32_MODES = (("inverse", dict(terminal_mode="inverse")), ("associative", dict(scan_mode="associative")),
              ("assoc_df", dict(scan_mode="assoc_df")))
+# The sets of each float32 mode whose captured solve is also run by the
+# eager driver and held to it bit for bit: the widest state (n = 12) and
+# the extra stage cost. The same comparison runs on all six sets of every
+# float64 mode (phases 4, 5, 8 (a)) and of the float32 sequential solve
+# (10 (b)); on every set here it would cost ~11 s more of the run.
+F32_MODES_EAGER = ("Quadrotor", "PointMass_Navigation")
 
 
 def phase_f32_modes(device) -> dict:
@@ -2331,7 +2575,7 @@ def phase_f32_modes(device) -> dict:
     for mode, kw in F32_MODES:
         for case in CASES:
             o = solve_oracle_set(case, device, SolveOptions(method="propagator", max_iter=MAX_ITER, psd_levels=1, **kw),
-                                 dtype=torch.float32)
+                                 dtype=torch.float32, eager=case in F32_MODES_EAGER)
             counts, Bo = o["counts"], len(o["T_o"])
             require(o["res"].J_star.dtype == torch.float32, f"float32 {mode} {case}: results not float32")
             path = ("lft_scan",) if mode == "inverse" else ("lft_query",)
@@ -2347,7 +2591,7 @@ def phase_f32_modes(device) -> dict:
             log(f"[float32] {mode} {case} B={Bo}: T* exact {int(o['exact'].sum())}/{Bo}, exact-or-tied {tied}/{Bo}, at "
                 f"float32 resolution {int(res32.sum())}/{Bo} (this mode in float64: "
                 f"{f'{f64}/{Bo}' if f64 is not None else 'not run'}) | J* rel gap max "
-                f"{o['gap'].max():.3e} | success@0.5 {o['succ']:.3f} | {o['secs']:.2f} s | launches {counts}"
+                f"{o['gap'].max():.3e} | success@0.5 {o['succ']:.3f} | {o['note']} | launches {counts}"
                 + (f" | not tied: idx {bad.tolist()} T* {o['T'][bad].tolist()} oracle {o['T_o'][bad].tolist()}"
                    if len(bad) else ""))
             if case == "PointMass_Navigation":
@@ -2458,16 +2702,21 @@ class ABRun:
     @contextmanager
     def kernels(self, tag):
         """Inside the block the wrappers launch the old kernels for tag
-        "old", this checkout's for "new"."""
+        "old", this checkout's for "new". A captured solve holds the kernels
+        it was captured with, so the programs are dropped on the way in and
+        out: each version's solves capture its own."""
         from timeopt_tpu_torch.ops import _build
+        from timeopt_tpu_torch.solver import compiled
 
         load = _build.load
+        compiled.clear_compiled()
         if tag == "old":
             _build.load = lambda name: load(name, self.old)
         try:
             yield
         finally:
             _build.load = load
+            compiled.clear_compiled()
 
     def both(self, fn, fn_new=None):
         """fn() with the old kernels, then fn_new() (default fn) with the new."""
@@ -2810,36 +3059,56 @@ def phase_ab(device, old: str) -> list:
 def main() -> None:
     import torch
 
+    from timeopt_tpu_torch.solver import compiled
+
+    start = time.perf_counter()
     phase_device()
     device = torch.device("cuda", 0)
     phase_build()
     numbers = phase_kernels(device)
+    observe_programs()
     counts = {name: 0 for name in KERNELS}
 
     def add(c: dict) -> None:
         for name, v in c.items():
             counts[name] += v
 
+    def phase(label: str, fn):
+        """fn() with no captured program left from the phase before (their
+        memory returned), its seconds logged."""
+        compiled.clear_compiled()
+        t0 = time.perf_counter()
+        out = fn()
+        log(f"[time] {label}: {time.perf_counter() - t0:.1f} s ({time.perf_counter() - start:.1f} s since the start)")
+        return out
+
     for case in CASES:
-        add(phase_oracle(case, device))
+        add(phase(f"4 oracle {case}", lambda: phase_oracle(case, device)))
     for case in CASES:
-        add(phase_bruteforce(case, device))
-    add(phase_inverse(device))
-    add(phase_runner())
-    per_solve = {case: phase_throughput(case, device) for case in ("Quadrotor", "PointMass_Navigation")}
-    per_solve["Quadrotor_onepass"] = phase_throughput_onepass(device)
-    add(phase_latency_oracle(device))
-    add(phase_latency_b1(device))
-    add(phase_scaleout(device))
-    f32_numbers = phase_f32_kernels(device)
+        add(phase(f"5 brute force {case}", lambda: phase_bruteforce(case, device)))
+    add(phase("5 inverse query", lambda: phase_inverse(device)))
+    add(phase("6 runner", phase_runner))
+    per_solve = {case: phase(f"7 throughput {case}", lambda: phase_throughput(case, device))
+                 for case in ("Quadrotor", "PointMass_Navigation")}
+    per_solve["Quadrotor_onepass"] = phase("7 throughput one-pass", lambda: phase_throughput_onepass(device))
+    add(phase("8 (a) latency modes", lambda: phase_latency_oracle(device)))
+    add(phase("8 (b) B=1", lambda: phase_latency_b1(device)))
+    add(phase("9 scale-out", lambda: phase_scaleout(device)))
+    f32_numbers = phase("10 (a) float32 kernels", lambda: phase_f32_kernels(device))
     for case in CASES:
-        add(phase_f32_oracle(case, device))
-    add(phase_f32_modes(device))
-    per_solve_f32 = {case: phase_throughput(case, device, torch.float32)
+        add(phase(f"10 (b) float32 oracle {case}", lambda: phase_f32_oracle(case, device)))
+    add(phase("10 (b) float32 modes", lambda: phase_f32_modes(device)))
+    per_solve_f32 = {case: phase(f"10 (c) float32 throughput {case}", lambda: phase_throughput(case, device, torch.float32))
                      for case in ("Quadrotor", "PointMass_Navigation")}
-    per_solve_f32["Quadrotor_onepass"] = phase_throughput_onepass(device, torch.float32)
-    phase_bench_torch()
-    add(phase_f32_runner())
+    per_solve_f32["Quadrotor_onepass"] = phase("10 (c) float32 throughput one-pass",
+                                               lambda: phase_throughput_onepass(device, torch.float32))
+    phase("10 (c) bench_torch.py", phase_bench_torch)
+    add(phase("10 (d) runner --f32", phase_f32_runner))
+    compiled.clear_compiled()
+    require(TRACED["programs"] > 0, "no captured program was traced")
+    log(f"[trace] {TRACED['programs']} programs built on the main path, each graph's replay traced once: "
+        f"{TRACED['events']} device events, every kernel count equal to the launches booked "
+        f"({TRACED['secs']:.1f} s of tracing; {TRACED['retraced']} short traces taken again)")
 
     from timeopt_tpu_torch.ops import work
 

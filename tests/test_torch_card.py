@@ -47,7 +47,7 @@ import pytest
 import torch
 
 from timeopt_tpu_torch.models import get_system
-from timeopt_tpu_torch.ops import cuda_backward, cuda_forward, cuda_lft, cuda_lft_generic, cuda_lft_query, cuda_lft_scan
+from timeopt_tpu_torch.ops import _build, cuda_backward, cuda_forward, cuda_lft, cuda_lft_generic, cuda_lft_query, cuda_lft_scan
 from timeopt_tpu_torch.solver.augmented import build_augmented, build_fused_inputs, build_terminal_factors
 from timeopt_tpu_torch.solver.horizon import brb
 from timeopt_tpu_torch.solver.backward import backward_inputs
@@ -611,6 +611,19 @@ def test_system_without_device_dynamics_raises(dev):
                                 U.to(dev), torch.tensor([3], device=dev), ALPHAS)
 
 
+@pytest.mark.parametrize("method", ["propagator", "onepass"])
+def test_system_without_device_dynamics_solve_raises_on_the_card(dev, method):
+    """solve_batch of a system without device dynamics raises on the card
+    (the line search has no kernel for it) and solves on the CPU: the card
+    never runs it eagerly instead."""
+    system, probs = _small_batch("DoubleIntegrator", 5)
+    nodev = dataclasses.replace(system, name="DI_nodev", device_id=None)
+    opts = SolveOptions(method=method, max_iter=3, psd_levels=1, S_window=5)
+    with pytest.raises(NotImplementedError, match="no device-side xdot"):
+        solve_batch(nodev, probs.to(dev), options=opts)
+    assert torch.isfinite(solve_batch(nodev, probs, options=opts).J_star).all()
+
+
 def test_argmin_T_on_the_card_matches_cpu(dev):
     curves = torch.tensor([[3.0, float("nan"), 1.0, 1.0], [4.0, 2.0, 2.0, 5.0], [float("inf"), 1.0, 0.5, 0.5]],
                           dtype=torch.float64)
@@ -684,3 +697,82 @@ def test_sharded_solve_and_select_on_the_card(dev):
     for mode in ("sequential", "associative"):
         J = propagator_select_sharded(blk, C, mesh, scan_mode=mode)
         _close(J, propagator_select(blk.A_aug, blk.B_aug, blk.Q_aug, blk.R_inv, C, scan_mode=mode), 1e-12, 0.0)
+
+
+def _bitwise(got, want):
+    for f in dataclasses.fields(got):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        assert a.dtype == b.dtype and a.shape == b.shape, f.name
+        if a.is_floating_point():
+            assert torch.equal(torch.isnan(a), torch.isnan(b)), f.name
+            a, b = torch.nan_to_num(a, nan=0.0), torch.nan_to_num(b, nan=0.0)
+        assert torch.equal(a, b), f.name
+
+
+@pytest.mark.parametrize("method", ["propagator", "bruteforce", "onepass", "onepass-newton"])
+@pytest.mark.parametrize("case", ["DoubleIntegrator", "PointMass_Navigation"])
+def test_captured_solve_equals_the_eager_driver(dev, case, method):
+    """solve_batch on the card (captured init and step graphs, replayed)
+    against the eager driver _solve_traced on the same card: every result
+    field bit for bit, twice (a refilled program), with the same kernel
+    launches per solve. "onepass-newton" takes the Newton preimages, whose
+    torch.linalg.solve_ex is captured too."""
+    from timeopt_tpu_torch.solver import compiled
+    from timeopt_tpu_torch.solver.ilqr import prepare
+
+    mods = (cuda_lft, cuda_lft_generic, cuda_backward, cuda_forward, cuda_lft_query, cuda_lft_scan)
+    system, probs = _small_batch(case, 6)
+    probs, U = prepare(probs.to(dev), None)
+    preimage = "newton" if method == "onepass-newton" else "fixedpoint"
+    opts = SolveOptions(method=method.split("-")[0], max_iter=6, psd_levels=1, S_window=5, onepass_preimage=preimage)
+    compiled.clear_compiled()
+    solve_batch(system, probs, options=opts)  # builds the program
+    counts = [m.LAUNCHES for m in mods]
+    got = solve_batch(system, probs, options=opts)
+    captured = [m.LAUNCHES - c for m, c in zip(mods, counts)]
+    counts = [m.LAUNCHES for m in mods]
+    want = compiled._solve_traced(system, opts, probs, U)
+    eager = [m.LAUNCHES - c for m, c in zip(mods, counts)]
+    _bitwise(got, want)
+    assert captured == eager and sum(eager) > 0
+    assert len(compiled.programs()) == 1 and compiled.programs()[0].graphs is not None
+    _bitwise(solve_batch(system, probs, options=opts), want)
+
+
+def test_captured_launch_counts_equal_eager_under_replay(dev):
+    """The launch counts of a replayed solve equal the eager solve's, module
+    by module, at float32 and in the inverse query too (the scan kernel)."""
+    from timeopt_tpu_torch.solver import compiled
+
+    mods = (cuda_lft, cuda_lft_generic, cuda_backward, cuda_forward, cuda_lft_query, cuda_lft_scan)
+    system, probs = _small_batch("DoubleIntegrator", 7)
+    compiled.clear_compiled()
+    for dtype, kw in ((torch.float32, {}), (torch.float64, dict(terminal_mode="inverse"))):
+        p = _build.cast(probs, dtype).to(dev)
+        opts = SolveOptions(max_iter=6, psd_levels=1, **kw)
+        runs = []
+        for fn in (lambda: solve_batch(system, p, options=opts),) * 2 + (
+                lambda: compiled._solve_traced(system, opts, p, p.u_ref[:, None].expand(-1, p.N, -1).contiguous()),):
+            before = [m.LAUNCHES for m in mods]
+            fn()
+            runs.append([m.LAUNCHES - b for m, b in zip(mods, before)])
+        assert runs[1] == runs[2], runs  # the first call also warmed up and captured
+        assert runs[0][2] == runs[2][2] + 2  # the warm-up: one init and one step, one backward each
+
+
+def test_host_read_in_a_system_raises_on_the_card(dev):
+    """A System whose step reads a tensor to the host (.item()) solves on the
+    CPU (eagerly) and makes solve_batch raise on the card, naming the op and
+    the line, instead of running eagerly there."""
+    from timeopt_tpu_torch.solver.compiled import CaptureError
+
+    base, probs = _small_batch("DoubleIntegrator", 8)
+    step = lambda x, u: base.step(x, u) * (1.0 + 0.0 * float(x.sum()))  # noqa: E731
+    system = dataclasses.replace(base, name="DI_host_read", step=step)
+    opts = SolveOptions(max_iter=3, psd_levels=1, linearize_mode="central")  # the step outside vmap
+    solve_batch(system, probs, options=opts)
+    with pytest.raises(CaptureError, match="_local_scalar_dense") as err:
+        solve_batch(system, probs.to(dev), options=opts)
+    assert "test_torch_card.py" in str(err.value)
+    got = solve_batch(base, probs.to(dev), options=opts)  # the card still solves
+    assert torch.isfinite(got.J_star).all()

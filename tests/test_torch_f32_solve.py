@@ -113,6 +113,22 @@ def test_float32_baselines_solve():
         np.testing.assert_allclose(runs[F32].J_star.numpy(), runs[torch.float64].J_star.numpy(), rtol=1e-5)
 
 
+def test_float32_onepass_newton_preimage():
+    """The one-pass method's Newton preimages on float32 problems: the
+    Jacobian taken in the states' dtype (forward AD promotes float32
+    tangents), float32 results, the same T* as at float64 here."""
+    ts, mk = get_system("DoubleIntegrator")
+    runs = {}
+    for dt in (torch.float64, F32):
+        p = tilqr.broadcast_problem(mk(N=24, device="cpu", dtype=dt).replace(T_min=4, T_max=16), 2)
+        p = p.replace(x0=p.x0 + torch.tensor([[0.0, 0.0], [0.3, -0.2]], dtype=dt))
+        opts = tilqr.SolveOptions(method="onepass", max_iter=5, S_window=4, onepass_preimage="newton")
+        runs[dt] = tilqr.solve_batch(ts, p, options=opts)
+    assert runs[F32].J_star.dtype == runs[F32].X.dtype == F32
+    assert torch.equal(runs[F32].T_star, runs[torch.float64].T_star)
+    np.testing.assert_allclose(runs[F32].J_star.numpy(), runs[torch.float64].J_star.numpy(), rtol=1e-5)
+
+
 def test_df_forward_options():
     """df_forward keeps the JAX package's names: "auto" and "on" both name
     the port's only float32 rollout (float64 state, float32 storage); "off",

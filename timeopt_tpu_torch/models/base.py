@@ -17,6 +17,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from timeopt_tpu_torch.ops._build import constant
 from timeopt_tpu_torch.ops.linalg import as_terminal_weight
 from timeopt_tpu_torch.ops.wrap import angle_normalize, wrap_mask_from_idx
 
@@ -71,8 +72,11 @@ class Problem:
 @dataclasses.dataclass(frozen=True)
 class System:
     """Static dynamics description. `device_id` names the dynamics compiled
-    into the line-search kernel (ops/cuda_forward.py); None means the system
-    has no device-side xdot."""
+    into the line-search kernel (csrc/linesearch.cu, ops/cuda_forward.py):
+    setting it asserts that those compiled-in dynamics equal `xdot` and
+    `guard` (and the extra cost `extra_cost`), since the kernel runs its own
+    copy of them. None means the system has no device-side dynamics: it
+    solves on the CPU, and its line search raises on the card."""
 
     name: str
     n: int
@@ -107,12 +111,12 @@ def _nan_where(bad: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 def euler_step_fn(xdot: StepFn, dt: float, n: int, wrap_idx: tuple = (), guard=None) -> StepFn:
     """x+ = x + dt*xdot(x, u), the wrap_idx components angle-normalized,
     poisoned to NaN where guard(x, u) holds."""
-    wrap = torch.as_tensor(wrap_mask_from_idx(wrap_idx, n)) if wrap_idx else None
+    wrap = tuple(bool(b) for b in wrap_mask_from_idx(wrap_idx, n)) if wrap_idx else None
 
     def step(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         xn = x + dt * xdot(x, u)
         if wrap is not None:
-            xn = torch.where(wrap.to(xn.device), angle_normalize(xn), xn)
+            xn = torch.where(constant(wrap, torch.bool, xn.device), angle_normalize(xn), xn)
         if guard is not None:
             xn = xn + _nan_where(guard(x, u)[..., None], xn)
         return xn

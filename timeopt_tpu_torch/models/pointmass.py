@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from timeopt_tpu_torch.models.base import Problem, System, euler_step_fn, make_problem
+from timeopt_tpu_torch.ops._build import constant
 
 DT = 0.05
 
@@ -35,9 +36,9 @@ def obstacle_cost(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """Soft obstacle penalty sum_i w_i exp(-||p - o_i||^2 / (2 r_i^2)) of the
     position p = x[..., :2]; x (..., 4) -> (...). `u` is unused."""
     z = dict(dtype=x.dtype, device=x.device)
-    centers = torch.tensor([[o[0], o[1]] for o in OBSTACLES], **z)
-    r = torch.tensor([o[2] for o in OBSTACLES], **z)
-    weights = torch.tensor([o[3] for o in OBSTACLES], **z)
+    centers = constant(tuple((o[0], o[1]) for o in OBSTACLES), **z)
+    r = constant(tuple(o[2] for o in OBSTACLES), **z)
+    weights = constant(tuple(o[3] for o in OBSTACLES), **z)
     d2 = torch.sum(torch.square(x[..., None, :2] - centers), dim=-1)
     return torch.sum(weights * torch.exp(-d2 / (2.0 * r * r)), dim=-1)
 

@@ -110,6 +110,22 @@ def on_card(x: torch.Tensor, phase: str) -> bool:
     return True
 
 
+# (values, dtype, device) -> tensor; see constant()
+_CONSTANTS: dict = {}
+
+
+def constant(values: tuple, dtype: torch.dtype, device) -> torch.Tensor:
+    """The tensor of a tuple of Python numbers on `device`, made once and
+    kept. A body captured into a CUDA graph (solver/compiled.py) may not copy
+    host data to the card, so its constants come from here: the eager
+    warm-up before the capture makes each one, the capture finds it made."""
+    key = (values, dtype, torch.device(device))
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = _CONSTANTS[key] = torch.tensor(values, dtype=dtype, device=device)
+    return t
+
+
 def cast(a, dtype: torch.dtype):
     """A floating tensor, or a Problem's floating tensors (anything with
     .tensors()), cast to dtype; anything else as it is."""

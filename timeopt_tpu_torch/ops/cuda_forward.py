@@ -70,7 +70,7 @@ def linesearch(system, prob, X, U, K, kappa, T_star, alphas, x_start=None):
         _build.check(x_start[0], (n,), dtype, dev, "x_start")
         if tuple(x_start.shape) != (Bsz, n):
             raise ValueError(f"x_start: shape {tuple(x_start.shape)}, expected {(Bsz, n)}")
-    a_vec = torch.tensor([float(a) for a in alphas], dtype=f64, device=dev)
+    a_vec = _build.constant(tuple(float(a) for a in alphas), f64, dev)
     Xs = torch.empty((Bsz, A, N + 1, n), dtype=dtype, device=dev)
     Us = torch.empty((Bsz, A, N, m), dtype=dtype, device=dev)
     Js = torch.empty((Bsz, A), dtype=dtype, device=dev)

@@ -1,9 +1,8 @@
 """Scale-out of the port (port of timeopt_tpu/parallel/): the batch and the
-terminal queries split over the devices of one process (mesh.py; its
-batch chunks run one after another), batch statistics reduced across
-processes (stats.py), and the multi-process runtime on torch.distributed
-(distributed.py), which is how a batch scales over cards: one rank a
-card."""
+terminal queries split over the devices of one process (mesh.py; on
+cards its batch chunks' captured programs run at once), batch statistics
+reduced across processes (stats.py), and the multi-process runtime on
+torch.distributed (distributed.py): one rank a card."""
 
 from timeopt_tpu_torch.parallel import distributed
 from timeopt_tpu_torch.parallel.mesh import (

@@ -15,13 +15,18 @@ A mesh of CUDA devices covers the local cards; a mesh of k entries of
 `torch.device("cpu")` runs the same split and order on the CPU, as the JAX
 package's tests run its mesh on virtual CPU devices.
 
-One process drives the chunks' solves one after another: a solve waits on
-its card once an iteration and is host-bound (PERF.md section 5), and
-threads cannot share the work, because torch.func's forward-mode AD (the
-linearization's jacfwd) keeps process-global state (two threads
-linearizing at once fail). Several cards scale through several processes,
-one a card: parallel/distributed.py. The hs-sharded queries launch on
-their cards without waiting, so they overlap.
+One process drives every card's chunk. On the card a chunk's solve is a
+captured program (solver/compiled.py): an iteration is one graph replay,
+launched without waiting, so the process launches every card's replay of
+an iteration before it checks any card's done flag, and the cards run
+their chunks at once, as the JAX package's dp mesh runs its shards. No
+Python runs between replays but that check, so torch.func's process-global
+forward-mode AD state (the linearization's jacfwd) is touched only while a
+program is captured, once, card after card. A mesh of CPU entries is
+driven the same way, its programs run eagerly, so one after another.
+Processes, one a card, are the other way to scale
+(parallel/distributed.py). The hs-sharded queries launch on their
+cards without waiting, so they overlap.
 """
 
 from __future__ import annotations
@@ -36,9 +41,10 @@ import torch
 from timeopt_tpu_torch.models.base import Problem, System
 from timeopt_tpu_torch.ops import cuda_lft_query
 from timeopt_tpu_torch.ops.precision import full_matmul_precision
+from timeopt_tpu_torch.solver import compiled
 from timeopt_tpu_torch.solver.augmented import AugmentedBlocks
 from timeopt_tpu_torch.solver.horizon import LFTElements, propagator_select_prefixes
-from timeopt_tpu_torch.solver.ilqr import SolveOptions, SolveResult, default_U_init, solve_batch
+from timeopt_tpu_torch.solver.ilqr import SolveOptions, SolveResult, default_U_init, prepare, solve_batch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,26 +121,23 @@ def solve_batch_sharded(
     axis: str = "dp",
 ) -> SolveResult:
     """Batch-solve with the batch split over the mesh's `axis`: each device
-    solves its chunk (solver/ilqr.py::solve_batch), and the results come
-    back concatenated in batch order on the axis's first device. Without a
-    mesh, one solve_batch.
+    solves its chunk as solve_batch would (solver/ilqr.py), and the results
+    come back concatenated in batch order on the axis's first device.
+    Without a mesh, one solve_batch.
 
-    The chunks are solved one after another (see the module docstring), so
-    this gives solve_batch's results in no less time than one card: it
-    keeps the JAX package's entry point, not its scaling. To scale a batch
-    over cards, run one rank a card (parallel/distributed.py,
-    solve_batch_global; the runner's --distributed)."""
+    The chunks' programs are driven together, every card's step replayed
+    before any card's done check (compiled.solve_programs; see the module
+    docstring)."""
     opts = options or SolveOptions()
     if mesh is None:
         return solve_batch(system, probs, U_inits, opts)
+    opts.check()
     if U_inits is None:
         U_inits = default_U_init(probs)
-    results = []
-    for p, U in zip(shard_problems(probs, mesh, axis), _chunks(U_inits, len(mesh.axis_devices(axis)))):
-        if p.batch:
-            dev = p.x0.device
-            with device_context(dev):
-                results.append(solve_batch(system, p, U.to(dev), opts))
+    parts = [prepare(p, U.to(p.x0.device))
+             for p, U in zip(shard_problems(probs, mesh, axis), _chunks(U_inits, len(mesh.axis_devices(axis))))
+             if p.batch]
+    results = compiled.solve_programs(system, opts, parts)
     home = mesh.axis_devices(axis)[0]
     return SolveResult(**{
         f.name: torch.cat([getattr(r, f.name).to(home) for r in results], dim=0)

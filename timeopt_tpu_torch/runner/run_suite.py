@@ -11,7 +11,9 @@ bit-identical. All trials of a (case, solver) run as one batched solve on
 `--device` (default cuda; with no GPU the run fails, nothing falls back to
 the CPU); `total_time` is the synchronized batch wall-clock divided by the
 number of trials, and `compile_and_run_s` the first, untimed solve of the
-batch, which includes building the CUDA kernels on a first launch. The CSV
+batch, which includes building the CUDA kernels on a first launch and
+capturing the solve's CUDA graphs (solver/compiled.py), as the JAX
+runner's first solve includes its compile. The CSV
 files are written with the csv module (repr floats, so J round-trips
 exactly); pandas is not needed.
 
@@ -164,7 +166,7 @@ def run_case(
         method = SOLVER_METHODS[solver_name]
         opts = SolveOptions(method=method, max_iter=max_iter, S_window=S_window, linearize_mode=lin_mode)
         print(f"[{case}] {solver_name}: solving {trials} trials (batched, max_iter={max_iter}) ...", flush=True)
-        # the first solve of the batch builds any kernel not yet built; then time
+        # the first solve of the batch builds any kernel not yet built and captures the solve; then time
         res, compile_and_run = _timed(lambda: _solve_all(opts), device)
 
         if timing == "per-solve":

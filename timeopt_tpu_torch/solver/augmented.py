@@ -152,7 +152,7 @@ def build_augmented(
     A_aug = torch.zeros((Bsz, N, n + 1, n + 1), **z)
     A_aug[:, :, :n, :n] = A
     A_aug[:, :, :n, n] = atil
-    A_aug[:, :, n, n] = 1.0
+    A_aug[:, :, n, n].fill_(1.0)  # not `= 1.0`: a Python number stored by item makes a tensor (CaptureGuard)
 
     B_aug = torch.zeros((Bsz, N, n + 1, m), **z)
     B_aug[:, :, :n, :] = B

@@ -141,8 +141,10 @@ def propagator_J_curve_factored(
 
 def _last_solve(X0: torch.Tensor, psd_levels: int, jitter: float = 1e-9) -> torch.Tensor:
     """Last component of the solve X0 y = e_{p-1} (= (X0^-1)[p-1, p-1])."""
-    z0 = torch.zeros(X0.shape[:-1], dtype=X0.dtype, device=X0.device)
-    z0[..., -1] = 1.0
+    p = X0.shape[-1]
+    # e_{p-1} from eye, not by item assignment, which makes a tensor of the
+    # Python number (refused by solver/compiled.py's CaptureGuard)
+    z0 = torch.eye(p, dtype=X0.dtype, device=X0.device)[-1].expand(X0.shape[:-1])
     return psd_solve(X0, z0, jitter=jitter, levels=psd_levels)[..., -1]
 
 

@@ -8,6 +8,10 @@ accept and x10 on reject, convergence when the relative cost change is below
 rel_tol and the last three accepted horizons agree. A converged problem
 freezes all its state; with early_exit the loop stops once every problem of
 the batch is done (one host check per iteration), which changes no result.
+The loop is two bodies over fixed state buffers (`loop_state`): init
+(`curve_init`: the initial rollout and the warm start) and step
+(`curve_step`: one iteration), driven eagerly or as captured CUDA graphs
+by solver/compiled.py.
 
 Problems solve in their own dtype, float64 or float32. A float32 solve
 stores its trajectories, linearizations, select inputs, gains and results
@@ -199,86 +203,137 @@ def _select_curve(system, prob, opts, X, U, A, B) -> torch.Tensor:
                                        scan_mode=opts.scan_mode)
 
 
-def _solve_curve_methods(system: System, opts: SolveOptions, prob: Problem, U_init: torch.Tensor) -> SolveResult:
-    dtype, dev = U_init.dtype, U_init.device
-    Bsz = prob.batch
-    rows = torch.arange(Bsz, device=dev)
-    hist_len = opts.max_iter + 1
-    i64 = torch.int64
+# ============================================================================
+# The loop: state buffers and the curve methods' bodies
+# ============================================================================
 
-    s = dict(
-        X=rollout(system, prob, prob.x0, U_init),
-        U=U_init,
-        lm=torch.full((Bsz,), opts.lm_init, dtype=dtype, device=dev),
-        T_bar=torch.zeros(Bsz, dtype=i64, device=dev),
-        J_last=torch.full((Bsz,), float("inf"), dtype=dtype, device=dev),
-        J_prev=torch.full((Bsz,), float("inf"), dtype=dtype, device=dev),
-        n_acc=torch.zeros(Bsz, dtype=i64, device=dev),
-        T3=torch.tensor([-1, -2, -3], dtype=i64, device=dev).expand(Bsz, 3),
-        J_curve=torch.zeros((Bsz, prob.T_max), dtype=dtype, device=dev),
-        J_hist=torch.full((Bsz, hist_len), float("nan"), dtype=dtype, device=dev),
-        T_hist=torch.full((Bsz, hist_len), -1, dtype=i64, device=dev),
+
+def loop_state(prob: Problem, opts: SolveOptions, dtype: torch.dtype, device, onepass: bool = False) -> dict:
+    """The outer loop's state, one buffer a field (the JAX package's
+    _LoopState), each written in place by the init and step bodies and
+    never reallocated: X (B, N+1, n), U (B, N, m), lm, J_last, J_prev (B,),
+    T_bar, n_acc (B,) int64, T3 (B, 3) int64 (the last three accepted
+    horizons), J_curve (B, T_max), J_hist, T_hist (B, max_iter+1), done
+    (B,) bool, and for the one-pass method n_fb (B,) int64."""
+    Bsz, hist = prob.batch, opts.max_iter + 1
+    f = dict(dtype=dtype, device=device)
+    i = dict(dtype=torch.int64, device=device)
+    st = dict(
+        X=torch.empty((Bsz, prob.N + 1, prob.n), **f),
+        U=torch.empty((Bsz, prob.N, prob.m), **f),
+        lm=torch.empty(Bsz, **f),
+        T_bar=torch.empty(Bsz, **i),
+        J_last=torch.empty(Bsz, **f),
+        J_prev=torch.empty(Bsz, **f),
+        n_acc=torch.empty(Bsz, **i),
+        T3=torch.empty((Bsz, 3), **i),
+        J_curve=torch.empty((Bsz, prob.T_max), **f),
+        J_hist=torch.empty((Bsz, hist), **f),
+        T_hist=torch.empty((Bsz, hist), **i),
+        done=torch.empty(Bsz, dtype=torch.bool, device=device),
     )
-    done = torch.zeros(Bsz, dtype=torch.bool, device=dev)
+    if onepass:
+        st["n_fb"] = torch.empty(Bsz, **i)
+    return st
 
-    for it in range(opts.max_iter + 1):
-        if opts.early_exit and bool(done.all()):
-            break
-        warm = it == 0
-        A, B = linearize(system.step, s["X"], s["U"], opts.linearize_mode)
-        J_curve = _select_curve(system, prob, opts, s["X"], s["U"], A, B)
-        T_star = argmin_T(J_curve, prob.T_min, prob.T_max)
-        bw = backward_truncated(system, prob, A, B, s["X"], s["U"], T_star, s["lm"])
-        ls = forward_linesearch(system, prob, s["X"], s["U"], bw.K, bw.kappa, T_star, alphas=opts.alphas)
-        fin = torch.isfinite(ls.J)
-        acc = bw.ok & ls.accepted & fin
-        # the warm start records whenever the backward pass is healthy and
-        # the (possibly unimproved) line-search cost is finite
-        gate = (bw.ok & fin) if warm else acc
 
-        g1 = gate[:, None]
-        new = dict(
-            X=torch.where(gate[:, None, None], ls.X, s["X"]),
-            U=torch.where(gate[:, None, None], ls.U, s["U"]),
-            lm=s["lm"] if warm else torch.where(acc, torch.clamp(s["lm"] / 10.0, min=1e-12), s["lm"] * 10.0),
-            T_bar=T_star if warm else torch.where(acc, T_star, s["T_bar"]),
-            J_last=torch.where(gate, ls.J, s["J_last"]),
-            J_prev=torch.where(gate, s["J_last"], s["J_prev"]),
-            n_acc=s["n_acc"] + gate.to(i64),
-            T3=torch.where(g1, torch.cat([s["T3"][:, 1:], T_star[:, None]], dim=1), s["T3"]),
-            J_curve=J_curve,
-            J_hist=s["J_hist"].clone(),
-            T_hist=s["T_hist"].clone(),
-        )
-        slot = s["n_acc"]
-        new["J_hist"][rows, slot] = torch.where(gate, ls.J, s["J_hist"][rows, slot])
-        new["T_hist"][rows, slot] = torch.where(gate, T_star, s["T_hist"][rows, slot])
+def T3_sentinel(device) -> torch.Tensor:
+    """(3,) int64: the initial last-three-horizons, distinct so that no
+    problem converges before three accepts."""
+    return _build.constant((-1, -2, -3), torch.int64, device)
 
-        rel = (new["J_last"] - new["J_prev"]).abs() / (new["J_prev"].abs() + 1e-12)
-        conv = (
-            (new["n_acc"] >= 3)
-            & (rel < opts.rel_tol)
-            & (new["T3"] == new["T3"][:, 2:3]).all(dim=1)
-        )
-        # a converged problem freezes all its state
-        for key, v in new.items():
-            d = done.view((Bsz,) + (1,) * (v.dim() - 1))
-            s[key] = torch.where(d, s[key], v)
-        done = done | conv
 
-    T_star = torch.where(s["n_acc"] > 0, s["T3"][:, 2], s["T_bar"])
+def commit(st: dict, new: dict, conv: torch.Tensor) -> None:
+    """Write an iteration's values `new` into the state buffers, keeping a
+    converged problem's state frozen, then mark the problems that
+    converged (`conv`) done."""
+    done = st["done"]
+    for key, v in new.items():
+        d = done.view((done.shape[0],) + (1,) * (v.dim() - 1))
+        st[key].copy_(torch.where(d, st[key], v))
+    done.logical_or_(conv)
+
+
+def converged(new: dict, rel_tol: float) -> torch.Tensor:
+    """(B,) bool: at least three accepts, relative cost change below
+    rel_tol, and the last three accepted horizons equal."""
+    rel = (new["J_last"] - new["J_prev"]).abs() / (new["J_prev"].abs() + 1e-12)
+    return (new["n_acc"] >= 3) & (rel < rel_tol) & (new["T3"] == new["T3"][:, 2:3]).all(dim=1)
+
+
+def curve_init(system: System, opts: SolveOptions, prob: Problem, U_init: torch.Tensor, st: dict) -> None:
+    """The curve methods' init body: the initial rollout of U_init, the
+    state's initial values, then the warm start as iteration 0."""
+    st["X"].copy_(rollout(system, prob, prob.x0, U_init))
+    st["U"].copy_(U_init)
+    st["lm"].fill_(opts.lm_init)
+    st["T_bar"].zero_()
+    st["J_last"].fill_(float("inf"))
+    st["J_prev"].fill_(float("inf"))
+    st["n_acc"].zero_()
+    st["T3"].copy_(T3_sentinel(st["T3"].device))
+    st["J_curve"].zero_()
+    st["J_hist"].fill_(float("nan"))
+    st["T_hist"].fill_(-1)
+    st["done"].zero_()
+    curve_step(system, opts, prob, st, warm=True)
+
+
+def curve_step(system: System, opts: SolveOptions, prob: Problem, st: dict, warm: bool = False) -> None:
+    """The curve methods' step body, one outer iteration in place:
+    linearize, select J(T) and T*, the backward pass at T*, the line
+    search, the Levenberg-Marquardt accept/reject and the convergence
+    test. The warm start (iteration 0) records whenever the backward pass
+    is healthy and the line-search cost finite, and keeps lambda."""
+    Bsz = prob.batch
+    rows = torch.arange(Bsz, device=st["X"].device)
+    i64 = torch.int64
+    A, B = linearize(system.step, st["X"], st["U"], opts.linearize_mode)
+    J_curve = _select_curve(system, prob, opts, st["X"], st["U"], A, B)
+    T_star = argmin_T(J_curve, prob.T_min, prob.T_max)
+    bw = backward_truncated(system, prob, A, B, st["X"], st["U"], T_star, st["lm"])
+    ls = forward_linesearch(system, prob, st["X"], st["U"], bw.K, bw.kappa, T_star, alphas=opts.alphas)
+    fin = torch.isfinite(ls.J)
+    acc = bw.ok & ls.accepted & fin
+    gate = (bw.ok & fin) if warm else acc
+
+    g1 = gate[:, None]
+    new = dict(
+        X=torch.where(gate[:, None, None], ls.X, st["X"]),
+        U=torch.where(gate[:, None, None], ls.U, st["U"]),
+        lm=st["lm"] if warm else torch.where(acc, torch.clamp(st["lm"] / 10.0, min=1e-12), st["lm"] * 10.0),
+        T_bar=T_star if warm else torch.where(acc, T_star, st["T_bar"]),
+        J_last=torch.where(gate, ls.J, st["J_last"]),
+        J_prev=torch.where(gate, st["J_last"], st["J_prev"]),
+        n_acc=st["n_acc"] + gate.to(i64),
+        T3=torch.where(g1, torch.cat([st["T3"][:, 1:], T_star[:, None]], dim=1), st["T3"]),
+        J_curve=J_curve,
+        J_hist=st["J_hist"].clone(),
+        T_hist=st["T_hist"].clone(),
+    )
+    slot = st["n_acc"]
+    new["J_hist"][rows, slot] = torch.where(gate, ls.J, st["J_hist"][rows, slot])
+    new["T_hist"][rows, slot] = torch.where(gate, T_star, st["T_hist"][rows, slot])
+    commit(st, new, converged(new, opts.rel_tol))
+
+
+def loop_result(prob: Problem, st: dict) -> SolveResult:
+    """The SolveResult of a finished loop's state (its buffers, not
+    copies): T* the last accepted horizon, T-bar where none was accepted."""
+    T_star = torch.where(st["n_acc"] > 0, st["T3"][:, 2], st["T_bar"])
     return SolveResult(
-        X=s["X"],
-        U=s["U"],
+        X=st["X"],
+        U=st["U"],
         T_star=T_star,
-        J_star=s["J_last"],
-        J_curve=s["J_curve"],
-        J_hist=s["J_hist"],
-        T_hist=s["T_hist"],
-        n_accept=s["n_acc"],
-        lm_final=s["lm"],
-        n_fallback=torch.zeros(Bsz, dtype=i64, device=dev),
-        T_ties=flat_tie_set(s["J_curve"], T_star, prob.T_min, prob.w),
+        J_star=st["J_last"],
+        J_curve=st["J_curve"],
+        J_hist=st["J_hist"],
+        T_hist=st["T_hist"],
+        n_accept=st["n_acc"],
+        lm_final=st["lm"],
+        n_fallback=st["n_fb"] if "n_fb" in st else torch.zeros_like(st["n_acc"]),
+        # the one-pass curve is NaN outside its window, so those horizons drop out
+        T_ties=flat_tie_set(st["J_curve"], T_star, prob.T_min, prob.w),
     )
 
 
@@ -296,6 +351,15 @@ def _pad_U(U: torch.Tensor, N: int) -> torch.Tensor:
     return U[:N]
 
 
+def prepare(probs: Problem, U_inits: Optional[torch.Tensor]) -> tuple:
+    """(probs, U_inits) as the solve takes them: every tensor contiguous,
+    U_inits (default: u_ref tiled) in the problems' dtype and device."""
+    probs = probs.replace(**{f: t.contiguous() for f, t in probs.tensors().items()})
+    if U_inits is None:
+        U_inits = default_U_init(probs)
+    return probs, U_inits.to(probs.x0).contiguous()
+
+
 @full_matmul_precision
 def solve_batch(
     system: System,
@@ -305,18 +369,18 @@ def solve_batch(
 ) -> SolveResult:
     """Solve a batch of problems (every Problem tensor has a leading batch
     axis) by opts.method. Runs on the device of the problem's tensors, in
-    their dtype (float64 or float32), with TF32 off."""
+    their dtype (float64 or float32), with TF32 off. On the card the solve
+    runs as captured CUDA graphs, one program per (system, options, shapes,
+    dtype, device), built at its first call (solver/compiled.py); on the
+    CPU as the eager loop `compiled._solve_traced`, with the same results."""
+    from timeopt_tpu_torch.solver import compiled
+
     opts = options or SolveOptions()
     opts.check()
-    probs = probs.replace(**{f: t.contiguous() for f, t in probs.tensors().items()})
-    if U_inits is None:
-        U_inits = default_U_init(probs)
-    U_inits = U_inits.to(probs.x0).contiguous()
-    if opts.method == "onepass":
-        from timeopt_tpu_torch.solver.onepass import solve_onepass
-
-        return solve_onepass(system, opts, probs, U_inits)
-    return _solve_curve_methods(system, opts, probs, U_inits)
+    probs, U_inits = prepare(probs, U_inits)
+    if probs.x0.device.type == "cuda":
+        return compiled.solve_programs(system, opts, [(probs, U_inits)])[0]
+    return compiled._solve_traced(system, opts, probs, U_inits)
 
 
 def solve(

@@ -9,7 +9,11 @@ window around T-bar from the quadratic value model at the prefix states,
 and rolls out the shifted gains. Three window shrinks are tried, the first
 accepted kept; where the sweep goes numerically bad (`ok` False) the
 fixed-T-bar update of the backward pass and line search is taken instead,
-computed every iteration as the JAX package computes it.
+computed every iteration as the JAX package computes it. The loop is an
+init body (`onepass_init`: rollout, T-bar, the warm-start update) and a
+step body (`onepass_step`: one iteration) over the state buffers of
+solver/ilqr.py::loop_state, driven eagerly or as captured CUDA graphs by
+solver/compiled.py, as the curve methods' bodies are.
 
 The sweep is plain torch: one-pass has no TPU kernel of its own. On
 float32 problems it runs in float64 and returns float32 values, the
@@ -63,8 +67,10 @@ def newton_preimage_step(step, x_next, u_prev, *, n_iter=10, tol=1e-9):
         fx = step(x, u_prev)
         g = fx - x_next
         stop = (~torch.isfinite(fx).all(dim=-1)) | (torch.sqrt(torch.sum(torch.square(g), dim=-1)) < tol)
-        # solve_ex: a singular Jacobian gives non-finite values, not an error
-        dx = torch.linalg.solve_ex(jac(x, u_prev), g[..., None])[0][..., 0]
+        # solve_ex: a singular Jacobian gives non-finite values, not an error;
+        # the Jacobian in x's dtype, as linearize_ad takes it (forward AD may
+        # promote a float32 tangent to float64)
+        dx = torch.linalg.solve_ex(jac(x, u_prev).to(x.dtype), g[..., None])[0][..., 0]
         x1 = x - dx
         x1 = torch.where(torch.isfinite(x1).all(dim=-1, keepdim=True), x1, x - 0.5 * dx)
         x = torch.where(stop[:, None], x, x1)
@@ -168,7 +174,7 @@ def _sweep_arrays(A, B, lx, lu, l0, Qs, eT, eT_fin, fin_in, QfT, R, iT, lam0) ->
     m = B.shape[-1]
     dt, dev = eT.dtype, eT.device
     I_m = torch.eye(m, dtype=dt, device=dev)
-    lams = lam0[:, None] * torch.tensor(LADDER, dtype=dt, device=dev)  # (B, 4)
+    lams = lam0[:, None] * _build.constant(LADDER, dt, dev)  # (B, 4)
     rows = torch.arange(Bsz, device=dev)
     Vx = torch.zeros((Bsz, n), dtype=dt, device=dev)
     Vxx = torch.zeros((Bsz, n, n), dtype=dt, device=dev)
@@ -380,139 +386,116 @@ def extend_and_linearize(system, opts, X, U, A, B):
     return X_ext, U_ext, torch.cat([A_pre, A], dim=1), torch.cat([B_pre, B], dim=1)
 
 
-def solve_onepass(system: System, opts, prob: Problem, U_init: torch.Tensor):
-    """The batched one-pass solve: T-bar from the nominal cost curve, a
-    warm-start fixed-T-bar update, then up to max_iter iterations of prefix,
-    sweep, windowed pick and shifted-gain rollout (three window shrinks,
-    the first accepted kept), with the fixed-T-bar update where the sweep
-    is not ok. Levenberg-Marquardt lambda /10 (floor 1e-12) on accept, x10
-    on reject; convergence as the curve methods; a converged problem
-    freezes, and with early_exit the loop stops once all are done. T* is
-    the last accepted horizon (T-bar if none was accepted); n_fallback
-    counts the iterations that took the fixed-T-bar update."""
+def onepass_init(system: System, opts, prob: Problem, U_init: torch.Tensor, st: dict) -> None:
+    """The one-pass method's init body (state buffers of
+    ilqr.loop_state(onepass=True)): the initial rollout of U_init, T-bar
+    from its nominal cost curve, and the warm-start fixed-T-bar update
+    (backward pass and line search at T-bar), recorded where the backward
+    pass is healthy and its cost finite."""
     from timeopt_tpu_torch.solver.backward import backward_truncated
     from timeopt_tpu_torch.solver.cost import argmin_T, nominal_cost_curve, rollout
     from timeopt_tpu_torch.solver.forward import forward_linesearch
-    from timeopt_tpu_torch.solver.ilqr import SolveResult, flat_tie_set
+    from timeopt_tpu_torch.solver.ilqr import T3_sentinel
     from timeopt_tpu_torch.solver.linearize import linearize
 
-    dtype, dev = U_init.dtype, U_init.device
-    Bsz, S = prob.batch, int(opts.S_window)
-    rows = torch.arange(Bsz, device=dev)
-    i64 = torch.int64
-    inf = torch.full((Bsz,), float("inf"), dtype=dtype, device=dev)
-    alphas4 = opts.alphas[: min(4, len(opts.alphas))]
-
+    Bsz, i64 = prob.batch, torch.int64
     X = rollout(system, prob, prob.x0, U_init)
     U = U_init
     T_bar = argmin_T(nominal_cost_curve(system, prob, X, U), prob.T_min, prob.T_max)
 
-    # warm-start fixed-T-bar update
     A, B = linearize(system.step, X, U, opts.linearize_mode)
-    lm = torch.full((Bsz,), opts.lm_init, dtype=dtype, device=dev)
+    lm = st["lm"].fill_(opts.lm_init)
     bw = backward_truncated(system, prob, A, B, X, U, T_bar, lm)
     ls = forward_linesearch(system, prob, X, U, bw.K, bw.kappa, T_bar, alphas=opts.alphas)
     warm_ok = bw.ok & torch.isfinite(ls.J)
+    st["J_hist"].fill_(float("nan"))
+    st["T_hist"].fill_(-1)
+    st["J_hist"][:, 0] = torch.where(warm_ok, ls.J, st["J_hist"][:, 0])
+    st["T_hist"][:, 0] = torch.where(warm_ok, T_bar, st["T_hist"][:, 0])
+    sentinel = T3_sentinel(X.device).expand(Bsz, 3)
+    st["X"].copy_(torch.where(bw.ok[:, None, None], ls.X, X))
+    st["U"].copy_(torch.where(bw.ok[:, None, None], ls.U, U))
+    st["T_bar"].copy_(T_bar)
+    st["J_last"].copy_(torch.where(warm_ok, ls.J, float("inf")))
+    st["J_prev"].fill_(float("inf"))
+    st["n_acc"].copy_(warm_ok.to(i64))
+    st["T3"].copy_(torch.where(warm_ok[:, None], torch.cat([sentinel[:, 1:], T_bar[:, None]], dim=1), sentinel))
+    st["J_curve"].fill_(float("nan"))
+    st["n_fb"].zero_()
+    st["done"].zero_()
+
+
+def onepass_step(system: System, opts, prob: Problem, st: dict) -> None:
+    """The one-pass method's step body, one outer iteration in place:
+    prefix, sweep, the three windowed picks and their rollouts (the first
+    accepted kept), the fixed-T-bar fallback where the sweep is not ok, the
+    Levenberg-Marquardt accept/reject and the convergence test."""
+    from timeopt_tpu_torch.solver.backward import backward_truncated
+    from timeopt_tpu_torch.solver.forward import forward_linesearch
+    from timeopt_tpu_torch.solver.ilqr import commit, converged
+    from timeopt_tpu_torch.solver.linearize import linearize
+
+    dtype, dev = st["X"].dtype, st["X"].device
+    Bsz, S = prob.batch, int(opts.S_window)
+    rows = torch.arange(Bsz, device=dev)
+    i64 = torch.int64
+    inf = torch.full((Bsz,), float("inf"), dtype=dtype, device=dev)
     hist_len = opts.max_iter + 1
-    J_hist = torch.full((Bsz, hist_len), float("nan"), dtype=dtype, device=dev)
-    T_hist = torch.full((Bsz, hist_len), -1, dtype=i64, device=dev)
-    J_hist[:, 0] = torch.where(warm_ok, ls.J, J_hist[:, 0])
-    T_hist[:, 0] = torch.where(warm_ok, T_bar, T_hist[:, 0])
-    sentinel = torch.tensor([-1, -2, -3], dtype=i64, device=dev).expand(Bsz, 3)
-    s = dict(
-        X=torch.where(bw.ok[:, None, None], ls.X, X),
-        U=torch.where(bw.ok[:, None, None], ls.U, U),
-        lm=lm,
-        T_bar=T_bar,
-        J_last=torch.where(warm_ok, ls.J, inf),
-        J_prev=inf,
-        n_acc=warm_ok.to(i64),
-        T3=torch.where(warm_ok[:, None], torch.cat([sentinel[:, 1:], T_bar[:, None]], dim=1), sentinel),
-        J_curve=torch.full((Bsz, prob.T_max), float("nan"), dtype=dtype, device=dev),
-        J_hist=J_hist,
-        T_hist=T_hist,
-        n_fb=torch.zeros(Bsz, dtype=i64, device=dev),
+    alphas4 = opts.alphas[: min(4, len(opts.alphas))]
+
+    A, B = linearize(system.step, st["X"], st["U"], opts.linearize_mode)
+    X_ext, U_ext, A_ext, B_ext = extend_and_linearize(system, opts, st["X"], st["U"], A, B)
+    sweep = value_sweep_prefix(system, prob, A_ext, B_ext, X_ext, U_ext, st["T_bar"], S, st["lm"])
+
+    # the three window shrinks (half-widths max(1, S // 2^j)): picks,
+    # then their rollouts in one launch
+    picks = [onepass_pick(prob, sweep, X_ext, X_ext[:, S], st["T_bar"], S, h, h)
+             for h in (max(1, S // 2**j) for j in range(3))]
+    Xc, Uc, Jc, okroll = onepass_rollout(system, prob, X_ext, U_ext, sweep, st["T_bar"],
+                                         torch.stack([T for T, _ in picks]), S, alphas=alphas4)
+    taken = torch.zeros(Bsz, dtype=torch.bool, device=dev)
+    Xo, Uo, Jo = st["X"], st["U"], inf
+    T_sel = st["T_bar"]
+    Jw_last = torch.full((Bsz, prob.T_max), float("nan"), dtype=dtype, device=dev)
+    for j, (T_j, Jw_j) in enumerate(picks):
+        acc_j = okroll[j] & (Jc[j] < st["J_last"])
+        take_now = acc_j & ~taken
+        Xo = torch.where(take_now[:, None, None], Xc[j], Xo)
+        Uo = torch.where(take_now[:, None, None], Uc[j], Uo)
+        Jo = torch.where(take_now, Jc[j], Jo)
+        T_sel = torch.where(take_now | ~taken, T_j, T_sel)
+        Jw_last = torch.where((~taken)[:, None], Jw_j, Jw_last)
+        taken = taken | acc_j
+
+    # the fixed-T-bar fallback, selected where the sweep is not ok
+    ok_sweep = sweep.ok
+    bw_fb = backward_truncated(system, prob, A, B, st["X"], st["U"], st["T_bar"], st["lm"])
+    ls_fb = forward_linesearch(system, prob, st["X"], st["U"], bw_fb.K, bw_fb.kappa, st["T_bar"],
+                               alphas=opts.alphas)
+    acc_fb = bw_fb.ok & ls_fb.accepted
+    sw3 = ok_sweep[:, None, None]
+    Xn = torch.where(sw3, Xo, torch.where(acc_fb[:, None, None], ls_fb.X, st["X"]))
+    Un = torch.where(sw3, Uo, torch.where(acc_fb[:, None, None], ls_fb.U, st["U"]))
+    Jn = torch.where(ok_sweep, Jo, ls_fb.J)
+    T_star = torch.where(ok_sweep, T_sel, st["T_bar"])
+    acc = torch.where(ok_sweep, taken, acc_fb) & torch.isfinite(Jn)
+
+    a3 = acc[:, None, None]
+    new = dict(
+        X=torch.where(a3, Xn, st["X"]),
+        U=torch.where(a3, Un, st["U"]),
+        lm=torch.where(acc, torch.clamp(st["lm"] / 10.0, min=1e-12), st["lm"] * 10.0),
+        T_bar=torch.where(acc, T_star, st["T_bar"]),
+        J_last=torch.where(acc, Jn, st["J_last"]),
+        J_prev=torch.where(acc, st["J_last"], st["J_prev"]),
+        n_acc=st["n_acc"] + acc.to(i64),
+        T3=torch.where(acc[:, None], torch.cat([st["T3"][:, 1:], T_star[:, None]], dim=1), st["T3"]),
+        J_curve=torch.where(ok_sweep[:, None], Jw_last, st["J_curve"]),
+        J_hist=st["J_hist"].clone(),
+        T_hist=st["T_hist"].clone(),
+        n_fb=st["n_fb"] + (~ok_sweep).to(i64),
     )
-    done = torch.zeros(Bsz, dtype=torch.bool, device=dev)
-
-    for _ in range(opts.max_iter):
-        if opts.early_exit and bool(done.all()):
-            break
-        A, B = linearize(system.step, s["X"], s["U"], opts.linearize_mode)
-        X_ext, U_ext, A_ext, B_ext = extend_and_linearize(system, opts, s["X"], s["U"], A, B)
-        sweep = value_sweep_prefix(system, prob, A_ext, B_ext, X_ext, U_ext, s["T_bar"], S, s["lm"])
-
-        # the three window shrinks (half-widths max(1, S // 2^j)): picks,
-        # then their rollouts in one launch
-        picks = [onepass_pick(prob, sweep, X_ext, X_ext[:, S], s["T_bar"], S, h, h)
-                 for h in (max(1, S // 2**j) for j in range(3))]
-        Xc, Uc, Jc, okroll = onepass_rollout(system, prob, X_ext, U_ext, sweep, s["T_bar"],
-                                             torch.stack([T for T, _ in picks]), S, alphas=alphas4)
-        taken = torch.zeros(Bsz, dtype=torch.bool, device=dev)
-        Xo, Uo, Jo = s["X"], s["U"], inf
-        T_sel = s["T_bar"]
-        Jw_last = torch.full((Bsz, prob.T_max), float("nan"), dtype=dtype, device=dev)
-        for j, (T_j, Jw_j) in enumerate(picks):
-            acc_j = okroll[j] & (Jc[j] < s["J_last"])
-            take_now = acc_j & ~taken
-            Xo = torch.where(take_now[:, None, None], Xc[j], Xo)
-            Uo = torch.where(take_now[:, None, None], Uc[j], Uo)
-            Jo = torch.where(take_now, Jc[j], Jo)
-            T_sel = torch.where(take_now | ~taken, T_j, T_sel)
-            Jw_last = torch.where((~taken)[:, None], Jw_j, Jw_last)
-            taken = taken | acc_j
-
-        # the fixed-T-bar fallback, selected where the sweep is not ok
-        ok_sweep = sweep.ok
-        bw_fb = backward_truncated(system, prob, A, B, s["X"], s["U"], s["T_bar"], s["lm"])
-        ls_fb = forward_linesearch(system, prob, s["X"], s["U"], bw_fb.K, bw_fb.kappa, s["T_bar"],
-                                   alphas=opts.alphas)
-        acc_fb = bw_fb.ok & ls_fb.accepted
-        sw3 = ok_sweep[:, None, None]
-        Xn = torch.where(sw3, Xo, torch.where(acc_fb[:, None, None], ls_fb.X, s["X"]))
-        Un = torch.where(sw3, Uo, torch.where(acc_fb[:, None, None], ls_fb.U, s["U"]))
-        Jn = torch.where(ok_sweep, Jo, ls_fb.J)
-        T_star = torch.where(ok_sweep, T_sel, s["T_bar"])
-        acc = torch.where(ok_sweep, taken, acc_fb) & torch.isfinite(Jn)
-
-        a3 = acc[:, None, None]
-        new = dict(
-            X=torch.where(a3, Xn, s["X"]),
-            U=torch.where(a3, Un, s["U"]),
-            lm=torch.where(acc, torch.clamp(s["lm"] / 10.0, min=1e-12), s["lm"] * 10.0),
-            T_bar=torch.where(acc, T_star, s["T_bar"]),
-            J_last=torch.where(acc, Jn, s["J_last"]),
-            J_prev=torch.where(acc, s["J_last"], s["J_prev"]),
-            n_acc=s["n_acc"] + acc.to(i64),
-            T3=torch.where(acc[:, None], torch.cat([s["T3"][:, 1:], T_star[:, None]], dim=1), s["T3"]),
-            J_curve=torch.where(ok_sweep[:, None], Jw_last, s["J_curve"]),
-            J_hist=s["J_hist"].clone(),
-            T_hist=s["T_hist"].clone(),
-            n_fb=s["n_fb"] + (~ok_sweep).to(i64),
-        )
-        slot = s["n_acc"].clamp(max=hist_len - 1)
-        new["J_hist"][rows, slot] = torch.where(acc, Jn, s["J_hist"][rows, slot])
-        new["T_hist"][rows, slot] = torch.where(acc, T_star, s["T_hist"][rows, slot])
-
-        rel = (new["J_last"] - new["J_prev"]).abs() / (new["J_prev"].abs() + 1e-12)
-        conv = (new["n_acc"] >= 3) & (rel < opts.rel_tol) & (new["T3"] == new["T3"][:, 2:3]).all(dim=1)
-        for key, v in new.items():
-            d = done.view((Bsz,) + (1,) * (v.dim() - 1))
-            s[key] = torch.where(d, s[key], v)
-        done = done | conv
-
-    T_star = torch.where(s["n_acc"] > 0, s["T3"][:, 2], s["T_bar"])
-    return SolveResult(
-        X=s["X"],
-        U=s["U"],
-        T_star=T_star,
-        J_star=s["J_last"],
-        J_curve=s["J_curve"],
-        J_hist=s["J_hist"],
-        T_hist=s["T_hist"],
-        n_accept=s["n_acc"],
-        lm_final=s["lm"],
-        n_fallback=s["n_fb"],
-        # outside the window the curve is NaN, so those horizons drop out
-        T_ties=flat_tie_set(s["J_curve"], T_star, prob.T_min, prob.w),
-    )
+    slot = st["n_acc"].clamp(max=hist_len - 1)
+    new["J_hist"][rows, slot] = torch.where(acc, Jn, st["J_hist"][rows, slot])
+    new["T_hist"][rows, slot] = torch.where(acc, T_star, st["T_hist"][rows, slot])
+    commit(st, new, converged(new, opts.rel_tol))
