@@ -5,7 +5,8 @@
 
 Drives the port's batched HOP-DDP solves and its one-pass baseline in
 float64 on the card through its six hand-written CUDA kernels, for every
-system of the model registry, then its latency mode, its scale-out layer
+system of the model registry (and the line search generated for a System
+without a device_id: phases 3 and 4), then its latency mode, its scale-out layer
 and its float32 path (float32 storage, float64 recursions), in ten
 phases; each prints its own lines and any failure raises (non-zero exit,
 no result line). Every solve runs as `solve_batch` runs it on the card:
@@ -22,19 +23,29 @@ wrappers' counts per replay of that graph. The captured programs are
 dropped between phases, and a `[time]` line follows each phase:
 
 1. device: the card, CUDA and nvcc versions (no CPU fallback);
-2. build: the six kernels from timeopt_tpu_torch/csrc/, one nvcc each, all
-   started together, and the scan's and query's blocks resident per SM;
+2. build: the six kernels from timeopt_tpu_torch/csrc/ and the generated
+   line searches (ops/dyngen.py: the kernel template of
+   csrc/linesearch_kernel.cuh on a struct traced from a System's own xdot,
+   guard and extra cost) of the six registry systems' device_id=None twins
+   and of the unicycle, one nvcc each, all started together, their nvcc
+   seconds and registers printed, and the scan's and query's blocks
+   resident per SM;
 3. kernels vs plain: each kernel against its plain PyTorch version on the
    card, on inputs from a real iterate, with the stated tolerances, and
    timed (median of CUDA-event timings after warm-up): the fused select,
    backward and line search on the quadrotor at B=1024, N=160 (the main
    path), and the line search from start states other than row 0 of X:
    the one-pass method's first shifted-gain rollouts on the quadrotor, at
-   three horizons a problem (3 x 1024 rollouts); the generic select on PointMass at B=1024, N=220, and the
+   three horizons a problem (3 x 1024 rollouts); the generated line search
+   of the quadrotor's twin at B=1024 against the plain version (as the
+   hand-written kernel) and against the hand-written kernel (check_generated:
+   GENERATED_RTOL, the same improving alphas, bitwise equality printed), on
+   both entries, timed in turns with the hand-written one; the generic select on PointMass at B=1024, N=220, and the
    backward there at its own T*; then per system, at B=128 on its oracle
    problem set, its select kernel (the error printed, gated by
    SELECT_BOUND), the backward at that select's T* (rtol 1e-9, atol 1e-12,
-   ok identical) and the line search, and the generic select on the
+   ok identical) and the line search, hand-written and generated (each
+   against the plain version, and against each other), and the generic select on the
    assembled blocks of the quadrotor, the double integrator and the
    cart-pole (GENERIC_BLOCKS_BOUND: p = 13, 3 and 5); the backward and the
    generic select on random inputs of shapes no system has (their
@@ -52,9 +63,14 @@ dropped between phases, and a `[time]` line follows each phase:
 4. the solve of the 128 problems of each results/oracle_f64*.npz (six
    systems), scored against that f64 brute-force oracle (exact and
    exact-or-tied T*, every problem but REFERENCE_MISSES), with the launch
-   count of every kernel in each run; the double integrator's set by the
-   same system with device_id None must raise (its line search has no
-   kernel: ROADMAP P1), not run eagerly;
+   count of every kernel in each run; then each set solved by the
+   system's device_id=None twin (the generated line search): the same T*
+   on every problem, J* within rtol 1e-10, the same score, its line-search
+   launches all generated ones and the plain line search never run
+   (solve_twin); (b) the same for the one-pass method on the double
+   integrator (the start-state entry) and the quadrotor's float32 set (the
+   _f32 entries), and the unicycle, a system outside the registry, at
+   B=128 against its CPU solve (T* identical, J* rtol 1e-9);
 5. brute force: the oracle's own computation, solve_batch(method=
    "bruteforce", max_iter=12, psd_levels=1), on each of the six oracle
    problem sets, exact-or-tied 128/128 with no exception, the J* and J(T)
@@ -134,7 +150,8 @@ line before the last is the card's name and power limit as nvidia-smi
 prints them; before that, one JSON line with each kernel's numbers: its
 launches summed over the paths of phases 4-6, 8, 9 and 10 (b), (d) (`launches`) and in one
 B=1024 solve of phase 7 (`launches_per_solve`, by case; `Quadrotor_onepass`
-the one-pass solve), its error and times from
+the one-pass solve; `linesearch_generated`, the generated line search,
+launches in phase 4 and its numbers from the quadrotor's twin), its error and times from
 phase 3 (`ms` and `plain_ms` one call between two CUDA events, the
 wrapper's host work included; `ms_back_to_back` ten launches back to back
 between two events, the kernel's own device time), and its roofline bound
@@ -203,6 +220,19 @@ KERNELS = {
     "lft_scan": ("cuda", "timeopt_tpu_torch/csrc/lft_scan.cu", "timeopt_tpu/ops/pallas_lft.py:161"),
     "lft_query": ("cuda", "timeopt_tpu_torch/csrc/lft_query.cu", "timeopt_tpu/ops/pallas_lft.py:232"),
 }
+# The line search of a System without a device_id: the kernel template of
+# csrc/linesearch_kernel.cuh on a struct generated from the system's own
+# xdot, guard and extra cost (ops/dyngen.py, built with nvcc in phase 2);
+# its launches count on dyngen.LAUNCHES.
+GENERATED = ("linesearch_generated", "cuda",
+             "timeopt_tpu_torch/csrc/linesearch_kernel.cuh + timeopt_tpu_torch/ops/dyngen.py",
+             "timeopt_tpu/ops/pallas_forward.py:308 (and :385)")
+# The generated kernel against the hand-written one of the same system
+# (check_generated): both compile the same formulas with nvcc's default FMA
+# contraction, so they are likely bitwise equal (printed), not certainly;
+# the gate is GENERATED_RTOL and the same improving alphas.
+GENERATED_RTOL = 1e-12
+GENERATED_BUILD_S: dict = {}  # system name -> nvcc seconds of its generated library
 # Select kernel vs plain on J(T), T >= T_min: ("rel", r) bounds the largest
 # elementwise relative error, ("norm", r) each problem's largest error
 # relative to its largest |J(T)|; both errors are printed. With a bound the
@@ -481,16 +511,34 @@ def phase_device():
         f"{nv.stdout.strip().splitlines()[-1]} | count {torch.cuda.device_count()}")
 
 
+def ptxas_lines(report: str) -> str:
+    lines = [ln.split("ptxas info    : ")[-1] for ln in report.splitlines() if "registers" in ln or "spill" in ln]
+    return " | ".join(lines)
+
+
 def phase_build():
-    from timeopt_tpu_torch.ops import _build
+    """The six kernels of csrc/ and the generated line searches of the six
+    registry systems' device_id=None twins and of the unicycle
+    (ops/dyngen.py: traced, then one nvcc each), all builds at once."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from timeopt_tpu_torch.ops import _build, dyngen
 
     t0 = time.perf_counter()
-    _build.load_all(list(KERNELS))
-    log(f"[build] {len(KERNELS)} kernels in {time.perf_counter() - t0:.1f} s")
+    generated = [twin(c) for c in CASES] + [unicycle()]
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        gen = pool.submit(dyngen.build_all, generated)
+        _build.load_all(list(KERNELS))
+        gen.result()
+    log(f"[build] {len(KERNELS)} kernels and {len(generated)} generated line searches in "
+        f"{time.perf_counter() - t0:.1f} s")
     for name in KERNELS:
         secs, report = _build.build_info(name)
-        lines = [ln.split("ptxas info    : ")[-1] for ln in report.splitlines() if "registers" in ln or "spill" in ln]
-        log(f"[build] {name}: nvcc {secs:.1f} s | " + " | ".join(lines))
+        log(f"[build] {name}: nvcc {secs:.1f} s | " + ptxas_lines(report))
+    for system in generated:
+        name, secs, report = dyngen.build_info(system)
+        GENERATED_BUILD_S[system.name] = secs
+        log(f"[build] generated line search {system.name} ({name}): nvcc {secs:.1f} s | " + ptxas_lines(report))
     residency()
 
 
@@ -688,6 +736,41 @@ def check_onepass_rollout(ls_args, x_start, J_prev, label: str, rtol: float = 1e
         f"({int(acc.sum())}/{acc.numel()}); a finite alpha on {int(fin.sum())} (plain) and "
         f"{int(torch.isfinite(Js_k).any(dim=1).sum())} (kernel)")
     return max(errs)
+
+
+def check_generated(case: str, ls_args, label: str, x_start=None, J_ref=None) -> dict:
+    """The generated line search of the case's device_id=None twin against
+    the hand-written kernel of the registry system on the same inputs (the
+    ordinary entry, or with x_start the start-state entry): the same
+    improving alphas against J_ref (default the nominal's cost, J_old) on
+    every problem, hence the same first improving alpha; J within
+    GENERATED_RTOL elementwise, X on the rows <= T* and U of the improving
+    rollouts within GENERATED_RTOL of each rollout's largest entry (a
+    diverging rollout amplifies last-bit differences without bound).
+    Whether the two are bitwise equal, and their largest difference, are
+    printed and returned."""
+    import torch
+    from timeopt_tpu_torch.ops import cuda_forward
+    from timeopt_tpu_torch.solver.cost import cost_true
+
+    system, probs, X, U, K, kap, T, alphas = ls_args
+    hand = cuda_forward.linesearch(*ls_args, x_start=x_start)
+    gen = cuda_forward.linesearch(twin(case), *ls_args[1:], x_start=x_start)
+    torch.cuda.synchronize()
+    same = all(bitwise(g, h) for g, h in zip(gen, hand))
+    diff = max(max_err(g, h)[0] for g, h in zip(gen, hand))
+    J_ref = cost_true(system, probs, X, U, T) if J_ref is None else J_ref
+    imp_h, imp_g = hand[2] < J_ref[:, None], gen[2] < J_ref[:, None]
+    require(bool(torch.equal(imp_h, imp_g)), f"{label}: the generated and the hand-written kernel improve on "
+                                             f"different alphas ({int((imp_h != imp_g).any(dim=1).sum())} problems)")
+    rows = torch.arange(hand[0].shape[2], device=X.device)[None, None] <= T[:, None, None]
+    ok = (within(gen[2], hand[2], GENERATED_RTOL, 0.0)
+          and close_per_rollout(gen[0], hand[0], imp_h[..., None] & rows, GENERATED_RTOL, 0.0)
+          and close_per_rollout(gen[1], hand[1], imp_h[..., None].expand(hand[1].shape[:3]), GENERATED_RTOL, 0.0))
+    require(ok, f"{label}: generated vs hand-written outside rtol {GENERATED_RTOL} (max abs difference {diff:.3e})")
+    log(f"[kernels] {label}: generated vs hand-written bitwise {same}, max |diff| {diff:.3e} (all alphas and rows), "
+        f"the same improving alphas on all {X.shape[0]} problems")
+    return dict(bitwise=same, max_abs_diff=diff)
 
 
 def select_pair(system, probs, opts, X, U, A, Bj):
@@ -1130,9 +1213,102 @@ def witness_select(args, J_k, J_p, s, probs, label: str, rel: float = WITNESS_SE
     return J_w
 
 
+# The custom system of phase 4 (b): a unicycle, x = (p_x, p_y, theta, v),
+# u = (a, omega), theta wrapped, its guard on |v| and non-finite input, and
+# device_id None, so that its line search on the card is a kernel generated
+# from these functions. tests/test_torch_dyngen.py defines the same system
+# in both packages, solves it in each on the CPU and checks that this one
+# is it (struct text and problems).
+UNICYCLE_DT, UNICYCLE_V_MAX = 0.1, 4.0
+UNICYCLE_PROBLEM = dict(x0=[0.0, 0.0, 0.0, 0.0], xg=[1.5, 1.0, np.pi / 2, 0.0], u_ref=[0.0, 0.0],
+                        Q=np.diag([0.5, 0.5, 0.2, 0.1]), R=np.diag([0.1, 0.1]), alpha=[60.0, 60.0, 20.0, 10.0],
+                        w=0.05, N=40, T_min=10, T_max=40, wrap_idx=(2,))
+UNICYCLE_SIGMA = (0.2, 0.2, 0.3, 0.0)
+
+
+def _unicycle_xdot(x, u):
+    import torch
+
+    return torch.stack([x[..., 3] * torch.cos(x[..., 2]), x[..., 3] * torch.sin(x[..., 2]), u[..., 1], u[..., 0]],
+                       dim=-1)
+
+
+def _unicycle_guard(x, u):
+    import torch
+
+    return (~torch.isfinite(x).all(dim=-1)) | (~torch.isfinite(u).all(dim=-1)) | (torch.abs(x[..., 3]) > UNICYCLE_V_MAX)
+
+
+def unicycle():
+    from timeopt_tpu_torch.models.base import System, euler_step_fn
+
+    return System(name="Unicycle", n=4, m=2, dt=UNICYCLE_DT,
+                  step=euler_step_fn(_unicycle_xdot, UNICYCLE_DT, 4, (2,), _unicycle_guard), xdot=_unicycle_xdot,
+                  guard=_unicycle_guard, wrap_idx=(2,))
+
+
+def unicycle_problems(B: int, seed: int, device):
+    """UNICYCLE_PROBLEM for B problems, x0 perturbed by UNICYCLE_SIGMA
+    N(0, 1) (default_rng(seed), float64)."""
+    import torch
+    from timeopt_tpu_torch.models import make_problem
+    from timeopt_tpu_torch.solver.ilqr import broadcast_problem
+
+    base = make_problem(**UNICYCLE_PROBLEM, device=device)
+    rng = np.random.default_rng(seed)
+    x0 = base.x0.cpu().numpy() + np.asarray(UNICYCLE_SIGMA) * rng.standard_normal((B, 4))
+    return broadcast_problem(base, B).replace(x0=torch.as_tensor(x0, device=device))
+
+
+_TWINS: dict = {}
+
+
+def twin(case: str):
+    """The registry system of `case` with device_id None: the same functions,
+    so its line search on the card is the kernel generated from them
+    (ops/dyngen.py) in place of the hand-written struct."""
+    import dataclasses
+
+    from timeopt_tpu_torch.models import get_system
+
+    if case not in _TWINS:
+        system = get_system(case)[0]
+        _TWINS[case] = dataclasses.replace(system, name=f"{system.name}_generated", device_id=None)
+    return _TWINS[case]
+
+
 def load_oracle(case: str) -> dict:
     suffix = "" if case == "Quadrotor" else f"_{case}"
     return dict(np.load(os.path.join(ROOT, "results", f"oracle_f64{suffix}.npz")))
+
+
+def generated_b1024(ls_args, plain_ms: float) -> dict:
+    """Phase 3 at the quadrotor's B=1024: the generated line search of its
+    device_id=None twin against the plain version (check_linesearch's
+    tolerances, elementwise on every alpha and row) and the hand-written
+    kernel (check_generated), then both timed in turns hand-written,
+    generated, generated, hand-written (back to back and one call)."""
+    from timeopt_tpu_torch.ops import cuda_forward, work
+
+    system, probs, X, U, K, kap, T, alphas = ls_args
+    tw = twin("Quadrotor")
+    err = check_linesearch(tw, *ls_args[1:], f"generated line search (Quadrotor B={B_FULL})", gate_all=True)
+    nums = check_generated("Quadrotor", ls_args, f"generated line search (Quadrotor B={B_FULL})")
+    fns = {"hand": lambda: cuda_forward.linesearch(*ls_args), "gen": lambda: cuda_forward.linesearch(tw, *ls_args[1:])}
+    t = {k: [] for k in ("hand", "gen", "hand_one_call", "gen_one_call")}
+    for tag in ("hand", "gen", "gen", "hand"):
+        t[tag].append(device_ms(fns[tag]))
+        t[tag + "_one_call"].append(cuda_ms(fns[tag], reps=5))
+    log(f"[kernels] generated line search (Quadrotor B={B_FULL}), in turns hand-written / generated / generated / "
+        f"hand-written: back to back {t['hand'][0]:.3f} / {t['gen'][0]:.3f} / {t['gen'][1]:.3f} / {t['hand'][1]:.3f} "
+        f"ms, one call {t['hand_one_call'][0]:.3f} / {t['gen_one_call'][0]:.3f} / {t['gen_one_call'][1]:.3f} / "
+        f"{t['hand_one_call'][1]:.3f} ms, plain {plain_ms:.3f} ms | generated builds (nvcc s) {GENERATED_BUILD_S} | "
+        f"{smi()}")
+    nums.update(max_abs_err=err, ms=min(t["gen_one_call"]), ms_back_to_back=min(t["gen"]), plain_ms=plain_ms,
+                hand_written_ms_back_to_back=t["hand"], generated_ms_back_to_back=t["gen"], systems={},
+                build_s=dict(GENERATED_BUILD_S),
+                **work.linesearch(system.name, T.tolist(), probs.N, system.n, system.m, len(alphas)))
+    return nums
 
 
 def phase_kernels(device) -> dict:
@@ -1193,6 +1369,7 @@ def phase_kernels(device) -> dict:
                              **work.linesearch(system.name, T_p.tolist(), probs.N, system.n, system.m,
                                                len(opts.alphas)))
     log(f"[kernels] line search: kernel {ms:.3f} ms one call, {b2b:.3f} ms back to back, plain {pms:.3f} ms")
+    out[GENERATED[0]] = generated_b1024(ls_args, pms)
 
     # ---- the one-pass method's first shifted-gain rollouts from the
     # quadrotor's first iterate: start states X_ext[:, S], not row 0 of the
@@ -1212,6 +1389,8 @@ def phase_kernels(device) -> dict:
                                                                   system.n, system.m, len(ls_args[-1]), x_start=True))
     log(f"[kernels] line search from start states ({nJ} rollouts x {len(ls_args[-1])} alphas, {shifted} start states "
         f"off row 0 of X): kernel {ms:.3f} ms one call, {b2b:.3f} ms back to back, plain {pms:.3f} ms")
+    out[GENERATED[0]]["onepass_rollout"] = check_generated(
+        "Quadrotor", ls_args, f"line search from start states (one-pass rollouts, Quadrotor {nJ})", x_start, J_prev)
 
     # ---- B=128, each system's oracle set: its select kernel, the backward
     # at that select's T* and the line search; the generic select on the
@@ -1245,6 +1424,9 @@ def phase_kernels(device) -> dict:
         pms = cuda_ms(lambda: cuda_forward.linesearch_plain(*ls_args), reps=1)
         log(f"[kernels] line search ({case} B={B_ORACLE} N={probs.N}): kernel {ms:.3f} ms back to back, "
             f"plain {pms:.3f} ms")
+        check_linesearch(twin(case), *ls_args[1:], f"generated line search ({case} B={B_ORACLE})", gate_all=False)
+        out[GENERATED[0]]["systems"][case] = check_generated(case, ls_args, f"generated line search ({case} "
+                                                                             f"B={B_ORACLE})")
 
     # ---- shapes no system has (the kernels' run-time-size paths), random
     # inputs: the backward as at B=128, the generic select at T_min 1 (rel
@@ -1288,10 +1470,11 @@ def phase_kernels(device) -> dict:
 
 
 def _counted():
-    from timeopt_tpu_torch.ops import cuda_backward, cuda_forward, cuda_lft, cuda_lft_generic, cuda_lft_query, cuda_lft_scan
+    from timeopt_tpu_torch.ops import (cuda_backward, cuda_forward, cuda_lft, cuda_lft_generic, cuda_lft_query,
+                                       cuda_lft_scan, dyngen)
 
     return {"lft_select": cuda_lft, "lft_select_generic": cuda_lft_generic, "backward": cuda_backward,
-            "linesearch": cuda_forward, "lft_scan": cuda_lft_scan, "lft_query": cuda_lft_query}
+            "linesearch": cuda_forward, "lft_scan": cuda_lft_scan, "lft_query": cuda_lft_query, GENERATED[0]: dyngen}
 
 
 def reset_launches() -> None:
@@ -1325,9 +1508,14 @@ def differing(got, want) -> list:
     return out
 
 
-KERNEL_SYMBOL = {"lft_select": "lft_select_kernel", "lft_select_generic": "lft_select_generic_kernel",
-                 "backward": "backward_kernel", "linesearch": "linesearch_kernel", "lft_scan": "lft_scan_kernel",
-                 "lft_query": "lft_query_kernel"}  # each kernel's __global__ function in its .cu
+# Each kernel's __global__ function in its .cu, as a pattern of the traced
+# (demangled) kernel name; the line search's template argument tells the
+# hand-written structs from the generated one
+# (linesearch_kernel<(anonymous namespace)::Generated, double>).
+KERNEL_SYMBOL = {"lft_select": r"\blft_select_kernel\b", "lft_select_generic": r"\blft_select_generic_kernel\b",
+                 "backward": r"\bbackward_kernel\b", "linesearch": r"\blinesearch_kernel<(?![^,>]*\bGenerated\b)",
+                 "lft_scan": r"\blft_scan_kernel\b", "lft_query": r"\blft_query_kernel\b",
+                 GENERATED[0]: r"\blinesearch_kernel<[^,>]*\bGenerated\b"}
 TRACED = {"programs": 0, "events": 0, "secs": 0.0, "retraced": 0}
 TRACE_TRIES = 3  # traces of one graph before a shortfall fails
 
@@ -1345,7 +1533,7 @@ def traced_launches(fn) -> tuple:
         fn()
         torch.cuda.synchronize()
     names = [e.name() for e in prof.profiler.kineto_results.events() if e.device_type() == DeviceType.CUDA]
-    return {k: sum(1 for n in names if re.search(rf"\b{sym}\b", n)) for k, sym in KERNEL_SYMBOL.items()}, len(names)
+    return {k: sum(1 for n in names if re.search(pat, n)) for k, pat in KERNEL_SYMBOL.items()}, len(names)
 
 
 def observe_programs() -> None:
@@ -1534,26 +1722,114 @@ def phase_oracle(case: str, device) -> dict:
     require(set(bad.tolist()) <= allowed,
             f"oracle {case}: exact-or-tied {ORACLE_TIED[case]}/{Bo}, misses {sorted(set(bad.tolist()) - allowed)} "
             "beyond the reference's own")
-    if case == "DoubleIntegrator":
-        without_device_dynamics_raises(o)
+    tw = solve_twin(case, o, SolveOptions(method="propagator", max_iter=MAX_ITER, psd_levels=1))
+    return {k: counts[k] + tw[k] for k in counts}
+
+
+@contextmanager
+def plain_rollouts_counted():
+    """Counts the plain line search's rollouts (solver/forward.py::
+    rollout_with_gains, which both plain paths run) while the block runs:
+    yields a dict whose "calls" the caller reads after the block."""
+    from timeopt_tpu_torch.solver import forward
+
+    seen, plain = {"calls": 0}, forward.rollout_with_gains
+
+    def counted(*a, **kw):
+        seen["calls"] += 1
+        return plain(*a, **kw)
+
+    forward.rollout_with_gains = counted
+    try:
+        yield seen
+    finally:
+        forward.rollout_with_gains = plain
+
+
+def solve_twin(case: str, o: dict, opts, dtype=None, rtol: float = 1e-10) -> dict:
+    """The problems of `o` (a registry system's solve_oracle_set result)
+    solved on the card by the case's device_id=None twin (phase 4 (b)): its
+    line search the kernel generated from the same functions. It must score
+    as the registry system (the same exact-or-tied problems), with the same
+    T* on every problem and J* within rtol; its launches those of the
+    registry solve, the hand-written line search's moved to the generated
+    one, and the plain line search never run. Returns its launch counts."""
+    import torch
+
+    tw = twin(case)
+    with plain_rollouts_counted() as plain:
+        g = solve_captured(tw, o["probs"], opts, f"{tw.name} {opts.method} {dtype or 'float64'}", eager=False)
+    res, want = g["res"], o["res"]
+    T = res.T_star.cpu().numpy()
+    require(np.array_equal(T, o["T"]), f"{tw.name} {opts.method}: T* differs from {case}'s on problems "
+                                       f"{np.nonzero(T != o['T'])[0].tolist()}")
+    gap = ((res.J_star - want.J_star).abs() / want.J_star.abs()).max().item()
+    require(gap <= rtol, f"{tw.name} {opts.method}: J* {gap:.3e} relative off {case}'s (rtol {rtol})")
+    same = all(bitwise(getattr(res, f), getattr(want, f)) for f in ("J_star", "X", "U"))
+    counts, reg = g["counts"], o["counts"]
+    require(counts[GENERATED[0]] == reg["linesearch"] > 0 and counts["linesearch"] == 0 and plain["calls"] == 0,
+            f"{tw.name} {opts.method}: launches {counts} (the registry solve's {reg}), plain rollouts {plain['calls']}")
+    require({k: v for k, v in counts.items() if k not in ("linesearch", GENERATED[0])}
+            == {k: v for k, v in reg.items() if k not in ("linesearch", GENERATED[0])},
+            f"{tw.name} {opts.method}: the other kernels' launches {counts} differ from the registry solve's {reg}")
+    tied = score(T, o["T_o"], load_oracle(case)["J_curve"], oracle_w(case))
+    tied = tied[0] | tied[1]
+    log(f"[generated] {tw.name} {opts.method} {dtype or 'float64'} B={len(T)}: T* equal to {case}'s on every problem, "
+        f"exact-or-tied {int(tied.sum())}/{len(T)} (the registry's {int(o['tied'].sum())}), J* max rel gap {gap:.3e}, "
+        f"J*, X, U bitwise the registry's {same} | generated launches {counts[GENERATED[0]]}, hand-written 0, plain "
+        f"rollouts 0 | {captured_note(g)}")
     return counts
 
 
-def without_device_dynamics_raises(o: dict) -> None:
-    """The oracle set of `o` solved by the same system with device_id None:
-    the line search has no kernel for it (ROADMAP P1), so solve_batch must
-    raise on the card rather than run the plain version there."""
-    import dataclasses
-
+def phase_generated(device) -> dict:
+    """Phase 4 (b): the generated line search's other entries in solves (the
+    one-pass method's start-state entry on the double integrator's oracle
+    set, the float32 entries on the quadrotor's as float32 problems), each
+    twin against its registry system as solve_twin holds them (float32 J*
+    within F32_REL); then the unicycle, a system outside the registry, at
+    B=128 on the card against its CPU solve: T* identical, J* within rtol
+    1e-9. Returns the launch counts."""
+    import torch
+    from timeopt_tpu_torch.solver import compiled
     from timeopt_tpu_torch.solver.ilqr import SolveOptions, solve_batch
 
-    system = dataclasses.replace(o["system"], name=f"{o['system'].name}_no_device_dynamics", device_id=None)
-    try:
-        solve_batch(system, o["probs"], options=SolveOptions(method="propagator", max_iter=MAX_ITER, psd_levels=1))
-    except NotImplementedError as exc:
-        log(f"[oracle] {system.name}: raises on the card as it must ({exc})")
-        return
-    require(False, f"{system.name}: solved on the card without a line-search kernel")
+    counts = {}
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+
+    for case, opts, dtype, rtol in (
+            ("DoubleIntegrator", SolveOptions(method="onepass", max_iter=MAX_ITER, psd_levels=1), None, 1e-10),
+            ("Quadrotor", SolveOptions(method="propagator", max_iter=MAX_ITER, psd_levels=1), torch.float32, F32_REL)):
+        o = solve_oracle_set(case, device, opts, dtype, eager=False)
+        add(o["counts"])
+        add(solve_twin(case, o, opts, dtype, rtol))
+        compiled.clear_compiled()
+
+    system = unicycle()
+    opts = SolveOptions(method="propagator", max_iter=MAX_ITER, psd_levels=1)
+    probs = unicycle_problems(B_ORACLE, SEED, device)
+    with plain_rollouts_counted() as plain:
+        g = solve_captured(system, probs, opts, "Unicycle", eager=False)
+    t0 = time.perf_counter()
+    want = solve_batch(system, probs.to("cpu"), options=opts)
+    cpu_s = time.perf_counter() - t0
+    res, c = g["res"], g["counts"]
+    require(bool(torch.isfinite(res.J_star).all()) and bool((res.n_accept > 0).all()),
+            "Unicycle: a non-finite J* or a problem without an accepted step on the card")
+    require(torch.equal(res.T_star.cpu(), want.T_star), f"Unicycle: T* differs from the CPU solve on problems "
+                                                         f"{torch.nonzero(res.T_star.cpu() != want.T_star).flatten().tolist()}")
+    gap = ((res.J_star.cpu() - want.J_star).abs() / want.J_star.abs()).max().item()
+    require(gap <= 1e-9, f"Unicycle: J* {gap:.3e} relative off the CPU solve (rtol 1e-9)")
+    require(c[GENERATED[0]] > 0 and c["linesearch"] == 0 and plain["calls"] == 0,
+            f"Unicycle: launches {c}, plain rollouts {plain['calls']}")
+    log(f"[generated] Unicycle (custom system, device_id None) B={B_ORACLE} N={probs.N}: T* identical to the CPU solve "
+        f"on every problem (median {int(res.T_star.median())}), J* max rel gap {gap:.3e}, accepted steps "
+        f"{int(res.n_accept.min())}-{int(res.n_accept.max())} | CPU solve {cpu_s:.2f} s | launches {c} | "
+        f"{captured_note(g)}")
+    add(c)
+    return counts
 
 
 def phase_bruteforce(case: str, device) -> dict:
@@ -1869,7 +2145,7 @@ def phase_latency_oracle(device) -> dict:
     "associative"). Returns the launch counts summed over the runs."""
     from timeopt_tpu_torch.solver.ilqr import SolveOptions
 
-    total = {name: 0 for name in KERNELS}
+    total = {name: 0 for name in _counted()}
     for mode in LATENCY_MODES:
         for case in CASES:
             o = solve_oracle_set(case, device, SolveOptions(method="propagator", max_iter=MAX_ITER, psd_levels=1,
@@ -1919,7 +2195,7 @@ def phase_latency_b1(device) -> dict:
     system, mk = get_system("Quadrotor")
     probs = oracle_problems(system, mk, B_ORACLE, device)
     prob, U = prepare(probs.replace(**{f: t[:1].contiguous() for f, t in probs.tensors().items()}), None)
-    total = {name: 0 for name in KERNELS}
+    total = {name: 0 for name in _counted()}
     modes = ("sequential",) + LATENCY_MODES
     opts = {mode: SolveOptions(method="propagator", max_iter=MAX_ITER, psd_levels=1, scan_mode=mode) for mode in modes}
     run = {"captured": lambda mode: solve_batch(system, prob, options=opts[mode]),
@@ -1931,7 +2207,7 @@ def phase_latency_b1(device) -> dict:
     # five rounds, the modes in turns (rotated each round), captured and
     # eager in turns within a mode (swapped each round), so a drift of the
     # host's speed meets every mode and both drivers alike
-    out = {mode: dict(solve_s_all=[], captured_s_all=[], counts={name: 0 for name in KERNELS}) for mode in modes}
+    out = {mode: dict(solve_s_all=[], captured_s_all=[], counts={name: 0 for name in _counted()}) for mode in modes}
     for r in range(5):
         for mode in modes[r % 3:] + modes[: r % 3]:
             res, counts = {}, {}
@@ -2074,7 +2350,7 @@ def phase_scaleout(device) -> dict:
     mesh = make_mesh()
     log(f"[scale-out] {cards} card(s): dp mesh {mesh.shape}")
     opts = SolveOptions(max_iter=MAX_ITER, psd_levels=1)
-    total = {name: 0 for name in KERNELS}
+    total = {name: 0 for name in _counted()}
 
     def count(c: dict) -> None:
         for name, v in c.items():
@@ -2566,7 +2842,7 @@ def phase_f32_modes(device) -> dict:
     import torch
     from timeopt_tpu_torch.solver.ilqr import SolveOptions
 
-    total = {name: 0 for name in KERNELS}
+    total = {name: 0 for name in _counted()}
 
     def add(c: dict) -> None:
         for name, v in c.items():
@@ -3067,7 +3343,7 @@ def main() -> None:
     phase_build()
     numbers = phase_kernels(device)
     observe_programs()
-    counts = {name: 0 for name in KERNELS}
+    counts = {name: 0 for name in _counted()}
 
     def add(c: dict) -> None:
         for name, v in c.items():
@@ -3084,6 +3360,7 @@ def main() -> None:
 
     for case in CASES:
         add(phase(f"4 oracle {case}", lambda: phase_oracle(case, device)))
+    add(phase("4 (b) generated line search", lambda: phase_generated(device)))
     for case in CASES:
         add(phase(f"5 brute force {case}", lambda: phase_bruteforce(case, device)))
     add(phase("5 inverse query", lambda: phase_inverse(device)))
@@ -3152,6 +3429,17 @@ def main() -> None:
                 log(f"[bounds] {name} float32 ({sub}): {g['ms_back_to_back']:.3f} ms back to back ({g['ms']:.3f} one "
                     f"call, plain {g['plain_ms']:.3f}), bound {g['bound_ms']:.4f} ms by {g['bound_by']}, share of "
                     f"bound {g['share_of_bound']:.4f}")
+    name, route, src, rep = GENERATED
+    g = dict(name=name, route=route, source=src, replaces=rep, launches=counts[name],
+             launches_per_solve={case: c[name] for case, c in per_solve.items()}, **numbers[name], library_ms=None,
+             library="none: no single PyTorch call computes it")
+    g["share_of_bound"] = g["bound_ms"] / g["ms_back_to_back"]
+    kernels.append(g)
+    log(f"[bounds] {name} (Quadrotor's device_id=None twin): {g['ms_back_to_back']:.3f} ms back to back "
+        f"({g['ms']:.3f} one call; the hand-written kernel in turns {g['hand_written_ms_back_to_back']}), bound "
+        f"{g['bound_ms']:.4f} ms by {g['bound_by']}, share of bound {g['share_of_bound']:.4f}, launches "
+        f"{g['launches']} (phases 4 and 4 (b)); nvcc seconds {g['build_s']}")
+    require(counts[name] > 0, f"{name}: never launched on the main path")
     print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {

@@ -34,6 +34,11 @@ the card to the CPU's. So are latency-mode solves (scan_mode
 "associative" and "assoc_df": plain torch scans, then the query kernel),
 and parallel/'s sharded solve and select over every card to the
 unsharded ones (rtol 1e-12).
+
+A system with device_id None runs the line-search kernel generated from its
+own functions (ops/dyngen.py): held to the plain version as above and to
+the registry system's hand-written kernel within rtol 1e-12, and its
+solves to the CPU's.
 """
 
 from __future__ import annotations
@@ -602,26 +607,61 @@ def test_float32_on_the_card_raises(dev):
         cuda_backward.backward_truncated_core(*([h] * 12))
 
 
-def test_system_without_device_dynamics_raises(dev):
-    system, probs, X, U, A, Bj = _iterate("DoubleIntegrator", B=1)
+@pytest.mark.parametrize("case", ["DoubleIntegrator", "Quadrotor", "PointMass_Navigation"])
+def test_system_without_device_dynamics_raises(dev, case):
+    """A system with device_id None launches the line-search kernel
+    generated from its own functions (ops/dyngen.py, built at this first
+    call), counted on dyngen.LAUNCHES, at both entries: within rtol 1e-10 /
+    atol 1e-12 of the plain version on the improving alphas, and within
+    rtol 1e-12 of the registry system's hand-written kernel. (The name is
+    the one this test had while such a system raised on the card.)"""
+    from timeopt_tpu_torch.ops import dyngen
+
+    system, probs, X, U, A, Bj = _iterate(case)
     nodev = dataclasses.replace(system, device_id=None)
-    z = torch.zeros_like(A[..., :1, :])
-    with pytest.raises(NotImplementedError):
-        cuda_forward.linesearch(nodev, probs.to(dev), X.to(dev), U.to(dev), z.to(dev),
-                                U.to(dev), torch.tensor([3], device=dev), ALPHAS)
+    N = U.shape[1]
+    T = torch.tensor([N // 2, 7, N - 3, N])
+    lm = torch.full((4,), 1e-3, dtype=torch.float64)
+    kap, K, _ = cuda_backward.backward_plain(A, Bj, *backward_inputs(system, probs, X, U), T, lm)
+    p = probs.to(dev)
+    args = (p, X.to(dev), U.to(dev), K.to(dev), kap.to(dev), T.to(dev), ALPHAS)
+    J_old = cost_true(system, p, args[1], args[2], args[5])
+    for x_start in (None, args[1][:, 0].contiguous()):
+        n0, h0 = dyngen.LAUNCHES, cuda_forward.LAUNCHES
+        got = cuda_forward.linesearch(nodev, *args, x_start=x_start)
+        assert (dyngen.LAUNCHES, cuda_forward.LAUNCHES) == (n0 + 1, h0)
+        hand = cuda_forward.linesearch(system, *args, x_start=x_start)
+        plain = cuda_forward.linesearch_plain(system, *args, x_start=x_start)
+        improving = plain[2] < J_old[:, None]
+        assert torch.equal(got[2] < J_old[:, None], improving) and torch.equal(hand[2] < J_old[:, None], improving)
+        for k, q, h in zip(got, plain, hand):
+            _close(k[improving], q[improving], 1e-10, 1e-12)
+            _close(k[improving], h[improving], 1e-12, 0.0)
 
 
 @pytest.mark.parametrize("method", ["propagator", "onepass"])
 def test_system_without_device_dynamics_solve_raises_on_the_card(dev, method):
-    """solve_batch of a system without device dynamics raises on the card
-    (the line search has no kernel for it) and solves on the CPU: the card
-    never runs it eagerly instead."""
+    """solve_batch of a system with device_id None on the card runs the
+    generated line search (and never the plain one) and matches its CPU
+    solve: T* and n_accept identical, J* within rtol 1e-8. (The name is
+    the one this test had while such a solve raised on the card.)"""
+    from timeopt_tpu_torch.ops import dyngen
+    from timeopt_tpu_torch.solver import forward
+
     system, probs = _small_batch("DoubleIntegrator", 5)
     nodev = dataclasses.replace(system, name="DI_nodev", device_id=None)
     opts = SolveOptions(method=method, max_iter=3, psd_levels=1, S_window=5)
-    with pytest.raises(NotImplementedError, match="no device-side xdot"):
-        solve_batch(nodev, probs.to(dev), options=opts)
-    assert torch.isfinite(solve_batch(nodev, probs, options=opts).J_star).all()
+    counts = (dyngen.LAUNCHES, cuda_forward.LAUNCHES)
+    plain = forward.rollout_with_gains
+    forward.rollout_with_gains = None  # the plain line search must not run on the card
+    try:
+        got = solve_batch(nodev, probs.to(dev), options=opts)
+    finally:
+        forward.rollout_with_gains = plain
+    assert dyngen.LAUNCHES > counts[0] and cuda_forward.LAUNCHES == counts[1]
+    want = solve_batch(nodev, probs, options=opts)
+    assert torch.equal(got.T_star.cpu(), want.T_star) and torch.equal(got.n_accept.cpu(), want.n_accept)
+    _close(got.J_star.cpu(), want.J_star, 1e-8, 0.0)
 
 
 def test_argmin_T_on_the_card_matches_cpu(dev):

@@ -247,8 +247,9 @@ def test_program_cache_keys_and_bound(monkeypatch):
 @pytest.mark.parametrize("method", ["propagator", "onepass"])
 def test_system_without_device_dynamics_solves_as_the_registry(method):
     """(e) A double integrator with device_id None (its line search the
-    plain version, the CPU's path; on the card it raises) solves to the
-    registry system's T*, J* within rtol 1e-12."""
+    plain version, the CPU's path; on the card the kernel generated from its
+    functions, ops/dyngen.py) solves to the registry system's T*, J* within
+    rtol 1e-12."""
     system, probs, U = _batch("DoubleIntegrator", B=4, seed=3)
     opts = SolveOptions(method=method, max_iter=6, psd_levels=1, S_window=4)
     want = solve_batch(system, probs, options=opts)

@@ -13,7 +13,9 @@ kernel (csrc/, built with nvcc at first use); any other dtype raises.
 - select, stationary stage cost: ops/cuda_lft.py         (csrc/lft_select.cu)
 - select, extra stage cost:      ops/cuda_lft_generic.py (csrc/lft_select_generic.cu)
 - backward:                      ops/cuda_backward.py    (csrc/backward.cu)
-- line search:                   ops/cuda_forward.py     (csrc/linesearch.cu)
+- line search:                   ops/cuda_forward.py     (csrc/linesearch.cu; a System
+                                 without a device_id: ops/dyngen.py, its own xdot, guard
+                                 and extra cost in csrc/linesearch_kernel.cuh)
 - every prefix (unfused select): ops/cuda_lft_scan.py    (csrc/lft_scan.cu)
 - terminal queries:              ops/cuda_lft_query.py   (csrc/lft_query.cu)
 

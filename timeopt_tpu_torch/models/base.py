@@ -71,12 +71,15 @@ class Problem:
 
 @dataclasses.dataclass(frozen=True)
 class System:
-    """Static dynamics description. `device_id` names the dynamics compiled
-    into the line-search kernel (csrc/linesearch.cu, ops/cuda_forward.py):
-    setting it asserts that those compiled-in dynamics equal `xdot` and
-    `guard` (and the extra cost `extra_cost`), since the kernel runs its own
-    copy of them. None means the system has no device-side dynamics: it
-    solves on the CPU, and its line search raises on the card."""
+    """Static dynamics description. `device_id` names a hand-tuned struct
+    of dynamics in the line-search kernel (csrc/linesearch.cu; the six
+    registry systems): setting it asserts that the struct computes `xdot`,
+    `guard` and `extra_cost`, since the kernel runs its own copy of them
+    (chip_smoke.py holds each against the generated one). None means the
+    card runs a kernel generated from these functions themselves
+    (ops/dyngen.py: traced with make_fx, built with nvcc at first use),
+    which needs `step` to be `euler_step_fn` of this system's xdot, dt, n,
+    wrap_idx and guard, and raises on an op it does not take."""
 
     name: str
     n: int
@@ -110,7 +113,10 @@ def _nan_where(bad: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 def euler_step_fn(xdot: StepFn, dt: float, n: int, wrap_idx: tuple = (), guard=None) -> StepFn:
     """x+ = x + dt*xdot(x, u), the wrap_idx components angle-normalized,
-    poisoned to NaN where guard(x, u) holds."""
+    poisoned to NaN where guard(x, u) holds. The step carries its
+    ingredients as `step.euler_ingredients` (xdot, dt, n, wrap_idx, guard):
+    the generated line-search kernel (ops/dyngen.py) computes this step and
+    checks that a System's step is it."""
     wrap = tuple(bool(b) for b in wrap_mask_from_idx(wrap_idx, n)) if wrap_idx else None
 
     def step(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -121,6 +127,7 @@ def euler_step_fn(xdot: StepFn, dt: float, n: int, wrap_idx: tuple = (), guard=N
             xn = xn + _nan_where(guard(x, u)[..., None], xn)
         return xn
 
+    step.euler_ingredients = (xdot, float(dt), int(n), tuple(int(i) for i in wrap_idx), guard)
     return step
 
 

@@ -5,6 +5,9 @@ C interface (no PyTorch headers, so a build takes seconds), loaded with
 ctypes. Libraries go to `timeopt_tpu_torch/_build/`, named by a hash of the
 sources and the flags, so a changed source rebuilds and an unchanged one
 loads from the cache. Nothing is built at import: the first launch builds.
+A source generated at run time (ops/dyngen.py: the line search of a System
+without a device_id) is written to `_build/gen_<hash>.cu` and built the
+same way, against csrc/'s headers.
 """
 
 from __future__ import annotations
@@ -43,21 +46,28 @@ def nvcc() -> str:
 def load(name: str, csrc: Path = CSRC) -> ctypes.CDLL:
     """Build <csrc>/<name>.cu if its cached library is missing, then load it.
     Another directory than the package's csrc/ serves only to time an
-    earlier version of the sources against this one."""
-    if (name, csrc) in _LOADED:
-        return _LOADED[(name, csrc)][0]
-    src = csrc / f"{name}.cu"
+    earlier version of the sources against this one. A generated source
+    (load_generated) is loaded by its name once it is built."""
+    if (name, csrc) not in _LOADED:
+        _LOADED[(name, csrc)] = _compile(csrc / f"{name}.cu", csrc)
+    return _LOADED[(name, csrc)][0]
+
+
+def _compile(src: Path, include: Path) -> tuple:
+    """(library, build seconds, ptxas report) of src built with -I include
+    into BUILD_DIR, named by a hash of the source, the headers in include/
+    and the flags; a library of that name already there is loaded as it is."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in [src, *sorted(csrc.glob("*.cuh"))]:
+    for f in [src, *sorted(include.glob("*.cuh"))]:
         h.update(f.name.encode() + f.read_bytes())
-    out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    out = BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
     seconds, report = 0.0, "cached"
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         t0 = time.perf_counter()
         proc = subprocess.run(
-            [nvcc(), *NVCC_FLAGS, "-I", str(csrc), "-o", str(tmp), str(src)],
+            [nvcc(), *NVCC_FLAGS, "-I", str(include), "-o", str(tmp), str(src)],
             capture_output=True, text=True,
         )
         seconds = time.perf_counter() - t0
@@ -65,9 +75,36 @@ def load(name: str, csrc: Path = CSRC) -> ctypes.CDLL:
             raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stdout}\n{proc.stderr}")
         os.replace(tmp, out)
         report = proc.stderr.strip()
-    lib = ctypes.CDLL(str(out))
-    _LOADED[(name, csrc)] = (lib, seconds, report)
-    return lib
+    return ctypes.CDLL(str(out)), seconds, report
+
+
+def generated_name(text: str) -> str:
+    """The name of a generated source's library: gen_<hash of the text>."""
+    return "gen_" + hashlib.sha256(text.encode()).hexdigest()[:16]
+
+
+def load_generated(text: str) -> tuple:
+    """Write a generated CUDA source (ops/dyngen.py) to
+    BUILD_DIR/gen_<hash of the text>.cu, build it against csrc/'s headers
+    as load builds a kernel of csrc/, load it; (its name, under which
+    build_info() finds it, and the library)."""
+    name = generated_name(text)
+    if (name, CSRC) not in _LOADED:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        src = BUILD_DIR / f"{name}.cu"
+        if not src.exists():  # the name is the text's hash
+            tmp = src.with_name(f"{src.name}.{os.getpid()}.tmp")
+            tmp.write_text(text)
+            os.replace(tmp, src)
+        _LOADED[(name, CSRC)] = _compile(src, CSRC)
+    return name, _LOADED[(name, CSRC)][0]
+
+
+def load_generated_all(texts: list) -> list:
+    """load_generated of each text, one nvcc process each, all started
+    together; their (name, library) in order."""
+    with ThreadPoolExecutor(max_workers=max(1, len(texts))) as pool:
+        return list(pool.map(load_generated, texts))
 
 
 def load_all(names, csrc: Path = CSRC) -> None:

@@ -155,9 +155,11 @@ class CaptureGuard(TorchDispatchMode):
 
 
 def _launch_modules() -> tuple:
-    from timeopt_tpu_torch.ops import cuda_backward, cuda_forward, cuda_lft, cuda_lft_generic, cuda_lft_query, cuda_lft_scan
+    """The modules whose LAUNCHES count kernel launches (dyngen: the
+    generated line searches of systems without a device_id)."""
+    from timeopt_tpu_torch.ops import cuda_backward, cuda_forward, cuda_lft, cuda_lft_generic, cuda_lft_query, cuda_lft_scan, dyngen
 
-    return (cuda_backward, cuda_forward, cuda_lft, cuda_lft_generic, cuda_lft_query, cuda_lft_scan)
+    return (cuda_backward, cuda_forward, cuda_lft, cuda_lft_generic, cuda_lft_query, cuda_lft_scan, dyngen)
 
 
 def _device(device: torch.device):
