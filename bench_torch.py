@@ -1,4 +1,4 @@
-"""Benchmark of the PyTorch/CUDA port: batched HOP-DDP solves/s on one card.
+"""Benchmark of the PyTorch/CUDA port: batched HOP-DDP solves/s over the cards.
 
     python3 bench_torch.py
 
@@ -13,26 +13,34 @@ as it is), with its configuration, timing and output:
 - the solver: SolveOptions(method="propagator", max_iter=12,
   psd_levels=1), the port's float32 path (float32 storage, float64
   recursions in the select, backward and line-search kernels);
-- the timing: the problems on the device before the timed region; one
-  untimed first call (it builds the CUDA kernels); then BENCH_REPS (5)
-  reps of BENCH_PIPE (4) batches back to back with one final sync each,
-  the least time per batch. The batch goes through solve_batch on one
-  card. bench.py's BENCH_SHARDED is not taken: the port has no
-  data-parallel speedup inside one process (parallel/mesh.py solves its
-  chunks one after another), so throughput over several cards is a
-  matter for the runner's --distributed, one rank per card;
+- the entry: with BENCH_SHARDED=1 (the default) the dp-sharded serving
+  entry, as bench.py's: the batch split over a ("dp",) mesh of every local
+  card and each chunk placed on its card before the timed region
+  (parallel/mesh.py: make_mesh, shard_problems), then solved in place by
+  solve_batch_resident, every card's captured program driven together, no
+  split, copy or gather between cards in the timed region; each card
+  reduces its own checksum and the scalars are added. One card is a mesh
+  of one device, the same program. BENCH_SHARDED=0 places the whole batch
+  on one card, as bench.py's does (the same solve on one chunk: what
+  solve_batch runs);
+- the timing: one untimed first call (it builds the CUDA kernels and
+  captures each card's program); then BENCH_REPS (5) reps of BENCH_PIPE
+  (4) batches back to back with one final sync each, the least time per
+  batch;
 - the output: exactly one JSON line on stdout with bench.py's keys
   (metric, value, unit, vs_baseline, batch, pipeline, batch_time_s,
   success_rate, T_star_median). `value` is solves/s, `vs_baseline` the
   same against the reference's 1/2.9 solves/s (one quadrotor solve in 2.9
   s on a CPU, BASELINE.md), `success_rate` the share of problems with a
   finite J* and ||wrap(x_T* - x_g)|| <= 0.5, `T_star_median` the median
-  selected horizon. The metric names the card (torch.cuda.get_device_name)
-  and float32. Progress goes to stderr.
+  selected horizon. The metric says dp-sharded where it is, and names the
+  card count and the card (torch.cuda.get_device_name), and float32.
+  Progress goes to stderr.
 
-It runs on the card and fails without one. `main(device="cpu")` runs the
-same code on the CPU (plain PyTorch versions of the kernels), for tests at
-a tiny size; no environment variable makes it fall back.
+It runs on the card and fails without one. `main(device="cpu",
+n_devices=k)` runs the same code on a mesh of k CPU entries (plain
+PyTorch versions of the kernels), for tests at a tiny size; no
+environment variable makes it fall back.
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ import json
 import os
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -58,7 +67,7 @@ def knobs() -> dict:
     env = os.environ.get
     return dict(batch=int(env("BENCH_BATCH", "1024")), reps=int(env("BENCH_REPS", "5")),
                 pipe=int(env("BENCH_PIPE", "4")), case=env("BENCH_CASE", "Quadrotor"),
-                n=int(env("BENCH_N", "0")))
+                n=int(env("BENCH_N", "0")), sharded=env("BENCH_SHARDED", "1") == "1")
 
 
 def bench_problems(case: str, batch: int, bench_n: int):
@@ -79,33 +88,67 @@ def bench_problems(case: str, batch: int, bench_n: int):
     return system, broadcast_problem(base, batch).replace(x0=torch.as_tensor(x0s))
 
 
-def main(device: str = "cuda") -> dict:
+def make_bench(system, parts: list):
+    """The timed function over problems already on their devices: `parts`
+    is shard_problems' chunks, or one Problem. A call solves them in place
+    (solve_batch_resident) and, on each chunk's device, takes J*, T*, the
+    final error and a checksum of the three; it returns the per-chunk
+    (J, T, err), in batch order, and the checksums' sum on the first
+    chunk's device, whose read to the host waits for every device's work
+    of the call."""
     from timeopt_tpu_torch.ops.wrap import wrap_error
-    from timeopt_tpu_torch.solver.ilqr import SolveOptions, solve_batch
+    from timeopt_tpu_torch.parallel import solve_batch_resident
+    from timeopt_tpu_torch.solver.ilqr import SolveOptions
+
+    opts = SolveOptions(method="propagator", max_iter=MAX_ITER, psd_levels=1)
+    parts = [p for p in parts if p.batch]
+    rows = [torch.arange(p.batch, device=p.x0.device) for p in parts]
+    home = parts[0].x0.device
+
+    def bench_fn():
+        outs, checksum = [], 0.0
+        for p, r, res in zip(parts, rows, solve_batch_resident(system, parts, options=opts)):
+            eT = wrap_error(res.X[r, res.T_star] - p.xg, p.wrap_mask)
+            err = torch.sqrt(torch.sum(torch.square(eT), dim=-1))
+            J, T = res.J_star, res.T_star
+            outs.append((J, T, err))
+            checksum = checksum + (torch.where(torch.isfinite(J), J, 0.0).sum() + T.sum()
+                                   + torch.where(torch.isfinite(err), err, 0.0).sum()).to(home)
+        return outs, checksum
+
+    return bench_fn
+
+
+def summary(outs: list) -> tuple:
+    """(J, T, err, success) on the host in batch order from make_bench's
+    per-chunk outputs; success: J* finite and ||wrap(x_T* - x_g)|| <= 0.5."""
+    J, T, err = (np.concatenate([o[i].cpu().numpy() for o in outs]) for i in range(3))
+    return J, T, err, np.isfinite(J) & np.isfinite(err) & (err <= 0.5)
+
+
+def main(device: str = "cuda", n_devices: Optional[int] = None) -> dict:
+    """Run the benchmark and print its JSON line. Sharded, the mesh is
+    make_mesh(n_devices) of `device`'s type: every local card by default,
+    or n_devices (default 1) entries of the CPU."""
+    from timeopt_tpu_torch.parallel import make_mesh, shard_problems
 
     k = knobs()
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("bench_torch: no CUDA device; this benchmark runs on the card")
-    card = torch.cuda.get_device_name(device) if device.type == "cuda" else "CPU"
-    log(f"device: {card}, batch={k['batch']}, case={k['case']}, float32")
-
     system, probs = bench_problems(k["case"], k["batch"], k["n"])
-    probs = probs.to(device)  # device-resident before the timed region
-    opts = SolveOptions(method="propagator", max_iter=MAX_ITER, psd_levels=1)
-    rows = torch.arange(k["batch"], device=device)
-
-    def bench_fn():
-        res = solve_batch(system, probs, options=opts)
-        eT = wrap_error(res.X[rows, res.T_star] - probs.xg, probs.wrap_mask)
-        err = torch.sqrt(torch.sum(torch.square(eT), dim=-1))
-        J, T = res.J_star, res.T_star
-        checksum = (torch.where(torch.isfinite(J), J, 0.0).sum() + T.sum()
-                    + torch.where(torch.isfinite(err), err, 0.0).sum())
-        return J, T, err, checksum
+    # the problems on their devices before the timed region
+    if k["sharded"]:
+        parts = shard_problems(probs, make_mesh(n_devices, device_type=device.type))
+    else:
+        parts = [probs.to(device)]
+    count = len(parts)
+    card = torch.cuda.get_device_name(parts[0].x0.device) if device.type == "cuda" else "CPU"
+    log(f"device: {count} x {card}, batch={k['batch']}, case={k['case']}, float32, sharded={k['sharded']}")
+    bench_fn = make_bench(system, parts)
 
     t0 = time.perf_counter()
-    float(bench_fn()[3])  # the first call builds the kernels and captures the solve's graphs
+    float(bench_fn()[1])  # the first call builds the kernels and captures each card's program
     log(f"first call (kernel builds, capture + run): {time.perf_counter() - t0:.1f}s")
 
     times = []
@@ -113,21 +156,21 @@ def main(device: str = "cuda") -> dict:
         t0 = time.perf_counter()
         for _ in range(k["pipe"]):
             out = bench_fn()
-        float(out[3])  # the device runs in order: syncing the last syncs all
+        float(out[1])  # each card runs in order, and the sum waits for every card's last checksum
         times.append((time.perf_counter() - t0) / k["pipe"])
     t_batch = min(times)
     solves_per_s = k["batch"] / t_batch
 
-    J, T, err = (t.cpu().numpy() for t in out[:3])
+    J, T, err, success = summary(out[0])
     finite = np.isfinite(J)
-    success = finite & np.isfinite(err) & (err <= 0.5)
     log(f"batch time: {t_batch * 1e3:.1f} ms  solves/s: {solves_per_s:.0f}  finite: {finite.mean():.3f}  "
         f"success@0.5: {success.mean():.3f}  T* range: [{T.min()}, {T.max()}] median {np.median(T)}")
 
     name = "quadrotor" if k["case"] == "Quadrotor" else k["case"]
     horizon = f", N={k['n']}" if k["n"] else ""
     line = {
-        "metric": f"{name} HOP-DDP solves/s (batched, 1 x {card}, float32, max_iter={MAX_ITER}{horizon})",
+        "metric": (f"{name} HOP-DDP solves/s (batched{', dp-sharded' if k['sharded'] else ''}, {count} x {card}, "
+                   f"float32, max_iter={MAX_ITER}{horizon})"),
         "value": round(solves_per_s, 2),
         "unit": "solves/s",
         "vs_baseline": round(solves_per_s / BASELINE_SOLVES_PER_S, 1),

@@ -6,9 +6,10 @@
 Drives the port's batched HOP-DDP solves and its one-pass baseline in
 float64 on the card through its six hand-written CUDA kernels, for every
 system of the model registry (and the line search generated for a System
-without a device_id: phases 3 and 4), then its latency mode, its scale-out layer
-and its float32 path (float32 storage, float64 recursions), in ten
-phases; each prints its own lines and any failure raises (non-zero exit,
+without a device_id: phases 3 and 4), then its latency mode, its scale-out layer,
+its float32 path (float32 storage, float64 recursions) and its serving
+entries (bench_torch.py's dp-sharded batch, bench_sustained_torch.py's
+stream), in eleven phases; each prints its own lines and any failure raises (non-zero exit,
 no result line). Every solve runs as `solve_batch` runs it on the card:
 captured CUDA graphs (timeopt_tpu_torch/solver/compiled.py), each
 program's warm-up, capture seconds and pool bytes printed; the solves of
@@ -138,17 +139,30 @@ dropped between phases, and a `[time]` line follows each phase:
    solves and the quadrotor's one-pass solve at float32, captured and
    eager in turns, beside phase 7's
    float64 solves/s of this run, then `python3 bench_torch.py` at its
-   defaults, its one JSON line echoed; (d) the runner with --f32
+   defaults (dp-sharded over every card), its one JSON line echoed; (d) the runner with --f32
    --consistency on the double integrator and the quadrotor (5 trials,
    three solvers), every row finite, each T* printed beside
    results/tpu_f32/summary_all.csv and each trial-0 consistency_max_abs no
-   larger than that file's.
+   larger than that file's;
+11. the serving entries: (a) bench_torch.py's quadrotor set (float32,
+   B=1024) split over every card by shard_problems and solved in place by
+   solve_batch_resident: one program a card, each card's result bitwise
+   its chunk's own solve_batch; (b) the B=8192 set the same way, its first
+   1024 x0 rows (a)'s bit for bit, those rows' T* equal or tied at float32
+   resolution to (a)'s (tied_f32 on (a)'s J curve) and J* within
+   BIG_J_RTOL where T* is equal (the largest difference and bitwise
+   equality printed, with each B=8192 program's warm-up, capture and
+   pool); (c) `python3 bench_sustained_torch.py` with DURATION_S=10 and
+   BIG_BATCH=8192, its JSON line echoed, its keys those of
+   results/bench_sustained_r05.json (the JAX script's record), its
+   success_rate bench_torch.py's, no program built in its window and its
+   last batch bitwise its first.
 
 Each path resets the kernels' launch counts just before it runs and reads
 them just after; a kernel of the path that was not launched fails it. The
 line before the last is the card's name and power limit as nvidia-smi
 prints them; before that, one JSON line with each kernel's numbers: its
-launches summed over the paths of phases 4-6, 8, 9 and 10 (b), (d) (`launches`) and in one
+launches summed over the paths of phases 4-6, 8, 9, 10 (b), (d) and 11 (a), (b) (`launches`) and in one
 B=1024 solve of phase 7 (`launches_per_solve`, by case; `Quadrotor_onepass`
 the one-pass solve; `linesearch_generated`, the generated line search,
 launches in phase 4 and its numbers from the quadrotor's twin), its error and times from
@@ -2889,10 +2903,11 @@ def phase_f32_modes(device) -> dict:
     return total
 
 
-def phase_bench_torch() -> None:
+def phase_bench_torch() -> dict:
     """Phase 10 (c), second half: `python3 bench_torch.py` at its defaults
-    (bench.py's configuration: quadrotor, float32, B=1024), its one JSON
-    line echoed here with bench.py's keys checked."""
+    (bench.py's configuration: quadrotor, float32, B=1024, dp-sharded over
+    every card), its one JSON line echoed here with bench.py's keys checked;
+    returns the record."""
     proc = subprocess.run([sys.executable, os.path.join(ROOT, "bench_torch.py")], capture_output=True, text=True,
                           cwd=ROOT, timeout=900)
     for ln in proc.stderr.strip().splitlines()[-4:]:
@@ -2902,8 +2917,10 @@ def phase_bench_torch() -> None:
     require(len(lines) == 1, f"bench_torch.py printed {len(lines)} lines on stdout, not one")
     rec = json.loads(lines[0])
     require(tuple(rec) == BENCH_KEYS, f"bench_torch.py's keys {tuple(rec)} are not bench.py's")
-    require("float32" in rec["metric"] and rec["success_rate"] > 0.0, "bench_torch.py: metric or success")
+    require("float32" in rec["metric"] and "dp-sharded" in rec["metric"] and rec["success_rate"] > 0.0,
+            "bench_torch.py: metric or success")
     log(f"[bench_torch] {lines[0]} | {smi()}")
+    return rec
 
 
 def phase_f32_runner() -> dict:
@@ -2959,6 +2976,154 @@ def phase_f32_runner() -> dict:
             require(np.isfinite(cc) and cc <= tpu_cc, f"runner --f32 --consistency {case} {sv}: trial-0 "
                                                       f"consistency_max_abs {cc!r} is not finite or above {tpu_cc!r}")
     return counts
+
+
+# Phase 11, the serving entries: bench_torch.py's dp-sharded batch solved in
+# place on every card, its B=BIG_BATCH point, and bench_sustained_torch.py's
+# stream (its record's keys are the JAX script's, SUSTAINED_RECORD).
+BIG_BATCH = 8192
+BIG_J_RTOL = 1e-5
+SUSTAINED_S = "10"
+SUSTAINED_RECORD = os.path.join(ROOT, "results", "bench_sustained_r05.json")
+
+
+def sync_cards() -> None:
+    import torch
+
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def host_rows(results: list, field: str, rows: int) -> np.ndarray:
+    """The first `rows` rows of a field of per-card results, on the host in
+    batch order (only the cards that hold them are read)."""
+    import torch
+
+    out, have = [], 0
+    for r in results:
+        if have >= rows:
+            break
+        out.append(getattr(r, field)[: rows - have].cpu())
+        have += out[-1].shape[0]
+    return torch.cat(out).numpy()
+
+
+def phase_serving(device) -> dict:
+    """Phase 11 (a) and (b): the serving entry of bench_torch.py on every
+    card. (a) bench_problems("Quadrotor", 1024, 0) split by shard_problems
+    over make_mesh() and solved in place (solve_batch_resident): one program
+    built a card, and each card's result bitwise the solve_batch of its own
+    chunk on its card. (b) the B=BIG_BATCH set, whose first 1024 x0 rows are
+    (a)'s bit for bit, solved the same way: one more program a card, its
+    rows 0-1023 with (a)'s T* equal or tied at float32 resolution (tied_f32
+    on (a)'s own J curve) and J* within BIG_J_RTOL where T* is equal; the
+    largest J* difference and bitwise equality printed, with each new
+    program's warm-up, capture and pool. Returns the launch counts."""
+    import torch
+
+    import bench_torch
+    from timeopt_tpu_torch.parallel import make_mesh, shard_problems, solve_batch_resident
+    from timeopt_tpu_torch.solver import compiled
+    from timeopt_tpu_torch.solver.ilqr import SolveOptions, solve_batch
+
+    cards = torch.cuda.device_count()
+    mesh = make_mesh()
+    opts = SolveOptions(method="propagator", max_iter=MAX_ITER, psd_levels=1)
+    total = {name: 0 for name in _counted()}
+    system, probs = bench_torch.bench_problems("Quadrotor", B_FULL, 0)
+
+    def solve_counted(parts, label: str) -> tuple:
+        """The resident solve of `parts` twice: the first call builds any
+        program it needs, the second is timed and its launches counted."""
+        before = compiled.programs()
+        t0 = time.perf_counter()
+        solve_batch_resident(system, parts, options=opts)
+        sync_cards()
+        first_s = time.perf_counter() - t0
+        built = [p for p in compiled.programs() if not any(p is q for q in before)]
+        require(len(built) == cards, f"{label}: {len(built)} programs built for {cards} card(s)")
+        reset_launches()
+        t0 = time.perf_counter()
+        res = solve_batch_resident(system, parts, options=opts)
+        sync_cards()
+        secs = time.perf_counter() - t0
+        c = launches()
+        for name in ("lft_select", "backward", "linesearch"):
+            require(c[name] > 0, f"{label}: kernel {name} was never launched")
+        for name, v in c.items():
+            total[name] += v
+        require(len(res) == cards and all(r.T_star.device == p.x0.device for r, p in zip(res, parts)),
+                f"{label}: not one result a card, on its card")
+        return res, built, first_s, secs, c
+
+    parts = shard_problems(probs, mesh)
+    res, built, first_s, secs, c = solve_counted(parts, f"resident B={B_FULL}")
+    for i, (p, r) in enumerate(zip(parts, res)):
+        want = solve_batch(system, p, options=opts)
+        diff = differing(r, want)
+        require(not diff, f"resident B={B_FULL}: card {i}'s result differs from solve_batch of its chunk in {diff}")
+    require(len(compiled.programs()) == cards, f"resident B={B_FULL}: the chunks' own solves built programs")
+    log(f"[serving] (a) solve_batch_resident, bench_torch's quadrotor set B={B_FULL} float32 over {cards} card(s) "
+        f"({[p.batch for p in parts]} a card): {cards} program(s) built, each card's result bitwise solve_batch of "
+        f"its chunk on its card (every field) | first call {first_s:.2f} s, then {secs:.3f} s = "
+        f"{B_FULL / secs:.2f} solves/s | launches {c} | {'; '.join(program_line(q) for q in built)} | {smi()}")
+
+    _, probs_big = bench_torch.bench_problems("Quadrotor", BIG_BATCH, 0)
+    require(probs_big.x0[:B_FULL].numpy().tobytes() == probs.x0.numpy().tobytes(),
+            f"bench_problems: the B={BIG_BATCH} set's first {B_FULL} x0 rows are not the B={B_FULL} set's")
+    big_parts = shard_problems(probs_big, mesh)
+    big, built, first_s, secs, c = solve_counted(big_parts, f"resident B={BIG_BATCH}")
+    T_b, J_b = host_rows(big, "T_star", B_FULL), host_rows(big, "J_star", B_FULL).astype(np.float64)
+    T_s, J_s = host_rows(res, "T_star", B_FULL), host_rows(res, "J_star", B_FULL).astype(np.float64)
+    curve = host_rows(res, "J_curve", B_FULL).astype(np.float64)
+    tied = tied_f32(T_b, T_s, curve, float(probs.w[0]))
+    eq = T_b == T_s
+    J_rel = np.abs(J_b - J_s)[eq] / np.abs(J_s)[eq]
+    bitwise = {f: host_rows(big, f, B_FULL).tobytes() == host_rows(res, f, B_FULL).tobytes()
+               for f in ("T_star", "J_star", "X", "U")}
+    pools = [q.pool_bytes for q in built]
+    log(f"[serving] (b) solve_batch_resident B={BIG_BATCH} float32 over {cards} card(s) "
+        f"({[p.batch for p in big_parts]} a card): rows 0-{B_FULL - 1} against (a): T* equal {int(eq.sum())}, "
+        f"equal or tied at float32 resolution {int(tied.sum())} of {B_FULL}; J* where T* is equal: max rel diff "
+        f"{J_rel.max():.3e} (bound {BIG_J_RTOL:g}), max abs diff {np.abs(J_b - J_s)[eq].max():.3e}; bitwise "
+        f"{bitwise} | first call {first_s:.2f} s, then {secs:.3f} s = {BIG_BATCH / secs:.2f} solves/s | launches "
+        f"{c} ({cards} card(s)) | pool bytes a card {pools} ({sum(pools) / 2**30:.2f} GiB in all) | "
+        f"{'; '.join(program_line(q) for q in built)} | {smi()}")
+    require(bool(tied.all()), f"resident B={BIG_BATCH}: T* neither equal nor tied on rows "
+                              f"{np.flatnonzero(~tied)[:10].tolist()}")
+    require(J_rel.max() <= BIG_J_RTOL, f"resident B={BIG_BATCH}: J* rel diff {J_rel.max():.3e} > {BIG_J_RTOL:g}")
+    return total
+
+
+def phase_sustained(bench_rec: dict) -> None:
+    """Phase 11 (c): `python3 bench_sustained_torch.py` with DURATION_S=
+    SUSTAINED_S and BIG_BATCH, its one JSON line echoed with its keys
+    checked against the JAX script's record (SUSTAINED_RECORD), its
+    success rate equal to bench_torch.py's (phase 10 (c): the same problems
+    and entry), and its own checks read from its stderr: no program built
+    in the stream's window, the last batch's T* and J* bitwise the first's."""
+    with open(SUSTAINED_RECORD) as f:
+        want = json.load(f)
+    env = {k: v for k, v in os.environ.items() if k != "SUS_OUT"}
+    env.update(DURATION_S=SUSTAINED_S, BIG_BATCH=str(BIG_BATCH))
+    proc = subprocess.run([sys.executable, os.path.join(ROOT, "bench_sustained_torch.py")], capture_output=True,
+                          text=True, cwd=ROOT, env=env, timeout=600)
+    err = proc.stderr.strip().splitlines()
+    for ln in err[-8:]:
+        log(f"[sustained] (stderr) {ln}")
+    require(proc.returncode == 0, f"bench_sustained_torch.py exited {proc.returncode}")
+    lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+    require(len(lines) == 1, f"bench_sustained_torch.py printed {len(lines)} lines on stdout, not one")
+    rec = json.loads(lines[0])
+    require(list(rec) == list(want) and list(rec["big_batch"]) == list(want["big_batch"]),
+            f"bench_sustained_torch.py's keys {list(rec)} are not those of {SUSTAINED_RECORD}")
+    require("float32" in rec["metric"] and rec["big_batch"]["batch"] == BIG_BATCH, "bench_sustained_torch.py: metric")
+    require(rec["success_rate"] == bench_rec["success_rate"],
+            f"bench_sustained_torch.py success_rate {rec['success_rate']} != bench_torch.py's "
+            f"{bench_rec['success_rate']}")
+    for check in ("programs built in the stream's window: 0", "last batch's T* and J* bitwise the first's: True"):
+        require(check in proc.stderr, f"bench_sustained_torch.py did not report '{check}'")
+    log(f"[sustained] {lines[0]} | {smi()}")
 
 
 class ABRun:
@@ -3379,8 +3544,10 @@ def main() -> None:
                      for case in ("Quadrotor", "PointMass_Navigation")}
     per_solve_f32["Quadrotor_onepass"] = phase("10 (c) float32 throughput one-pass",
                                                lambda: phase_throughput_onepass(device, torch.float32))
-    phase("10 (c) bench_torch.py", phase_bench_torch)
+    bench_rec = phase("10 (c) bench_torch.py", phase_bench_torch)
     add(phase("10 (d) runner --f32", phase_f32_runner))
+    add(phase("11 (a), (b) serving entry", lambda: phase_serving(device)))
+    phase("11 (c) bench_sustained_torch.py", lambda: phase_sustained(bench_rec))
     compiled.clear_compiled()
     require(TRACED["programs"] > 0, "no captured program was traced")
     log(f"[trace] {TRACED['programs']} programs built on the main path, each graph's replay traced once: "

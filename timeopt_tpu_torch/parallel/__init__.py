@@ -9,6 +9,7 @@ from timeopt_tpu_torch.parallel.mesh import (
     make_mesh,
     propagator_select_sharded,
     shard_problems,
+    solve_batch_resident,
     solve_batch_sharded,
 )
 from timeopt_tpu_torch.parallel.stats import batch_summary, t_star_histogram
@@ -16,6 +17,7 @@ from timeopt_tpu_torch.parallel.stats import batch_summary, t_star_histogram
 __all__ = [
     "make_mesh",
     "shard_problems",
+    "solve_batch_resident",
     "solve_batch_sharded",
     "propagator_select_sharded",
     "t_star_histogram",

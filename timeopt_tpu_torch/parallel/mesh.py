@@ -4,8 +4,12 @@ timeopt_tpu/parallel/mesh.py.
 
 - **dp (batch axis):** the solves of a batch are independent, so each
   device of the mesh's "dp" axis solves a contiguous chunk of it, with no
-  communication; the results are concatenated in mesh order on the mesh's
-  first device (JAX's `P("dp")` layout).
+  communication. `shard_problems` places the chunks once;
+  `solve_batch_resident` solves chunks already in place and leaves each
+  result on its device (the serving entry of bench_torch.py, as the JAX
+  package's bench passes a Problem sharded with `P("dp")` to its jitted
+  solve); `solve_batch_sharded` does both and concatenates the results in
+  mesh order on the mesh's first device.
 - **hs (horizon-candidate axis):** the N terminal queries of the
   propagator select split over the "hs" devices: the prefixes are computed
   once, each device queries its slice of candidate horizons, and the
@@ -44,7 +48,7 @@ from timeopt_tpu_torch.ops.precision import full_matmul_precision
 from timeopt_tpu_torch.solver import compiled
 from timeopt_tpu_torch.solver.augmented import AugmentedBlocks
 from timeopt_tpu_torch.solver.horizon import LFTElements, propagator_select_prefixes
-from timeopt_tpu_torch.solver.ilqr import SolveOptions, SolveResult, default_U_init, prepare, solve_batch
+from timeopt_tpu_torch.solver.ilqr import SolveOptions, SolveResult, prepare, solve_batch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,6 +116,31 @@ def device_context(device: torch.device):
     return torch.cuda.device(device) if device.type == "cuda" else nullcontext()
 
 
+def solve_batch_resident(
+    system: System,
+    parts: list,
+    U_inits: Optional[list] = None,
+    options: Optional[SolveOptions] = None,
+) -> list:
+    """Batch-solve a batch already split over devices: `parts` as
+    shard_problems returns them, each chunk on its device, and U_inits
+    (default: each chunk's u_ref tiled, made on its device) one tensor a
+    chunk, on the chunk's device. Each chunk is solved as solve_batch would
+    solve it, and the chunks' programs are driven together, every card's
+    step replayed before any card's done check (compiled.solve_programs;
+    see the module docstring). Returns one SolveResult for each non-empty
+    chunk, in order, left on that chunk's device: nothing is split, copied
+    between devices or gathered. The counterpart of the JAX package's
+    sharded Problem passed to its jitted batch solve."""
+    opts = options or SolveOptions()
+    opts.check()
+    if U_inits is None:
+        U_inits = [None] * len(parts)
+    if len(U_inits) != len(parts):
+        raise ValueError(f"solve_batch_resident: {len(U_inits)} U_inits for {len(parts)} parts")
+    return compiled.solve_programs(system, opts, [prepare(p, U) for p, U in zip(parts, U_inits) if p.batch])
+
+
 def solve_batch_sharded(
     system: System,
     probs: Problem,
@@ -120,24 +149,17 @@ def solve_batch_sharded(
     mesh: Optional[Mesh] = None,
     axis: str = "dp",
 ) -> SolveResult:
-    """Batch-solve with the batch split over the mesh's `axis`: each device
-    solves its chunk as solve_batch would (solver/ilqr.py), and the results
-    come back concatenated in batch order on the axis's first device.
-    Without a mesh, one solve_batch.
-
-    The chunks' programs are driven together, every card's step replayed
-    before any card's done check (compiled.solve_programs; see the module
-    docstring)."""
+    """Batch-solve with the batch split over the mesh's `axis`: the batch
+    (and U_inits) split and placed by shard_problems, solved by
+    solve_batch_resident, and the results concatenated in batch order on
+    the axis's first device. Without a mesh, one solve_batch."""
     opts = options or SolveOptions()
     if mesh is None:
         return solve_batch(system, probs, U_inits, opts)
-    opts.check()
-    if U_inits is None:
-        U_inits = default_U_init(probs)
-    parts = [prepare(p, U.to(p.x0.device))
-             for p, U in zip(shard_problems(probs, mesh, axis), _chunks(U_inits, len(mesh.axis_devices(axis))))
-             if p.batch]
-    results = compiled.solve_programs(system, opts, parts)
+    parts = shard_problems(probs, mesh, axis)
+    if U_inits is not None:
+        U_inits = [U.to(p.x0.device) for p, U in zip(parts, _chunks(U_inits, len(parts)))]
+    results = solve_batch_resident(system, parts, U_inits, opts)
     home = mesh.axis_devices(axis)[0]
     return SolveResult(**{
         f.name: torch.cat([getattr(r, f.name).to(home) for r in results], dim=0)
