@@ -7,10 +7,12 @@ which stays as it is): the dp-sharded serving entry of bench_torch.py
 (quadrotor, float32, max_iter 12, psd_levels 1, bench.py's problem set;
 the batch split over every local card and placed before any timing, then
 solved in place by solve_batch_resident) run as a continuous stream of
-SUS_BATCH (1024) batches for DURATION_S (60) seconds, a sync after every
-SUS_PIPE (4) batches, each group's time divided by SUS_PIPE as its batches'
-time; then one BIG_BATCH (8192; 0 leaves it out) point over the same
-cards: one untimed call, then the least of 3 timed ones.
+SUS_BATCH (1024) batches for DURATION_S (60) seconds, SUS_PIPE (4) batches
+queued on the device with one sync a group, as scripts/bench_sustained.py's
+(each batch one loop-graph launch a card with no read to the host), each
+group's time divided by SUS_PIPE as its batches' time; then one BIG_BATCH
+(8192; 0 leaves it out) point over the same cards: one untimed call, then
+the least of 3 timed ones.
 
 Checks that hold the record to what it claims, each raising if it fails:
 no captured program is built inside the stream's window (the programs of

@@ -25,8 +25,10 @@ as it is), with its configuration, timing and output:
   solve_batch runs);
 - the timing: one untimed first call (it builds the CUDA kernels and
   captures each card's program); then BENCH_REPS (5) reps of BENCH_PIPE
-  (4) batches back to back with one final sync each, the least time per
-  batch;
+  (4) batches queued on the device with one sync a group, as bench.py's:
+  each batch is one loop-graph launch a card that reads nothing back
+  (solver/compiled.py), so the host queues the group's batches ahead of
+  the cards; the least time per batch;
 - the output: exactly one JSON line on stdout with bench.py's keys
   (metric, value, unit, vs_baseline, batch, pipeline, batch_time_s,
   success_rate, T_star_median). `value` is solves/s, `vs_baseline` the

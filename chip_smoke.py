@@ -9,19 +9,24 @@ system of the model registry (and the line search generated for a System
 without a device_id: phases 3 and 4), then its latency mode, its scale-out layer,
 its float32 path (float32 storage, float64 recursions) and its serving
 entries (bench_torch.py's dp-sharded batch, bench_sustained_torch.py's
-stream), in eleven phases; each prints its own lines and any failure raises (non-zero exit,
+stream), then the device-side outer loop, in twelve phases; each prints its own lines and any failure raises (non-zero exit,
 no result line). Every solve runs as `solve_batch` runs it on the card:
-captured CUDA graphs (timeopt_tpu_torch/solver/compiled.py), each
-program's warm-up, capture seconds and pool bytes printed; the solves of
+one launch of a program's loop graph, its captured CUDA graphs inside a
+conditional WHILE node (timeopt_tpu_torch/solver/compiled.py), each
+program's warm-up, capture and loop-graph seconds and pool bytes printed; the solves of
 phases 4, 5, 8 and 10 (b) (of the float32 modes, the F32_MODES_EAGER
 sets) are each also run by the eager driver `compiled._solve_traced` and
-must equal it bit for bit with the same launches, and phases 7, 8 (b) and
-10 (c) time captured against eager in turns. Every program built on the
-main path has one replay of each of its two graphs traced with
-torch.profiler (observe_programs): the kernels the trace shows on the
-card, kernel by kernel, must equal the launches the program adds to the
-wrappers' counts per replay of that graph. The captured programs are
-dropped between phases, and a `[time]` line follows each phase:
+must equal it bit for bit with the same launches and, on the device's
+loop counter, the steps _solve_traced takes; phases 7, 8 (b) and 10 (c)
+also time captured against eager in turns, with the same checks. Every program built
+on the main path is traced with torch.profiler (observe_programs): one
+replay of each of its two captures, whose kernels on the card must equal,
+kernel by kernel, the launches the program books for that graph. A
+solve's launches are derived, not traced: init's launches plus `it` times
+step's, `it` read from the loop's counters on the card when the counts are
+read (compiled.settle_launches, called by launches()); no launch of a loop
+graph is held to a trace (the comment above TRACED). The captured programs
+are dropped between phases, and a `[time]` line follows each phase:
 
 1. device: the card, CUDA and nvcc versions (no CPU fallback);
 2. build: the six kernels from timeopt_tpu_torch/csrc/ and the generated
@@ -156,7 +161,15 @@ dropped between phases, and a `[time]` line follows each phase:
    BIG_BATCH=8192, its JSON line echoed, its keys those of
    results/bench_sustained_r05.json (the JAX script's record), its
    success_rate bench_torch.py's, no program built in its window and its
-   last batch bitwise its first.
+   last batch bitwise its first;
+12. the device-side loop (phase_device_loop): the loop condition kernel
+   against its plain version on a table of cases (B = 1, 37, 8192), timed
+   at B=1024; a warmed quadrotor float32 B=1024 solve_batch under
+   torch.cuda.set_sync_debug_mode("error"), its host seconds against its
+   device seconds; four solves of four seeds queued on one program, each
+   bitwise its own; the quadrotor's oracle problem 0 at B=1, its steps on
+   the device counter those of _solve_traced; the resident solve over
+   every card with no sync, each chunk bitwise its own solve.
 
 Each path resets the kernels' launch counts just before it runs and reads
 them just after; a kernel of the path that was not launched fails it. The
@@ -179,7 +192,10 @@ one-pass rollouts from their start states, with their bound
 (`onepass_rollout`); every kernel also holds its float32 instantiation's
 phase-10 numbers (`float32`: the same keys, bytes at float32, launches
 per float32 solve of phase 10 (c); the scan and the query also their
-float64 entries' times on the same blocks). The last line is
+float64 entries' times on the same blocks). `loop_cond`, the port's own
+kernel (the loop's condition; it replaces no TPU kernel), has the same
+keys: its launches over phases 4-11 and per B=1024 solve of phase 7, its
+numbers from phase 12 (a). The last line is
 {"ok": true, "device": {...}}.
 Imports no JAX.
 
@@ -210,6 +226,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 from contextlib import contextmanager
 from pathlib import Path
 
@@ -241,6 +258,15 @@ KERNELS = {
 GENERATED = ("linesearch_generated", "cuda",
              "timeopt_tpu_torch/csrc/linesearch_kernel.cuh + timeopt_tpu_torch/ops/dyngen.py",
              "timeopt_tpu/ops/pallas_forward.py:308 (and :385)")
+# The compiled solve's device-side loop (solver/compiled.py): the condition
+# kernel of csrc/loop_graph.cu, launched twice or more by each solve's loop
+# graph (once after init, once after each step), its launches booked from the
+# programs' counters (compiled.settle_launches) on cuda_loop.LAUNCHES. It is
+# the port's own: the TPU evaluates the lax.while_loop's condition inside
+# its jitted program.
+LOOP = ("loop_cond", "cuda", "timeopt_tpu_torch/csrc/loop_graph.cu",
+        "none: the port's own kernel, the condition of the lax.while_loop in "
+        "timeopt_tpu/solver/ilqr.py:165-190 (_run_outer_loop)")
 # The generated kernel against the hand-written one of the same system
 # (check_generated): both compile the same formulas with nvcc's default FMA
 # contraction, so they are likely bitwise equal (printed), not certainly;
@@ -477,18 +503,18 @@ def within(a, b, rtol: float, atol: float) -> bool:
     return ok_fin and max_err(a, b)[1]
 
 
-def oracle_problems(system, mk, B: int, device, dtype=None):
+def oracle_problems(system, mk, B: int, device, dtype=None, seed: int = SEED):
     """The problem sets of scripts/oracle_match.py, bit for bit: the default
     problem with x0[:, :3] += 0.4 N(0, 1) for the quadrotor and
     x0 += sigma_x0 N(0, 1) for every other system, default_rng(0), drawn in
     float64; with `dtype` (float32) every float then rounded to it, as the
-    script makes its float32 sets."""
+    script makes its float32 sets. Another `seed` draws another set."""
     import torch
     from timeopt_tpu_torch.ops import _build
     from timeopt_tpu_torch.solver.ilqr import broadcast_problem
 
     base = mk(device=device)
-    rng = np.random.default_rng(SEED)
+    rng = np.random.default_rng(seed)
     x0 = np.tile(base.x0.cpu().numpy(), (B, 1))
     if system.name == "Quadrotor":
         x0[:, :3] += 0.4 * rng.standard_normal((B, 3))
@@ -521,8 +547,10 @@ def phase_device():
     from timeopt_tpu_torch.ops import _build
 
     nv = subprocess.run([_build.nvcc(), "--version"], capture_output=True, text=True, check=True)
+    driver = subprocess.run(["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
+                            capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     log(f"[device] {smi()} | torch {torch.__version__} CUDA {torch.version.cuda} | "
-        f"{nv.stdout.strip().splitlines()[-1]} | count {torch.cuda.device_count()}")
+        f"{' '.join(nv.stdout.strip().splitlines()[-2:])} | driver {driver} | count {torch.cuda.device_count()}")
 
 
 def ptxas_lines(report: str) -> str:
@@ -542,11 +570,11 @@ def phase_build():
     generated = [twin(c) for c in CASES] + [unicycle()]
     with ThreadPoolExecutor(max_workers=1) as pool:
         gen = pool.submit(dyngen.build_all, generated)
-        _build.load_all(list(KERNELS))
+        _build.load_all(list(KERNELS) + ["loop_graph"])
         gen.result()
-    log(f"[build] {len(KERNELS)} kernels and {len(generated)} generated line searches in "
+    log(f"[build] {len(KERNELS)} kernels, the loop graph's and {len(generated)} generated line searches in "
         f"{time.perf_counter() - t0:.1f} s")
-    for name in KERNELS:
+    for name in list(KERNELS) + ["loop_graph"]:
         secs, report = _build.build_info(name)
         log(f"[build] {name}: nvcc {secs:.1f} s | " + ptxas_lines(report))
     for system in generated:
@@ -1492,12 +1520,33 @@ def _counted():
 
 
 def reset_launches() -> None:
+    """Every TPU kernel's count to 0, the captured solves run so far booked
+    first (compiled.settle_launches), so that none is booked later."""
+    from timeopt_tpu_torch.solver import compiled
+
+    compiled.settle_launches()
     for mod in _counted().values():
         mod.LAUNCHES = 0
 
 
 def launches() -> dict:
+    """Every TPU kernel's count, the captured solves run so far booked
+    first. The loop condition's count (loop_launches) is kept apart: the
+    eager driver, which these counts are held to, does not launch it."""
+    from timeopt_tpu_torch.solver import compiled
+
+    compiled.settle_launches()
     return {name: mod.LAUNCHES for name, mod in _counted().items()}
+
+
+def loop_launches() -> int:
+    """The loop condition kernel's count, the captured solves run so far
+    booked first."""
+    from timeopt_tpu_torch.ops import cuda_loop
+    from timeopt_tpu_torch.solver import compiled
+
+    compiled.settle_launches()
+    return cuda_loop.LAUNCHES
 
 
 def differing(got, want) -> list:
@@ -1529,9 +1578,22 @@ def differing(got, want) -> list:
 KERNEL_SYMBOL = {"lft_select": r"\blft_select_kernel\b", "lft_select_generic": r"\blft_select_generic_kernel\b",
                  "backward": r"\bbackward_kernel\b", "linesearch": r"\blinesearch_kernel<(?![^,>]*\bGenerated\b)",
                  "lft_scan": r"\blft_scan_kernel\b", "lft_query": r"\blft_query_kernel\b",
-                 GENERATED[0]: r"\blinesearch_kernel<[^,>]*\bGenerated\b"}
+                 GENERATED[0]: r"\blinesearch_kernel<[^,>]*\bGenerated\b", LOOP[0]: r"\bloop_cond_kernel\b"}
+# Why no loop-graph launch is held to a trace (an H100, torch 2.11, CUDA
+# 12.8, driver 580.159): CUPTI shows at most the first run of a WHILE body
+# in a loop graph instantiated before the process's first profiler session,
+# and in one instantiated after it, sometimes every run, sometimes none
+# (a float32 cart-pole launch of 11 steps showed its init graph's events
+# alone, three traces running); inside a body it may name a kernel event
+# after another kernel (a B=128 quadrotor launch: 25 select and 25 backward
+# kernels of the 13 each it ran; a brute-force one 5 loop conditions of
+# 3); and a launch of ~475,000 device events (the one-pass quadrotor's,
+# 12 steps) faulted with an illegal address inside the trace. So the
+# captures are traced, each replayed on its own, and a solve's launches are
+# derived from them and the loop's counters; the counters are held to the
+# steps _solve_traced takes (solve_captured, captured_vs_eager, phase 12).
 TRACED = {"programs": 0, "events": 0, "secs": 0.0, "retraced": 0}
-TRACE_TRIES = 3  # traces of one graph before a shortfall fails
+TRACE_TRIES = 3  # traces of one replay before a shortfall fails
 
 
 def traced_launches(fn) -> tuple:
@@ -1546,24 +1608,42 @@ def traced_launches(fn) -> tuple:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    names = [e.name() for e in prof.profiler.kineto_results.events() if e.device_type() == DeviceType.CUDA]
-    return {k: sum(1 for n in names if re.search(pat, n)) for k, pat in KERNEL_SYMBOL.items()}, len(names)
+    names = Counter(e.name() for e in prof.profiler.kineto_results.events() if e.device_type() == DeviceType.CUDA)
+    return ({k: sum(c for n, c in names.items() if re.search(pat, n)) for k, pat in KERNEL_SYMBOL.items()},
+            sum(names.values()))
+
+
+def traced_booked(fn, booked: dict, what: str) -> tuple:
+    """fn() traced (traced_launches) until its kernels equal `booked`, kernel
+    by kernel. A trace can come back short (the profiler lost device
+    events: on an H100 one step graph's trace once held 184 of its ~860
+    events, the other traces of that run whole), so one that shows fewer
+    than booked is taken again, up to TRACE_TRIES times; one that shows
+    more, or TRACE_TRIES short ones, fails. Returns (the kernels seen, the
+    device events)."""
+    for attempt in range(1, TRACE_TRIES + 1):
+        traced, n = traced_launches(fn)
+        got = {k: traced[k] for k in booked}
+        short = all(got[k] <= booked[k] for k in booked) and got != booked
+        if not short or attempt == TRACE_TRIES:
+            break
+        TRACED["retraced"] += 1
+        log(f"[trace] {what}: trace {attempt} short ({got} in {n} device events, booked {booked}), traced again")
+    require(n > 0 and got == booked, f"{what}: the trace shows {got} in {n} device events (trace {attempt} of "
+                                     f"{TRACE_TRIES}), booked {booked}")
+    return traced, n
 
 
 def observe_programs() -> None:
-    """From here on, every program that compiled.program builds has one
-    replay of its init graph and one of its step graph run under
-    torch.profiler (traced_launches): the kernels each trace shows must
-    equal, kernel by kernel, the launches the program adds to the wrappers'
-    counts on a replay of that graph (recorded at its capture). So every
-    launch count of a captured solve rests on kernels seen on the card.
-    A trace can come back short (the profiler lost device events: on an
-    H100 one step graph's trace once held 184 of its ~860 events, the
-    other traces of that run whole), so a graph whose trace shows fewer
-    kernels than booked is
-    traced again, up to TRACE_TRIES times; a trace that shows more than
-    booked, or TRACE_TRIES short ones, fails. These traced replays count
-    nowhere; the next solve reloads the inputs."""
+    """From here on, every program that compiled.program builds is traced
+    with torch.profiler (traced_booked), on the inputs it was built on:
+    one replay of its init graph and one of its step graph (each capture
+    instantiated on its own), whose kernels on the card must equal, kernel
+    by kernel, the launches the program books for that graph (the counts
+    recorded at its capture). So every launch count of a captured solve
+    rests on kernels seen on the card, and on the loop's counters, which
+    the solves held to _solve_traced check against the steps it takes.
+    These replays count nowhere; the next solve reloads the inputs."""
     import torch
     from timeopt_tpu_torch.solver import compiled
 
@@ -1578,25 +1658,16 @@ def observe_programs() -> None:
         t0 = time.perf_counter()
         seen = []
         with torch.cuda.device(prog.device):
-            for graph_name, (graph, counted) in prog.graphs.items():
-                booked = {name_of[mod]: c for mod, c in zip(compiled._launch_modules(), counted)}
-                for attempt in range(1, TRACE_TRIES + 1):
-                    traced, events = traced_launches(graph.replay)
-                    short = all(traced[k] <= booked[k] for k in booked) and traced != booked
-                    if not short or attempt == TRACE_TRIES:
-                        break
-                    TRACED["retraced"] += 1
-                    log(f"[trace] program {prog.label}, {graph_name} graph: trace {attempt} short ({traced} in "
-                        f"{events} device events, booked {booked}), traced again")
-                require(events > 0 and traced == booked,
-                        f"program {prog.label}, {graph_name} graph: the trace shows {traced} in {events} device "
-                        f"events (trace {attempt} of {TRACE_TRIES}), the program books {booked} a replay")
-                seen.append(f"{graph_name} {events} events, {dict((k, v) for k, v in traced.items() if v)}")
-                TRACED["events"] += events
+            for g in ("init", "step"):
+                booked = {name_of[mod]: c for mod, c in zip(compiled._launch_modules(), prog.graphs[g][1])}
+                traced, e = traced_booked(prog.graphs[g][0].replay, dict(booked, **{LOOP[0]: 0}),
+                                          f"program {prog.label}, {g} graph")
+                seen.append(f"{g} {e} events, {dict((k, v) for k, v in traced.items() if v)}")
+                TRACED["events"] += e
         TRACED["programs"] += 1
         TRACED["secs"] += time.perf_counter() - t0
-        log(f"[trace] program {prog.label}: one replay of each graph traced, the kernels seen equal the launches "
-            f"booked ({'; '.join(seen)}; {time.perf_counter() - t0:.2f} s)")
+        log(f"[trace] program {prog.label}: one replay of each graph traced, the kernels seen equal those booked "
+            f"({'; '.join(seen)}; {time.perf_counter() - t0:.2f} s)")
         return prog
 
     compiled.program = program
@@ -1604,9 +1675,9 @@ def observe_programs() -> None:
 
 def program_line(prog) -> str:
     """A captured program's build: its eager warm-up, its two captures and
-    its graphs' memory pool."""
-    return (f"program {prog.label}: warm-up {prog.warmup_s:.3f} s, capture {prog.capture_s:.3f} s, pool "
-            f"{prog.pool_bytes / 2**20:.1f} MiB")
+    the loop graph around them, and its graphs' memory pool."""
+    return (f"program {prog.label}: warm-up {prog.warmup_s:.3f} s, capture {prog.capture_s:.3f} s (the loop graph "
+            f"{prog.loop_s:.3f} s of it), pool {prog.pool_bytes / 2**20:.1f} MiB")
 
 
 def solve_captured(system, probs, opts, label: str, eager: bool = True) -> dict:
@@ -1624,21 +1695,33 @@ def solve_captured(system, probs, opts, label: str, eager: bool = True) -> dict:
     prog = compiled.program(system, opts, p, U)
     torch.cuda.synchronize()
     reset_launches()
+    loops = loop_launches()
     t0 = time.perf_counter()
     res = solve_batch(system, probs, options=opts)
     torch.cuda.synchronize()
     out = dict(res=res, secs=time.perf_counter() - t0, counts=launches(), prog=prog, eager_secs=None)
+    it, conds = prog.iterations(), loop_launches() - loops
     if eager:
         reset_launches()
         t0 = time.perf_counter()
-        want = compiled._solve_traced(system, opts, p, U)
+        want, steps = counted_steps(lambda: compiled._solve_traced(system, opts, p, U))
         torch.cuda.synchronize()
         out["eager_secs"] = time.perf_counter() - t0
         counts = launches()
         diff = differing(res, want)
         require(not diff, f"{label}: the captured solve differs from _solve_traced in {diff}")
         require(counts == out["counts"], f"{label}: launches captured {out['counts']}, eager {counts}")
+        check_steps(it, conds, steps, label)
     return out
+
+
+def check_steps(it: int, conds: int, steps: int, label: str) -> None:
+    """A captured solve's steps on the device (its loop counter `it`, and
+    the loop_cond launches booked from the counters: one after init and
+    one a step) against the steps _solve_traced takes on the same inputs
+    (counted_steps)."""
+    require(it == steps and conds == 1 + steps, f"{label}: {it} steps on the device counter and {conds} loop_cond "
+                                                f"launches booked, _solve_traced took {steps} steps")
 
 
 def captured_note(o: dict) -> str:
@@ -2047,20 +2130,32 @@ def captured_vs_eager(system, probs, opts, label: str, dtype=None) -> dict:
     p, U = prepare(probs, None)
     prog = compiled.program(system, opts, p, U)
     torch.cuda.synchronize()
-    secs, res, counts = {"captured": [], "eager": []}, {}, {}
+    secs, res, counts, steps = {"captured": [], "eager": []}, {}, {}, {"captured": [], "eager": []}
     for kind in ("captured", "eager", "eager", "captured"):
         reset_launches()
+        loops = loop_launches()
         t0 = time.perf_counter()
-        res[kind] = (solve_batch(system, probs, options=opts) if kind == "captured"
-                     else compiled._solve_traced(system, opts, p, U))
+        if kind == "captured":
+            res[kind] = solve_batch(system, probs, options=opts)
+        else:
+            res[kind], n = counted_steps(lambda: compiled._solve_traced(system, opts, p, U))
         torch.cuda.synchronize()
         secs[kind].append(time.perf_counter() - t0)
         counts[kind] = launches()
+        if kind == "captured":
+            counts["loop_cond"] = loop_launches() - loops
+            steps[kind].append((prog.iterations(), counts["loop_cond"]))
+        else:
+            steps[kind].append(n)
     diff = differing(res["captured"], res["eager"])
     require(not diff, f"{label}: the captured solve differs from _solve_traced in {diff}")
     require(counts["captured"] == counts["eager"],
             f"{label}: launches captured {counts['captured']}, eager {counts['eager']}")
-    return dict(res=res["captured"], counts=counts["captured"], secs=secs, prog=prog)
+    for it, conds in steps["captured"]:
+        for n in steps["eager"]:
+            check_steps(it, conds, n, label)
+    return dict(res=res["captured"], counts=dict(counts["captured"], loop_cond=counts["loop_cond"]), secs=secs,
+                prog=prog)
 
 
 def turns_line(o: dict, B: int) -> str:
@@ -2191,8 +2286,9 @@ def phase_latency_b1(device) -> dict:
     """Phase 8 (b): the quadrotor's oracle problem 0 (N=160, max_iter=12) as
     one solve in each scan mode, captured and eager, the median of 5
     synchronized runs of each after a warm-up (the modes and the drivers in
-    turns), each captured result bitwise the eager one, T* identical to the
-    sequential solve's and J* within rtol 1e-9;
+    turns), each captured result bitwise the eager one, its steps on the
+    device the eager one's (check_steps), T* identical to the sequential
+    solve's and J* within rtol 1e-9;
     then the select alone at B=1 on the first iterate: the fused kernel
     (sequential), the plain tree scan + query kernel (associative), the
     Hillis-Steele scan + query kernel (assoc_df), each also with its inputs'
@@ -2213,10 +2309,11 @@ def phase_latency_b1(device) -> dict:
     modes = ("sequential",) + LATENCY_MODES
     opts = {mode: SolveOptions(method="propagator", max_iter=MAX_ITER, psd_levels=1, scan_mode=mode) for mode in modes}
     run = {"captured": lambda mode: solve_batch(system, prob, options=opts[mode]),
-           "eager": lambda mode: compiled._solve_traced(system, opts[mode], prob, U)}
+           "eager": lambda mode: counted_steps(lambda: compiled._solve_traced(system, opts[mode], prob, U))}
     for mode in modes:
         for kind in run:
             run[kind](mode)  # warm-up; the captured one builds its program
+    progs = {mode: compiled.program(system, opts[mode], prob, U) for mode in modes}
     torch.cuda.synchronize()
     # five rounds, the modes in turns (rotated each round), captured and
     # eager in turns within a mode (swapped each round), so a drift of the
@@ -2227,15 +2324,20 @@ def phase_latency_b1(device) -> dict:
             res, counts = {}, {}
             for kind in (("captured", "eager") if r % 2 == 0 else ("eager", "captured")):
                 reset_launches()
+                loops = loop_launches()
                 t0 = time.perf_counter()
                 res[kind] = run[kind](mode)
                 torch.cuda.synchronize()
                 out[mode]["captured_s_all" if kind == "captured" else "solve_s_all"].append(time.perf_counter() - t0)
                 counts[kind] = launches()
+                if kind == "captured":
+                    device_steps = (progs[mode].iterations(), loop_launches() - loops)
+            res["eager"], steps = res["eager"]
             diff = differing(res["captured"], res["eager"])
             require(not diff and counts["captured"] == counts["eager"],
                     f"B=1 solve scan_mode={mode}: captured vs _solve_traced differ in {diff}, launches "
                     f"{counts['captured']} vs {counts['eager']}")
+            check_steps(*device_steps, steps, f"B=1 solve scan_mode={mode}")
             for name, v in counts["captured"].items():
                 out[mode]["counts"][name] += v
             out[mode]["res"] = (int(res["captured"].T_star[0]), float(res["captured"].J_star[0]))
@@ -3095,6 +3197,192 @@ def phase_serving(device) -> dict:
     return total
 
 
+# Phase 12 (a): the loop condition kernel against its plain version, on
+# (B, done pattern) x (it before, max_iter, early_exit, first)
+LOOP_COND_B = (1, 37, 8192)
+LOOP_COND_DONE = ("none", "all", "last", "random")
+LOOP_COND_STEPS = ((0, MAX_ITER, True, True), (0, MAX_ITER, False, True), (0, 0, True, True),
+                   (4, MAX_ITER, True, False), (MAX_ITER - 1, MAX_ITER, True, False),
+                   (MAX_ITER - 1, MAX_ITER, False, False), (5, MAX_ITER, False, False))
+
+
+def loop_done(B: int, pattern: str, device):
+    """(B,) bool done flags: none, all, all but the last, or random (70%
+    done, seeded)."""
+    import torch
+
+    d = np.random.default_rng(SEED).random(B) < 0.7 if pattern == "random" else np.full(B, pattern != "none")
+    if pattern == "last":
+        d[-1] = False
+    return torch.as_tensor(d, device=device)
+
+
+def sync_debug(fn):
+    """fn() under torch.cuda.set_sync_debug_mode("error"): any call that
+    synchronizes the host with the card (a read to the host, a
+    synchronizing copy) raises. Returns (fn's value, host seconds)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        out = fn()
+        secs = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return out, secs
+
+
+def counted_steps(fn) -> tuple:
+    """(fn's value, the step bodies it ran): compiled.bodies wrapped, as
+    _solve_traced takes it, to count its steps."""
+    from timeopt_tpu_torch.solver import compiled
+
+    plain, steps = compiled.bodies, []
+
+    def counted(opts):
+        b = plain(opts)
+        return compiled.Bodies(b.state, b.init, lambda *a: (steps.append(1), b.step(*a)))
+
+    compiled.bodies = counted
+    try:
+        return fn(), len(steps)
+    finally:
+        compiled.bodies = plain
+
+
+def phase_device_loop(device) -> dict:
+    """Phase 12: the device-side outer loop (solver/compiled.py: one
+    loop-graph launch a solve, its early exit decided on the card).
+    (a) the loop condition kernel (cuda_loop.loop_cond) against its plain
+    version on every case of LOOP_COND_B x LOOP_COND_DONE x LOOP_COND_STEPS:
+    the four counters bitwise equal; timed at B=1024 (one launch between
+    two events, and back to back) beside the plain version; its launches
+    here count nowhere. (b) a warmed quadrotor float32 B=1024 solve_batch
+    (bench_torch's set) three times under set_sync_debug_mode("error"): no
+    call synchronizes, each returns before its solve ends on the card (host
+    seconds against the device seconds between two events). (c) four
+    solves of four problem sets (seeds 0-3) queued on that one program with
+    no sync between them, under the same mode: each result bitwise its own
+    set's solve run alone. (d) the quadrotor's oracle problem 0 at B=1,
+    float64: the steps on the device counter (CompiledSolve.iterations) the
+    steps _solve_traced takes, the result bitwise its. (e) bench_torch's
+    B=1024 set split over every card (shard_problems) and solved in place by
+    solve_batch_resident under the same mode: no sync, each chunk bitwise its
+    own solve_batch. Returns the kernel's numbers for the kernels line."""
+    import statistics as st
+
+    import torch
+
+    import bench_torch
+    from timeopt_tpu_torch.models import get_system
+    from timeopt_tpu_torch.ops import cuda_loop, work
+    from timeopt_tpu_torch.parallel import make_mesh, shard_problems, solve_batch_resident
+    from timeopt_tpu_torch.solver import compiled
+    from timeopt_tpu_torch.solver.ilqr import SolveOptions, prepare, solve_batch
+
+    kept = cuda_loop.LAUNCHES  # the comparisons' launches count nowhere
+    rows = 0
+    for B in LOOP_COND_B:
+        for pattern in LOOP_COND_DONE:
+            done = loop_done(B, pattern, device)
+            for it, max_iter, early, first in LOOP_COND_STEPS:
+                start = torch.tensor([it, 1, 3, 17], dtype=torch.int64, device=device)
+                got, want = start.clone(), start.clone()
+                cuda_loop.loop_cond(done, got, max_iter, early, first)
+                cuda_loop.loop_condition(done, want, max_iter, early, first)
+                require(torch.equal(got, want), f"loop_cond B={B} done={pattern} it={it} max_iter={max_iter} "
+                                                f"early_exit={early} first={first}: {got.tolist()} against the plain "
+                                                f"version's {want.tolist()}")
+                rows += 1
+    done = loop_done(B_FULL, "random", device)
+    ctr = cuda_loop.new_counters(device)
+    numbers = dict(
+        max_abs_err=0.0, rows=rows,
+        ms=cuda_ms(lambda: cuda_loop.loop_cond(done, ctr, MAX_ITER, True), reps=20, warmup=3),
+        ms_back_to_back=device_ms(lambda: cuda_loop.loop_cond(done, ctr, MAX_ITER, True), reps=20),
+        plain_ms=cuda_ms(lambda: cuda_loop.loop_condition(done, ctr, MAX_ITER, True), reps=20, warmup=3),
+        bytes=B_FULL + 2 * 4 * 8, flops=B_FULL, bound_by="bytes")
+    numbers["bound_ms"] = 1e3 * max(numbers["bytes"] / work.PEAK_BYTES, numbers["flops"] / work.PEAK_FLOPS_CUDA_CORES)
+    cuda_loop.LAUNCHES = kept
+    log(f"[loop] (a) loop_cond against loop_condition on {rows} cases (B {LOOP_COND_B}, done {LOOP_COND_DONE}): "
+        f"every counter bitwise equal | B={B_FULL}: one call {numbers['ms']:.4f} ms, back to back "
+        f"{numbers['ms_back_to_back']:.4f} ms, plain {numbers['plain_ms']:.4f} ms, bound {numbers['bound_ms']:.3e} ms "
+        f"by bytes ({numbers['bytes']} B)")
+
+    opts = SolveOptions(method="propagator", max_iter=MAX_ITER, psd_levels=1)
+    system, mk = get_system("Quadrotor")
+    probs = bench_torch.bench_problems("Quadrotor", B_FULL, 0)[1].to(device)
+    solve_batch(system, probs, options=opts)
+    torch.cuda.synchronize()
+    p, U = prepare(probs, None)
+    prog = compiled.program(system, opts, p, U)
+    calls = []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        (res, host_s) = sync_debug(lambda: (start.record(), solve_batch(system, probs, options=opts), end.record())[1])
+        torch.cuda.synchronize()
+        calls.append((host_s, start.elapsed_time(end) / 1e3, prog.iterations()))
+    require(all(h < d for h, d, _ in calls), f"(b) a solve_batch call took longer on the host than on the card: {calls}")
+    numbers["host_s"], numbers["device_s"] = [c[0] for c in calls], [c[1] for c in calls]
+    log(f"[loop] (b) warmed solve_batch quadrotor float32 B={B_FULL} under set_sync_debug_mode('error'): no sync; "
+        f"host seconds of the call {', '.join(f'{c[0]:.6f}' for c in calls)} against the solve's device seconds "
+        f"{', '.join(f'{c[1]:.6f}' for c in calls)}; {calls[0][2]} steps on the device counter | {smi()}")
+
+    sets = [oracle_problems(system, mk, B_FULL, device, torch.float32, seed=seed) for seed in range(4)]
+    alone = []
+    for q in sets:
+        alone.append(solve_batch(system, q, options=opts))
+        torch.cuda.synchronize()
+    require(len(compiled.programs()) == 1, f"(c) the four sets took {len(compiled.programs())} programs, not one")
+    t0 = time.perf_counter()
+    queued, host_s = sync_debug(lambda: [solve_batch(system, q, options=opts) for q in sets])
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    for seed, (got, want) in enumerate(zip(queued, alone)):
+        diff = differing(got, want)
+        require(not diff, f"(c) queued solve of seed {seed} differs from its solve alone in {diff}")
+    require(len({float(r.J_star.double().sum()) for r in queued}) == 4, "(c) the four queued results are not four")
+    log(f"[loop] (c) four solves of four sets (seeds 0-3, quadrotor float32 B={B_FULL}) queued on one program under "
+        f"set_sync_debug_mode('error'): each bitwise its set's solve alone | host {host_s:.6f} s to queue them, "
+        f"{total_s:.3f} s until the last ended")
+
+    probs = oracle_problems(system, mk, B_ORACLE, device)
+    prob, U1 = prepare(probs.replace(**{f: t[:1].contiguous() for f, t in probs.tensors().items()}), None)
+    solve_batch(system, prob, options=opts)
+    prog1 = compiled.program(system, opts, prob, U1)
+    lat = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solve_batch(system, prob, options=opts)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+    it = prog1.iterations()
+    want, steps = counted_steps(lambda: compiled._solve_traced(system, opts, prob, U1))
+    diff = differing(res, want)
+    require(not diff, f"(d) B=1 captured solve differs from _solve_traced in {diff}")
+    require(it == steps, f"(d) B=1: {it} steps on the device counter, _solve_traced took {steps}")
+    numbers["b1_ms"], numbers["b1_steps"] = [1e3 * t for t in lat], it
+    log(f"[loop] (d) quadrotor oracle problem 0, B=1, float64: {it} steps on the device counter, _solve_traced "
+        f"{steps}; bitwise equal; T* {int(res.T_star[0])}; synchronized solves {', '.join(f'{1e3 * t:.2f}' for t in lat)} "
+        f"ms (median {1e3 * st.median(lat):.2f}) | {smi()}")
+
+    cards = torch.cuda.device_count()
+    parts = shard_problems(bench_torch.bench_problems("Quadrotor", B_FULL, 0)[1], make_mesh())
+    solve_batch_resident(system, parts, options=opts)
+    sync_cards()
+    res, host_s = sync_debug(lambda: solve_batch_resident(system, parts, options=opts))
+    sync_cards()
+    for i, (q, r) in enumerate(zip(parts, res)):
+        diff = differing(r, solve_batch(system, q, options=opts))
+        require(not diff, f"(e) card {i}'s chunk differs from its own solve_batch in {diff}")
+    log(f"[loop] (e) solve_batch_resident, B={B_FULL} over {cards} card(s) ({[q.batch for q in parts]} a card) under "
+        f"set_sync_debug_mode('error'): no sync, host {host_s:.6f} s; each chunk bitwise its own solve_batch")
+    return numbers
+
+
 def phase_sustained(bench_rec: dict) -> None:
     """Phase 11 (c): `python3 bench_sustained_torch.py` with DURATION_S=
     SUSTAINED_S and BIG_BATCH, its one JSON line echoed with its keys
@@ -3509,6 +3797,10 @@ def main() -> None:
     numbers = phase_kernels(device)
     observe_programs()
     counts = {name: 0 for name in _counted()}
+    from timeopt_tpu_torch.ops import cuda_loop
+
+    compiled.settle_launches()
+    cuda_loop.LAUNCHES = 0  # the loop condition's count over the main path, phases 4-11
 
     def add(c: dict) -> None:
         for name, v in c.items():
@@ -3548,6 +3840,10 @@ def main() -> None:
     add(phase("10 (d) runner --f32", phase_f32_runner))
     add(phase("11 (a), (b) serving entry", lambda: phase_serving(device)))
     phase("11 (c) bench_sustained_torch.py", lambda: phase_sustained(bench_rec))
+    compiled.clear_compiled()
+    counts[LOOP[0]] = loop_launches()
+    require(counts[LOOP[0]] > 0, f"{LOOP[0]}: never launched on the main path")
+    loop_numbers = phase("12 device-side loop", lambda: phase_device_loop(device))
     compiled.clear_compiled()
     require(TRACED["programs"] > 0, "no captured program was traced")
     log(f"[trace] {TRACED['programs']} programs built on the main path, each graph's replay traced once: "
@@ -3607,6 +3903,16 @@ def main() -> None:
         f"{g['bound_ms']:.4f} ms by {g['bound_by']}, share of bound {g['share_of_bound']:.4f}, launches "
         f"{g['launches']} (phases 4 and 4 (b)); nvcc seconds {g['build_s']}")
     require(counts[name] > 0, f"{name}: never launched on the main path")
+    name, route, src, rep = LOOP
+    lp = dict(name=name, route=route, source=src, replaces=rep, launches=counts[name],
+              launches_per_solve={case: c[name] for case, c in per_solve.items()}, **loop_numbers, library_ms=None,
+              library="none: no single PyTorch call computes it (done.all() is one part of it)")
+    lp["share_of_bound"] = lp["bound_ms"] / lp["ms_back_to_back"]
+    kernels.append(lp)
+    log(f"[bounds] {name} (port only, B={B_FULL}): {lp['ms_back_to_back']:.4f} ms back to back ({lp['ms']:.4f} one "
+        f"call, plain {lp['plain_ms']:.4f}), bound {lp['bound_ms']:.3e} ms by {lp['bound_by']}, share of bound "
+        f"{lp['share_of_bound']:.4f}, launches {lp['launches']} (phases 4-11), per B={B_FULL} solve "
+        f"{lp['launches_per_solve']}")
     print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {

@@ -73,6 +73,14 @@ def _chip_smoke():
     return mod
 
 
+def _settle():
+    """Book the launches of the captured solves run so far (a card solve's
+    books are settled from the device's loop counters when read)."""
+    from timeopt_tpu_torch.solver import compiled
+
+    compiled.settle_launches()
+
+
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
@@ -466,6 +474,7 @@ def test_onepass_solve_on_the_card_matches_cpu(dev, case):
     opts = SolveOptions(method="onepass", max_iter=4, S_window=5)
     counts = (cuda_backward.LAUNCHES, cuda_forward.LAUNCHES)
     got = solve_batch(system, probs.to(dev), options=opts)
+    _settle()
     assert all(c1 > c0 for c0, c1 in zip(counts, (cuda_backward.LAUNCHES, cuda_forward.LAUNCHES)))
     want = solve_batch(system, probs, options=opts)
     for f in ("T_star", "n_accept", "n_fallback"):
@@ -582,6 +591,7 @@ def test_float32_solve_on_the_card_matches_cpu(dev, case):
     select = cuda_lft if system.extra_cost is None else cuda_lft_generic
     counts = (select.LAUNCHES, cuda_backward.LAUNCHES, cuda_forward.LAUNCHES)
     got = solve_batch(system, probs.to(dev), options=opts)
+    _settle()
     assert all(c1 > c0 for c0, c1 in zip(counts, (select.LAUNCHES, cuda_backward.LAUNCHES, cuda_forward.LAUNCHES)))
     want = solve_batch(system, probs, options=opts)
     assert got.J_star.dtype == torch.float32 and got.X.dtype == torch.float32
@@ -658,6 +668,7 @@ def test_system_without_device_dynamics_solve_raises_on_the_card(dev, method):
         got = solve_batch(nodev, probs.to(dev), options=opts)
     finally:
         forward.rollout_with_gains = plain
+    _settle()
     assert dyngen.LAUNCHES > counts[0] and cuda_forward.LAUNCHES == counts[1]
     want = solve_batch(nodev, probs, options=opts)
     assert torch.equal(got.T_star.cpu(), want.T_star) and torch.equal(got.n_accept.cpu(), want.n_accept)
@@ -683,6 +694,7 @@ def test_solve_on_the_card_matches_cpu(dev, case):
     select = cuda_lft if system.extra_cost is None else cuda_lft_generic
     counts = (select.LAUNCHES, cuda_backward.LAUNCHES, cuda_forward.LAUNCHES)
     got = solve_batch(system, probs.to(dev), options=opts)
+    _settle()
     assert all(c1 > c0 for c0, c1 in zip(counts, (select.LAUNCHES, cuda_backward.LAUNCHES, cuda_forward.LAUNCHES)))
     want = solve_batch(system, probs, options=opts)
     assert torch.equal(got.T_star.cpu(), want.T_star) and torch.equal(got.n_accept.cpu(), want.n_accept)
@@ -708,6 +720,7 @@ def test_latency_mode_on_the_card_matches_cpu(dev, case, mode):
     opts = SolveOptions(max_iter=6, psd_levels=1, scan_mode=mode)
     counts = (cuda_lft.LAUNCHES, cuda_lft_generic.LAUNCHES, cuda_lft_query.LAUNCHES)
     got = solve_batch(system, probs.to(dev), options=opts)
+    _settle()
     assert (cuda_lft.LAUNCHES, cuda_lft_generic.LAUNCHES) == counts[:2] and cuda_lft_query.LAUNCHES > counts[2]
     want = solve_batch(system, probs, options=opts)
     assert torch.equal(got.T_star.cpu(), want.T_star) and torch.equal(got.n_accept.cpu(), want.n_accept)
@@ -752,10 +765,10 @@ def _bitwise(got, want):
 @pytest.mark.parametrize("method", ["propagator", "bruteforce", "onepass", "onepass-newton"])
 @pytest.mark.parametrize("case", ["DoubleIntegrator", "PointMass_Navigation"])
 def test_captured_solve_equals_the_eager_driver(dev, case, method):
-    """solve_batch on the card (captured init and step graphs, replayed)
-    against the eager driver _solve_traced on the same card: every result
-    field bit for bit, twice (a refilled program), with the same kernel
-    launches per solve. "onepass-newton" takes the Newton preimages, whose
+    """solve_batch on the card (one launch of the loop graph around the
+    captured init and step graphs) against the eager driver _solve_traced on
+    the same card: every result field bit for bit, twice (a refilled
+    program), with the same kernel launches per solve once settled. "onepass-newton" takes the Newton preimages, whose
     torch.linalg.solve_ex is captured too."""
     from timeopt_tpu_torch.solver import compiled
     from timeopt_tpu_torch.solver.ilqr import prepare
@@ -767,8 +780,10 @@ def test_captured_solve_equals_the_eager_driver(dev, case, method):
     opts = SolveOptions(method=method.split("-")[0], max_iter=6, psd_levels=1, S_window=5, onepass_preimage=preimage)
     compiled.clear_compiled()
     solve_batch(system, probs, options=opts)  # builds the program
+    compiled.settle_launches()
     counts = [m.LAUNCHES for m in mods]
     got = solve_batch(system, probs, options=opts)
+    compiled.settle_launches()
     captured = [m.LAUNCHES - c for m, c in zip(mods, counts)]
     counts = [m.LAUNCHES for m in mods]
     want = compiled._solve_traced(system, opts, probs, U)
@@ -780,8 +795,8 @@ def test_captured_solve_equals_the_eager_driver(dev, case, method):
 
 
 def test_captured_launch_counts_equal_eager_under_replay(dev):
-    """The launch counts of a replayed solve equal the eager solve's, module
-    by module, at float32 and in the inverse query too (the scan kernel)."""
+    """The launch counts of a captured solve, settled from the loop's
+    counters, equal the eager solve's, module by module, at float32 and in the inverse query too (the scan kernel)."""
     from timeopt_tpu_torch.solver import compiled
 
     mods = (cuda_lft, cuda_lft_generic, cuda_backward, cuda_forward, cuda_lft_query, cuda_lft_scan)
@@ -793,8 +808,10 @@ def test_captured_launch_counts_equal_eager_under_replay(dev):
         runs = []
         for fn in (lambda: solve_batch(system, p, options=opts),) * 2 + (
                 lambda: compiled._solve_traced(system, opts, p, p.u_ref[:, None].expand(-1, p.N, -1).contiguous()),):
+            compiled.settle_launches()
             before = [m.LAUNCHES for m in mods]
             fn()
+            compiled.settle_launches()
             runs.append([m.LAUNCHES - b for m, b in zip(mods, before)])
         assert runs[1] == runs[2], runs  # the first call also warmed up and captured
         assert runs[0][2] == runs[2][2] + 2  # the warm-up: one init and one step, one backward each
@@ -816,3 +833,117 @@ def test_host_read_in_a_system_raises_on_the_card(dev):
     assert "test_torch_card.py" in str(err.value)
     got = solve_batch(base, probs.to(dev), options=opts)  # the card still solves
     assert torch.isfinite(got.J_star).all()
+
+
+def _quadrotor_sets(dev, B: int, seeds, dtype=torch.float32):
+    """The quadrotor's default problem at B, x0[:, :3] perturbed by 0.4
+    N(0, 1) draws of each seed (bench.py's rule), on the card."""
+    system, mk = get_system("Quadrotor")
+    base = mk(device="cpu", dtype=dtype)
+    out = []
+    for seed in seeds:
+        x0 = np.tile(base.x0.double().numpy(), (B, 1))
+        x0[:, :3] += 0.4 * np.random.default_rng(seed).standard_normal((B, 3))
+        out.append(broadcast_problem(base, B).replace(x0=torch.as_tensor(x0, dtype=dtype)).to(dev))
+    return system, out
+
+
+def test_warm_solve_reads_nothing_back(dev, monkeypatch):
+    """A warmed solve_batch on the card is one launch of the loop graph:
+    under torch.cuda.set_sync_debug_mode("error") it raises nothing, and
+    its result and its launches equal the eager driver's; the steps on the
+    loop's counter (read after) and the loop_cond launches booked from the
+    counters are the steps the eager driver takes, counted in its bodies."""
+    from timeopt_tpu_torch.ops import cuda_loop
+    from timeopt_tpu_torch.solver import compiled
+    from timeopt_tpu_torch.solver.ilqr import prepare
+
+    system, (probs,) = _quadrotor_sets(dev, 64, [0])
+    opts = SolveOptions(max_iter=12, psd_levels=1)
+    solve_batch(system, probs, options=opts)
+    torch.cuda.synchronize()
+    compiled.settle_launches()
+    before = [m.LAUNCHES for m in compiled._launch_modules()] + [cuda_loop.LAUNCHES]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = solve_batch(system, probs, options=opts)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    p, U = prepare(probs, None)
+    prog = compiled.program(system, opts, p, U)
+    steps = prog.iterations()
+    compiled.settle_launches()
+    captured = [m.LAUNCHES - b for m, b in zip(list(compiled._launch_modules()) + [cuda_loop], before)]
+    before = [m.LAUNCHES for m in compiled._launch_modules()]
+    plain, taken = compiled.bodies, []
+
+    def counted(o):
+        b = plain(o)
+        return compiled.Bodies(b.state, b.init, lambda *a: (taken.append(1), b.step(*a)))
+
+    monkeypatch.setattr(compiled, "bodies", counted)
+    want = compiled._solve_traced(system, opts, p, U)
+    eager = [m.LAUNCHES - b for m, b in zip(compiled._launch_modules(), before)]
+    _bitwise(got, want)
+    assert captured[:-1] == eager and 0 < len(taken) <= 12
+    assert steps == len(taken) and captured[-1] == 1 + len(taken)
+
+
+def test_resident_solve_over_every_card_reads_nothing_back(dev):
+    """parallel.solve_batch_resident over every card (one chunk a card, as
+    bench_torch.py's default), warmed: under
+    torch.cuda.set_sync_debug_mode("error") it raises nothing, and each
+    chunk's result is bitwise its own solve_batch."""
+    from timeopt_tpu_torch.parallel import make_mesh, shard_problems, solve_batch_resident
+
+    cards = torch.cuda.device_count()
+    system, (probs,) = _quadrotor_sets("cpu", 16 * cards, [7])
+    parts = shard_problems(probs, make_mesh())
+    assert [q.x0.device.index for q in parts] == list(range(cards))
+    opts = SolveOptions(max_iter=12, psd_levels=1)
+    solve_batch_resident(system, parts, options=opts)
+    for i in range(cards):
+        torch.cuda.synchronize(i)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = solve_batch_resident(system, parts, options=opts)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for r, q in zip(got, parts):
+        _bitwise(r, solve_batch(system, q, options=opts))
+
+
+def test_four_queued_solves_on_one_program(dev):
+    """Four solves of four different problem sets queued on one program
+    with no sync between them: each result bitwise that set's solve run
+    alone."""
+    system, sets = _quadrotor_sets(dev, 64, range(4))
+    opts = SolveOptions(max_iter=12, psd_levels=1)
+    alone = []
+    for probs in sets:
+        alone.append(solve_batch(system, probs, options=opts))
+        torch.cuda.synchronize()
+    queued = [solve_batch(system, probs, options=opts) for probs in sets]
+    torch.cuda.synchronize()
+    for got, want in zip(queued, alone):
+        _bitwise(got, want)
+    assert len({float(r.J_star.sum()) for r in queued}) == 4
+
+
+def test_eviction_with_a_launch_queued(dev, monkeypatch):
+    """A program dropped from the cache while its launch may still be
+    queued (the next program's build comes right after it): its device is
+    synchronized before its graphs go, and its result stays its solve."""
+    from timeopt_tpu_torch.solver import compiled
+
+    compiled.clear_compiled()
+    monkeypatch.setattr(compiled, "MAX_PROGRAMS", 1)
+    system, (probs,) = _quadrotor_sets(dev, 64, [5])
+    opts = SolveOptions(max_iter=12, psd_levels=1)
+    got = solve_batch(system, probs, options=opts)
+    solve_batch(system, probs, options=SolveOptions(max_iter=11, psd_levels=1))  # evicts the first
+    assert len(compiled.programs()) == 1
+    from timeopt_tpu_torch.solver.ilqr import prepare
+
+    _bitwise(got, compiled._solve_traced(system, opts, *prepare(probs, None)))
+    compiled.clear_compiled()

@@ -171,9 +171,9 @@ def test_refilled_program_matches_fresh_solves(method):
     system, p1, U1 = _batch("DoubleIntegrator", seed=1)
     _, p2, U2 = _batch("DoubleIntegrator", seed=2)
     prog = compiled.CompiledSolve(system, opts, p1, U1)
-    r1 = compiled.run_programs([(prog, p1, U1)], opts)[0]
+    r1 = compiled.run_programs([(prog, p1, U1)])[0]
     kept = SolveResult(**{f.name: getattr(r1, f.name).clone() for f in dataclasses.fields(r1)})
-    r2 = compiled.run_programs([(prog, p2, U2)], opts)[0]
+    r2 = compiled.run_programs([(prog, p2, U2)])[0]
     _same(r1, compiled._solve_traced(system, opts, p1, U1))
     _same(r2, compiled._solve_traced(system, opts, p2, U2))
     _same(r1, kept)
@@ -182,14 +182,15 @@ def test_refilled_program_matches_fresh_solves(method):
 
 def test_programs_driven_together_match_their_own_solves():
     """(c) run_programs, as the mesh drives one program a card: the parts
-    of a batch, each its own program, stepped together (each stops at its
-    own early exit), equal each part's _solve_traced bit for bit."""
+    of a batch, each its own program, all launched before any result is
+    copied out (each stops at its own early exit), equal each part's
+    _solve_traced bit for bit."""
     opts = SolveOptions(method="propagator", max_iter=6, psd_levels=1)
     system, probs, U = _batch("PointMass_Navigation", B=5, seed=4)
     parts = [(probs.replace(**{f: t[sl] for f, t in probs.tensors().items()}), U[sl])
              for sl in (slice(0, 2), slice(2, 5))]
     runs = [(compiled.CompiledSolve(system, opts, p, u), p, u) for p, u in parts]
-    for got, (p, u) in zip(compiled.run_programs(runs, opts), parts):
+    for got, (p, u) in zip(compiled.run_programs(runs), parts):
         _same(got, compiled._solve_traced(system, opts, p, u))
 
 
@@ -200,7 +201,7 @@ def test_one_program_for_two_parts_raises():
     system, probs, U = _batch("DoubleIntegrator", B=2, seed=6)
     prog = compiled.CompiledSolve(system, opts, probs, U)
     with pytest.raises(ValueError, match="share one program"):
-        compiled.run_programs([(prog, probs, U), (prog, probs, U)], opts)
+        compiled.run_programs([(prog, probs, U), (prog, probs, U)])
 
 
 @pytest.mark.parametrize("method,early_exit", [("propagator", True), ("bruteforce", True), ("onepass", True),

@@ -20,11 +20,11 @@ A mesh of CUDA devices covers the local cards; a mesh of k entries of
 package's tests run its mesh on virtual CPU devices.
 
 One process drives every card's chunk. On the card a chunk's solve is a
-captured program (solver/compiled.py): an iteration is one graph replay,
-launched without waiting, so the process launches every card's replay of
-an iteration before it checks any card's done flag, and the cards run
-their chunks at once, as the JAX package's dp mesh runs its shards. No
-Python runs between replays but that check, so torch.func's process-global
+captured program (solver/compiled.py): the whole solve, its early exit
+included, is one launch of a graph that reads nothing back, so the process
+launches every card's solve before it copies out any result, and the cards
+run their chunks at once, as the JAX package's dp mesh runs its shards. No
+Python runs on the solve's path, so torch.func's process-global
 forward-mode AD state (the linearization's jacfwd) is touched only while a
 program is captured, once, card after card. A mesh of CPU entries is
 driven the same way, its programs run eagerly, so one after another.
@@ -126,9 +126,10 @@ def solve_batch_resident(
     shard_problems returns them, each chunk on its device, and U_inits
     (default: each chunk's u_ref tiled, made on its device) one tensor a
     chunk, on the chunk's device. Each chunk is solved as solve_batch would
-    solve it, and the chunks' programs are driven together, every card's
-    step replayed before any card's done check (compiled.solve_programs;
-    see the module docstring). Returns one SolveResult for each non-empty
+    solve it: every card's program is launched (one loop-graph launch a
+    card, its early exit decided on the card, nothing read back) before any
+    result is copied out (compiled.solve_programs), so the cards run at
+    once and the call returns before they finish. Returns one SolveResult for each non-empty
     chunk, in order, left on that chunk's device: nothing is split, copied
     between devices or gathered. The counterpart of the JAX package's
     sharded Problem passed to its jitted batch solve."""

@@ -1,7 +1,7 @@
 """The compiled solve: the counterpart of the JAX package's `_solve_jit` and
 `_solve_batch_jit` (timeopt_tpu/solver/ilqr.py) and of their device-side
-outer loop (`_run_outer_loop`, a `lax.while_loop` with a batch-wide early
-exit).
+outer loop (`_run_outer_loop`, a `lax.while_loop` whose condition, the
+iteration bound and the batch-wide early exit, is evaluated on the device).
 
 A solve is two bodies over a fixed set of state buffers
 (solver/ilqr.py::loop_state): *init* (the initial rollout and the warm
@@ -10,31 +10,47 @@ iteration: ilqr.curve_step, onepass.onepass_step). Each reads the buffers
 and writes them in place; nothing it allocates outlives it, and it reads
 nothing back to the host. Two drivers run them:
 
-- `_solve_traced`, eager: the bodies in a Python loop, with the early exit
-  (one host read of `done.all()` between iterations). It is the only path
-  on the CPU, and the reference of the captured one.
-- `CompiledSolve`, captured: for problems on the card, `solve_batch` looks
+- `_solve_traced`, eager: the bodies in a Python loop (`_run_eager`), the
+  loop's condition in plain torch (cuda_loop.loop_condition) checked after
+  init and after each step, one host read a check. It is solve_batch's path
+  on the CPU, and the reference of the program.
+- `CompiledSolve`, a program: for problems on the card, `solve_batch` looks
   one up by (system, options, shapes, dtypes, device) or builds it: static
-  input buffers, one eager warm-up of both bodies on a side stream (torch
-  asks for it before a capture; it also builds and loads the kernels, makes
-  the constants of ops/_build.py::constant and runs the occupancy queries
-  the launchers cache), then an init graph and a step graph captured on a
-  side stream (`torch.cuda.CUDAGraph`), sharing one memory pool. A call copies its inputs
-  into the buffers, replays init, replays step up to max_iter times with
-  the same host check between replays, and clones its results out. The
-  capture is the counterpart of JAX's compile: the first call pays it.
+  input buffers and the loop's counters (ops/cuda_loop.py), one eager
+  warm-up of both bodies on a side stream (torch asks for it before a
+  capture; it also builds and loads the kernels, makes the constants of
+  ops/_build.py::constant and runs the occupancy queries the launchers
+  cache), an init graph and a step graph captured on one side stream into
+  one memory pool (`torch.cuda.CUDAGraph(keep_graph=True)`), then the loop
+  graph (ops/cuda_loop.py::LoopGraph, csrc/loop_graph.cu): the init graph,
+  the condition kernel, and a conditional WHILE node whose body is the step
+  graph and the condition kernel again. A call copies its inputs into the
+  buffers, launches the loop graph once and clones its results out, all on
+  the current stream. It reads nothing back to the host, so it returns
+  before the device finishes, and calls queue on the device: a call's
+  inputs are loaded after the launch before it in stream order, and each
+  result is cloned before the next load. The build is the counterpart of
+  JAX's compile: the first call pays it. On the CPU a program runs
+  `_run_eager` on its own buffers and counters.
 
-A replay runs the kernels and torch ops of `_solve_traced` in the same
-order on the same values, so its results are bitwise the eager driver's.
-A capture that fails raises `CaptureError`, naming the op at fault (the
-body is rerun eagerly under `CaptureGuard` to find it); nothing falls back
-to running eagerly.
+A launch runs the kernels and torch ops of `_solve_traced` in the same
+order on the same values, and as many steps (the condition is checked
+after init and after each step), so its results are bitwise the eager
+driver's. A capture that fails raises `CaptureError`, naming the op at
+fault (the body is rerun eagerly under `CaptureGuard` to find it), and so
+does a loop graph that cannot be built (naming what it refuses); nothing
+falls back to running eagerly or to a loop driven from the host.
 
 Launch counts: each kernel wrapper counts its launches in a Python global,
-which a replay does not run. The wrapper calls made while capturing launch
-nothing, so their counts are taken back; each program records the counts
-its captures issued, by module, and adds them on every replay, so a
-captured solve counts what the eager solve counts.
+which a graph launch does not run. The wrapper calls made while capturing
+launch nothing, so their counts are taken back; each program records the
+counts its captures issued, by module. The host does not know how many
+steps a launch ran, so the books are kept lazily: the condition kernel adds
+each finished loop and its steps to the program's counters, and
+`settle_launches()` reads them and adds init x loops + step x steps to
+each module's count (and loops + steps to cuda_loop's, the condition's
+launches), so a captured solve, once settled, counts what the eager solve
+counts. Readers of the counts settle first; a solve never does.
 """
 
 from __future__ import annotations
@@ -51,11 +67,12 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from timeopt_tpu_torch.models.base import Problem, System
+from timeopt_tpu_torch.ops import cuda_loop
 from timeopt_tpu_torch.ops.precision import full_matmul_precision
 from timeopt_tpu_torch.solver.ilqr import SolveOptions, SolveResult, curve_init, curve_step, loop_result, loop_state
 from timeopt_tpu_torch.solver.onepass import onepass_init, onepass_step
 
-MAX_PROGRAMS = 8  # captured programs kept, least recently used dropped first
+MAX_PROGRAMS = 8  # programs kept, least recently used dropped first
 _PROGRAMS: OrderedDict = OrderedDict()
 
 
@@ -72,18 +89,27 @@ def bodies(opts: SolveOptions) -> Bodies:
     return Bodies(loop_state, curve_init, curve_step)
 
 
+def _run_eager(b: Bodies, system: System, opts: SolveOptions, prob: Problem, U_init: torch.Tensor, st: dict,
+               ctr: torch.Tensor) -> None:
+    """init, then a step for as long as the loop's condition holds
+    (cuda_loop.loop_condition on the counters `ctr`: at most max_iter
+    steps, and with early_exit none once every problem is done), checked
+    after init and after each step: the steps a loop-graph launch runs,
+    eagerly, one read to the host a check."""
+    b.init(system, opts, prob, U_init, st)
+    cond = cuda_loop.loop_condition(st["done"], ctr, opts.max_iter, opts.early_exit, first=True)[1]
+    while bool(cond):
+        b.step(system, opts, prob, st)
+        cond = cuda_loop.loop_condition(st["done"], ctr, opts.max_iter, opts.early_exit)[1]
+
+
 @full_matmul_precision
 def _solve_traced(system: System, opts: SolveOptions, prob: Problem, U_init: torch.Tensor) -> SolveResult:
-    """The eager driver: init, then up to max_iter steps, stopping (with
-    early_exit) once every problem is done. Takes its inputs as solve_batch
-    hands them on (ilqr.prepare)."""
+    """The eager driver (_run_eager) on fresh state buffers and counters.
+    Takes its inputs as solve_batch hands them on (ilqr.prepare)."""
     b = bodies(opts)
     st = b.state(prob, opts, U_init.dtype, U_init.device)
-    b.init(system, opts, prob, U_init, st)
-    for _ in range(opts.max_iter):
-        if opts.early_exit and bool(st["done"].all()):
-            break
-        b.step(system, opts, prob, st)
+    _run_eager(b, system, opts, prob, U_init, st, cuda_loop.new_counters(U_init.device))
     return loop_result(prob, st)
 
 
@@ -150,7 +176,7 @@ class CaptureGuard(TorchDispatchMode):
 
 
 # ============================================================================
-# The captured driver
+# The program
 # ============================================================================
 
 
@@ -166,11 +192,18 @@ def _device(device: torch.device):
     return torch.cuda.device(device) if device.type == "cuda" else nullcontext()
 
 
+def _synchronize(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 class CompiledSolve:
-    """One solve program: input and state buffers and, on the card, the
-    captured init and step graphs. On the CPU it runs the bodies eagerly on
-    the same buffers instead of replaying: the refill and the result copies
-    are then those of the captured program. `warmup_s`, `capture_s` and
+    """One solve program: input and state buffers, the loop's counters and,
+    on the card, the captured init and step graphs and the loop graph
+    around them. On the CPU it runs _run_eager on the same buffers and
+    counters: the refill, the condition and the result copies are then
+    those of the program on the card. `warmup_s`, `capture_s` (the two
+    captures and the loop graph), `loop_s` (the loop graph alone) and
     `pool_bytes` (the growth of the card's reserved memory over the two
     captures: the graphs' pool) describe the build."""
 
@@ -180,14 +213,19 @@ class CompiledSolve:
         self.label = (f"{system.name} {opts.method} B={probs.batch} N={probs.N} "
                       f"{str(U_init.dtype).replace('torch.', '')}")
         self.bodies = bodies(opts)
-        self.graphs = None
-        self.warmup_s = self.capture_s = 0.0
+        self.graphs = None  # on the card: {"init"|"step": (CUDAGraph, launches by module)}
+        self.loop = None  # on the card: the cuda_loop.LoopGraph
+        self.closed = False
+        self.warmup_s = self.capture_s = self.loop_s = 0.0
         self.pool_bytes = 0
+        self._settled = (0, 0)  # (loops, steps) of the counters already booked
+        self._unsettled = False
         with _device(self.device):
             self.inputs = {f: torch.empty_like(t) for f, t in probs.tensors().items()}
             self.U_init = torch.empty_like(U_init)
             self.prob = probs.replace(**self.inputs)
             self.state = self.bodies.state(self.prob, opts, U_init.dtype, self.device)
+            self.ctr = cuda_loop.new_counters(self.device)
             if self.device.type == "cuda":
                 self._build(probs, U_init)
 
@@ -226,18 +264,27 @@ class CompiledSolve:
         self.graphs = {"init": self._capture("init", self._init, pool, stream),
                        "step": self._capture("step", self._step, pool, stream)}
         torch.cuda.synchronize(self.device)
-        self.capture_s = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
+        t1 = time.perf_counter()
+        try:
+            self.loop = cuda_loop.LoopGraph(self.graphs["init"][0], self.graphs["step"][0], self.state["done"],
+                                            self.ctr, self.opts.max_iter, self.opts.early_exit)
+        except RuntimeError as exc:
+            raise CaptureError(f"building the loop graph of {self.label} failed: {exc}") from exc
+        self.loop_s = time.perf_counter() - t1
+        self.capture_s = time.perf_counter() - t0
 
     def _capture(self, name: str, body, pool, stream) -> tuple:
         """(graph, launches by module) of one body, captured on the side
         stream `stream` as `torch.cuda.graph` captures, without its
         gc.collect() and empty_cache() before each capture: the build
         empties the cache once for both, and a collection of a large
-        process's heap before every capture adds up over many programs."""
+        process's heap before every capture adds up over many programs.
+        The graph keeps its cudaGraph_t (keep_graph) for the loop graph and
+        is never instantiated itself."""
         mods = _launch_modules()
         before = [m.LAUNCHES for m in mods]
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         stream.wait_stream(torch.cuda.current_stream(self.device))
         try:
             with torch.cuda.stream(stream):
@@ -266,28 +313,43 @@ class CompiledSolve:
             return f"{type(exc).__name__}: {exc} (an eager rerun raised {type(other).__name__}: {other})"
         return f"{type(exc).__name__}: {exc} (CaptureGuard found no refused op)"
 
-    def _run(self, name: str) -> None:
-        if self.graphs is None:
-            (self._init if name == "init" else self._step)()
-            return
-        graph, counted = self.graphs[name]
-        graph.replay()
-        for m, c in zip(_launch_modules(), counted):
-            m.LAUNCHES += c
-
-    def start(self, probs: Problem, U_init: torch.Tensor) -> None:
-        """Load the inputs and run init."""
+    def launch(self, probs: Problem | None = None, U_init: torch.Tensor | None = None) -> None:
+        """One solve: the inputs loaded (when given), then init and up to
+        max_iter steps, each step only while the condition holds. On the
+        card one launch of the loop graph on the current stream, nothing
+        read back; on the CPU the same steps run eagerly."""
+        if self.closed:
+            raise RuntimeError(f"program {self.label} was closed (evicted or cleared)")
         with _device(self.device):
-            self._load(probs, U_init)
-            self._run("init")
+            if probs is not None:
+                self._load(probs, U_init)
+            if self.loop is not None:
+                self.loop.launch()
+            else:
+                _run_eager(self.bodies, self.system, self.opts, self.prob, self.U_init, self.state, self.ctr)
+        self._unsettled = True
 
-    def step(self) -> None:
+    def iterations(self) -> int:
+        """The steps the last launch ran, read from the loop's counter (on
+        the card a read to the host: it waits for that launch)."""
         with _device(self.device):
-            self._run("step")
+            return int(self.ctr[cuda_loop.IT])
 
-    def all_done(self) -> bool:
-        """The early exit's host check (the lax.while_loop condition)."""
-        return bool(self.state["done"].all())
+    def settle(self) -> tuple:
+        """(loops, steps) run since the last settle, read from the loop's
+        counters; a captured program adds their launches to the wrappers'
+        counts (init's a loop, step's a step, and one condition launch for
+        each of both). On the CPU nothing is booked: the bodies ran the
+        plain versions, which count nothing."""
+        with _device(self.device):
+            loops, steps = self.ctr[cuda_loop.RUNS:].tolist()
+        new = (loops - self._settled[0], steps - self._settled[1])
+        self._settled, self._unsettled = (loops, steps), False
+        if self.graphs is not None:
+            for m, i, s in zip(_launch_modules(), self.graphs["init"][1], self.graphs["step"][1]):
+                m.LAUNCHES += i * new[0] + s * new[1]
+            cuda_loop.LAUNCHES += new[0] + new[1]
+        return new
 
     def result(self) -> SolveResult:
         """The result, copied out of the buffers."""
@@ -295,33 +357,49 @@ class CompiledSolve:
             res = loop_result(self.prob, self.state)
             return SolveResult(**{f.name: getattr(res, f.name).clone() for f in dataclasses.fields(res)})
 
+    def close(self) -> None:
+        """Wait for the program's device (a launch may still be queued),
+        book its launches, then free its loop graph and captures and their
+        pool. A closed program does not launch again."""
+        if self.closed:
+            return
+        _synchronize(self.device)
+        self.settle()
+        if self.loop is not None:
+            self.loop.close()
+        self.loop = self.graphs = None
+        self.closed = True
 
-def run_programs(runs: list, opts: SolveOptions) -> list:
-    """Drive programs, each with its (probs, U_init), together: each
-    starts, then every iteration steps every program not yet done, all
-    programs' steps launched before any program's done check (with
-    early_exit), so programs on different cards run at once. Returns their
-    results in order."""
+
+def settle_launches() -> None:
+    """Book the launches of every cached program's solves since the last
+    settle (CompiledSolve.settle; a program dropped from the cache settled
+    when it was closed): one read of the counters of each program that
+    launched, so it waits for those launches. The readers of the launch
+    counts call it first; the solve path never does."""
+    for prog in _PROGRAMS.values():
+        if prog._unsettled:
+            prog.settle()
+
+
+def run_programs(runs: list) -> list:
+    """Solve with programs, each with its (probs, U_init): every program
+    loaded and launched in turn (on the card one loop-graph launch each,
+    nothing read back, so programs on different cards run at once), then
+    each result cloned out. Returns the results in order."""
     if len({id(prog) for prog, _, _ in runs}) < len(runs):
         raise ValueError("two parts share one program (the same card, system, options and shapes): "
                          "its buffers hold one part at a time")
     for prog, probs, U in runs:
-        prog.start(probs, U)
-    active = [prog for prog, _, _ in runs]
-    for _ in range(opts.max_iter):
-        if opts.early_exit:
-            active = [prog for prog in active if not prog.all_done()]
-        if not active:
-            break
-        for prog in active:
-            prog.step()
+        prog.launch(probs, U)
     return [prog.result() for prog, _, _ in runs]
 
 
 def program(system: System, opts: SolveOptions, probs: Problem, U_init: torch.Tensor) -> CompiledSolve:
     """The cached program for these inputs' system, options, shapes,
     dtypes and device, built (warm-up and capture on these inputs) on a
-    miss; at most MAX_PROGRAMS are kept."""
+    miss; at most MAX_PROGRAMS are kept, and the one dropped is closed
+    (its device synchronized first: a launch of it may still be queued)."""
     key = (system, system.step, system.xdot, system.guard, system.extra_cost, opts, probs.N, probs.T_min,
            probs.T_max, probs.x0.device,
            tuple((tuple(t.shape), t.dtype) for t in list(probs.tensors().values()) + [U_init]))
@@ -329,7 +407,7 @@ def program(system: System, opts: SolveOptions, probs: Problem, U_init: torch.Te
     if prog is None:
         prog = _PROGRAMS[key] = CompiledSolve(system, opts, probs, U_init)
         while len(_PROGRAMS) > MAX_PROGRAMS:
-            _PROGRAMS.popitem(last=False)
+            _PROGRAMS.popitem(last=False)[1].close()
     else:
         _PROGRAMS.move_to_end(key)
     return prog
@@ -338,17 +416,17 @@ def program(system: System, opts: SolveOptions, probs: Problem, U_init: torch.Te
 @full_matmul_precision
 def solve_programs(system: System, opts: SolveOptions, parts: list) -> list:
     """Solve each (probs, U_init) of `parts` (inputs as ilqr.prepare gives
-    them) through a program, all parts driven together (run_programs). A
-    part on a card takes its cached or new program; a part on the CPU a
-    program of its own, uncached: an eager program keeps nothing worth
-    reusing, and the chunks of a CPU mesh, all on one device, would
-    otherwise share one."""
+    them) through a program, all parts launched before any result is
+    copied out (run_programs). A part on a card takes its cached or new
+    program; a part on the CPU a program of its own, uncached: an eager
+    program keeps nothing worth reusing, and the chunks of a CPU mesh, all
+    on one device, would otherwise share one."""
     runs = []
     for probs, U in parts:
         with _device(probs.x0.device):
             prog = (program if probs.x0.device.type == "cuda" else CompiledSolve)(system, opts, probs, U)
         runs.append((prog, probs, U))
-    return run_programs(runs, opts)
+    return run_programs(runs)
 
 
 def programs() -> list:
@@ -357,9 +435,10 @@ def programs() -> list:
 
 
 def clear_compiled() -> None:
-    """Drop every cached program and return its graphs' memory to the card."""
-    _PROGRAMS.clear()
+    """Close every cached program (its launches booked, its device
+    synchronized) and return its graphs' memory to the card."""
+    while _PROGRAMS:
+        _PROGRAMS.popitem(last=False)[1].close()
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
-

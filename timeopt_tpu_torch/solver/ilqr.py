@@ -7,11 +7,12 @@ accept/reject iterations: Levenberg-Marquardt lambda /10 (floor 1e-12) on
 accept and x10 on reject, convergence when the relative cost change is below
 rel_tol and the last three accepted horizons agree. A converged problem
 freezes all its state; with early_exit the loop stops once every problem of
-the batch is done (one host check per iteration), which changes no result.
-The loop is two bodies over fixed state buffers (`loop_state`): init
-(`curve_init`: the initial rollout and the warm start) and step
-(`curve_step`: one iteration), driven eagerly or as captured CUDA graphs
-by solver/compiled.py.
+the batch is done, which changes no result. The loop is two bodies over
+fixed state buffers (`loop_state`): init (`curve_init`: the initial rollout
+and the warm start) and step (`curve_step`: one iteration), driven by
+solver/compiled.py: eagerly (one host check of the early exit an
+iteration), or on the card as one launch of a CUDA graph that holds both
+captured bodies and decides the early exit on the device.
 
 Problems solve in their own dtype, float64 or float32. A float32 solve
 stores its trajectories, linearizations, select inputs, gains and results
@@ -370,9 +371,11 @@ def solve_batch(
     """Solve a batch of problems (every Problem tensor has a leading batch
     axis) by opts.method. Runs on the device of the problem's tensors, in
     their dtype (float64 or float32), with TF32 off. On the card the solve
-    runs as captured CUDA graphs, one program per (system, options, shapes,
-    dtype, device), built at its first call (solver/compiled.py); on the
-    CPU as the eager loop `compiled._solve_traced`, with the same results."""
+    is one launch of a program's loop graph (captured CUDA graphs, one
+    program per (system, options, shapes, dtype, device), built at its
+    first call: solver/compiled.py); it reads nothing back to the host, so
+    it returns before the card finishes. On the CPU it runs as the eager
+    loop `compiled._solve_traced`, with the same results."""
     from timeopt_tpu_torch.solver import compiled
 
     opts = options or SolveOptions()
