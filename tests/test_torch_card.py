@@ -947,3 +947,107 @@ def test_eviction_with_a_launch_queued(dev, monkeypatch):
 
     _bitwise(got, compiled._solve_traced(system, opts, *prepare(probs, None)))
     compiled.clear_compiled()
+
+
+# ---------------------------------------------------------------------------
+# Tracing (utils/trace.py): stamps inside the loop graph, one clock
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", ["Quadrotor", "PointMass_Navigation"])
+def test_traced_program_is_bitwise_the_untraced(dev, case):
+    """A program built with tracing on (its captures holding the stamp
+    kernels, inside the loop graph's WHILE body) answers bitwise as the
+    program built with tracing off, and its rows name every step it ran."""
+    from timeopt_tpu_torch.solver import compiled
+    from timeopt_tpu_torch.solver.ilqr import prepare
+    from timeopt_tpu_torch.utils import trace
+
+    if case == "Quadrotor":
+        system, (probs,) = _quadrotor_sets(dev, 64, [21])
+    else:
+        system, probs, _, _, _, _ = _iterate(case, B=64, N=64, seed=21)
+        probs = probs.to(dev)
+    opts = SolveOptions(max_iter=12, psd_levels=1)
+    want = solve_batch(system, probs, options=opts)
+    trace.reset()
+    with trace.recording(dev):
+        got = solve_batch(system, probs, options=opts)
+        prog = compiled.program(system, opts, *prepare(probs, None))
+        steps = prog.iterations()
+    torch.cuda.synchronize()
+    _bitwise(got, want)
+    assert prog.traced and prog.stamps["init"] > 0 and prog.stamps["step"] > 0
+    recs = [r for r in trace.records() if r.track == "device" and r.program == prog.id]
+    tops = [r for r in recs if r.parent is None]
+    assert [r.name for r in tops] == ["init"] + ["step"] * steps
+    assert [r.iteration for r in tops] == [-1] + list(range(steps))
+    assert trace.dropped() == 0
+    compiled.clear_compiled()
+
+
+def test_untraced_build_captures_no_stamp(dev):
+    """With tracing off a build launches and captures no stamp (the stamp
+    wrapper's launch book stays as it was, nothing booked per capture);
+    with tracing on each capture holds stamps, and a solve books them."""
+    from timeopt_tpu_torch.ops import cuda_trace
+    from timeopt_tpu_torch.solver import compiled
+    from timeopt_tpu_torch.solver.ilqr import prepare
+    from timeopt_tpu_torch.utils import trace
+
+    compiled.clear_compiled()
+    system, (probs,) = _quadrotor_sets(dev, 32, [22])
+    opts = SolveOptions(max_iter=4, psd_levels=1)
+    before = cuda_trace.LAUNCHES
+    solve_batch(system, probs, options=opts)
+    compiled.settle_launches()
+    prog = compiled.program(system, opts, *prepare(probs, None))
+    assert cuda_trace.LAUNCHES == before and prog.stamps == {"init": 0, "step": 0} and prog.log is None
+    with trace.recording(dev):
+        solve_batch(system, probs, options=opts)
+        traced = compiled.program(system, opts, *prepare(probs, None))
+    compiled.settle_launches()
+    assert traced is not prog and traced.stamps["init"] > 0 and traced.stamps["step"] > 0
+    compiled.clear_compiled()
+
+
+def test_stamps_lie_within_their_calls_on_one_clock(dev):
+    """Four queued solves, traced: each launch's first and last device
+    stamps, on the host's clock fitted by calibrate(), lie between the
+    host's enqueue of its call and the host's sight of its completion,
+    within the calibration's uncertainty, which is under 50 us; the
+    clock's resolution is reported."""
+    import time
+
+    from timeopt_tpu_torch.solver import compiled
+    from timeopt_tpu_torch.utils import trace
+
+    system, sets = _quadrotor_sets(dev, 64, range(30, 34))
+    opts = SolveOptions(max_iter=12, psd_levels=1)
+    trace.reset()
+    with trace.recording(dev):
+        solve_batch(system, sets[0], options=opts)  # builds the traced program
+        torch.cuda.synchronize()
+        trace.drain()
+        marks = []
+        for probs in sets:
+            t0 = time.perf_counter_ns()
+            res = solve_batch(system, probs, options=opts)
+            ev = torch.cuda.Event()
+            ev.record()
+            marks.append((t0, ev, res))
+        done = []
+        for t0, ev, _ in marks:
+            ev.synchronize()
+            done.append((t0, time.perf_counter_ns()))
+    cal = trace.calibration()
+    print(f"[trace clock] {torch.cuda.get_device_name(dev)}: {cal}")
+    assert 0 < cal["uncertainty_ns"] < 50_000 and cal["resolution_ns"] > 0
+    recs = [r for r in trace.records() if r.track == "device"]
+    prog = max(r.program for r in recs)
+    for launch, (t0, t1) in enumerate(done, start=1):
+        mine = [r for r in recs if r.program == prog and r.launch == launch]
+        first, last = min(r.t0 for r in mine), max(r.t1 for r in mine)
+        unc = cal["uncertainty_ns"]
+        assert trace.device_ns(t0) - unc <= first < last <= trace.device_ns(t1) + unc, launch
+    compiled.clear_compiled()

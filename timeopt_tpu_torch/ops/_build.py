@@ -23,6 +23,8 @@ from pathlib import Path
 
 import torch
 
+from timeopt_tpu_torch.utils import trace
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -56,7 +58,15 @@ def load(name: str, csrc: Path = CSRC) -> ctypes.CDLL:
 def _compile(src: Path, include: Path) -> tuple:
     """(library, build seconds, ptxas report) of src built with -I include
     into BUILD_DIR, named by a hash of the source, the headers in include/
-    and the flags; a library of that name already there is loaded as it is."""
+    and the flags; a library of that name already there is loaded as it is.
+    Each load is a `build.kernels` span (utils/trace.py)."""
+    with trace.build_span("build.kernels", lib=src.stem) as sp:
+        lib, seconds, report = _compile_load(src, include)
+        sp.args["nvcc_s"] = seconds
+    return lib, seconds, report
+
+
+def _compile_load(src: Path, include: Path) -> tuple:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for f in [src, *sorted(include.glob("*.cuh"))]:
         h.update(f.name.encode() + f.read_bytes())

@@ -49,6 +49,7 @@ from timeopt_tpu_torch.solver import compiled
 from timeopt_tpu_torch.solver.augmented import AugmentedBlocks
 from timeopt_tpu_torch.solver.horizon import LFTElements, propagator_select_prefixes
 from timeopt_tpu_torch.solver.ilqr import SolveOptions, SolveResult, prepare, solve_batch
+from timeopt_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,14 +133,18 @@ def solve_batch_resident(
     once and the call returns before they finish. Returns one SolveResult for each non-empty
     chunk, in order, left on that chunk's device: nothing is split, copied
     between devices or gathered. The counterpart of the JAX package's
-    sharded Problem passed to its jitted batch solve."""
-    opts = options or SolveOptions()
-    opts.check()
-    if U_inits is None:
-        U_inits = [None] * len(parts)
-    if len(U_inits) != len(parts):
-        raise ValueError(f"solve_batch_resident: {len(U_inits)} U_inits for {len(parts)} parts")
-    return compiled.solve_programs(system, opts, [prepare(p, U) for p, U in zip(parts, U_inits) if p.batch])
+    sharded Problem passed to its jitted batch solve. While tracing is on
+    (utils/trace.py) the call records `entry.call` and its children."""
+    with trace.span("entry.call"):
+        opts = options or SolveOptions()
+        opts.check()
+        if U_inits is None:
+            U_inits = [None] * len(parts)
+        if len(U_inits) != len(parts):
+            raise ValueError(f"solve_batch_resident: {len(U_inits)} U_inits for {len(parts)} parts")
+        with trace.span("entry.prepare"):
+            prepared = [prepare(p, U) for p, U in zip(parts, U_inits) if p.batch]
+        return compiled.solve_programs(system, opts, prepared)
 
 
 def solve_batch_sharded(

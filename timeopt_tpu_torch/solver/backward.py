@@ -18,6 +18,7 @@ from timeopt_tpu_torch.ops import cuda_backward
 from timeopt_tpu_torch.ops.linalg import gj_solve, spd_check, sym
 from timeopt_tpu_torch.ops.wrap import wrap_error
 from timeopt_tpu_torch.solver.cost import extra_cost_terms
+from timeopt_tpu_torch.utils import trace
 
 
 class BackwardResult(NamedTuple):
@@ -129,8 +130,8 @@ def backward_truncated(
     T_star: torch.Tensor,
     lm_lambda: torch.Tensor,
 ) -> BackwardResult:
-    kappa, K, ok = cuda_backward.backward_truncated_core(
-        A.contiguous(), B.contiguous(), *backward_inputs(system, prob, X, U),
-        T_star.to(torch.int64).contiguous(), lm_lambda.to(X.dtype).contiguous(),
-    )
+    args = (A.contiguous(), B.contiguous(), *backward_inputs(system, prob, X, U),
+            T_star.to(torch.int64).contiguous(), lm_lambda.to(X.dtype).contiguous())
+    with trace.phase("backward.kernel"):
+        kappa, K, ok = cuda_backward.backward_truncated_core(*args)
     return BackwardResult(kappa=kappa, K=K, ok=ok)

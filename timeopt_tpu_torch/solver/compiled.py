@@ -56,7 +56,6 @@ counts. Readers of the counts settle first; a solve never does.
 from __future__ import annotations
 
 import dataclasses
-import time
 import traceback
 from collections import OrderedDict
 from contextlib import nullcontext
@@ -67,10 +66,11 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from timeopt_tpu_torch.models.base import Problem, System
-from timeopt_tpu_torch.ops import cuda_loop
+from timeopt_tpu_torch.ops import cuda_loop, cuda_trace
 from timeopt_tpu_torch.ops.precision import full_matmul_precision
 from timeopt_tpu_torch.solver.ilqr import SolveOptions, SolveResult, curve_init, curve_step, loop_result, loop_state
 from timeopt_tpu_torch.solver.onepass import onepass_init, onepass_step
+from timeopt_tpu_torch.utils import trace
 
 MAX_PROGRAMS = 8  # programs kept, least recently used dropped first
 _PROGRAMS: OrderedDict = OrderedDict()
@@ -96,20 +96,32 @@ def _run_eager(b: Bodies, system: System, opts: SolveOptions, prob: Problem, U_i
     steps, and with early_exit none once every problem is done), checked
     after init and after each step: the steps a loop-graph launch runs,
     eagerly, one read to the host a check."""
-    b.init(system, opts, prob, U_init, st)
+    with trace.phase("init"):
+        b.init(system, opts, prob, U_init, st)
     cond = cuda_loop.loop_condition(st["done"], ctr, opts.max_iter, opts.early_exit, first=True)[1]
     while bool(cond):
-        b.step(system, opts, prob, st)
+        with trace.phase("step", pending=st["done"]):
+            b.step(system, opts, prob, st)
         cond = cuda_loop.loop_condition(st["done"], ctr, opts.max_iter, opts.early_exit)[1]
 
 
 @full_matmul_precision
 def _solve_traced(system: System, opts: SolveOptions, prob: Problem, U_init: torch.Tensor) -> SolveResult:
     """The eager driver (_run_eager) on fresh state buffers and counters.
-    Takes its inputs as solve_batch hands them on (ilqr.prepare)."""
+    Takes its inputs as solve_batch hands them on (ilqr.prepare). While
+    tracing is on, its bodies stamp into a log of their own (a program id
+    of its own, launch 0)."""
     b = bodies(opts)
     st = b.state(prob, opts, U_init.dtype, U_init.device)
-    _run_eager(b, system, opts, prob, U_init, st, cuda_loop.new_counters(U_init.device))
+    ctr = cuda_loop.new_counters(U_init.device)
+    log = None
+    if trace.on():
+        log = trace.Log(U_init.device, trace.program_id(), f"{system.name} {opts.method} B={prob.batch} eager")
+        trace.annotate("entry.call", program=log.program, launch=0)
+    with trace.stamping(log, ctr):
+        _run_eager(b, system, opts, prob, U_init, st, ctr)
+    if log is not None:
+        log.drain()  # the log goes with this call
     return loop_result(prob, st)
 
 
@@ -202,10 +214,19 @@ class CompiledSolve:
     on the card, the captured init and step graphs and the loop graph
     around them. On the CPU it runs _run_eager on the same buffers and
     counters: the refill, the condition and the result copies are then
-    those of the program on the card. `warmup_s`, `capture_s` (the two
-    captures and the loop graph), `loop_s` (the loop graph alone) and
-    `pool_bytes` (the growth of the card's reserved memory over the two
-    captures: the graphs' pool) describe the build."""
+    those of the program on the card. `pool_bytes` (the growth of the
+    card's reserved memory over the two captures: the graphs' pool) and the
+    build's spans (`spans`, utils/trace.py: `build`, `build.warmup.init|step`,
+    `build.capture.init|step`, `build.loop_graph`; `build`'s children hold
+    the library loads too) describe the build;
+    `warmup_s`, `capture_s` (the two captures and the loop graph) and
+    `loop_s` (the loop graph alone) are their seconds.
+
+    A program built while tracing is on (`traced`, part of its cache key)
+    has a stamp log (utils/trace.py) and stamps its bodies' phases: its
+    captures hold the stamp kernels (`stamps`: launches a capture), which
+    a program built with tracing off does not. `id` and the launch index
+    (`launches`, the launches so far) tag its calls' spans and its rows."""
 
     def __init__(self, system: System, opts: SolveOptions, probs: Problem, U_init: torch.Tensor):
         self.system, self.opts = system, opts
@@ -213,11 +234,15 @@ class CompiledSolve:
         self.label = (f"{system.name} {opts.method} B={probs.batch} N={probs.N} "
                       f"{str(U_init.dtype).replace('torch.', '')}")
         self.bodies = bodies(opts)
+        self.id = trace.program_id()
+        self.traced = trace.on()
         self.graphs = None  # on the card: {"init"|"step": (CUDAGraph, launches by module)}
+        self.stamps = {"init": 0, "step": 0}  # stamp launches of each capture
         self.loop = None  # on the card: the cuda_loop.LoopGraph
         self.closed = False
-        self.warmup_s = self.capture_s = self.loop_s = 0.0
+        self.launches = 0
         self.pool_bytes = 0
+        self.spans = {}  # build span name -> trace.Span
         self._settled = (0, 0)  # (loops, steps) of the counters already booked
         self._unsettled = False
         with _device(self.device):
@@ -226,14 +251,37 @@ class CompiledSolve:
             self.prob = probs.replace(**self.inputs)
             self.state = self.bodies.state(self.prob, opts, U_init.dtype, self.device)
             self.ctr = cuda_loop.new_counters(self.device)
+            self.log = trace.Log(self.device, self.id, self.label) if self.traced else None
             if self.device.type == "cuda":
                 self._build(probs, U_init)
 
+    def _seconds(self, *names) -> float:
+        return sum(self.spans[n].seconds for n in names if n in self.spans)
+
+    @property
+    def warmup_s(self) -> float:
+        return self._seconds("build.warmup.init", "build.warmup.step")
+
+    @property
+    def capture_s(self) -> float:
+        return self._seconds("build.capture.init", "build.capture.step", "build.loop_graph")
+
+    @property
+    def loop_s(self) -> float:
+        return self._seconds("build.loop_graph")
+
+    def _span(self, name: str) -> trace.Span:
+        """A build span of this program, kept for the attributes above."""
+        self.spans[name] = trace.build_span(name, program=self.id)
+        return self.spans[name]
+
     def _init(self) -> None:
-        self.bodies.init(self.system, self.opts, self.prob, self.U_init, self.state)
+        with trace.phase("init"):
+            self.bodies.init(self.system, self.opts, self.prob, self.U_init, self.state)
 
     def _step(self) -> None:
-        self.bodies.step(self.system, self.opts, self.prob, self.state)
+        with trace.phase("step", pending=self.state["done"]):
+            self.bodies.step(self.system, self.opts, self.prob, self.state)
 
     def _load(self, probs: Problem, U_init: torch.Tensor) -> None:
         for f, t in list(probs.tensors().items()) + [("U_init", U_init)]:
@@ -245,44 +293,49 @@ class CompiledSolve:
 
     def _build(self, probs: Problem, U_init: torch.Tensor) -> None:
         self._load(probs, U_init)
-        t0 = time.perf_counter()
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            self._init()
-            self._step()
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        torch.cuda.synchronize(self.device)
-        self.warmup_s = time.perf_counter() - t0
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(self.device)
-        t0 = time.perf_counter()
-        pool = torch.cuda.graph_pool_handle()
-        # one capture stream for both: the allocator reuses a block freed in
-        # the pool only on the stream it was freed on
-        stream = torch.cuda.Stream(self.device)
-        self.graphs = {"init": self._capture("init", self._init, pool, stream),
-                       "step": self._capture("step", self._step, pool, stream)}
-        torch.cuda.synchronize(self.device)
-        self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
-        t1 = time.perf_counter()
-        try:
-            self.loop = cuda_loop.LoopGraph(self.graphs["init"][0], self.graphs["step"][0], self.state["done"],
-                                            self.ctr, self.opts.max_iter, self.opts.early_exit)
-        except RuntimeError as exc:
-            raise CaptureError(f"building the loop graph of {self.label} failed: {exc}") from exc
-        self.loop_s = time.perf_counter() - t1
-        self.capture_s = time.perf_counter() - t0
+        with self._span("build") as build:
+            build.args.update(label=self.label, traced=self.traced)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            # a traced build's warm-up phases are build spans too (a synchronize each)
+            with trace.stamping(self.log, self.ctr, warm=True):
+                for name, body in (("init", self._init), ("step", self._step)):
+                    with self._span(f"build.warmup.{name}"), torch.cuda.stream(side):
+                        body()
+                        torch.cuda.synchronize(self.device)
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            if self.log is not None:
+                self.log.clear()  # the warm-up's stamps belong to no launch
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(self.device)
+            pool = torch.cuda.graph_pool_handle()
+            # one capture stream for both: the allocator reuses a block freed in
+            # the pool only on the stream it was freed on
+            stream = torch.cuda.Stream(self.device)
+            graphs = {}
+            for name, body in (("init", self._init), ("step", self._step)):
+                with self._span(f"build.capture.{name}"), trace.stamping(self.log, self.ctr):
+                    graph, counted, self.stamps[name] = self._capture(name, body, pool, stream)
+                    graphs[name] = (graph, counted)
+            torch.cuda.synchronize(self.device)
+            self.graphs = graphs
+            self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
+            with self._span("build.loop_graph"):
+                try:
+                    self.loop = cuda_loop.LoopGraph(graphs["init"][0], graphs["step"][0], self.state["done"],
+                                                    self.ctr, self.opts.max_iter, self.opts.early_exit)
+                except RuntimeError as exc:
+                    raise CaptureError(f"building the loop graph of {self.label} failed: {exc}") from exc
 
     def _capture(self, name: str, body, pool, stream) -> tuple:
-        """(graph, launches by module) of one body, captured on the side
-        stream `stream` as `torch.cuda.graph` captures, without its
+        """(graph, launches by module, stamp launches) of one body, captured
+        on the side stream `stream` as `torch.cuda.graph` captures, without its
         gc.collect() and empty_cache() before each capture: the build
         empties the cache once for both, and a collection of a large
         process's heap before every capture adds up over many programs.
         The graph keeps its cudaGraph_t (keep_graph) for the loop graph and
         is never instantiated itself."""
-        mods = _launch_modules()
+        mods = _launch_modules() + (cuda_trace,)
         before = [m.LAUNCHES for m in mods]
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         stream.wait_stream(torch.cuda.current_stream(self.device))
@@ -300,7 +353,7 @@ class CompiledSolve:
             counted = [m.LAUNCHES - b for m, b in zip(mods, before)]
             for m, b in zip(mods, before):
                 m.LAUNCHES = b
-        return graph, counted
+        return graph, counted[:-1], counted[-1]
 
     def _diagnose(self, body, exc: Exception) -> str:
         """The op at fault: the body rerun eagerly under CaptureGuard."""
@@ -320,13 +373,21 @@ class CompiledSolve:
         read back; on the CPU the same steps run eagerly."""
         if self.closed:
             raise RuntimeError(f"program {self.label} was closed (evicted or cleared)")
+        tag = dict(program=self.id, launch=self.launches)
+        trace.annotate("entry.call", **tag)
         with _device(self.device):
             if probs is not None:
-                self._load(probs, U_init)
-            if self.loop is not None:
-                self.loop.launch()
-            else:
-                _run_eager(self.bodies, self.system, self.opts, self.prob, self.U_init, self.state, self.ctr)
+                with trace.span("entry.load", **tag):
+                    self._load(probs, U_init)
+            with trace.span("entry.launch", **tag):
+                if self.loop is not None:
+                    self.loop.launch()
+                else:
+                    with trace.stamping(self.log, self.ctr):
+                        _run_eager(self.bodies, self.system, self.opts, self.prob, self.U_init, self.state, self.ctr)
+                    if self.log is not None:
+                        self.log.drain()  # an uncached program on the CPU goes with its call
+        self.launches += 1
         self._unsettled = True
 
     def iterations(self) -> int:
@@ -349,11 +410,12 @@ class CompiledSolve:
             for m, i, s in zip(_launch_modules(), self.graphs["init"][1], self.graphs["step"][1]):
                 m.LAUNCHES += i * new[0] + s * new[1]
             cuda_loop.LAUNCHES += new[0] + new[1]
+            cuda_trace.LAUNCHES += self.stamps["init"] * new[0] + self.stamps["step"] * new[1]
         return new
 
     def result(self) -> SolveResult:
         """The result, copied out of the buffers."""
-        with _device(self.device):
+        with _device(self.device), trace.span("entry.result", program=self.id, launch=self.launches - 1):
             res = loop_result(self.prob, self.state)
             return SolveResult(**{f.name: getattr(res, f.name).clone() for f in dataclasses.fields(res)})
 
@@ -365,6 +427,8 @@ class CompiledSolve:
             return
         _synchronize(self.device)
         self.settle()
+        if self.log is not None:
+            self.log.drain()
         if self.loop is not None:
             self.loop.close()
         self.loop = self.graphs = None
@@ -397,11 +461,12 @@ def run_programs(runs: list) -> list:
 
 def program(system: System, opts: SolveOptions, probs: Problem, U_init: torch.Tensor) -> CompiledSolve:
     """The cached program for these inputs' system, options, shapes,
-    dtypes and device, built (warm-up and capture on these inputs) on a
-    miss; at most MAX_PROGRAMS are kept, and the one dropped is closed
-    (its device synchronized first: a launch of it may still be queued)."""
+    dtypes and device, and whether tracing is on, built (warm-up and
+    capture on these inputs) on a miss; at most MAX_PROGRAMS are kept, and
+    the one dropped is closed (its device synchronized first: a launch of
+    it may still be queued)."""
     key = (system, system.step, system.xdot, system.guard, system.extra_cost, opts, probs.N, probs.T_min,
-           probs.T_max, probs.x0.device,
+           probs.T_max, probs.x0.device, trace.on(),
            tuple((tuple(t.shape), t.dtype) for t in list(probs.tensors().values()) + [U_init]))
     prog = _PROGRAMS.get(key)
     if prog is None:
@@ -423,7 +488,7 @@ def solve_programs(system: System, opts: SolveOptions, parts: list) -> list:
     on one device, would otherwise share one."""
     runs = []
     for probs, U in parts:
-        with _device(probs.x0.device):
+        with _device(probs.x0.device), trace.span("entry.program"):
             prog = (program if probs.x0.device.type == "cuda" else CompiledSolve)(system, opts, probs, U)
         runs.append((prog, probs, U))
     return run_programs(runs)

@@ -8,6 +8,7 @@ import torch
 
 from timeopt_tpu_torch.models.base import Problem, System
 from timeopt_tpu_torch.ops.wrap import wrap_error
+from timeopt_tpu_torch.utils import trace
 
 
 def rollout(system: System, prob: Problem, x0: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
@@ -28,16 +29,18 @@ def extra_cost_terms(system: System, X: torch.Tensor, U: torch.Tensor):
     """Per-step (c, cx, cxx) of the optional extra stage cost, or None if
     the system has none. X (B, N, n) are the steps' states, U (B, N, m).
     The scalar cost's exact gradient and Hessian come from torch.func,
-    vmapped over all B*N steps: c (B, N), cx (B, N, n), cxx (B, N, n, n)."""
+    vmapped over all B*N steps: c (B, N), cx (B, N, n), cxx (B, N, n, n).
+    A traced program stamps it as the phase `extra_cost` (utils/trace.py)."""
     if system.extra_cost is None:
         return None
     fn = system.extra_cost
     Bsz, N, n = X.shape
-    x, u = X.reshape(Bsz * N, n), U.reshape(Bsz * N, -1)
-    c = fn(x, u)
-    cx = torch.func.vmap(torch.func.grad(fn, argnums=0))(x, u)
-    cxx = torch.func.vmap(torch.func.hessian(fn, argnums=0))(x, u)
-    return c.reshape(Bsz, N), cx.reshape(Bsz, N, n), cxx.reshape(Bsz, N, n, n)
+    with trace.phase("extra_cost"):
+        x, u = X.reshape(Bsz * N, n), U.reshape(Bsz * N, -1)
+        c = fn(x, u)
+        cx = torch.func.vmap(torch.func.grad(fn, argnums=0))(x, u)
+        cxx = torch.func.vmap(torch.func.hessian(fn, argnums=0))(x, u)
+        return c.reshape(Bsz, N), cx.reshape(Bsz, N, n), cxx.reshape(Bsz, N, n, n)
 
 
 def _quad(e: torch.Tensor, M: torch.Tensor) -> torch.Tensor:

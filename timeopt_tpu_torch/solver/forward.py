@@ -13,6 +13,7 @@ from timeopt_tpu_torch.models.base import Problem, System
 from timeopt_tpu_torch.ops import cuda_forward
 from timeopt_tpu_torch.ops.wrap import wrap_error
 from timeopt_tpu_torch.solver.cost import cost_true
+from timeopt_tpu_torch.utils import trace
 
 
 class LinesearchResult(NamedTuple):
@@ -85,5 +86,6 @@ def forward_linesearch(
     alphas=(1.0, 0.5, 0.25, 0.1, 0.05),
 ) -> LinesearchResult:
     J_old = cost_true(system, prob, X, U, T_star)
-    Xs, Us, Js = cuda_forward.linesearch(system, prob, X, U, K, kappa, T_star, alphas)
+    with trace.phase("forward.kernel"):
+        Xs, Us, Js = cuda_forward.linesearch(system, prob, X, U, K, kappa, T_star, alphas)
     return select_first_improving(X, U, Xs, Us, Js, J_old)

@@ -49,6 +49,7 @@ from timeopt_tpu_torch.solver.horizon import (
 )
 from timeopt_tpu_torch.solver.linearize import linearize
 from timeopt_tpu_torch.solver.select_assoc import propagator_select_assoc
+from timeopt_tpu_torch.utils import trace
 
 SCAN_MODES = ("sequential", "associative", "assoc_df")
 
@@ -187,9 +188,13 @@ def _select_curve(system, prob, opts, X, U, A, B) -> torch.Tensor:
     if opts.method == "bruteforce":
         return bruteforce_J_curve(system, prob, Ah, Bh, Xh, Uh, psd_levels=opts.psd_levels)
     if opts.scan_mode == "sequential" and opts.terminal_mode == "factored":
-        generic, args, s = select_inputs(system, prob, opts, X, U, A, B)
+        with trace.phase("select.inputs"):
+            generic, args, s = select_inputs(system, prob, opts, X, U, A, B)
         select = propagator_select_generic if generic else propagator_select_fused
-        return s[:, :1] ** 2 * select(*args, prob.T_min)
+        j_scale = s[:, :1] ** 2
+        with trace.phase("select.kernel"):
+            J = select(*args, prob.T_min)
+        return j_scale * J
     blk = build_augmented(system, prob, Xh, Uh, Ah, Bh, q_reg=resolve_q_reg(opts, X.dtype), rho_reg=opts.rho_reg,
                           psd_levels=opts.psd_levels, scale=opts.homogeneous_scaling)
     if opts.terminal_mode == "factored":
@@ -265,7 +270,8 @@ def converged(new: dict, rel_tol: float) -> torch.Tensor:
 def curve_init(system: System, opts: SolveOptions, prob: Problem, U_init: torch.Tensor, st: dict) -> None:
     """The curve methods' init body: the initial rollout of U_init, the
     state's initial values, then the warm start as iteration 0."""
-    st["X"].copy_(rollout(system, prob, prob.x0, U_init))
+    with trace.phase("init.rollout"):
+        st["X"].copy_(rollout(system, prob, prob.x0, U_init))
     st["U"].copy_(U_init)
     st["lm"].fill_(opts.lm_init)
     st["T_bar"].zero_()
@@ -277,7 +283,8 @@ def curve_init(system: System, opts: SolveOptions, prob: Problem, U_init: torch.
     st["J_hist"].fill_(float("nan"))
     st["T_hist"].fill_(-1)
     st["done"].zero_()
-    curve_step(system, opts, prob, st, warm=True)
+    with trace.phase("init.warm", pending=st["done"]):
+        curve_step(system, opts, prob, st, warm=True)
 
 
 def curve_step(system: System, opts: SolveOptions, prob: Problem, st: dict, warm: bool = False) -> None:
@@ -285,37 +292,43 @@ def curve_step(system: System, opts: SolveOptions, prob: Problem, st: dict, warm
     linearize, select J(T) and T*, the backward pass at T*, the line
     search, the Levenberg-Marquardt accept/reject and the convergence
     test. The warm start (iteration 0) records whenever the backward pass
-    is healthy and the line-search cost finite, and keeps lambda."""
+    is healthy and the line-search cost finite, and keeps lambda. Its
+    phases (utils/trace.py) are stamped in a traced program."""
     Bsz = prob.batch
     rows = torch.arange(Bsz, device=st["X"].device)
     i64 = torch.int64
-    A, B = linearize(system.step, st["X"], st["U"], opts.linearize_mode)
-    J_curve = _select_curve(system, prob, opts, st["X"], st["U"], A, B)
-    T_star = argmin_T(J_curve, prob.T_min, prob.T_max)
-    bw = backward_truncated(system, prob, A, B, st["X"], st["U"], T_star, st["lm"])
-    ls = forward_linesearch(system, prob, st["X"], st["U"], bw.K, bw.kappa, T_star, alphas=opts.alphas)
-    fin = torch.isfinite(ls.J)
-    acc = bw.ok & ls.accepted & fin
-    gate = (bw.ok & fin) if warm else acc
+    with trace.phase("linearize"):
+        A, B = linearize(system.step, st["X"], st["U"], opts.linearize_mode)
+    with trace.phase("select"):
+        J_curve = _select_curve(system, prob, opts, st["X"], st["U"], A, B)
+        T_star = argmin_T(J_curve, prob.T_min, prob.T_max)
+    with trace.phase("backward"):
+        bw = backward_truncated(system, prob, A, B, st["X"], st["U"], T_star, st["lm"])
+    with trace.phase("forward"):
+        ls = forward_linesearch(system, prob, st["X"], st["U"], bw.K, bw.kappa, T_star, alphas=opts.alphas)
+    with trace.phase("commit"):
+        fin = torch.isfinite(ls.J)
+        acc = bw.ok & ls.accepted & fin
+        gate = (bw.ok & fin) if warm else acc
 
-    g1 = gate[:, None]
-    new = dict(
-        X=torch.where(gate[:, None, None], ls.X, st["X"]),
-        U=torch.where(gate[:, None, None], ls.U, st["U"]),
-        lm=st["lm"] if warm else torch.where(acc, torch.clamp(st["lm"] / 10.0, min=1e-12), st["lm"] * 10.0),
-        T_bar=T_star if warm else torch.where(acc, T_star, st["T_bar"]),
-        J_last=torch.where(gate, ls.J, st["J_last"]),
-        J_prev=torch.where(gate, st["J_last"], st["J_prev"]),
-        n_acc=st["n_acc"] + gate.to(i64),
-        T3=torch.where(g1, torch.cat([st["T3"][:, 1:], T_star[:, None]], dim=1), st["T3"]),
-        J_curve=J_curve,
-        J_hist=st["J_hist"].clone(),
-        T_hist=st["T_hist"].clone(),
-    )
-    slot = st["n_acc"]
-    new["J_hist"][rows, slot] = torch.where(gate, ls.J, st["J_hist"][rows, slot])
-    new["T_hist"][rows, slot] = torch.where(gate, T_star, st["T_hist"][rows, slot])
-    commit(st, new, converged(new, opts.rel_tol))
+        g1 = gate[:, None]
+        new = dict(
+            X=torch.where(gate[:, None, None], ls.X, st["X"]),
+            U=torch.where(gate[:, None, None], ls.U, st["U"]),
+            lm=st["lm"] if warm else torch.where(acc, torch.clamp(st["lm"] / 10.0, min=1e-12), st["lm"] * 10.0),
+            T_bar=T_star if warm else torch.where(acc, T_star, st["T_bar"]),
+            J_last=torch.where(gate, ls.J, st["J_last"]),
+            J_prev=torch.where(gate, st["J_last"], st["J_prev"]),
+            n_acc=st["n_acc"] + gate.to(i64),
+            T3=torch.where(g1, torch.cat([st["T3"][:, 1:], T_star[:, None]], dim=1), st["T3"]),
+            J_curve=J_curve,
+            J_hist=st["J_hist"].clone(),
+            T_hist=st["T_hist"].clone(),
+        )
+        slot = st["n_acc"]
+        new["J_hist"][rows, slot] = torch.where(gate, ls.J, st["J_hist"][rows, slot])
+        new["T_hist"][rows, slot] = torch.where(gate, T_star, st["T_hist"][rows, slot])
+        commit(st, new, converged(new, opts.rel_tol))
 
 
 def loop_result(prob: Problem, st: dict) -> SolveResult:
@@ -375,15 +388,18 @@ def solve_batch(
     program per (system, options, shapes, dtype, device), built at its
     first call: solver/compiled.py); it reads nothing back to the host, so
     it returns before the card finishes. On the CPU it runs as the eager
-    loop `compiled._solve_traced`, with the same results."""
+    loop `compiled._solve_traced`, with the same results. While tracing is
+    on (utils/trace.py) the call records `entry.call`."""
     from timeopt_tpu_torch.solver import compiled
 
-    opts = options or SolveOptions()
-    opts.check()
-    probs, U_inits = prepare(probs, U_inits)
-    if probs.x0.device.type == "cuda":
-        return compiled.solve_programs(system, opts, [(probs, U_inits)])[0]
-    return compiled._solve_traced(system, opts, probs, U_inits)
+    with trace.span("entry.call"):
+        opts = options or SolveOptions()
+        opts.check()
+        with trace.span("entry.prepare"):
+            probs, U_inits = prepare(probs, U_inits)
+        if probs.x0.device.type == "cuda":
+            return compiled.solve_programs(system, opts, [(probs, U_inits)])[0]
+        return compiled._solve_traced(system, opts, probs, U_inits)
 
 
 def solve(

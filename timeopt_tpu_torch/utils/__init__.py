@@ -1,1 +1,1 @@
-"""Host-side utilities of the port: the phase timers (timing.py)."""
+"""Host-side utilities of the port: the phase timers (timing.py) and the tracing (trace.py)."""
