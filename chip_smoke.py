@@ -66,17 +66,24 @@ are dropped between phases, and a `[time]` line follows each phase:
    the plain chain where that holds (SCAN_QUERY_FIRST_BOUND,
    SCAN_QUERY_BOUND), and the scan against a long-double witness of its
    own math where it does not (cart-pole, PointMass: SCAN_WITNESS_NORM);
+   (b) the Jacobian kernel (csrc/linearize.cu, the port's own) against
+   linearize_ad (vmap(jacfwd)) in float64 at the benchmark cells' shapes
+   (quadrotor B=1024 N=160, PointMass B=1024 N=240), float32 and float64
+   (LINEARIZE_RTOL), timed one call and back to back beside the plain
+   version, with its byte bound;
 4. the solve of the 128 problems of each results/oracle_f64*.npz (six
    systems), scored against that f64 brute-force oracle (exact and
    exact-or-tied T*, every problem but REFERENCE_MISSES), with the launch
    count of every kernel in each run; then each set solved by the
-   system's device_id=None twin (the generated line search): the same T*
+   system's device_id=None twin (the generated line search; its step is the
+   registry's, so its Jacobians are the kernel's too): the same T*
    on every problem, J* within rtol 1e-10, the same score, its line-search
    launches all generated ones and the plain line search never run
    (solve_twin); (b) the same for the one-pass method on the double
    integrator (the start-state entry) and the quadrotor's float32 set (the
    _f32 entries), and the unicycle, a system outside the registry, at
-   B=128 against its CPU solve (T* identical, J* rtol 1e-9);
+   B=128 against its CPU solve (T* identical, J* rtol 1e-9; its step
+   carries no device_id, so its Jacobians stay vmap(jacfwd)'s);
 5. brute force: the oracle's own computation, solve_batch(method=
    "bruteforce", max_iter=12, psd_levels=1), on each of the six oracle
    problem sets, exact-or-tied 128/128 with no exception, the J* and J(T)
@@ -195,7 +202,10 @@ per float32 solve of phase 10 (c); the scan and the query also their
 float64 entries' times on the same blocks). `loop_cond`, the port's own
 kernel (the loop's condition; it replaces no TPU kernel), has the same
 keys: its launches over phases 4-11 and per B=1024 solve of phase 7, its
-numbers from phase 12 (a). The last line is
+numbers from phase 12 (a). `linearize`, the port's own Jacobian kernel,
+too: its launches over phases 4-11, per B=1024 solve of phase 7 and of
+phase 10 (c), its numbers from phase 3 (b) (the quadrotor's float32 ones,
+every shape's under `shapes`). The last line is
 {"ok": true, "device": {...}}.
 Imports no JAX.
 
@@ -267,6 +277,19 @@ GENERATED = ("linesearch_generated", "cuda",
 LOOP = ("loop_cond", "cuda", "timeopt_tpu_torch/csrc/loop_graph.cu",
         "none: the port's own kernel, the condition of the lax.while_loop in "
         "timeopt_tpu/solver/ilqr.py:165-190 (_run_outer_loop)")
+# The Jacobians of a registry system's step (solver/linearize.py on the card,
+# ops/cuda_linearize.py): the port's own kernel, dual numbers on the
+# dynamics of csrc/systems.cuh. The JAX package leaves jacfwd to XLA, so it
+# replaces no TPU kernel; on the card it replaces linearize_ad (vmap(jacfwd)),
+# its plain version here. Its launches count on cuda_linearize.LAUNCHES.
+LINEARIZE = ("linearize", "cuda", "timeopt_tpu_torch/csrc/linearize.cu (+ systems.cuh, dual.cuh)",
+             "none: the port's own kernel; the JAX package's jacfwd (timeopt_tpu/solver/linearize.py) is XLA's")
+# Phase 3 (b) holds it to linearize_ad in float64 on the same card inputs at
+# the benchmark cells' shapes: the same non-finite entries, the finite ones
+# within LINEARIZE_RTOL (atol 1e-15) at float64, and within half a float32
+# spacing plus that margin at float32 (one rounding of the float64 value).
+LINEARIZE_RTOL = 1e-12
+LINEARIZE_SHAPES = (("Quadrotor", 160), ("PointMass_Navigation", 240))  # B = B_FULL
 # The generated kernel against the hand-written one of the same system
 # (check_generated): both compile the same formulas with nvcc's default FMA
 # contraction, so they are likely bitwise equal (printed), not certainly;
@@ -570,11 +593,11 @@ def phase_build():
     generated = [twin(c) for c in CASES] + [unicycle()]
     with ThreadPoolExecutor(max_workers=1) as pool:
         gen = pool.submit(dyngen.build_all, generated)
-        _build.load_all(list(KERNELS) + ["loop_graph"])
+        _build.load_all(list(KERNELS) + ["loop_graph", LINEARIZE[0]])
         gen.result()
-    log(f"[build] {len(KERNELS)} kernels, the loop graph's and {len(generated)} generated line searches in "
-        f"{time.perf_counter() - t0:.1f} s")
-    for name in list(KERNELS) + ["loop_graph"]:
+    log(f"[build] {len(KERNELS)} kernels, the loop graph's, the Jacobians' and {len(generated)} generated line "
+        f"searches in {time.perf_counter() - t0:.1f} s")
+    for name in list(KERNELS) + ["loop_graph", LINEARIZE[0]]:
         secs, report = _build.build_info(name)
         log(f"[build] {name}: nvcc {secs:.1f} s | " + ptxas_lines(report))
     for system in generated:
@@ -1511,12 +1534,65 @@ def phase_kernels(device) -> dict:
     return out
 
 
+def phase_linearize(device) -> dict:
+    """Phase 3 (b): the Jacobian kernel against linearize_ad (vmap(jacfwd),
+    its plain version) at the benchmark cells' shapes (LINEARIZE_SHAPES,
+    B=1024, the first iterate), in float32 as the cells run and in float64,
+    gated as LINEARIZE_RTOL says; timed one call and back to back beside
+    the plain version at the same dtype, with its byte bound
+    (ops/work.py::linearize). Returns the kernels line's numbers: the
+    quadrotor's float32 ones, every shape's under `shapes`."""
+    import torch
+    from timeopt_tpu_torch.models import get_system
+    from timeopt_tpu_torch.ops import work
+    from timeopt_tpu_torch.solver.cost import rollout
+    from timeopt_tpu_torch.solver.ilqr import default_U_init
+    from timeopt_tpu_torch.solver.linearize import linearize, linearize_ad
+
+    shapes = {}
+    for case, N in LINEARIZE_SHAPES:
+        system, mk = get_system(case)
+        for dtype in (torch.float32, torch.float64):
+            probs = oracle_problems(system, mk, B_FULL, device, dtype)
+            require(probs.N == N, f"linearize {case}: N {probs.N}, expected {N}")
+            U = default_U_init(probs)
+            X = rollout(system, probs, probs.x0, U)
+            kernel = lambda: linearize(system.step, X, U)  # noqa: E731
+            plain = lambda: linearize_ad(system.step, X, U)  # noqa: E731
+            label = f"linearize ({case} B={B_FULL} N={N} {str(dtype).split('.')[-1]})"
+            got = kernel()
+            want = linearize_ad(system.step, X.double(), U.double())
+            err, share = 0.0, 0.0
+            for g, w in zip(got, want):
+                require(torch.equal(torch.isfinite(g), torch.isfinite(w)),
+                        f"{label}: the non-finite entries differ from float64 AD's")
+                f = torch.isfinite(w)
+                g, w = g.double()[f], w[f]
+                room = LINEARIZE_RTOL * w.abs() + 1e-15
+                if dtype == torch.float32:
+                    w32 = w.float().abs()
+                    room = room + 0.5 * (torch.nextafter(w32, torch.full_like(w32, float("inf"))) - w32).double()
+                err = max(err, (g - w).abs().max().item())
+                share = max(share, ((g - w).abs() / room).max().item())
+            require(share <= 1.0, f"{label}: {share:.3f} of its room off float64 AD (max abs err {err:.3e})")
+            b2b, ms, pms = device_ms(kernel), cuda_ms(kernel, reps=5), cuda_ms(plain, reps=3)
+            k = dict(max_abs_err=err, share_of_room=share, ms=ms, ms_back_to_back=b2b, plain_ms=pms,
+                     **work.linearize(case, B_FULL, N, system.n, system.m, X.element_size()))
+            shapes[f"{case} {str(dtype).split('.')[-1]}"] = k
+            log(f"[kernels] {label}: max abs err {err:.3e} against float64 AD ({share:.3f} of its room) | back to "
+                f"back {b2b:.4f} ms, one call {ms:.4f} ms, plain vmap(jacfwd) {pms:.3f} ms | bound "
+                f"{k['bound_ms']:.4f} ms by {k['bound_by']} ({k['bytes'] / 1e6:.1f} MB), share of bound "
+                f"{k['bound_ms'] / b2b:.4f} | {smi()}")
+    return dict(shapes["Quadrotor float32"], shapes=shapes)
+
+
 def _counted():
     from timeopt_tpu_torch.ops import (cuda_backward, cuda_forward, cuda_lft, cuda_lft_generic, cuda_lft_query,
-                                       cuda_lft_scan, dyngen)
+                                       cuda_lft_scan, cuda_linearize, dyngen)
 
     return {"lft_select": cuda_lft, "lft_select_generic": cuda_lft_generic, "backward": cuda_backward,
-            "linesearch": cuda_forward, "lft_scan": cuda_lft_scan, "lft_query": cuda_lft_query, GENERATED[0]: dyngen}
+            "linesearch": cuda_forward, "lft_scan": cuda_lft_scan, "lft_query": cuda_lft_query, GENERATED[0]: dyngen,
+            LINEARIZE[0]: cuda_linearize}
 
 
 def reset_launches() -> None:
@@ -1578,7 +1654,8 @@ def differing(got, want) -> list:
 KERNEL_SYMBOL = {"lft_select": r"\blft_select_kernel\b", "lft_select_generic": r"\blft_select_generic_kernel\b",
                  "backward": r"\bbackward_kernel\b", "linesearch": r"\blinesearch_kernel<(?![^,>]*\bGenerated\b)",
                  "lft_scan": r"\blft_scan_kernel\b", "lft_query": r"\blft_query_kernel\b",
-                 GENERATED[0]: r"\blinesearch_kernel<[^,>]*\bGenerated\b", LOOP[0]: r"\bloop_cond_kernel\b"}
+                 GENERATED[0]: r"\blinesearch_kernel<[^,>]*\bGenerated\b", LOOP[0]: r"\bloop_cond_kernel\b",
+                 LINEARIZE[0]: r"\blinearize_kernel\b"}
 # Why no loop-graph launch is held to a trace (an H100, torch 2.11, CUDA
 # 12.8, driver 580.159): CUPTI shows at most the first run of a WHILE body
 # in a loop graph instantiated before the process's first profiler session,
@@ -1593,42 +1670,59 @@ KERNEL_SYMBOL = {"lft_select": r"\blft_select_kernel\b", "lft_select_generic": r
 # derived from them and the loop's counters; the counters are held to the
 # steps _solve_traced takes (solve_captured, captured_vs_eager, phase 12).
 TRACED = {"programs": 0, "events": 0, "secs": 0.0, "retraced": 0}
-TRACE_TRIES = 3  # traces of one replay before a shortfall fails
+TRACE_TRIES = 4  # traces before a shortfall fails: one run, then two runs, in turns
 
 
-def traced_launches(fn) -> tuple:
-    """fn() under torch.profiler: the kernel events on the card whose name
-    holds each kernel's function (KERNEL_SYMBOL), counted by kernel, and the
-    number of device events in the trace."""
+def traced_launches(fn, runs: int = 1) -> tuple:
+    """fn() `runs` times under torch.profiler, a spin kernel between two
+    runs: the last run's kernel events on the card whose name holds each
+    kernel's function (KERNEL_SYMBOL), counted by kernel, its number of
+    device events, and the first two kernel names of each run (printed
+    when a trace is short)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+        for r in range(runs):
+            if r:
+                torch.cuda._sleep(1000)
+            fn()
         torch.cuda.synchronize()
-    names = Counter(e.name() for e in prof.profiler.kineto_results.events() if e.device_type() == DeviceType.CUDA)
+    events = sorted((e for e in prof.profiler.kineto_results.events() if e.device_type() == DeviceType.CUDA),
+                    key=lambda e: e.start_ns())
+    cuts = [-1] + [i for i, e in enumerate(events) if "spin_kernel" in e.name()]
+    heads = [[e.name()[:60] for e in events[c + 1:c + 3]] for c in cuts]
+    names = Counter(e.name() for e in events[cuts[-1] + 1:])
     return ({k: sum(c for n, c in names.items() if re.search(pat, n)) for k, pat in KERNEL_SYMBOL.items()},
-            sum(names.values()))
+            sum(names.values()), heads)
 
 
 def traced_booked(fn, booked: dict, what: str) -> tuple:
     """fn() traced (traced_launches) until its kernels equal `booked`, kernel
-    by kernel. A trace can come back short (the profiler lost device
-    events: on an H100 one step graph's trace once held 184 of its ~860
-    events, the other traces of that run whole), so one that shows fewer
+    by kernel. A trace can come back short: on an H100 one step graph's
+    trace once held 184 of its ~860 events, the other traces of that run
+    whole; late in this smoke the only run of a graph in a trace lost its
+    first device events three traces out of three (the Jacobian kernel,
+    first in the propagator's step graph and second in the brute force's,
+    read missing; a fresh process saw it, and spin kernels before the run
+    did not help); and a trace of two runs of the largest graphs (~35,000
+    events each) lost events at its end. So the traces alternate: one run,
+    then two runs that count the second, in turns; one that shows fewer
     than booked is taken again, up to TRACE_TRIES times; one that shows
     more, or TRACE_TRIES short ones, fails. Returns (the kernels seen, the
     device events)."""
     for attempt in range(1, TRACE_TRIES + 1):
-        traced, n = traced_launches(fn)
+        runs = 1 if attempt % 2 else 2
+        traced, n, heads = traced_launches(fn, runs)
         got = {k: traced[k] for k in booked}
         short = all(got[k] <= booked[k] for k in booked) and got != booked
         if not short or attempt == TRACE_TRIES:
             break
         TRACED["retraced"] += 1
-        log(f"[trace] {what}: trace {attempt} short ({got} in {n} device events, booked {booked}), traced again")
+        log(f"[trace] {what}: trace {attempt} ({runs} run(s)) short ({got} in {n} device events, booked {booked}; "
+            f"each run's first kernels {heads}), traced again")
     require(n > 0 and got == booked, f"{what}: the trace shows {got} in {n} device events (trace {attempt} of "
                                      f"{TRACE_TRIES}), booked {booked}")
     return traced, n
@@ -1638,7 +1732,8 @@ def observe_programs() -> None:
     """From here on, every program that compiled.program builds is traced
     with torch.profiler (traced_booked), on the inputs it was built on:
     one replay of its init graph and one of its step graph (each capture
-    instantiated on its own), whose kernels on the card must equal, kernel
+    instantiated on its own; traced_booked says when a trace holds two),
+    whose kernels on the card must equal, kernel
     by kernel, the launches the program books for that graph (the counts
     recorded at its capture). So every launch count of a captured solve
     rests on kernels seen on the card, and on the loop's counters, which
@@ -1806,7 +1901,7 @@ def phase_oracle(case: str, device) -> dict:
     o = solve_oracle_set(case, device, SolveOptions(method="propagator", max_iter=MAX_ITER, psd_levels=1))
     counts, Bo, T, T_o = o["counts"], len(o["T_o"]), o["T"], o["T_o"]
     select = "lft_select" if o["system"].extra_cost is None else "lft_select_generic"
-    for name in (select, "backward", "linesearch"):
+    for name in (select, "backward", "linesearch", LINEARIZE[0]):
         require(counts[name] > 0, f"oracle solve {case}: kernel {name} was never launched")
     ORACLE_TIED[case] = int(o["tied"].sum())
     log(f"[oracle] {case} B={Bo}: T* exact {int(o['exact'].sum())}/{Bo}, exact-or-tied {ORACLE_TIED[case]}/{Bo} | "
@@ -1919,8 +2014,9 @@ def phase_generated(device) -> dict:
                                                          f"{torch.nonzero(res.T_star.cpu() != want.T_star).flatten().tolist()}")
     gap = ((res.J_star.cpu() - want.J_star).abs() / want.J_star.abs()).max().item()
     require(gap <= 1e-9, f"Unicycle: J* {gap:.3e} relative off the CPU solve (rtol 1e-9)")
-    require(c[GENERATED[0]] > 0 and c["linesearch"] == 0 and plain["calls"] == 0,
-            f"Unicycle: launches {c}, plain rollouts {plain['calls']}")
+    require(c[GENERATED[0]] > 0 and c["linesearch"] == 0 and plain["calls"] == 0 and c[LINEARIZE[0]] == 0,
+            f"Unicycle: launches {c}, plain rollouts {plain['calls']} (its step carries no device_id: "
+            "linearize_ad, not the Jacobian kernel)")
     log(f"[generated] Unicycle (custom system, device_id None) B={B_ORACLE} N={probs.N}: T* identical to the CPU solve "
         f"on every problem (median {int(res.T_star.median())}), J* max rel gap {gap:.3e}, accepted steps "
         f"{int(res.n_accept.min())}-{int(res.n_accept.max())} | CPU solve {cpu_s:.2f} s | launches {c} | "
@@ -2184,7 +2280,7 @@ def phase_throughput(case: str, device, dtype=None) -> dict:
     res, counts = o["res"], o["counts"]
     secs = statistics.mean(o["secs"]["captured"])
     select = "lft_select" if system.extra_cost is None else "lft_select_generic"
-    for name in (select, "backward", "linesearch"):
+    for name in (select, "backward", "linesearch", LINEARIZE[0]):
         require(counts[name] > 0, f"throughput {case}: kernel {name} was never launched")
     iters = counts["backward"]
     eT = wrap_error(res.X[torch.arange(B_FULL, device=device), res.T_star] - probs.xg, probs.wrap_mask)
@@ -2226,7 +2322,7 @@ def phase_throughput_onepass(device, dtype=None) -> dict:
     o = captured_vs_eager(system, probs, opts, "throughput one-pass")
     res, counts = o["res"], o["counts"]
     secs = statistics.mean(o["secs"]["captured"])
-    for name in ("backward", "linesearch"):
+    for name in ("backward", "linesearch", LINEARIZE[0]):
         require(counts[name] > 0, f"throughput one-pass: kernel {name} was never launched")
     require(bool(torch.isfinite(res.J_star).all()), "throughput one-pass: non-finite J*")
     eT = wrap_error(res.X[torch.arange(B_FULL, device=device), res.T_star] - probs.xg, probs.wrap_mask)
@@ -3431,16 +3527,18 @@ class ABRun:
     @contextmanager
     def kernels(self, tag):
         """Inside the block the wrappers launch the old kernels for tag
-        "old", this checkout's for "new". A captured solve holds the kernels
-        it was captured with, so the programs are dropped on the way in and
-        out: each version's solves capture its own."""
+        "old", this checkout's for "new"; a kernel the old sources lack
+        (linearize before it existed) runs this checkout's in both. A
+        captured solve holds the kernels it was captured with, so the
+        programs are dropped on the way in and out: each version's solves
+        capture its own."""
         from timeopt_tpu_torch.ops import _build
         from timeopt_tpu_torch.solver import compiled
 
         load = _build.load
         compiled.clear_compiled()
         if tag == "old":
-            _build.load = lambda name: load(name, self.old)
+            _build.load = lambda name: load(name, self.old if (self.old / f"{name}.cu").exists() else _build.CSRC)
         try:
             yield
         finally:
@@ -3795,6 +3893,7 @@ def main() -> None:
     device = torch.device("cuda", 0)
     phase_build()
     numbers = phase_kernels(device)
+    lin_numbers = phase_linearize(device)
     observe_programs()
     counts = {name: 0 for name in _counted()}
     from timeopt_tpu_torch.ops import cuda_loop
@@ -3913,6 +4012,18 @@ def main() -> None:
         f"call, plain {lp['plain_ms']:.4f}), bound {lp['bound_ms']:.3e} ms by {lp['bound_by']}, share of bound "
         f"{lp['share_of_bound']:.4f}, launches {lp['launches']} (phases 4-11), per B={B_FULL} solve "
         f"{lp['launches_per_solve']}")
+    name, route, src, rep = LINEARIZE
+    ln = dict(name=name, route=route, source=src, replaces=rep, launches=counts[name],
+              launches_per_solve={case: c[name] for case, c in per_solve.items()},
+              launches_per_solve_float32={case: c[name] for case, c in per_solve_f32.items()}, **lin_numbers,
+              library_ms=None, library="none: torch.func.vmap(jacfwd) is its plain version, many small ops")
+    ln["share_of_bound"] = ln["bound_ms"] / ln["ms_back_to_back"]
+    kernels.append(ln)
+    log(f"[bounds] {name} (port only, Quadrotor B={B_FULL} float32): {ln['ms_back_to_back']:.4f} ms back to back "
+        f"({ln['ms']:.4f} one call, plain {ln['plain_ms']:.3f}), bound {ln['bound_ms']:.4f} ms by {ln['bound_by']}, "
+        f"share of bound {ln['share_of_bound']:.4f}, launches {ln['launches']} (phases 4-11), per B={B_FULL} solve "
+        f"{ln['launches_per_solve']}, float32 {ln['launches_per_solve_float32']}")
+    require(counts[name] > 0, f"{name}: never launched on the main path")
     print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {

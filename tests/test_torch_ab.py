@@ -70,13 +70,17 @@ def test_changed_kernels_skips_a_kernel_the_old_tree_lacks(tmp_path):
 def test_kernel_sources_follow_includes():
     assert cs.kernel_sources("backward", CSRC) == {"backward.cu", "warpmat.cuh"}
     assert cs.kernel_sources("lft_select", CSRC) == {"lft_select.cu"}
-    assert cs.kernel_sources("linesearch", CSRC) == {"linesearch.cu", "linesearch_kernel.cuh", "smallmat.cuh"}
+    assert cs.kernel_sources("linesearch", CSRC) == {"linesearch.cu", "linesearch_kernel.cuh", "smallmat.cuh",
+                                                     "systems.cuh"}
+    assert cs.kernel_sources("linearize", CSRC) == {"linearize.cu", "dual.cuh", "systems.cuh"}
 
 
 @pytest.mark.parametrize("header,expected", [
     ("warpmat.cuh", ["lft_select_generic", "backward", "lft_scan", "lft_query"]),
     ("smallmat.cuh", ["linesearch"]),
     ("linesearch_kernel.cuh", ["linesearch"]),
+    ("systems.cuh", ["linesearch"]),  # the registry's dynamics, which the line search integrates
+    ("dual.cuh", []),  # the Jacobian kernel's alone, which is not in the table of TPU kernels
 ])
 def test_changed_kernels_on_this_checkout(tmp_path, header, expected):
     """A changed shared header selects exactly the kernels that include it,

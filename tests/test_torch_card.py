@@ -39,6 +39,11 @@ A system with device_id None runs the line-search kernel generated from its
 own functions (ops/dyngen.py): held to the plain version as above and to
 the registry system's hand-written kernel within rtol 1e-12, and its
 solves to the CPU's.
+
+The Jacobian kernel (csrc/linearize.cu) is held to linearize_ad run in
+float64 on the same card inputs: the same non-finite entries, rtol 1e-12
+at float64 and half a float32 spacing more at float32; a captured
+quadrotor solve with it inside to its eager driver, bit for bit.
 """
 
 from __future__ import annotations
@@ -1051,3 +1056,113 @@ def test_stamps_lie_within_their_calls_on_one_clock(dev):
         unc = cal["uncertainty_ns"]
         assert trace.device_ns(t0) - unc <= first < last <= trace.device_ns(t1) + unc, launch
     compiled.clear_compiled()
+
+
+# ---- the Jacobian kernel of the registry systems (csrc/linearize.cu)
+
+REGISTRY = ("DoubleIntegrator", "Quadrotor", "Cartpole_SwingUp", "Segway_Balance", "Ballbot_Balance",
+            "PointMass_Navigation")
+
+
+def _linearize_inputs(case, dev, dtype):
+    """A real iterate's X, U of the case (B=4, N=32) on the card in dtype,
+    with a NaN state entry (problem 1, step 5, the last state) and a NaN
+    control (problem 3, step 7) and, on the quadrotor, a guarded pitch
+    (problem 2, step 3: |cos theta| < 1e-3, the step poisoned, its
+    Jacobian finite)."""
+    system, _, X, U, _, _ = _iterate(case)
+    X, U = X.clone(), U.clone()
+    X[1, 5, system.n - 1] = float("nan")
+    U[3, 7, 0] = float("nan")
+    if case == "Quadrotor":
+        X[2, 3, 7] = np.pi / 2 - 5e-4
+    return system, X.to(dev, dtype), U.to(dev, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", REGISTRY)
+def test_linearize_kernel_matches_ad(dev, case, dtype):
+    """linearize (mode "ad") of a registry system's step on the card is one
+    launch of the Jacobian kernel, held to linearize_ad (vmap(jacfwd)) in
+    float64 on the same card inputs (upcast where float32): the same
+    non-finite entries, and the finite ones within rtol 1e-12 (atol 1e-15)
+    at float64, within half a float32 spacing of the float64 AD value plus
+    that margin at float32 (one rounding of the float64 Jacobian). The
+    guarded quadrotor state keeps a finite Jacobian. Rows a batch stride
+    apart (a view, as one-pass's X_ext[:, :S + 1]) give the same bits as
+    the whole arrays' first steps."""
+    from timeopt_tpu_torch.ops import cuda_linearize
+    from timeopt_tpu_torch.solver.linearize import linearize_ad
+
+    system, X, U = _linearize_inputs(case, dev, dtype)
+    before = cuda_linearize.LAUNCHES
+    A, Bj = linearize(system.step, X, U)
+    assert cuda_linearize.LAUNCHES == before + 1
+    wA, wB = linearize_ad(system.step, X.double(), U.double())
+    if case == "Quadrotor":
+        assert bool(torch.isfinite(A[2, 3]).all()) and A[2, 3].abs().max().item() > 100.0
+    for g, w in ((A, wA), (Bj, wB)):
+        assert g.dtype == dtype and g.is_contiguous() and g.shape == w.shape
+        assert torch.equal(torch.isfinite(g), torch.isfinite(w))
+        f = torch.isfinite(w)
+        g, w = g.double()[f], w[f]
+        room = 1e-12 * w.abs() + 1e-15
+        if dtype == torch.float32:
+            w32 = w.float().abs()
+            room = room + 0.5 * (torch.nextafter(w32, torch.full_like(w32, float("inf"))) - w32).double()
+        assert bool(((g - w).abs() <= room).all()), ((g - w).abs() - room).max().item()
+    Av, Bv = linearize(system.step, X[:, :9], U[:, :8])
+    assert torch.equal(Av.nan_to_num(7.0), A[:, :8].nan_to_num(7.0))
+    assert torch.equal(Bv.nan_to_num(7.0), Bj[:, :8].nan_to_num(7.0))
+
+
+def test_linearize_kernel_refuses(dev):
+    """The kernel's wrapper launches or raises: CPU tensors, float16, rows
+    that are not contiguous, and a system id whose sizes are not the
+    inputs' all raise, and nothing is counted."""
+    from timeopt_tpu_torch.ops import cuda_linearize
+
+    system, X, U = _linearize_inputs("Quadrotor", dev, torch.float64)
+    before = cuda_linearize.LAUNCHES
+    with pytest.raises(ValueError):
+        cuda_linearize.jacobians(1, system.dt, X.cpu(), U.cpu())
+    with pytest.raises(TypeError):
+        cuda_linearize.jacobians(1, system.dt, X.half(), U.half())
+    with pytest.raises(TypeError):
+        cuda_linearize.jacobians(1, system.dt, X, U.float())
+    with pytest.raises(ValueError):
+        cuda_linearize.jacobians(1, system.dt, X.transpose(0, 1).contiguous().transpose(0, 1), U)
+    with pytest.raises(RuntimeError):
+        cuda_linearize.jacobians(0, system.dt, X, U)  # the double integrator's sizes are not these
+    assert cuda_linearize.LAUNCHES == before
+
+
+def test_captured_quadrotor_solve_takes_the_jacobian_kernel(dev, monkeypatch):
+    """A float32 quadrotor solve_batch on the card (the main path) with the
+    Jacobian kernel captured inside: every field bitwise its eager driver
+    _solve_traced, one kernel launch for init and one a step, the same on
+    both drivers, and linearize_ad never run."""
+    from timeopt_tpu_torch.ops import cuda_linearize
+    from timeopt_tpu_torch.solver import compiled
+    from timeopt_tpu_torch.solver import linearize as lin
+    from timeopt_tpu_torch.solver.ilqr import prepare
+
+    def refused(*a, **k):
+        raise AssertionError("linearize_ad ran on the card for a registry system")
+
+    monkeypatch.setattr(lin, "linearize_ad", refused)
+    system, (probs,) = _quadrotor_sets(dev, 32, [11])
+    opts = SolveOptions(max_iter=12, psd_levels=1)
+    compiled.clear_compiled()
+    solve_batch(system, probs, options=opts)  # builds the program
+    compiled.settle_launches()
+    before = cuda_linearize.LAUNCHES
+    got = solve_batch(system, probs, options=opts)
+    p, U = prepare(probs, None)
+    steps = compiled.program(system, opts, p, U).iterations()
+    compiled.settle_launches()
+    captured = cuda_linearize.LAUNCHES - before
+    before = cuda_linearize.LAUNCHES
+    want = compiled._solve_traced(system, opts, p, U)
+    _bitwise(got, want)
+    assert captured == cuda_linearize.LAUNCHES - before == 1 + steps and steps > 0

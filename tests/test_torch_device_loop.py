@@ -190,8 +190,8 @@ def test_settle_launches_books_init_and_steps(monkeypatch):
     mods = compiled._launch_modules()
     for m in mods + (cuda_loop,):
         monkeypatch.setattr(m, "LAUNCHES", 0)
-    init = [1, 0, 2, 0, 0, 0, 3]
-    step = [1, 1, 0, 0, 4, 0, 0]
+    init = [1, 0, 2, 0, 0, 0, 3, 1]
+    step = [1, 1, 0, 0, 4, 0, 0, 1]
     prog.graphs = {"init": (None, init), "step": (None, step)}
     steps = _counting_bodies(monkeypatch)
     compiled._solve_traced(system, opts, probs, U)

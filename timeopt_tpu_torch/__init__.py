@@ -19,6 +19,12 @@ kernel (csrc/, built with nvcc at first use); any other dtype raises.
 - every prefix (unfused select): ops/cuda_lft_scan.py    (csrc/lft_scan.cu)
 - terminal queries:              ops/cuda_lft_query.py   (csrc/lft_query.cu)
 
+The port's own kernels, which replace no TPU kernel: the Jacobians of a
+registry system's step (ops/cuda_linearize.py, csrc/linearize.cu; dual
+numbers on the dynamics of csrc/systems.cuh, which the line search
+integrates) and the compiled solve's loop condition (ops/cuda_loop.py,
+csrc/loop_graph.cu).
+
 This package never imports jax.
 """
 

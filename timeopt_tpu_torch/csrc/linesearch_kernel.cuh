@@ -64,8 +64,8 @@
 // This header holds the kernel as a template on the system S, which gives
 // n, m and static xdot(x, u, xd), guard(x, u) and extra_cost(x, u):
 // csrc/linesearch.cu instantiates it for the six hand-written systems of the
-// registry, ops/dyngen.py for a struct generated from a System's own
-// Python functions (built at first use).
+// registry (csrc/systems.cuh), ops/dyngen.py for a struct generated from a
+// System's own Python functions (built at first use).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -75,14 +75,6 @@
 #include "smallmat.cuh"
 
 namespace {
-
-// Each system gives xdot, its guard (true where the step is poisoned) and
-// its extra stage cost (0 for all but PointMass). NoExtras supplies the
-// defaults.
-struct NoExtras {
-  __device__ static bool guard(const double*, const double*) { return false; }
-  __device__ static double extra_cost(const double*, const double*) { return 0.0; }
-};
 
 constexpr int WARP = 32;
 constexpr int CH = 8;       // steps per chunk of shared inputs

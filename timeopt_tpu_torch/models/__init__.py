@@ -1,6 +1,7 @@
 """Model registry of the port: the six systems of timeopt_tpu/models, in the
 same order. Each has a `device_id` naming its dynamics (and, for PointMass,
-its obstacle penalty) in the line-search kernel, csrc/linesearch.cu."""
+its obstacle penalty) in the line-search and Jacobian kernels,
+csrc/systems.cuh."""
 
 from timeopt_tpu_torch.models import ballbot, cartpole, double_integrator, pointmass, quadrotor, segway
 from timeopt_tpu_torch.models.base import Problem, System, make_problem, problem_from_numpy

@@ -5,7 +5,7 @@ State x = [ball_pos, ball_vel, theta, theta_dot], control u = [wheel
 torque] (force = tau / r); cart-pole-style balance dynamics with the
 effective ball mass M_eff = m_ball + I_ball / r^2, theta = 0 upright;
 explicit Euler at dt = 0.02, theta wrapped. The same formulas run on the
-card in csrc/linesearch.cu (`Ballbot`).
+card in csrc/systems.cuh (`Ballbot`).
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ def xdot(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return torch.stack([x_dot, x_acc, th_dot, th_acc], dim=-1)
 
 
-step = euler_step_fn(xdot, DT, 4, wrap_idx=(2,))
+step = euler_step_fn(xdot, DT, 4, wrap_idx=(2,), device_id=4)
 
 SYSTEM = System(
     name="Ballbot_Balance",
@@ -54,7 +54,7 @@ SYSTEM = System(
     wrap_idx=(2,),
     sigma_x0=(0.02, 0.02, 0.02, 0.02),
     sigma_xg=(0.0, 0.0, 0.0, 0.0),
-    device_id=4,
+    device_id=step.device_id,
 )
 
 

@@ -72,11 +72,12 @@ class Problem:
 @dataclasses.dataclass(frozen=True)
 class System:
     """Static dynamics description. `device_id` names a hand-tuned struct
-    of dynamics in the line-search kernel (csrc/linesearch.cu; the six
-    registry systems): setting it asserts that the struct computes `xdot`,
-    `guard` and `extra_cost`, since the kernel runs its own copy of them
-    (chip_smoke.py holds each against the generated one). None means the
-    card runs a kernel generated from these functions themselves
+    of dynamics of the line-search and Jacobian kernels (csrc/systems.cuh;
+    the six registry systems): setting it asserts that the struct computes
+    `xdot`, `guard` and `extra_cost`, since the kernels run their own copy
+    of them (chip_smoke.py holds each against the generated one); the
+    Jacobian kernel reads it from the step (euler_step_fn's `device_id`).
+    None means the card runs a kernel generated from these functions themselves
     (ops/dyngen.py: traced with make_fx, built with nvcc at first use),
     which needs `step` to be `euler_step_fn` of this system's xdot, dt, n,
     wrap_idx and guard, and raises on an op it does not take."""
@@ -111,12 +112,17 @@ def _nan_where(bad: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return torch.where(bad, torch.full_like(like, float("nan")), torch.zeros_like(like))
 
 
-def euler_step_fn(xdot: StepFn, dt: float, n: int, wrap_idx: tuple = (), guard=None) -> StepFn:
+def euler_step_fn(xdot: StepFn, dt: float, n: int, wrap_idx: tuple = (), guard=None,
+                  device_id: Optional[int] = None) -> StepFn:
     """x+ = x + dt*xdot(x, u), the wrap_idx components angle-normalized,
     poisoned to NaN where guard(x, u) holds. The step carries its
     ingredients as `step.euler_ingredients` (xdot, dt, n, wrap_idx, guard):
     the generated line-search kernel (ops/dyngen.py) computes this step and
-    checks that a System's step is it."""
+    checks that a System's step is it. A registry model passes its
+    `device_id` (that of its System), which the step carries as
+    `step.device_id`: it asserts that the struct of csrc/systems.cuh
+    computes xdot, and on the card solver/linearize.py then takes the
+    step's Jacobians from the kernel that differentiates that struct."""
     wrap = tuple(bool(b) for b in wrap_mask_from_idx(wrap_idx, n)) if wrap_idx else None
 
     def step(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -128,6 +134,7 @@ def euler_step_fn(xdot: StepFn, dt: float, n: int, wrap_idx: tuple = (), guard=N
         return xn
 
     step.euler_ingredients = (xdot, float(dt), int(n), tuple(int(i) for i in wrap_idx), guard)
+    step.device_id = device_id
     return step
 
 

@@ -3,7 +3,7 @@
 State x = [cart_pos, cart_vel, theta, theta_dot] with theta = 0 down and
 pi upright (the dynamics shift it by pi into the theta = 0 upright form);
 control u = [force]; explicit Euler at dt = 0.02, theta wrapped. The same
-formulas run on the card in csrc/linesearch.cu (`Cartpole`).
+formulas run on the card in csrc/systems.cuh (`Cartpole`).
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ def xdot(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return torch.stack([x_dot, x_acc, th_dot, th_acc], dim=-1)
 
 
-step = euler_step_fn(xdot, DT, 4, wrap_idx=(2,))
+step = euler_step_fn(xdot, DT, 4, wrap_idx=(2,), device_id=2)
 
 SYSTEM = System(
     name="Cartpole_SwingUp",
@@ -55,7 +55,7 @@ SYSTEM = System(
     wrap_idx=(2,),
     sigma_x0=(0.0, 0.0, 0.0, 0.0),
     sigma_xg=(0.0, 0.0, 0.0, 0.0),
-    device_id=2,
+    device_id=step.device_id,
 )
 
 

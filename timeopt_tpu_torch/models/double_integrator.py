@@ -1,7 +1,7 @@
 """1D double integrator (port of timeopt_tpu/models/double_integrator.py).
 
 State x = [pos, vel], control u = [acc]; explicit-Euler discretization.
-The same formula runs on the card in csrc/linesearch.cu (`di_xdot`).
+The same formula runs on the card in csrc/systems.cuh (`DoubleIntegrator`).
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ def xdot(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return torch.stack([x[..., 1], u[..., 0]], dim=-1)
 
 
-step = euler_step_fn(xdot, DT, 2)
+step = euler_step_fn(xdot, DT, 2, device_id=0)
 
 SYSTEM = System(
     name="DoubleIntegrator",
@@ -28,7 +28,7 @@ SYSTEM = System(
     xdot=xdot,
     sigma_x0=(0.2, 0.2),
     sigma_xg=(0.0, 0.0),
-    device_id=0,
+    device_id=step.device_id,
 )
 
 

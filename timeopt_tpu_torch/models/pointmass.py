@@ -4,7 +4,7 @@ timeopt_tpu/models/pointmass.py), the one system with an extra stage cost.
 State x = [px, py, vx, vy], control u = [ax, ay]; explicit Euler at
 dt = 0.05. The penalty is a scalar function of the state; the solver takes
 its exact gradient and Hessian with torch.func (solver/cost.py). The same
-dynamics and penalty run on the card in csrc/linesearch.cu (`PointMass`).
+dynamics and penalty run on the card in csrc/systems.cuh (`PointMass`).
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ def xdot(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return torch.stack([x[..., 2], x[..., 3], u[..., 0], u[..., 1]], dim=-1)
 
 
-step = euler_step_fn(xdot, DT, 4)
+step = euler_step_fn(xdot, DT, 4, device_id=5)
 
 
 def obstacle_cost(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -53,7 +53,7 @@ SYSTEM = System(
     extra_cost=obstacle_cost,
     sigma_x0=(0.1, 0.1, 0.0, 0.0),
     sigma_xg=(0.0, 0.0, 0.0, 0.0),
-    device_id=5,
+    device_id=step.device_id,
 )
 
 

@@ -4,7 +4,7 @@ State x = [pos(3), vel(3), euler(3: phi, theta, psi), omega(3)], control
 u = [thrust, tau_x, tau_y, tau_z]; explicit Euler at dt = 0.05. The guard
 poisons the next state with an additive NaN near the Euler singularity
 (|cos theta| < 1e-3), for |omega| > 1e3, ||x|| > 1e6 or non-finite input.
-The same formulas run on the card in csrc/linesearch.cu (`quad_xdot`).
+The same formulas run on the card in csrc/systems.cuh (`Quadrotor`).
 """
 
 from __future__ import annotations
@@ -80,7 +80,7 @@ def guard(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     )
 
 
-step = euler_step_fn(xdot, DT, 12, wrap_idx=(), guard=guard)
+step = euler_step_fn(xdot, DT, 12, wrap_idx=(), guard=guard, device_id=1)
 
 SYSTEM = System(
     name="Quadrotor",
@@ -92,7 +92,7 @@ SYSTEM = System(
     guard=guard,
     sigma_x0=(0.4, 0.4, 0.4) + (0.0,) * 9,
     sigma_xg=(0.0,) * 12,
-    device_id=1,
+    device_id=step.device_id,
 )
 
 

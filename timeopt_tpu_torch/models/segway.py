@@ -4,7 +4,7 @@ timeopt_tpu/models/segway.py).
 State x = [wheel_pos, wheel_vel, theta, theta_dot], control u = [torque];
 the dynamics are affine in (theta, tau) with closed-form coefficients;
 explicit Euler at dt = 0.02, theta wrapped. The same formulas run on the
-card in csrc/linesearch.cu (`Segway`).
+card in csrc/systems.cuh (`Segway`).
 """
 
 from __future__ import annotations
@@ -41,7 +41,7 @@ def xdot(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return torch.stack([x_dot, xdd, th_dot, thdd], dim=-1)
 
 
-step = euler_step_fn(xdot, DT, 4, wrap_idx=(2,))
+step = euler_step_fn(xdot, DT, 4, wrap_idx=(2,), device_id=3)
 
 SYSTEM = System(
     name="Segway_Balance",
@@ -53,7 +53,7 @@ SYSTEM = System(
     wrap_idx=(2,),
     sigma_x0=(0.02, 0.02, 0.02, 0.02),
     sigma_xg=(0.0, 0.0, 0.0, 0.0),
-    device_id=3,
+    device_id=step.device_id,
 )
 
 

@@ -10,7 +10,7 @@ node of the graph becomes one SSA statement per element of its value (a
 numpy object array of C names, so that broadcasting, views, stacking and
 reductions follow numpy's rules on those names). The statements form one
 struct, `Generated`, with the interface of the hand-written ones in
-csrc/linesearch.cu: n, m, xdot(x, u, xd), guard(x, u), extra_cost(x, u); a
+csrc/systems.cuh: n, m, xdot(x, u, xd), guard(x, u), extra_cost(x, u); a
 missing guard or extra cost is NoExtras' default (false, 0.0). Nothing is
 simplified: `- 0.0` and `0.0 * w` stay (a non-finite rate reaches the same
 entries), constants are inlined as exact literals, sums run in index order

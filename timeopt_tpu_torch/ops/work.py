@@ -149,6 +149,17 @@ GUARD_FLOPS = {"Quadrotor": 2 * 12 + 6}
 EXTRA_COST_FLOPS = {"PointMass_Navigation": 3 * 11}
 
 
+def linearize(case: str, B: int, N: int, n: int, m: int, itemsize: int = F64) -> dict:
+    """csrc/linearize.cu: the Jacobians A_k, B_k of B x N steps. Each of a
+    step's n + m columns evaluates xdot once on dual numbers, counted as
+    three times xdot's operations (each operation's value and its tangent's
+    product and sum), and forms its n entries e_c + dt xdot' (a multiply-add
+    each). It reads the rows k < N of X and U and writes A and B."""
+    flops = B * N * (n + m) * (3 * XDOT_FLOPS[case] + 2 * n)
+    nbytes = itemsize * B * N * (n + m + n * n + n * m)
+    return bound(flops, nbytes)
+
+
 def linesearch(case: str, T_star, N: int, n: int, m: int, A: int, x_start: bool = False, itemsize: int = F64) -> dict:
     """csrc/linesearch.cu: A rollouts of N steps per problem; the stage cost
     on the active steps k < T*, the terminal cost at min(T*, N). With

@@ -194,10 +194,13 @@ class CaptureGuard(TorchDispatchMode):
 
 def _launch_modules() -> tuple:
     """The modules whose LAUNCHES count kernel launches (dyngen: the
-    generated line searches of systems without a device_id)."""
-    from timeopt_tpu_torch.ops import cuda_backward, cuda_forward, cuda_lft, cuda_lft_generic, cuda_lft_query, cuda_lft_scan, dyngen
+    generated line searches of systems without a device_id; cuda_linearize:
+    the Jacobians of registry systems)."""
+    from timeopt_tpu_torch.ops import (cuda_backward, cuda_forward, cuda_lft, cuda_lft_generic, cuda_lft_query,
+                                       cuda_lft_scan, cuda_linearize, dyngen)
 
-    return (cuda_backward, cuda_forward, cuda_lft, cuda_lft_generic, cuda_lft_query, cuda_lft_scan, dyngen)
+    return (cuda_backward, cuda_forward, cuda_lft, cuda_lft_generic, cuda_lft_query, cuda_lft_scan, dyngen,
+            cuda_linearize)
 
 
 def _device(device: torch.device):

@@ -1,11 +1,18 @@
 """Trajectory linearization (port of timeopt_tpu/solver/linearize.py): exact
 Jacobians by forward-mode AD (the default, one `jacfwd` over the joint
 (x, u) input), and the reference's central and forward finite-difference
-stencils, kept for parity. Both are batched over all B*N steps at once."""
+stencils, kept for parity. Both are batched over all B*N steps at once.
+
+On the card, the exact Jacobians of a registry system's step (one that
+carries a `device_id`, models/base.py::euler_step_fn) come from the
+hand-written kernel of ops/cuda_linearize.py: forward-mode dual arithmetic
+on the system's own device dynamics, the same values as linearize_ad."""
 
 from __future__ import annotations
 
 import torch
+
+from timeopt_tpu_torch.ops import _build, cuda_linearize
 
 
 def linearize_ad(step, X: torch.Tensor, U: torch.Tensor):
@@ -62,7 +69,13 @@ def linearize_fd(step, X, U, *, mode: str = "central", epsx=1e-5, epsu=1e-5, rel
 
 
 def linearize(step, X: torch.Tensor, U: torch.Tensor, mode: str = "ad"):
-    """Dispatch: mode in {"ad", "central", "forward"}."""
+    """Dispatch: mode in {"ad", "central", "forward"}. "ad" on card tensors,
+    for a step that carries a device_id, launches the Jacobian kernel
+    (ops/cuda_linearize.py); on CPU tensors, or for a step without one (a
+    user's own System), it runs linearize_ad."""
     if mode == "ad":
+        device_id = getattr(step, "device_id", None)
+        if device_id is not None and _build.on_card(X, "linearize"):
+            return cuda_linearize.jacobians(device_id, step.euler_ingredients[1], X, U)
         return linearize_ad(step, X, U)
     return linearize_fd(step, X, U, mode=mode)
