@@ -4,9 +4,10 @@
 kernels' inputs at most once for every reader that needs them:
 
 - `cfg`, `mix`, `system` (the program's System), `opts` (its
-  SolveOptions), `pool` (the cell's batches on the device), `device`;
+  SolveOptions), `pool` (the cell's batches whole, on its first card),
+  `device` (that card);
 - `window`: the window's batches (hopbench/loop.py: host times, and the
-  device start and end of each batch from CUDA events);
+  device start and end of each batch on each card from CUDA events);
 - `counters`: the program's device loop counters over the window (`runs`,
   the loop-graph launches that finished, and `steps`, the outer steps they
   ran), read after it;
@@ -44,6 +45,10 @@ class Context:
         if key not in self._memo:
             self._memo[key] = fn()
         return self._memo[key]
+
+    def peek(self, key: str):
+        """What `cached` made under `key`, or None where nothing asked for it."""
+        return self._memo.get(key)
 
     def device_ms(self, fn, reps: int = 10) -> float:
         fn()

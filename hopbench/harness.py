@@ -9,7 +9,9 @@ mixes, per-layer metric readers and each cell's limits.
   function `read(ctx)` returning the metric's value or None when the cell
   has nothing for it to read (hopbench/context.py says what `ctx` holds);
 - `hopbench/limits/<workload>.json`: the limits of the numbers that decide
-  a cell's `correct` (hopbench/judge.py).
+  a cell's `correct` (hopbench/judge.py);
+- `hopbench/reference/plain/<system>.py`: the plain reference of a system
+  that reference/systems.py does not hold (reference/check.py::system).
 
 A new configuration, mix, metric or cell is a new file and an entry in
 BENCHMARK.json; nothing here changes.

@@ -9,11 +9,16 @@ the pool, in turn. Batches are enqueued while the window's seconds last;
 the window runs from the first enqueue to the completion of the last batch
 enqueued, and every batch enqueued in it counts.
 
+A batch may be split over several cards: the solve takes its parts, one a
+card, and returns one result a card; each card's answers are copied into
+their own rows of the slot, on that card's stream, with an event on every
+card after them, and the batch is complete when every card's event is.
+
 Host times (perf_counter) per batch: `enqueue` before the solve's call,
 `returned` after it, `done` when the host has seen the batch's copy
 complete. With `timing`, CUDA events before the call and after the copy
-give each batch's start and end on the device, relative to an event
-recorded before the first enqueue.
+give each batch's start and end on each card, relative to an event
+recorded on that card before the first enqueue.
 
 On the CPU (the harness's tests) a call runs to its end before it returns,
 the copies are plain and there are no events.
@@ -35,8 +40,9 @@ class Batch:
     enqueue: float
     returned: float = 0.0
     done: float = 0.0
-    start_ms: float | None = None  # device, from the window's base event
+    start_ms: float | None = None  # device, from the window's base event: the first card's
     end_ms: float | None = None
+    card_ms: list | None = None  # (start_ms, end_ms) on each card, from that card's base event
 
 
 @dataclass
@@ -50,50 +56,68 @@ class Window:
         return self.end - self.start
 
 
-class Slot:
-    """Host buffers for one batch in flight: T* (B,), J* (B,), U (B, N, m)."""
+def record(device: torch.device, timing: bool = False) -> torch.cuda.Event:
+    """An event recorded on `device`'s current stream."""
+    ev = torch.cuda.Event(enable_timing=timing)
+    ev.record(torch.cuda.current_stream(device))
+    return ev
 
-    def __init__(self, batch: int, N: int, m: int, dtype, device: torch.device):
-        pin = device.type == "cuda"
+
+class Slot:
+    """Host buffers for one batch in flight: T* (B,), J* (B,), U (B, N, m),
+    the answers of the cards in `devices`, each card's in its rows, in
+    order."""
+
+    def __init__(self, batch: int, N: int, m: int, dtype, devices: list):
+        pin = devices[0].type == "cuda"
         self.T = torch.empty(batch, dtype=torch.int64, pin_memory=pin)
         self.J = torch.empty(batch, dtype=dtype, pin_memory=pin)
         self.U = torch.empty((batch, N, m), dtype=dtype, pin_memory=pin)
         self.cuda = pin
-        self.event = torch.cuda.Event() if pin else None
+        self.devices = devices
+        self.events = [torch.cuda.Event() for _ in devices] if pin else []
         self.batch: Batch | None = None
-        self.start_ev = self.end_ev = None
+        self.start_evs = self.end_evs = None
 
-    def fill(self, res, timing: bool) -> None:
-        """Enqueue the copies of res's answers and the event after them."""
-        self.T.copy_(res.T_star, non_blocking=self.cuda)
-        self.J.copy_(res.J_star, non_blocking=self.cuda)
-        self.U.copy_(res.U, non_blocking=self.cuda)
+    def fill(self, results: list, timing: bool) -> None:
+        """Enqueue the copies of each card's answers (`results`, one a card,
+        in order) into its rows, on its card's stream, and an event on
+        every card after them."""
+        r0 = 0
+        for res in results:
+            r1 = r0 + res.T_star.shape[0]
+            self.T[r0:r1].copy_(res.T_star, non_blocking=self.cuda)
+            self.J[r0:r1].copy_(res.J_star, non_blocking=self.cuda)
+            self.U[r0:r1].copy_(res.U, non_blocking=self.cuda)
+            r0 = r1
+        if r0 != self.T.shape[0]:
+            raise ValueError(f"hopbench: the results fill {r0} of the slot's {self.T.shape[0]} rows")
         if self.cuda:
             if timing:
-                self.end_ev = torch.cuda.Event(enable_timing=True)
-                self.end_ev.record()
-            self.event.record()
+                self.end_evs = [record(d, timing=True) for d in self.devices]
+            for ev, d in zip(self.events, self.devices):
+                ev.record(torch.cuda.current_stream(d))
 
     def wait(self) -> None:
-        if self.cuda:
-            self.event.synchronize()
+        for ev in self.events:
+            ev.synchronize()
 
 
 def run(solve, pool: list, slots: list, seconds: float, on_done, timing: bool = False,
         max_batches: int | None = None) -> Window:
-    """The closed loop over `pool` (Problems) with len(slots) batches in
-    flight for `seconds` (or until `max_batches` are enqueued):
-    solve(problem) enqueues one batch and returns its SolveResult;
+    """The closed loop over `pool` (each batch as its parts, one a card)
+    with len(slots) batches in flight for `seconds` (or until
+    `max_batches` are enqueued): solve(parts) enqueues one batch and
+    returns its SolveResults, one a card;
     on_done(batch, slot) reads each batch's answers from its slot once they
     are complete, before the slot is used again. Returns the window's
     batches and times."""
     win = Window()
     free = deque(slots)
     busy: deque = deque()
-    base = None
+    bases = None
     if timing and slots[0].cuda:
-        base = torch.cuda.Event(enable_timing=True)
-        base.record()
+        bases = [record(d, timing=True) for d in slots[0].devices]
     i = 0
     win.start = time.perf_counter()
     while True:
@@ -101,12 +125,11 @@ def run(solve, pool: list, slots: list, seconds: float, on_done, timing: bool = 
             slot = free.popleft()
             t = time.perf_counter()
             b = Batch(index=i, pool_index=i % len(pool), enqueue=t)
-            if base is not None:
-                slot.start_ev = torch.cuda.Event(enable_timing=True)
-                slot.start_ev.record()
+            if bases is not None:
+                slot.start_evs = [record(d, timing=True) for d in slot.devices]
             res = solve(pool[b.pool_index])
             b.returned = time.perf_counter()
-            slot.fill(res, timing and base is not None)
+            slot.fill(res, bases is not None)
             slot.batch = b
             busy.append(slot)
             win.batches.append(b)
@@ -117,9 +140,10 @@ def run(solve, pool: list, slots: list, seconds: float, on_done, timing: bool = 
         slot.wait()
         b = slot.batch
         b.done = time.perf_counter()
-        if base is not None:
-            b.start_ms = base.elapsed_time(slot.start_ev)
-            b.end_ms = base.elapsed_time(slot.end_ev)
+        if bases is not None:
+            b.card_ms = [(base.elapsed_time(s), base.elapsed_time(e))
+                         for base, s, e in zip(bases, slot.start_evs, slot.end_evs)]
+            b.start_ms, b.end_ms = b.card_ms[0]
         on_done(b, slot)
         free.append(slot)
         win.end = b.done

@@ -44,13 +44,51 @@ The reference takes nothing from the program: the problem's numbers come
 from the configuration and the seed's x0, and only the answers (T*, J*, U)
 are read, to be judged. `control` is the same reference in a lower
 precision put in the solver's place.
+
+A configuration's `system` names its plain system: one of
+reference/systems.py's, or else the class `SYSTEM` of
+reference/plain/<system>.py, loaded by its path, so a new system is a new
+file and no edit here. Such a class has the interface of systems.py's
+(`name`, `n`, `m`, `xdot`, `guard`, `extra_cost`) and declares beside its
+formulas the operations of one step's evaluation of each (`xdot_flops`,
+`guard_flops`, `extra_cost_flops`, counted by hopbench/work.py's rules),
+which work.py's line-search and Jacobian counts take for a system it does
+not list. Name the file after the program's System.name, which the
+work counts are keyed by, and give the configuration's `system` the same
+name.
 """
 
 from __future__ import annotations
 
+import functools
+import importlib.util
+from pathlib import Path
+
 import torch
 
 from hopbench.reference.systems import SYSTEMS, step, wrap
+
+PLAIN = Path(__file__).resolve().parent / "plain"  # one file a system not in systems.py
+
+
+@functools.lru_cache(maxsize=None)
+def _load(path: Path):
+    spec = importlib.util.spec_from_file_location(f"hopbench_plain_{path.stem.replace('.', '_').replace('-', '_')}",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.SYSTEM
+
+
+def system(name: str):
+    """The plain system `name`: reference/systems.py's, else the class
+    SYSTEM of PLAIN/<name>.py."""
+    if name in SYSTEMS:
+        return SYSTEMS[name]
+    path = PLAIN / f"{name}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"hopbench: no plain system {name!r}: not in reference/systems.py, no {path}")
+    return _load(path)
 
 
 class Deployment:
@@ -58,7 +96,7 @@ class Deployment:
 
     def __init__(self, cfg: dict, dtype: torch.dtype, device):
         z = dict(dtype=dtype, device=device)
-        self.system = SYSTEMS[cfg["system"]]
+        self.system = system(cfg["system"])
         self.n, self.m = self.system.n, self.system.m
         self.dt = float(cfg["dt"])
         self.N, self.T_min, self.T_max = int(cfg["N"]), int(cfg["T_min"]), int(cfg["T_max"])

@@ -4,12 +4,16 @@
 
 from the root of a checkout, on a machine with the cards the cell asks for.
 The cell (BENCHMARK.json `workloads`) names a deployment
-(hopbench/configs/) and a traffic mix (hopbench/traffic/). The run:
+(hopbench/configs/), a traffic mix (hopbench/traffic/) and its cards
+(`chips`). The run:
 
-1. set-up: makes the cell's pool of batches on the card from the seed, and
-   warms up the one program the traffic uses (its first call builds the
-   kernels, into timeopt_tpu_torch/_build/ inside the checkout, and captures
-   the program), then runs every in-flight slot once through the whole path;
+1. set-up: makes the cell's pool of batches on the first card from the
+   seed; on several cards splits each batch into equal chunks, one a card,
+   placed by the program's shard_problems (parallel/mesh.py), so a run
+   judges the same problems whatever the cards; and warms up the program
+   the traffic uses on each card (its first call builds the kernels, into
+   timeopt_tpu_torch/_build/ inside the checkout, and captures the
+   program), then runs every in-flight slot once through the whole path;
 2. the window: the closed loop of hopbench/loop.py for `--seconds`;
 3. with `--trace 1`, the cell's per-layer metrics (hopbench/metrics/);
 4. the program's state freed, the reference judges the window's answers
@@ -17,8 +21,9 @@ The cell (BENCHMARK.json `workloads`) names a deployment
 
 It prints, as the last line of standard output, one JSON object: correct,
 attempted, failed, metrics (the cell's end-to-end metrics, or with --trace 1
-its per-layer metrics), device, and last `checks`, each number compared
-with its limit; the same numbers are the last lines of standard error. It
+its per-layer metrics), device, with --trace 1 on the card `breakdown`
+(hopbench/breakdown.py), and last `checks`, each number compared with its
+limit; the same numbers are the last lines of standard error. It
 exits non-zero, printing no result, without the cards the cell asks for,
 without the program, or if jax, jaxlib, flax or the JAX package
 (timeopt_tpu) is loaded in the process.
@@ -64,36 +69,58 @@ def options(cfg: dict, mix: dict):
     return SolveOptions(method=mix["method"], max_iter=int(cfg["max_iter"]), psd_levels=int(cfg["psd_levels"]))
 
 
+def split(pool: list, devices: list) -> list:
+    """Each batch of the pool as the solve takes it, its parts, one a
+    device: the whole batch on one card; on several, equal contiguous
+    chunks in the devices' order, placed by the program's shard_problems as
+    its serving entry takes them (parallel/mesh.py)."""
+    if len(devices) == 1:
+        return [[p] for p in pool]
+    import numpy as np
+
+    from timeopt_tpu_torch.parallel import shard_problems
+    from timeopt_tpu_torch.parallel.mesh import Mesh
+
+    if pool[0].batch % len(devices):
+        raise ValueError(f"hopbench: a batch of {pool[0].batch} does not split evenly over {len(devices)} cards")
+    mesh = Mesh(np.array(devices, dtype=object), ("dp",))
+    return [shard_problems(p, mesh) for p in pool]
+
+
 def run_cell(cfg: dict, mix: dict, lim: dict, per_layer: list, e2e: list, seed: int, seconds: float, trace: bool,
-             device, solve=None, max_batches=None) -> dict:
-    """One run of a cell (its configuration, mix and limits): returns the
-    result line's object. per_layer and e2e are the cell's metric entries;
-    `solve` replaces the program's call and `max_batches` ends the window
-    early (the harness's tests break the solve underneath and count the
-    batches)."""
+             devices: list, solve=None, max_batches=None) -> dict:
+    """One run of a cell (its configuration, mix and limits) on `devices`
+    (the cell's cards in order; the harness's tests give entries of the
+    CPU): returns the result line's object. per_layer and e2e are the
+    cell's metric entries; `solve` replaces the program's call (it takes a
+    batch's parts and returns their results, one a device) and
+    `max_batches` ends the window early (the harness's tests break the
+    solve underneath and count the batches)."""
     import torch
 
-    from hopbench import context, judge, loop, problems
+    from hopbench import breakdown, context, judge, loop, problems
     from timeopt_tpu_torch.parallel import solve_batch_resident
     from timeopt_tpu_torch.solver import compiled
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    device = devices[0]
     cuda = device.type == "cuda"
     system = problems.program_system(cfg)
     opts = options(cfg, mix)
     B, k = int(mix["batch"]), int(mix["in_flight"])
     pool = problems.pool(cfg, int(mix["pool"]), B, seed, device)
+    parts = split(pool, devices)
     if solve is None:
-        def solve(p):
-            return solve_batch_resident(system, [p], options=opts)[0]
+        def solve(ps):
+            return solve_batch_resident(system, ps, options=opts)
     dtype = getattr(torch, cfg["dtype"])
-    slots = [loop.Slot(B, int(cfg["N"]), system.m, dtype, device) for _ in range(k)]
+    slots = [loop.Slot(B, int(cfg["N"]), system.m, dtype, devices) for _ in range(k)]
 
-    # warm-up: the program's build (kernels, capture, loop graph), then each slot once
+    # warm-up: the program's build on each card (kernels, capture, loop graph), then each slot once
     t0 = time.perf_counter()
     for s in slots:
-        s.fill(solve(pool[0]), timing=False)
+        s.fill(solve(parts[0]), timing=False)
     for s in slots:
         s.wait()
     log(f"[setup] warm-up {time.perf_counter() - t0:.3f} s: "
@@ -102,7 +129,7 @@ def run_cell(cfg: dict, mix: dict, lim: dict, per_layer: list, e2e: list, seed: 
     ctr0 = [p.ctr.tolist() for p in progs]
     col = judge.Collector(cfg, len(pool), B, int(mix["judge_rows"]), seed)
 
-    win = loop.run(solve, pool, slots, seconds, col.done, timing=trace and cuda, max_batches=max_batches)
+    win = loop.run(solve, parts, slots, seconds, col.done, timing=trace and cuda, max_batches=max_batches)
     setup_s = win.start - T_START
     built = [p.label for p in compiled.programs() if not any(p is q for q in progs)]
     if built:
@@ -110,7 +137,7 @@ def run_cell(cfg: dict, mix: dict, lim: dict, per_layer: list, e2e: list, seed: 
     found = forbidden_loaded()
     if found:
         raise RuntimeError(f"hopbench: modules loaded that the benchmark forbids: {found}")
-    peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+    peaks = [torch.cuda.max_memory_allocated(d) for d in devices] if cuda else [0]
     from timeopt_tpu_torch.ops import cuda_loop
 
     counters = {"runs": 0, "steps": 0}
@@ -118,22 +145,26 @@ def run_cell(cfg: dict, mix: dict, lim: dict, per_layer: list, e2e: list, seed: 
         c1 = p.ctr.tolist()
         counters["runs"] += c1[cuda_loop.RUNS] - c0[cuda_loop.RUNS]
         counters["steps"] += c1[cuda_loop.STEPS] - c0[cuda_loop.STEPS]
-    log(f"[window] {len(win.batches)} batches of {B} in {win.seconds:.3f} s, {k} in flight; loop runs "
-        f"{counters['runs']}, steps {counters['steps']}; setup {setup_s:.3f} s")
+    log(f"[window] {len(win.batches)} batches of {B} over {len(devices)} card(s) in {win.seconds:.3f} s, {k} in "
+        f"flight; loop runs {counters['runs']}, steps {counters['steps']}; setup {setup_s:.3f} s; memory peak "
+        f"each card {peaks}")
 
-    metrics = {}
+    metrics, brk = {}, None
     dev = {"platform": "gpu" if cuda else "cpu",
-           "kind": torch.cuda.get_device_name(device) if cuda else "cpu", "count": 1,
-           "memory_peak_bytes": int(peak)}
+           "kind": torch.cuda.get_device_name(device) if cuda else "cpu", "count": len(devices),
+           "memory_peak_bytes": int(max(peaks))}
     if trace:
         ctx = context.Context(cfg, mix, system, opts, pool, win, counters, device)
         for m in per_layer:
             v = harness.reader(m["name"])(ctx)
             if v is not None:
                 metrics[m["name"]] = {"value": float(v), "unit": m["unit"]}
-        timed = [b for b in win.batches if b.start_ms is not None]
-        dev["busy_s"] = sum(b.end_ms - b.start_ms for b in timed) / 1e3
+        timed = [b for b in win.batches if b.card_ms]
+        busy = [sum(b.card_ms[c][1] - b.card_ms[c][0] for b in timed) for c in range(len(devices))]
+        dev["busy_s"] = sum(busy) / len(devices) / 1e3  # averaged over the cards
         dev["window_s"] = win.seconds
+        if cuda:
+            brk = breakdown.read(ctx, len(devices))
     else:
         e2e_values = dict(loop.end_to_end(win, B), setup_s=setup_s)
         for m in e2e:
@@ -151,8 +182,10 @@ def run_cell(cfg: dict, mix: dict, lim: dict, per_layer: list, e2e: list, seed: 
         f"unlimited numbers: " + ", ".join(f"{k} {v}" for k, v in nums.items() if k not in checks))
     for key, c in checks.items():
         log(f"check {key} {c['value']!r} limit {c['limit']!r}")
-    return {"correct": bool(ok), "attempted": col.attempted, "failed": col.failed,
-            "metrics": metrics, "device": dev, "card": card, "checks": checks}
+    res = {"correct": bool(ok), "attempted": col.attempted, "failed": col.failed, "metrics": metrics, "device": dev}
+    if brk is not None:
+        res["breakdown"] = brk
+    return dict(res, card=card, checks=checks)
 
 
 def main(argv=None) -> int:
@@ -173,7 +206,7 @@ def main(argv=None) -> int:
         return 2
     res = run_cell(cfg, mix, lim, harness.metrics_of(w["name"], man, "per_layer"),
                    harness.metrics_of(w["name"], man, "end_to_end"), args.seed, args.seconds, bool(args.trace),
-                   torch.device("cuda", 0))
+                   [torch.device("cuda", i) for i in range(int(w["chips"]))])
     found = forbidden_loaded()
     if found:
         log(f"hopbench: modules loaded that the benchmark forbids: {found}")

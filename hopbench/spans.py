@@ -210,14 +210,15 @@ def _traced(ctx):
 
     B, k = int(ctx.mix["batch"]), int(ctx.mix["in_flight"])
     dtype = getattr(torch, ctx.cfg["dtype"])
-    slots = [loop.Slot(B, int(ctx.cfg["N"]), ctx.system.m, dtype, ctx.device) for _ in range(k)]
+    slots = [loop.Slot(B, int(ctx.cfg["N"]), ctx.system.m, dtype, [ctx.device]) for _ in range(k)]
 
-    def solve(p):
-        return solve_batch_resident(ctx.system, [p], options=ctx.opts)[0]
+    def solve(parts):
+        return solve_batch_resident(ctx.system, parts, options=ctx.opts)
 
     setup = next((p.spans["build"] for p in reversed(compiled.programs()) if "build" in p.spans), None)
     with trace.recording(ctx.device):
-        loop.run(solve, ctx.pool, slots, float("inf"), lambda b, slot: None, max_batches=len(ctx.pool) + 2 * k)
+        loop.run(solve, [[p] for p in ctx.pool], slots, float("inf"), lambda b, slot: None,
+                 max_batches=len(ctx.pool) + 2 * k)
     s = summarize(trace.records(), B, k, setup)
     spans = [b.end_ms - b.start_ms for b in ctx.window.batches if b.start_ms is not None]
     steps = ctx.counters.get("steps", 0)

@@ -33,7 +33,7 @@ def run(cell: str, in_place_of_program: bool) -> dict:
     system, opts = problems.program_system(cfg), options(cfg, mix)
     d32 = Deployment(cfg, torch.float32, "cpu")
 
-    def solve(p):
+    def solve_part(p):
         key = (cell, p.x0.numpy().tobytes())
         if key not in SOLVED:
             SOLVED[key] = solve_batch_resident(system, [p], options=opts)[0]
@@ -42,8 +42,9 @@ def run(cell: str, in_place_of_program: bool) -> dict:
             res.T_star, res.J_star, res.U = control(d32, p.x0, res.U)
         return res
 
-    return run_cell(cfg, mix, harness.limits(cell), [], [m for m in MAN["end_to_end"] if "workloads" not in m],
-                    2**31 + 4242, 1e9, False, torch.device("cpu"), solve=solve, max_batches=1)
+    return run_cell(cfg, mix, harness.limits(cell), [], harness.metrics_of(cell, MAN, "end_to_end"),
+                    2**31 + 4242, 1e9, False, [torch.device("cpu")] * int(w["chips"]),
+                    solve=lambda parts: [solve_part(p) for p in parts], max_batches=1)
 
 
 @pytest.mark.parametrize("cell", CELLS)

@@ -7,7 +7,7 @@ out correct, runs with the solve broken underneath do not.
 
     python -m pytest hopbench/tests/test_hopbench_harness.py -q
 
-The test marked `cuda` runs a cell on the card and skips without one.
+The tests marked `cuda` run cells on the cards and skip without them.
 """
 
 import dataclasses
@@ -48,8 +48,10 @@ def test_manifest_keys_and_names():
         assert (ROOT / c["file"]).is_file() and c["file"].startswith("hopbench/")
         assert any(w["config"] == c["name"] for w in MAN["workloads"])
     for w in MAN["workloads"]:
-        assert set(w) == {"name", "config", "traffic", "chips", "why"} and w["chips"] == 1
+        assert set(w) == {"name", "config", "traffic", "chips", "why"} and w["chips"] in (1, 4)
         assert 1 <= len(w["why"]) <= 200 and NAME.match(w["traffic"])
+    four = sum(w["chips"] == 4 for w in MAN["workloads"])
+    assert four <= max(1, len(CELLS) // 4)  # at most a quarter of the cells on four chips, or one
     assert any(m["name"] == "setup_s" for m in MAN["end_to_end"])
     for m in MAN["end_to_end"]:
         assert set(m) <= {"name", "unit", "better", "bound", "source", "workloads"}
@@ -118,6 +120,77 @@ def test_a_new_config_mix_metric_and_cell_are_picked_up_with_no_edit(tmp_path):
     assert harness.reader("loop.batches", here)(Ctx()) == 3
 
 
+UNICYCLE = '''"""A unicycle: x = [px, py, theta], u = [v, omega]."""
+
+import torch
+
+
+class Unicycle:
+    name = "Unicycle"
+    n, m = 3, 2
+    xdot_flops = 4  # a cosine, a sine, two multiplies
+    guard_flops = 0
+    extra_cost_flops = 0
+
+    @staticmethod
+    def xdot(x, u):
+        th, v = x[..., 2], u[..., 0]
+        return torch.stack([v * torch.cos(th), v * torch.sin(th), u[..., 1]], dim=-1)
+
+    @staticmethod
+    def guard(x, u):
+        return ~(torch.isfinite(x).all(-1) & torch.isfinite(u).all(-1))
+
+    @staticmethod
+    def extra_cost(x):
+        return None
+
+
+SYSTEM = Unicycle
+'''
+
+
+def test_a_new_system_is_judged_and_counted_with_no_edit(tmp_path, monkeypatch):
+    """A configuration whose `system` names a file of its own under
+    reference/plain/ (here a unicycle): its Deployment, the judge and the
+    line-search and Jacobian work counts take the file, nothing edited."""
+    from hopbench import judge, work
+    from hopbench.reference import check
+
+    plain = tmp_path / "hopbench" / "reference" / "plain"
+    plain.mkdir(parents=True)
+    (plain / "Unicycle.py").write_text(UNICYCLE)
+    monkeypatch.setattr(check, "PLAIN", plain)
+    cfg = dict(harness.config("quadrotor-n160-f32"), name="unicycle-n40-f32", system="Unicycle",
+               program_system="Unicycle", N=40, T_min=10, T_max=40, x0=[0.0, 0.0, 0.0], sigma_x0=[0.1, 0.1, 0.0],
+               xg=[2.0, 1.0, 0.0], u_ref=[0.0, 0.0], Q_diag=[1.0, 1.0, 0.1], R_diag=[0.1, 0.1], Qf=50.0, w=0.01,
+               wrap_idx=[2])
+    dep = check.Deployment(cfg, torch.float64, "cpu")
+    assert (dep.system.name, dep.n, dep.m) == ("Unicycle", 3, 2)
+    rng = np.random.default_rng(3)
+    x0 = torch.as_tensor(rng.standard_normal((5, 3)) * 0.1)
+    U = torch.as_tensor(rng.standard_normal((5, 40, 2)) * 0.3)
+    X = dep.rollout(x0, U)
+    th = X[:, :-1, 2]
+    assert torch.allclose(X[:, 1:, 0], X[:, :-1, 0] + dep.dt * U[..., 0] * torch.cos(th))
+    T = dep.argmin(dep.curve(X, U, psd=True))
+    J = dep.cost(X, U, T)
+    exact = judge.per_problem(dep, x0, T, J, U)
+    assert exact["ok"].all() and float(exact["cost_gap"].max()) == 0.0
+    assert float(exact["horizon_excess"].max()) == 0.0
+    off = judge.per_problem(dep, x0, T, J * 1.01, U)
+    assert float(off["cost_gap"].min()) > 1e-3
+    T_star = [20, 30, 40, 0, 15]
+    ls = work.linesearch("Unicycle", T_star, 40, 3, 2, 5)
+    step = 3 + 2 * 2 * 3 + 2 * 2 + 4 + 0 + 2 * 3
+    stage = 3 + 2 * 3 * 3 + 2 * 3 + 2 + 2 * 2 * 2 + 2 * 2 + 5 + 0
+    terminal = 3 + 2 * 3 * 3 + 2 * 3 + 2
+    assert ls["flops"] == 5 * (5 * 40 * step + sum(T_star) * stage + 4 * terminal)
+    assert work.linearize("Unicycle", 5, 40, 3, 2)["flops"] == 5 * 40 * 5 * (3 * 4 + 2 * 3)
+    with pytest.raises(FileNotFoundError, match="no plain system 'Tricycle'"):
+        check.system("Tricycle")
+
+
 # ---------------------------------------------------------------------------
 # The window's arithmetic and the closed loop
 # ---------------------------------------------------------------------------
@@ -149,9 +222,9 @@ def test_closed_loop_keeps_k_in_flight_and_reads_every_batch_in_order():
         calls.append(p)
         return FakeResult(4, 3, 2, p)
 
-    slots = [loop.Slot(4, 3, 2, torch.float32, torch.device("cpu")) for _ in range(3)]
-    win = loop.run(solve, [0, 1, 2, 3, 4], slots, 1e9, lambda b, s: seen.append((b.index, int(s.T[0]))),
-                   max_batches=11)
+    slots = [loop.Slot(4, 3, 2, torch.float32, [torch.device("cpu")]) for _ in range(3)]
+    win = loop.run(lambda p: [solve(p)], [0, 1, 2, 3, 4], slots, 1e9,
+                   lambda b, s: seen.append((b.index, int(s.T[0]))), max_batches=11)
     assert calls == [i % 5 for i in range(11)]
     assert seen == [(i, i % 5) for i in range(11)]
     assert [b.pool_index for b in win.batches] == [i % 5 for i in range(11)]
@@ -159,9 +232,60 @@ def test_closed_loop_keeps_k_in_flight_and_reads_every_batch_in_order():
 
 
 def test_closed_loop_stops_enqueueing_when_the_seconds_run_out():
-    slots = [loop.Slot(2, 1, 1, torch.float32, torch.device("cpu")) for _ in range(2)]
-    win = loop.run(lambda p: FakeResult(2, 1, 1, p), [0], slots, 0.05, lambda b, s: None)
+    slots = [loop.Slot(2, 1, 1, torch.float32, [torch.device("cpu")]) for _ in range(2)]
+    win = loop.run(lambda p: [FakeResult(2, 1, 1, p)], [0], slots, 0.05, lambda b, s: None)
     assert win.batches and all(b.enqueue - win.start < 0.05 for b in win.batches)
+
+
+def test_a_slot_puts_each_cards_answers_in_its_own_rows():
+    cpu = torch.device("cpu")
+    slot = loop.Slot(8, 3, 2, torch.float32, [cpu] * 4)
+    slot.fill([FakeResult(2, 3, 2, tag) for tag in (5, 6, 7, 8)], timing=False)
+    want = torch.tensor([5, 5, 6, 6, 7, 7, 8, 8])
+    assert torch.equal(slot.T, want) and torch.equal(slot.J, want.float())
+    assert torch.equal(slot.U, want.float()[:, None, None].expand(8, 3, 2))
+    with pytest.raises(ValueError, match="fill 6 of the slot's 8 rows"):
+        slot.fill([FakeResult(2, 3, 2, tag) for tag in (5, 6, 7)], timing=False)
+
+
+def card_batch(i: int, card_ms: list) -> loop.Batch:
+    return loop.Batch(index=i, pool_index=i, enqueue=float(i), card_ms=card_ms, start_ms=card_ms[0][0],
+                      end_ms=card_ms[0][1])
+
+
+class WindowCtx:
+    def __init__(self, batches):
+        self.window = loop.Window(batches=batches)
+
+
+def test_the_card_readers_on_hand_made_times():
+    # three batches on two cards, each card timed from its own base event:
+    # card 0 runs 0-10, 10-20, 22-30 (idle 2 of 30); card 1 runs 5-12, 12-25, 25-40 (idle 0 of 35)
+    bs = [card_batch(0, [(0.0, 10.0), (5.0, 12.0)]), card_batch(1, [(10.0, 20.0), (12.0, 25.0)]),
+          card_batch(2, [(22.0, 30.0), (25.0, 40.0)])]
+    ctx = WindowCtx(bs)
+    assert harness.reader("cards.idle_share")(ctx) == pytest.approx(100.0 * 2 / 30)
+    # per batch the slowest card's time minus the fastest's: |10 - 7|, |10 - 13|, |8 - 15|
+    assert harness.reader("cards.skew_ms")(ctx) == pytest.approx(3.0)
+    one = WindowCtx([card_batch(i, [c[0]]) for i, c in enumerate([b.card_ms for b in bs])])
+    assert harness.reader("cards.skew_ms")(one) is None  # one card: no skew
+    assert harness.reader("cards.idle_share")(one) == pytest.approx(harness.reader("device.idle_share")(one))
+    assert harness.reader("cards.idle_share")(WindowCtx([])) is None  # off the card: no events
+
+
+def test_the_breakdown_of_cards_without_the_programs_stamps():
+    from hopbench import breakdown
+
+    bs = [card_batch(0, [(0.0, 10.0), (5.0, 12.0)]), card_batch(1, [(10.0, 20.0), (12.0, 25.0)]),
+          card_batch(2, [(22.0, 30.0), (26.0, 40.0)])]
+
+    class Ctx(WindowCtx):
+        def peek(self, key):
+            return None
+
+    got = breakdown.read(Ctx(bs), 2)
+    assert got["device_ops"] == [["card1.batches", 0.034], ["card0.batches", 0.028]]
+    assert got["idle_gaps"] == [["card0 before batch 2", 0.002], ["card1 before batch 2", 0.001]]
 
 
 # ---------------------------------------------------------------------------
@@ -170,19 +294,26 @@ def test_closed_loop_stops_enqueueing_when_the_seconds_run_out():
 
 
 def tiny(cell: str):
+    """The cell's configuration and its mix at a tiny size, and its devices:
+    as many entries of the CPU as the cell has cards, two problems a card
+    (six on one)."""
     w = harness.cell(cell, MAN)
     cfg = harness.config(w["config"])  # the cell's own horizon and weights: the limits hold at them
-    mix = dict(harness.traffic(w["traffic"]), batch=6, in_flight=2, pool=2, judge_rows=3)
-    return w, cfg, mix
+    chips = int(w["chips"])
+    mix = dict(harness.traffic(w["traffic"]), batch=6 if chips == 1 else 2 * chips, in_flight=2, pool=2,
+               judge_rows=3)
+    return w, cfg, mix, [torch.device("cpu")] * chips
 
 
-def run_tiny(cell: str, solve_wrap=None):
+def run_tiny(cell: str, solve_wrap=None, mix_and_devices=None):
     """A run of the cell at a tiny size on the CPU whose window holds every
-    batch of the pool twice (the program solves each batch once here; its
+    batch of the pool twice (the program solves each part once here; its
     repeats on the card are compared bit for bit in every run)."""
     from timeopt_tpu_torch.parallel import solve_batch_resident
 
-    w, cfg, mix = tiny(cell)
+    w, cfg, mix, devices = tiny(cell)
+    if mix_and_devices is not None:
+        mix, devices = mix_and_devices
     opts = options(cfg, mix)
     from hopbench import problems
 
@@ -190,13 +321,14 @@ def run_tiny(cell: str, solve_wrap=None):
 
     solved = {}
 
-    def solve(p):  # each batch of the pool solved once, its answers handed out afresh at every call
-        if id(p) not in solved:
-            solved[id(p)] = solve_batch_resident(system, [p], options=opts)[0]
-        return dataclasses.replace(solved[id(p)])
+    def solve(parts):  # each part solved once, its answers handed out afresh at every call
+        todo = [p for p in parts if id(p) not in solved]
+        for p, r in zip(todo, solve_batch_resident(system, todo, options=opts) if todo else []):
+            solved[id(p)] = r
+        return [dataclasses.replace(solved[id(p)]) for p in parts]
 
     return run_cell(cfg, mix, harness.limits(cell), [], harness.metrics_of(cell, MAN, "end_to_end"),
-                    2**31 + 99, 1e9, False, torch.device("cpu"),
+                    2**31 + 99, 1e9, False, devices,
                     solve=solve if solve_wrap is None else solve_wrap(solve), max_batches=2 * mix["pool"])
 
 
@@ -204,9 +336,22 @@ def run_tiny(cell: str, solve_wrap=None):
 def test_a_sound_tiny_run_is_correct(cell):
     res = run_tiny(cell)
     assert res["correct"] is True, res["checks"]
-    assert res["attempted"] == 4 * 6 and res["failed"] == 0
+    assert res["attempted"] == 4 * tiny(cell)[2]["batch"] and res["failed"] == 0
+    assert res["device"]["count"] == harness.cell(cell, MAN)["chips"]
     assert list(res)[-1] == "checks"
     assert "solves_per_s" in res["metrics"] and "setup_s" in res["metrics"]
+
+
+def test_a_batch_split_over_four_cards_judges_what_it_judges_unsplit():
+    """The four-card cell's pool batch split into four chunks (shard_problems
+    over a CPU mesh, each chunk solved as its card solves it) and the same
+    batch solved whole: the same problems judged, to the same numbers."""
+    cell = next(w["name"] for w in MAN["workloads"] if w["chips"] == 4)
+    w, cfg, mix, devices = tiny(cell)
+    split = run_tiny(cell)
+    whole = run_tiny(cell, mix_and_devices=(mix, devices[:1]))
+    assert split["checks"] == whole["checks"] and split["attempted"] == whole["attempted"]
+    assert (split["device"]["count"], whole["device"]["count"]) == (4, 1)
 
 
 def stale(solve):
@@ -214,8 +359,8 @@ def stale(solve):
     returns the answers of the call before it."""
     last = []
 
-    def broken(p):
-        res = solve(p)
+    def broken(parts):
+        res = solve(parts)
         out = last[0] if last else res
         last[:] = [res]
         return out
@@ -224,26 +369,39 @@ def stale(solve):
 
 
 def half(solve):
-    """Half of the batch left out: the first half solved, its answers
-    standing for the second half too."""
-    def broken(p):
-        h = p.batch // 2
-        first = p.replace(**{f: t[:h] for f, t in p.tensors().items()})
-        res = solve(first)
-        for f in ("T_star", "J_star", "U"):
-            v = getattr(res, f)
-            setattr(res, f, torch.cat([v, v[: p.batch - h]], dim=0))
-        return res
+    """Half of the batch left out: the first half of each card's part
+    solved, its answers standing for the second half too."""
+    def broken(parts):
+        out = []
+        for p in parts:
+            h = p.batch // 2
+            res = solve([p.replace(**{f: t[:h] for f, t in p.tensors().items()})])[0]
+            for f in ("T_star", "J_star", "U"):
+                v = getattr(res, f)
+                setattr(res, f, torch.cat([v, v[: p.batch - h]], dim=0))
+            out.append(res)
+        return out
 
     return broken
 
 
 def altered(solve):
     """An answer altered where it is produced: every T* one step off."""
-    def broken(p):
-        res = solve(p)
-        res.T_star = torch.where(res.T_star < p.T_max, res.T_star + 1, res.T_star - 1)
-        return res
+    def broken(parts):
+        out = solve(parts)
+        for p, res in zip(parts, out):
+            res.T_star = torch.where(res.T_star < p.T_max, res.T_star + 1, res.T_star - 1)
+        return out
+
+    return broken
+
+
+def card_left_out(solve):
+    """One card's answers never come: the last card's rows take the first
+    card's answers."""
+    def broken(parts):
+        out = solve(parts)
+        return out[:-1] + [out[0]]
 
     return broken
 
@@ -255,12 +413,18 @@ def test_a_run_with_the_solve_broken_is_not_correct(cell, fault):
     assert res["correct"] is False, res["checks"]
 
 
+@pytest.mark.parametrize("cell", [w["name"] for w in MAN["workloads"] if w["chips"] > 1])
+def test_a_run_with_a_cards_answers_left_out_is_not_correct(cell):
+    res = run_tiny(cell, card_left_out)
+    assert res["correct"] is False, res["checks"]
+
+
 @pytest.mark.parametrize("cell", CELLS)
 def test_an_outer_step_that_leaves_the_state_unchanged_is_not_correct(cell):
     """Every outer step after the warm start leaves the state as it was:
     the answers are the warm start's, consistent with themselves, and the
     reference's descent number fails them."""
-    w, cfg, mix = tiny(cell)
+    w, cfg, mix, _ = tiny(cell)
     with faults.planted("stale_step", options(cfg, mix)):
         res = run_tiny(cell)
     assert res["correct"] is False, res["checks"]
@@ -273,12 +437,27 @@ def test_an_outer_step_that_leaves_the_state_unchanged_is_not_correct(cell):
 # ---------------------------------------------------------------------------
 
 
+def run_on_cards(cell: str, trace: int) -> dict:
+    out = subprocess.run([sys.executable, "-m", "hopbench.run", "--workload", cell, "--seed", str(2**31 + 5),
+                          "--seconds", "3", "--trace", str(trace)], cwd=ROOT, capture_output=True, text=True,
+                         timeout=900)
+    assert out.returncode == 0, out.stderr[-3000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
 @pytest.mark.cuda
 def test_a_cell_runs_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: the benchmark runs on the card")
-    out = subprocess.run([sys.executable, "-m", "hopbench.run", "--workload", CELLS[0], "--seed", str(2**31 + 5),
-                          "--seconds", "3", "--trace", "0"], cwd=ROOT, capture_output=True, text=True, timeout=900)
-    assert out.returncode == 0, out.stderr[-3000:]
-    res = json.loads(out.stdout.strip().splitlines()[-1])
+    res = run_on_cards(CELLS[0], 0)
     assert res["correct"] is True and res["device"]["platform"] == "gpu"
+
+
+@pytest.mark.cuda
+def test_the_four_card_cell_runs_on_four_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("fewer than 4 CUDA devices: the cell runs on four cards")
+    cell = next(w["name"] for w in MAN["workloads"] if w["chips"] == 4)
+    res = run_on_cards(cell, 1)
+    assert res["correct"] is True and res["device"]["count"] == 4
+    assert {"cards.idle_share", "cards.skew_ms", "entry.enqueue_ms", "loop.steps_per_batch"} <= set(res["metrics"])

@@ -161,6 +161,23 @@ def test_every_new_metric_is_in_the_manifest():
     assert entries["loop.active_share"]["better"] == "higher"
 
 
+def test_the_breakdown_of_the_programs_stamps():
+    from hopbench import breakdown
+
+    class BCtx:
+        counters = {"steps": 100, "runs": 10}
+
+        def peek(self, key):
+            assert key == "spans"
+            return spans.summarize(synthetic(), batch=8, keep_from=1, setup=setup_build())
+
+    got = breakdown.read(BCtx(), 1)
+    ops = dict(got["device_ops"])
+    assert len(got["device_ops"]) == 10 and got["device_ops"][0][0] == "step.select"
+    assert ops["step.select"] == pytest.approx(2.0 * 100 / 1e3) and ops["init"] == pytest.approx(1.5 * 10 / 1e3)
+    assert got["idle_gaps"][0] == ["after launch 1 (entry.call (launch 2) open)", pytest.approx((PERIOD - 4.0 + GAP) / 1e3)]
+
+
 def test_a_step_without_extra_cost_reads_none():
     s = spans.summarize(synthetic(extra=False), batch=8, keep_from=1)
     assert harness.reader("step.extra_cost_ms")(Ctx(s)) is None

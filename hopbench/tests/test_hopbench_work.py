@@ -31,11 +31,37 @@ def program():
     ("linesearch", ("Quadrotor", T_QUAD, 160, 12, 4, 5), {}),
     ("linesearch", ("PointMass_Navigation", T_PM, 240, 4, 2, 5), {}),
     ("linesearch", ("Quadrotor", T_QUAD * 3, 160, 12, 4, 4), {"x_start": True}),
+    ("linearize", ("Quadrotor", 1024, 160, 12, 4), {}),
+    ("linearize", ("PointMass_Navigation", 1024, 240, 4, 2), {}),
 ], ids=["select_fused", "select_generic", "backward_q", "backward_pm", "linesearch_q", "linesearch_pm",
-        "linesearch_from"])
+        "linesearch_from", "linearize_q", "linearize_pm"])
 def test_frozen_counts_equal_the_programs(kernel, args, kw, itemsize):
     assert getattr(frozen, kernel)(*args, **kw, itemsize=itemsize) == getattr(program(), kernel)(
         *args, **kw, itemsize=itemsize)
+
+
+# the line search's bounds of the two systems as the benchmark was defined
+# with them (hopbench/work.py before a system could come from a plain file):
+# (flops, bytes at itemsize 8, bytes at itemsize 4, bound_ms at 8, bound_ms at 4)
+DEFINED = {
+    "linesearch_q": (392695910.0, 197267496.0, 98644008.0, 0.05888581970149254, 0.02944597253731343),
+    "linesearch_pm": (101769920.0, 91041832.0, 45527080.0, 0.027176666268656717, 0.013590173134328358),
+    "linesearch_from": (942470184.0, 528863264.0, 264462368.0, 0.15786963104477614, 0.0789439904477612),
+}
+
+
+@pytest.mark.parametrize("itemsize", [8, 4])
+@pytest.mark.parametrize("case,args,kw", [
+    ("linesearch_q", ("Quadrotor", T_QUAD, 160, 12, 4, 5), {}),
+    ("linesearch_pm", ("PointMass_Navigation", T_PM, 240, 4, 2, 5), {}),
+    ("linesearch_from", ("Quadrotor", T_QUAD * 3, 160, 12, 4, 4), {"x_start": True}),
+], ids=lambda v: v if isinstance(v, str) else None)
+def test_the_two_systems_bounds_are_as_defined_to_the_last_bit(case, args, kw, itemsize):
+    got = frozen.linesearch(*args, **kw, itemsize=itemsize)
+    flops, b8, b4, ms8, ms4 = DEFINED[case]
+    want = (flops, b8, ms8) if itemsize == 8 else (flops, b4, ms4)
+    assert (got["flops"], got["bytes"], got["bound_ms"]) == want
+    assert got["bound_by"] == "bytes"
 
 
 def test_peaks():

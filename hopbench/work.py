@@ -3,7 +3,8 @@
 A copy of the formulas of timeopt_tpu_torch/ops/work.py as they stood when
 the benchmark was defined, for the kernels whose roofline shares the
 benchmark reports: the fused select (#1), the generic select (#7), the
-backward pass (#3) and the line search (#5, both entries). The counts come
+backward pass (#3), the line search (#5, both entries) and, since its
+kernel, the Jacobians (csrc/linearize.cu). The counts come
 from the algorithm on the given inputs (shapes and T*), not from what a
 kernel issues, so a later kernel is held to the same work whatever
 implements it. hopbench/tests/test_hopbench_work.py holds this copy to the
@@ -134,6 +135,29 @@ GUARD_FLOPS = {"Quadrotor": 2 * 12 + 6}
 EXTRA_COST_FLOPS = {"PointMass_Navigation": 3 * 11}
 
 
+def step_flops(case: str) -> tuple:
+    """(xdot, guard, extra cost) operations of one step of the system
+    `case`: the counts above for a system they list, else those its plain
+    reference declares (hopbench/reference/plain/<case>.py)."""
+    if case in XDOT_FLOPS:
+        return XDOT_FLOPS[case], GUARD_FLOPS.get(case, 0), EXTRA_COST_FLOPS.get(case, 0)
+    from hopbench.reference.check import system
+
+    plain = system(case)
+    return plain.xdot_flops, plain.guard_flops, plain.extra_cost_flops
+
+
+def linearize(case: str, B: int, N: int, n: int, m: int, itemsize: int = F64) -> dict:
+    """csrc/linearize.cu: the Jacobians A_k, B_k of B x N steps. Each of a
+    step's n + m columns evaluates xdot once on dual numbers, counted as
+    three times xdot's operations (each operation's value and its tangent's
+    product and sum), and forms its n entries e_c + dt xdot' (a multiply-add
+    each). It reads the rows k < N of X and U and writes A and B."""
+    flops = B * N * (n + m) * (3 * step_flops(case)[0] + 2 * n)
+    nbytes = itemsize * B * N * (n + m + n * n + n * m)
+    return bound(flops, nbytes)
+
+
 def linesearch(case: str, T_star, N: int, n: int, m: int, A: int, x_start: bool = False, itemsize: int = F64) -> dict:
     """csrc/linesearch.cu: A rollouts of N steps per problem; the stage cost
     on the active steps k < T*, the terminal cost at min(T*, N). With
@@ -142,8 +166,9 @@ def linesearch(case: str, T_star, N: int, n: int, m: int, A: int, x_start: bool 
     rollouts at their own T*), those B start states are read as well."""
     B = len(T_star)
     active = sum(min(max(int(t), 0), N) for t in T_star)
-    step = n + mm(m, 1, n) + 2 * m + XDOT_FLOPS[case] + GUARD_FLOPS.get(case, 0) + 2 * n
-    stage = n + mm(n, 1, n) + 2 * n + m + mm(m, 1, m) + 2 * m + 5 + EXTRA_COST_FLOPS.get(case, 0)
+    xdot, guard, extra = step_flops(case)
+    step = n + mm(m, 1, n) + 2 * m + xdot + guard + 2 * n
+    stage = n + mm(n, 1, n) + 2 * n + m + mm(m, 1, m) + 2 * m + 5 + extra
     terminal = n + mm(n, 1, n) + 2 * n + 2
     n_term = sum(1 for t in T_star if int(t) > 0)
     flops = A * (B * N * step + active * stage + n_term * terminal)
