@@ -70,7 +70,14 @@ are dropped between phases, and a `[time]` line follows each phase:
    linearize_ad (vmap(jacfwd)) in float64 at the benchmark cells' shapes
    (quadrotor B=1024 N=160, PointMass B=1024 N=240), float32 and float64
    (LINEARIZE_RTOL), timed one call and back to back beside the plain
-   version, with its byte bound;
+   version, with its byte bound; (c) the 6-DoF lander (LANDER: n = 14,
+   m = 3, the only system on the wide size tiers of the fused select and
+   the backward) at its benchmark cell's size, B=1024, N=200, in float64
+   and float32: the select, the backward and the line search against
+   their plain versions at the quadrotor's gates of phases 3 and 10 (a),
+   the Jacobian kernel against float64 AD, each timed with its bound; then
+   a captured float32 solve of the set, bitwise its eager run, with its
+   launches counted from zero;
 4. the solve of the 128 problems of each results/oracle_f64*.npz (six
    systems), scored against that f64 brute-force oracle (exact and
    exact-or-tied T*, every problem but REFERENCE_MISSES), with the launch
@@ -205,9 +212,15 @@ keys: its launches over phases 4-11 and per B=1024 solve of phase 7, its
 numbers from phase 12 (a). `linearize`, the port's own Jacobian kernel,
 too: its launches over phases 4-11, per B=1024 solve of phase 7 and of
 phase 10 (c), its numbers from phase 3 (b) (the quadrotor's float32 ones,
-every shape's under `shapes`). The last line is
-{"ok": true, "device": {...}}.
+every shape's under `shapes`). `lander` holds phase 3 (c)'s numbers by
+dtype and kernel, the same keys, and the launches of its solve. The last
+line is {"ok": true, "device": {...}}.
 Imports no JAX.
+
+    python3 chip_smoke.py --lander
+
+runs phases 1 and 3 (c) alone (a few minutes) and prints the same three
+last lines, the JSON line holding `lander` only.
 
     python3 chip_smoke.py --ab OLD_CSRC
 
@@ -290,6 +303,10 @@ LINEARIZE = ("linearize", "cuda", "timeopt_tpu_torch/csrc/linearize.cu (+ system
 # spacing plus that margin at float32 (one rounding of the float64 value).
 LINEARIZE_RTOL = 1e-12
 LINEARIZE_SHAPES = (("Quadrotor", 160), ("PointMass_Navigation", 240))  # B = B_FULL
+# Phase 3 (c): the system of the benchmark cell rocket6dof-prop-b1024, the
+# only one that takes the wide size tiers of the fused select and the
+# backward (n = 14, m = 3).
+LANDER = "Rocket6DoF"
 # The generated kernel against the hand-written one of the same system
 # (check_generated): both compile the same formulas with nvcc's default FMA
 # contraction, so they are likely bitwise equal (printed), not certainly;
@@ -1534,20 +1551,55 @@ def phase_kernels(device) -> dict:
     return out
 
 
-def phase_linearize(device) -> dict:
-    """Phase 3 (b): the Jacobian kernel against linearize_ad (vmap(jacfwd),
-    its plain version) at the benchmark cells' shapes (LINEARIZE_SHAPES,
-    B=1024, the first iterate), in float32 as the cells run and in float64,
-    gated as LINEARIZE_RTOL says; timed one call and back to back beside
-    the plain version at the same dtype, with its byte bound
-    (ops/work.py::linearize). Returns the kernels line's numbers: the
-    quadrotor's float32 ones, every shape's under `shapes`."""
+def check_linearize(system, probs, label: str) -> dict:
+    """The Jacobian kernel against linearize_ad run in float64 on the same
+    card inputs (the rollout of the problems' u_ref), gated as
+    LINEARIZE_RTOL says; timed one call and back to back beside the plain
+    version at the same dtype, with its byte bound (ops/work.py::linearize).
+    Returns the numbers."""
     import torch
-    from timeopt_tpu_torch.models import get_system
     from timeopt_tpu_torch.ops import work
     from timeopt_tpu_torch.solver.cost import rollout
     from timeopt_tpu_torch.solver.ilqr import default_U_init
     from timeopt_tpu_torch.solver.linearize import linearize, linearize_ad
+
+    U = default_U_init(probs)
+    X = rollout(system, probs, probs.x0, U)
+    kernel = lambda: linearize(system.step, X, U)  # noqa: E731
+    plain = lambda: linearize_ad(system.step, X, U)  # noqa: E731
+    got = kernel()
+    want = linearize_ad(system.step, X.double(), U.double())
+    err, share = 0.0, 0.0
+    for g, w in zip(got, want):
+        require(torch.equal(torch.isfinite(g), torch.isfinite(w)),
+                f"{label}: the non-finite entries differ from float64 AD's")
+        f = torch.isfinite(w)
+        g, w = g.double()[f], w[f]
+        room = LINEARIZE_RTOL * w.abs() + 1e-15
+        if X.dtype == torch.float32:
+            w32 = w.float().abs()
+            room = room + 0.5 * (torch.nextafter(w32, torch.full_like(w32, float("inf"))) - w32).double()
+        err = max(err, (g - w).abs().max().item())
+        share = max(share, ((g - w).abs() / room).max().item())
+    require(share <= 1.0, f"{label}: {share:.3f} of its room off float64 AD (max abs err {err:.3e})")
+    b2b, ms, pms = device_ms(kernel), cuda_ms(kernel, reps=5), cuda_ms(plain, reps=3)
+    k = dict(max_abs_err=err, share_of_room=share, ms=ms, ms_back_to_back=b2b, plain_ms=pms,
+             **work.linearize(system.name, X.shape[0], probs.N, system.n, system.m, X.element_size()))
+    log(f"[kernels] {label}: max abs err {err:.3e} against float64 AD ({share:.3f} of its room) | back to "
+        f"back {b2b:.4f} ms, one call {ms:.4f} ms, plain vmap(jacfwd) {pms:.3f} ms | bound "
+        f"{k['bound_ms']:.4f} ms by {k['bound_by']} ({k['bytes'] / 1e6:.1f} MB), share of bound "
+        f"{k['bound_ms'] / b2b:.4f} | {smi()}")
+    return k
+
+
+def phase_linearize(device) -> dict:
+    """Phase 3 (b): the Jacobian kernel against linearize_ad (vmap(jacfwd),
+    its plain version) at the benchmark cells' shapes (LINEARIZE_SHAPES,
+    B=1024, the first iterate), in float32 as the cells run and in float64
+    (check_linearize). Returns the kernels line's numbers: the quadrotor's
+    float32 ones, every shape's under `shapes`."""
+    import torch
+    from timeopt_tpu_torch.models import get_system
 
     shapes = {}
     for case, N in LINEARIZE_SHAPES:
@@ -1555,35 +1607,151 @@ def phase_linearize(device) -> dict:
         for dtype in (torch.float32, torch.float64):
             probs = oracle_problems(system, mk, B_FULL, device, dtype)
             require(probs.N == N, f"linearize {case}: N {probs.N}, expected {N}")
-            U = default_U_init(probs)
-            X = rollout(system, probs, probs.x0, U)
-            kernel = lambda: linearize(system.step, X, U)  # noqa: E731
-            plain = lambda: linearize_ad(system.step, X, U)  # noqa: E731
-            label = f"linearize ({case} B={B_FULL} N={N} {str(dtype).split('.')[-1]})"
-            got = kernel()
-            want = linearize_ad(system.step, X.double(), U.double())
-            err, share = 0.0, 0.0
-            for g, w in zip(got, want):
-                require(torch.equal(torch.isfinite(g), torch.isfinite(w)),
-                        f"{label}: the non-finite entries differ from float64 AD's")
-                f = torch.isfinite(w)
-                g, w = g.double()[f], w[f]
-                room = LINEARIZE_RTOL * w.abs() + 1e-15
-                if dtype == torch.float32:
-                    w32 = w.float().abs()
-                    room = room + 0.5 * (torch.nextafter(w32, torch.full_like(w32, float("inf"))) - w32).double()
-                err = max(err, (g - w).abs().max().item())
-                share = max(share, ((g - w).abs() / room).max().item())
-            require(share <= 1.0, f"{label}: {share:.3f} of its room off float64 AD (max abs err {err:.3e})")
-            b2b, ms, pms = device_ms(kernel), cuda_ms(kernel, reps=5), cuda_ms(plain, reps=3)
-            k = dict(max_abs_err=err, share_of_room=share, ms=ms, ms_back_to_back=b2b, plain_ms=pms,
-                     **work.linearize(case, B_FULL, N, system.n, system.m, X.element_size()))
-            shapes[f"{case} {str(dtype).split('.')[-1]}"] = k
-            log(f"[kernels] {label}: max abs err {err:.3e} against float64 AD ({share:.3f} of its room) | back to "
-                f"back {b2b:.4f} ms, one call {ms:.4f} ms, plain vmap(jacfwd) {pms:.3f} ms | bound "
-                f"{k['bound_ms']:.4f} ms by {k['bound_by']} ({k['bytes'] / 1e6:.1f} MB), share of bound "
-                f"{k['bound_ms'] / b2b:.4f} | {smi()}")
+            tag = str(dtype).split('.')[-1]
+            shapes[f"{case} {tag}"] = check_linearize(system, probs, f"linearize ({case} B={B_FULL} N={N} {tag})")
     return dict(shapes["Quadrotor float32"], shapes=shapes)
+
+
+def witness_lander_select(system, probs, X, U, A, Bj, J_k, J_p, s, label: str, n_rows: int = 8) -> None:
+    """The lander's float64 select against the long-double witness of its
+    math (select_generic_longdouble on the assembled blocks, whose J the
+    fused select's equals: the two plain versions agree bit for bit) on the
+    n_rows problems where kernel and plain differ most: the kernel within
+    1e-9 relative of the witness (the quadrotor's gate against the plain
+    version) or nearer to it than the plain version, and its argmin T*
+    tied to the witness's on each."""
+    import torch
+    from timeopt_tpu_torch.solver.cost import argmin_T
+
+    t = probs.T_min - 1
+    d = ((J_k[:, t:] - J_p[:, t:]).abs() / J_p[:, t:].abs()).amax(1)
+    rows = torch.argsort(d, descending=True)[:n_rows].cpu()
+    args, _ = generic_block_args(system, probs, X, U, A, Bj)
+    J_w = select_generic_longdouble(args, rows).to(J_k.device)
+    sub = lambda J: J[rows.to(J.device)]  # noqa: E731
+    rel = {side: ((sub(J)[:, t:] - J_w[:, t:]).abs() / J_w[:, t:].abs()).max().item()
+           for side, J in (("kernel", J_k), ("plain", J_p))}
+    s0 = sub(s)[:, :1] ** 2
+    T_k, T_w = argmin_T(s0 * sub(J_k), probs.T_min, probs.T_max), argmin_T(s0 * J_w, probs.T_min, probs.T_max)
+    r = torch.arange(len(rows), device=J_w.device)
+    tied = (T_k == T_w) | ((J_w[r, T_k - 1] - J_w[r, T_w - 1]).abs() <= 1e-9 * J_w[r, T_w - 1].abs())
+    log(f"[kernels] {label}: long-double witness on the {len(rows)} problems where kernel and plain differ most "
+        f"(up to {d.max().item():.3e}): kernel max rel err {rel['kernel']:.3e}, plain {rel['plain']:.3e}, kernel "
+        f"argmin tied {int(tied.sum())}/{len(rows)}")
+    require(rel["kernel"] <= max(1e-9, rel["plain"]),
+            f"{label}: kernel J {rel['kernel']:.3e} off the long-double witness, farther than 1e-9 and than the "
+            f"plain version's {rel['plain']:.3e}")
+    require(bool(tied.all()), f"{label}: kernel argmin not tied to the witness's on {int((~tied).sum())} problems")
+
+
+def phase_lander(device) -> dict:
+    """Phase 3 (c): the 6-DoF lander (LANDER, n = 14, m = 3) at the size of
+    the benchmark cell rocket6dof-prop-b1024 (B=1024, N=200, T in [40,
+    200]; its start perturbed by sigma_x0 as oracle_problems does), in
+    float64 and in float32 as the cell runs: the fused select's wide size
+    tier against select_fused_plain, the (14, 3) backward against
+    backward_plain at the plain select's T*, the line search on the
+    lander's struct (case 6) against its plain version, each at the gate
+    the quadrotor's rows of phases 3 and 10 (a) have, and the Jacobian
+    kernel against float64 AD (check_linearize); each timed one call and
+    back to back beside its plain version, with its bound (ops/work.py).
+    In float64 the select is held to the plain version's argmin and to a
+    long-double witness (witness_lander_select), since at N = 200 the plain
+    version's explicit inverses lose digits past the quadrotor's 1e-9.
+    Then one captured float32 solve of the set with its launches counted
+    from zero (captured_vs_eager: bitwise the eager run, the same
+    launches), every kernel of the lander's path launched and neither the
+    generic select, the generated line search nor vmap(jacfwd) run.
+    Returns the numbers by dtype and kernel, and the solve's launches."""
+    import torch
+    from timeopt_tpu_torch.models import get_system
+    from timeopt_tpu_torch.ops import cuda_backward, cuda_forward, cuda_lft, work
+    from timeopt_tpu_torch.solver import linearize as lin
+    from timeopt_tpu_torch.solver.cost import argmin_T
+    from timeopt_tpu_torch.solver.ilqr import SolveOptions
+
+    system, mk = get_system(LANDER)
+    require((system.n, system.m) == (14, 3) and cuda_lft.tier(14, 3) == 14 and cuda_backward.tier(14, 3) == 14,
+            f"{LANDER}: not the wide tiers of the select and the backward")
+    opts = SolveOptions(max_iter=MAX_ITER, psd_levels=1)
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype).split(".")[-1]
+        f32 = dtype == torch.float32
+        size = 4 if f32 else 8
+        probs = oracle_problems(system, mk, B_FULL, device, dtype if f32 else None)
+        require((probs.N, probs.T_min, probs.T_max) == (200, 40, 200), f"{LANDER}: not the cell's horizons")
+        X, U, A, Bj = first_iterate(system, probs)
+        where = f"{LANDER} B={B_FULL} N={probs.N} {tag}"
+        rows = {}
+
+        kernel, plain, s = select_pair(system, probs, opts, X, U, A, Bj)
+        J_k, J_p = kernel(), plain()
+        torch.cuda.synchronize()
+        label = f"lft_select wide tier ({where})"
+        if f32:
+            err, T_p = check_select(J_k, J_p, s, probs, ("rel", F32_REL), label, tie=F32_REL)
+        else:
+            err, T_p = check_select(J_k, J_p, s, probs, None, label,
+                                    ungated="the argmin below, and the long-double witness next")
+            T_k = argmin_T(s[:, :1] ** 2 * J_k, probs.T_min, probs.T_max)
+            rb = torch.arange(B_FULL, device=device)
+            require(bool(((T_k == T_p) | ((J_p[rb, T_k - 1] - J_p[rb, T_p - 1]).abs()
+                                          <= 1e-9 * J_p[rb, T_p - 1].abs())).all()),
+                    f"{label}: argmin T differs from the plain version's beyond a 1e-9 tie")
+            witness_lander_select(system, probs, X, U, A, Bj, J_k, J_p, s, label)
+        rows["lft_select"] = dict(max_abs_err=err, ms=cuda_ms(kernel, reps=5), ms_back_to_back=device_ms(kernel),
+                                  plain_ms=cuda_ms(plain, reps=3),
+                                  **work.select_fused(B_FULL, probs.N, system.n, system.m, probs.T_min, size))
+
+        bw_args = backward_args(system, probs, X, U, A, Bj, T_p, opts.lm_init)
+        _, (kap_p, K_p, _), nums = check_backward(bw_args, f"backward (14, 3) ({where})", timed=True,
+                                                  norm=F32_REL if f32 else None, witness=False)
+        rows["backward"] = dict(nums, **work.backward(T_p.tolist(), probs.N, system.n, system.m, size))
+
+        ls_args = (system, probs, X, U, K_p, kap_p, T_p, opts.alphas)
+        err = check_linesearch(*ls_args, f"line search case 6 ({where})", gate_all=True,
+                               **(dict(rtol=F32_REL, atol=F32_ATOL) if f32 else {}))
+        run = lambda: cuda_forward.linesearch(*ls_args)  # noqa: E731
+        rows["linesearch"] = dict(max_abs_err=err, ms=cuda_ms(run, reps=5), ms_back_to_back=device_ms(run),
+                                  plain_ms=cuda_ms(lambda: cuda_forward.linesearch_plain(*ls_args), reps=3),
+                                  **work.linesearch(LANDER, T_p.tolist(), probs.N, system.n, system.m,
+                                                    len(opts.alphas), itemsize=size))
+        rows[LINEARIZE[0]] = check_linearize(system, probs, f"linearize case 6 ({where})")
+        for name, k in rows.items():
+            k["share_of_bound"] = k["bound_ms"] / k["ms_back_to_back"]
+            log(f"[bounds] {name} ({where}): {k['ms_back_to_back']:.4f} ms back to back ({k['ms']:.4f} one call, "
+                f"plain {k['plain_ms']:.3f}), bound {k['bound_ms']:.4f} ms by {k['bound_by']} "
+                f"({k['flops'] / 1e9:.3f} GFLOP, {k['bytes'] / 1e6:.1f} MB), share of bound "
+                f"{k['share_of_bound']:.4f}")
+        out[tag] = rows
+
+    def refused(*a, **k):
+        raise AssertionError(f"{LANDER}: linearize_ad (vmap(jacfwd)) ran on the card")
+
+    probs = oracle_problems(system, mk, B_FULL, device, torch.float32)
+    saved, lin.linearize_ad = lin.linearize_ad, refused
+    try:
+        o = captured_vs_eager(system, probs, SolveOptions(method="propagator", max_iter=MAX_ITER, psd_levels=1),
+                              f"solve {LANDER}")
+    finally:
+        lin.linearize_ad = saved
+    counts, res = o["counts"], o["res"]
+    for name in ("lft_select", "backward", "linesearch", LINEARIZE[0]):
+        require(counts[name] > 0, f"solve {LANDER}: kernel {name} was never launched")
+    for name in ("lft_select_generic", GENERATED[0]):
+        require(counts[name] == 0, f"solve {LANDER}: {name} was launched {counts[name]} times")
+    require(bool(torch.isfinite(res.J_star).all()), f"solve {LANDER}: non-finite J*")
+    inside = ((res.T_star > probs.T_min) & (res.T_star < probs.T_max)).double().mean().item()
+    thrust = torch.linalg.vector_norm(res.U.double(), dim=-1)
+    thrust = torch.where(torch.arange(probs.N, device=device)[None] < res.T_star[:, None], thrust, 0.0)
+    secs = statistics.mean(o["secs"]["captured"])
+    log(f"[lander] solve {LANDER} B={B_FULL} float32 max_iter={MAX_ITER}: launches {counts} | "
+        f"{turns_line(o, B_FULL)} | T* {int(res.T_star.min())}..{int(res.T_star.max())}, inside (T_min, T_max) "
+        f"{inside:.4f} | largest thrust {thrust.max().item():.4f} | {smi()}")
+    out["launches_per_solve"] = counts
+    out["solves_per_s"] = B_FULL / secs
+    return out
 
 
 def _counted():
@@ -3914,6 +4082,7 @@ def main() -> None:
         log(f"[time] {label}: {time.perf_counter() - t0:.1f} s ({time.perf_counter() - start:.1f} s since the start)")
         return out
 
+    lander = phase("3 (c) lander", lambda: phase_lander(device))
     for case in CASES:
         add(phase(f"4 oracle {case}", lambda: phase_oracle(case, device)))
     add(phase("4 (b) generated line search", lambda: phase_generated(device)))
@@ -4024,7 +4193,23 @@ def main() -> None:
         f"share of bound {ln['share_of_bound']:.4f}, launches {ln['launches']} (phases 4-11), per B={B_FULL} solve "
         f"{ln['launches_per_solve']}, float32 {ln['launches_per_solve_float32']}")
     require(counts[name] > 0, f"{name}: never launched on the main path")
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "lander": lander}))
+    print(smi())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
+
+
+def main_lander() -> None:
+    """Phases 1 and 3 (c) alone, the lander's program traced as on the main
+    path."""
+    import torch
+
+    phase_device()
+    observe_programs()
+    t0 = time.perf_counter()
+    lander = phase_lander(torch.device("cuda", 0))
+    log(f"[time] 3 (c) lander: {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"lander": lander}))
     print(smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
@@ -4042,5 +4227,7 @@ def main_ab(old: str) -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ab"]:
         main_ab(sys.argv[2])
+    elif sys.argv[1:2] == ["--lander"]:
+        main_lander()
     else:
         main()

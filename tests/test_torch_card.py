@@ -44,6 +44,13 @@ The Jacobian kernel (csrc/linearize.cu) is held to linearize_ad run in
 float64 on the same card inputs: the same non-finite entries, rtol 1e-12
 at float64 and half a float32 spacing more at float32; a captured
 quadrotor solve with it inside to its eager driver, bit for bit.
+
+The 6-DoF lander (Rocket6DoF, n = 14, m = 3) takes the fused select's wide
+size tier and the backward pass's (14, 3): its rows join the select,
+backward, line-search, float32 and Jacobian tests above at their
+tolerances, and a traced lander build counts the wide tier. Its initial
+rollout, one launch of the line-search kernel, is held to rollout's torch
+steps at the line search's tolerances.
 """
 
 from __future__ import annotations
@@ -114,7 +121,8 @@ def _close(a, b, rtol, atol):
 
 
 @pytest.mark.parametrize("case,noise,rtol", [("Quadrotor", 0.0, 1e-9), ("Quadrotor", 0.05, 1e-7),
-                                             ("DoubleIntegrator", 0.05, 1e-9)])
+                                             ("DoubleIntegrator", 0.05, 1e-9), ("Rocket6DoF", 0.0, 1e-9),
+                                             ("Rocket6DoF", 0.05, 1e-7)])
 def test_select_kernel_matches_plain(dev, case, noise, rtol):
     system, probs, X, U, A, Bj = _iterate(case, noise=noise)
     fi = build_fused_inputs(system, probs, X, U, A, Bj, psd_levels=1)
@@ -312,7 +320,8 @@ def test_scan_and_query_take_one_or_two_levels_on_the_card(dev):
 
 @pytest.mark.parametrize("case,variant", [("Quadrotor", v) for v in ("T1", "Tmid", "TN", "nonpd", "nonfinite_eT", "T0")]
                          + [(c, "mixed") for c in ("DoubleIntegrator", "Cartpole_SwingUp", "Quadrotor", "Segway_Balance",
-                                                   "Ballbot_Balance", "PointMass_Navigation")])
+                                                   "Ballbot_Balance", "PointMass_Navigation", "Rocket6DoF")]
+                         + [("Rocket6DoF", v) for v in ("Tmid", "nonpd")])
 def test_backward_kernel_matches_plain(dev, case, variant):
     """The quadrotor's edges at B = 4, and every system at B = 37 ("mixed":
     four problems a block, the last block with one) with T* that differ
@@ -353,7 +362,7 @@ def test_backward_run_time_sizes_match_plain(dev, n, m):
 @pytest.mark.parametrize("case,kappa_scale", [("Quadrotor", 1.0), ("Quadrotor", 30.0), ("Quadrotor", 1e6),
                                               ("DoubleIntegrator", 1.0), ("Cartpole_SwingUp", 1.0),
                                               ("Segway_Balance", 1.0), ("Ballbot_Balance", 1.0),
-                                              ("PointMass_Navigation", 1.0)])
+                                              ("PointMass_Navigation", 1.0), ("Rocket6DoF", 1.0), ("Rocket6DoF", 30.0)])
 def test_linesearch_kernel_matches_plain(dev, case, kappa_scale):
     system, probs, X, U, A, Bj = _iterate(case)
     N = U.shape[1]
@@ -382,6 +391,8 @@ def test_linesearch_kernel_matches_plain(dev, case, kappa_scale):
     ("Quadrotor", 3, 33, 1, 0.0),  # p = 13, every step queried
     ("Quadrotor", 1, 31, 31, 0.0),  # a single problem, T_min = N
     ("Quadrotor", 2, 2, 1, 0.0),  # N = 2: the rings never wrap
+    ("Rocket6DoF", 3, 33, 1, 0.0),  # p = 15, the wide tier, every step queried
+    ("Rocket6DoF", 2, 2, 1, 0.05),  # the wide tier, N = 2
 ])
 def test_select_kernel_edges_match_plain(dev, case, B, N, t_min, noise):
     """The select's pipeline (element, compose and query warps handing
@@ -403,6 +414,7 @@ def test_select_kernel_edges_match_plain(dev, case, B, N, t_min, noise):
     ("PointMass_Navigation", 9, (1.0,), False),  # width 4, one alpha
     ("Quadrotor", 3, ALPHAS + (0.02, 0.01), False),  # width 16, 2 problems a block, alphas over two blocks
     ("Quadrotor", 3, ALPHAS, True),  # rollouts the guard poisons with NaN
+    ("Rocket6DoF", 3, ALPHAS + (0.02, 0.01), False),  # width 16 on the lander's struct, alphas over two blocks
 ])
 def test_linesearch_kernel_edges_match_plain(dev, case, B, alphas, poison):
     """The grouped line search at the edges of its layout: every group
@@ -490,7 +502,8 @@ def test_onepass_solve_on_the_card_matches_cpu(dev, case):
 F32_RTOL = 3e-7  # kernel and plain agree to ~1e-9 in float64; each rounds to float32 once (1 ulp = 1.2e-7)
 
 
-@pytest.mark.parametrize("case", ["Quadrotor", "DoubleIntegrator", "Cartpole_SwingUp", "PointMass_Navigation"])
+@pytest.mark.parametrize("case", ["Quadrotor", "DoubleIntegrator", "Cartpole_SwingUp", "PointMass_Navigation",
+                                  "Rocket6DoF"])
 def test_float32_kernels_match_plain(dev, case):
     """The float32 instantiations (float32 in device memory, float64 in
     registers) of the select (fused, or generic for PointMass), the
@@ -1061,7 +1074,7 @@ def test_stamps_lie_within_their_calls_on_one_clock(dev):
 # ---- the Jacobian kernel of the registry systems (csrc/linearize.cu)
 
 REGISTRY = ("DoubleIntegrator", "Quadrotor", "Cartpole_SwingUp", "Segway_Balance", "Ballbot_Balance",
-            "PointMass_Navigation")
+            "PointMass_Navigation", "Rocket6DoF")
 
 
 def _linearize_inputs(case, dev, dtype):
@@ -1166,3 +1179,81 @@ def test_captured_quadrotor_solve_takes_the_jacobian_kernel(dev, monkeypatch):
     want = compiled._solve_traced(system, opts, p, U)
     _bitwise(got, want)
     assert captured == cuda_linearize.LAUNCHES - before == 1 + steps and steps > 0
+
+
+# ---- the 6-DoF lander: the wide size tier on the solve's path
+
+
+def test_traced_rocket_build_counts_the_wide_tier(dev, monkeypatch):
+    """A float32 lander solve (B = 64, N = 48) on the card: a traced
+    program's build counts its select and backward launches at the wide
+    tier (utils/trace.py::count), an untraced one counts nothing, and the
+    two give the same bits; the solve never runs linearize_ad (vmap(jacfwd))
+    or a generated line search, and every answer is finite."""
+    from timeopt_tpu_torch.ops import cuda_linearize, dyngen
+    from timeopt_tpu_torch.solver import compiled
+    from timeopt_tpu_torch.solver import linearize as lin
+    from timeopt_tpu_torch.utils import trace
+
+    def refused(*a, **k):
+        raise AssertionError("linearize_ad ran on the card for the lander")
+
+    monkeypatch.setattr(lin, "linearize_ad", refused)
+
+    system, mk = get_system("Rocket6DoF")
+    base = mk(N=48, device=dev, dtype=torch.float32).replace(T_min=12, T_max=48)
+    rng = np.random.default_rng(5)
+    x0 = base.x0.double().cpu().numpy() + np.asarray(system.sigma_x0) * rng.standard_normal((64, 14))
+    probs = broadcast_problem(base, 64).replace(x0=torch.as_tensor(x0, dtype=torch.float32, device=dev))
+    opts = SolveOptions(max_iter=6)
+    compiled.clear_compiled()
+    trace.reset()
+    lin0, gen0 = cuda_linearize.LAUNCHES, dyngen.LAUNCHES
+    plain = solve_batch(system, probs, options=opts)
+    torch.cuda.synchronize(dev)
+    with trace.recording(dev):
+        traced = solve_batch(system, probs, options=opts)
+        torch.cuda.synchronize(dev)
+    progs = compiled.programs()
+    _settle()
+    counted = {p.traced: trace.counts(p.spans["build"]) for p in progs}
+    assert counted[False] == {}
+    assert counted[True].get("select.tier14", 0) >= 2 and counted[True].get("backward.tier14", 0) >= 2
+    assert set(counted[True]) == {"select.tier14", "backward.tier14"}
+    assert cuda_linearize.LAUNCHES > lin0 and dyngen.LAUNCHES == gen0
+    _bitwise(traced, plain)
+    assert bool(torch.isfinite(plain.J_star).all()) and bool(((plain.T_star >= 12) & (plain.T_star <= 48)).all())
+    compiled.clear_compiled()
+    trace.reset()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_rocket_kernel_rollout_matches_rollout(dev, dtype):
+    """The lander's initial rollout on the card (solver/cost.py::
+    rollout_kernel: one launch of the line-search kernel at T* = 0) against
+    rollout's torch steps on the same card inputs: the same NaN states (a
+    NaN control, a guarded zero thrust, a state past the norm guard), the
+    finite ones within the line search's rtol 1e-10 / atol 1e-12 at
+    float64 and F32_RTOL at float32."""
+    from timeopt_tpu_torch.solver.cost import rollout_kernel
+
+    system, mk = get_system("Rocket6DoF")
+    assert system.kernel_rollout
+    B, N = 6, 40
+    base = mk(N=N, device=dev, dtype=dtype)
+    rng = np.random.default_rng(11)
+    x0 = base.x0.double().cpu().numpy() + np.asarray(system.sigma_x0) * rng.standard_normal((B, 14))
+    probs = broadcast_problem(base, B).replace(x0=torch.as_tensor(x0, dtype=dtype, device=dev))
+    U = probs.u_ref[:, None].expand(B, N, 3) + 0.3 * torch.as_tensor(rng.standard_normal((B, N, 3)), dtype=dtype,
+                                                                       device=dev)
+    U[1, 7, 0] = float("nan")
+    U[2, 5] = 0.0
+    U[3, 9, 0] = 1e9
+    before = cuda_forward.LAUNCHES
+    got = rollout_kernel(system, probs, probs.x0, U)
+    assert cuda_forward.LAUNCHES == before + 1
+    want = rollout(system, probs, probs.x0, U)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert bool(torch.isnan(got[1:4, -1]).all()) and bool(torch.isfinite(got[[0, 4, 5]]).all())
+    rtol, atol = (1e-10, 1e-12) if dtype == torch.float64 else (F32_RTOL, 1e-12)
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol, equal_nan=True)

@@ -78,7 +78,7 @@ def test_solve_with_central_diff_matches_ad_closely():
 # ---- the Jacobian kernel of the registry systems (csrc/linearize.cu) ----
 
 IDS = {"DoubleIntegrator": 0, "Quadrotor": 1, "Cartpole_SwingUp": 2, "Segway_Balance": 3, "Ballbot_Balance": 4,
-       "PointMass_Navigation": 5}
+       "PointMass_Navigation": 5, "Rocket6DoF": 6}
 
 
 def test_registry_steps_carry_their_device_id():
@@ -163,7 +163,7 @@ def host_columns(tmp_path_factory):
     d = tmp_path_factory.mktemp("linearize_host")
     (d / "cuda_runtime.h").write_text("")  # the sources' only CUDA header; the column needs nothing of it
     cases = "".join(f"    case {i}: jacobian_column<{s}>(x, u, c, dt, col); break;\n" for i, s in enumerate(
-        ("DoubleIntegrator", "Quadrotor", "Cartpole", "Segway", "Ballbot", "PointMass")))
+        ("DoubleIntegrator", "Quadrotor", "Cartpole", "Segway", "Ballbot", "PointMass", "Rocket6DoF")))
     (d / "host.cpp").write_text(
         "#define __device__\n#define __host__\n#define __forceinline__ inline\n#include \"linearize.cu\"\n"
         "extern \"C\" void column(int sys, const double* x, const double* u, int c, double dt, double* col) {\n"
@@ -179,14 +179,15 @@ def host_columns(tmp_path_factory):
     return lib
 
 
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", CASES + ("Rocket6DoF",))
 def test_jacobian_column_on_the_host_matches_ad(host_columns, case):
     """The kernel's Jacobian, column by column, built on the host, against
     linearize_ad (torch's forward AD through the Python step) in float64 on
     random states and controls, with a NaN state entry, an infinite one, a
-    NaN control and, on the quadrotor, a guarded pitch (|cos theta| < 1e-3):
-    the same non-finite entries, the finite ones within rtol 1e-12 (the
-    wrap's and the guard's derivatives are those of AD: 1 and 0)."""
+    NaN control and, on the quadrotor, a guarded pitch (|cos theta| < 1e-3),
+    on the lander a mass below the dry mass: the same non-finite entries,
+    the finite ones within rtol 1e-12 (the wrap's and the guard's
+    derivatives are those of AD: 1 and 0)."""
     from timeopt_tpu_torch.models import get_system
     from timeopt_tpu_torch.solver.linearize import linearize_ad
 
@@ -199,6 +200,9 @@ def test_jacobian_column_on_the_host_matches_ad(host_columns, case):
     U[0, 3, 0] = np.nan
     if case == "Quadrotor":
         X[0, 1, 7] = np.pi / 2 - 5e-4
+    if case == "Rocket6DoF":
+        X[..., 0] = 1.5 + 0.1 * X[..., 0]  # masses near the wet mass, one below the dry mass
+        X[0, 1, 0] = 0.5
     A, Bj = (t.numpy() for t in linearize_ad(system.step, torch.as_tensor(X), torch.as_tensor(U)))
     gA, gB, col = np.empty_like(A), np.empty_like(Bj), np.empty(n)
     for b in range(B):
@@ -212,6 +216,8 @@ def test_jacobian_column_on_the_host_matches_ad(host_columns, case):
                     gB[b, k, :, c - n] = col
     if case == "Quadrotor":
         assert np.isfinite(A[0, 1]).all() and np.abs(A[0, 1]).max() > 100.0  # guarded, finite, large
+    if case == "Rocket6DoF":
+        assert bool(system.guard(torch.as_tensor(X[0, 1]), torch.as_tensor(U[0, 1]))) and np.isfinite(A[0, 1]).all()
     for g, w in ((gA, A), (gB, Bj)):
         np.testing.assert_array_equal(np.isfinite(g), np.isfinite(w))
         f = np.isfinite(w)

@@ -19,7 +19,10 @@ kernel at each phase boundary; on the CPU the eager loop
 - (f) a program's warmup_s, capture_s and loop_s are its build spans',
   which the program keeps and the recorder lists only while tracing is
   on; a traced build's warm-up puts its seconds down to the phases;
-- (g) records() raises on rows of a card whose clock was not fitted.
+- (g) records() raises on rows of a card whose clock was not fitted;
+- (h) a traced build counts the size tier of each select and backward
+  launch its warm-up and captures place, in its innermost build span;
+  untraced, or outside a build, nothing is counted.
 
 The card's side (stamps inside the loop graph, bitwise results, the clock
 calibration) is in tests/test_torch_card.py.
@@ -310,3 +313,57 @@ def test_rows_of_an_unfitted_card_raise():
         trace.records()
     with pytest.raises(ValueError, match="no clock of its own"):
         trace.calibrate("cpu")
+
+
+def test_counts_go_to_the_innermost_build_span_while_tracing():
+    """(h) count() adds to the innermost open build span's counts, only
+    while tracing is on; counts() sums a span's tree."""
+    with trace.build_span("build") as off:
+        trace.count("select.tier14")
+    assert trace.counts(off) == {}
+    with trace.recording():
+        trace.count("select.tier14")  # no build open: nothing, and no error
+        with trace.build_span("build") as b:
+            with trace.build_span("build.capture.step") as c:
+                with trace.build_span("build.kernels", lib="lft_select"):
+                    pass
+                trace.count("select.tier14")
+                trace.count("select.tier14")
+            trace.count("backward.tier14")
+    assert c.args["counts"] == {"select.tier14": 2} and b.args["counts"] == {"backward.tier14": 1}
+    assert trace.counts(b) == {"select.tier14": 2, "backward.tier14": 1}
+    rec = next(r for r in trace.records() if r.name == "build.capture.step")
+    assert rec.args["counts"] == {"select.tier14": 2}
+
+
+@pytest.mark.parametrize("n,m", [(4, 2), (12, 4), (14, 3)])
+def test_a_traced_build_counts_each_launchs_size_tier(monkeypatch, n, m):
+    """(h) The fused select's and the backward pass's wrappers, their
+    kernels faked (no card here), count the tier each launch binds inside a
+    traced build (the registry's narrow 4 and 12, the wide 14), and nothing
+    untraced."""
+    from timeopt_tpu_torch.ops import _build, cuda_backward, cuda_lft
+
+    monkeypatch.setattr(_build, "on_card", lambda x, phase: True)
+    monkeypatch.setattr(_build, "load", lambda *a: None)
+    monkeypatch.setattr(_build, "bind", lambda *a: (lambda *args: 0))
+    monkeypatch.setattr(_build, "stream_ptr", lambda dev: 0)
+    B, N = 2, 3
+    z = lambda *shape: torch.zeros(shape, dtype=torch.float64)  # noqa: E731
+    eye = lambda k: torch.eye(k, dtype=torch.float64).expand(B, k, k).contiguous()  # noqa: E731
+    sel = (z(B, N, n, n), z(B, N, n, m), z(B, N, 4, n), z(B, N, 4), eye(n), eye(m), eye(n))
+    bw = (z(B, N, n, n), z(B, N, n, m), z(B, N, n), z(B, N, m), z(B, N, n, n), z(B, N, n), z(B, N), z(B, N),
+          eye(n), eye(m), torch.ones(B, dtype=torch.int64), z(B))
+
+    def launches():
+        cuda_lft.propagator_select_fused(*sel, t_min=1)
+        cuda_backward.backward_truncated_core(*bw)
+        cuda_backward.backward_truncated_core(*bw)
+
+    with trace.build_span("build") as off:
+        launches()
+    with trace.recording():
+        with trace.build_span("build") as b, trace.build_span("build.capture.step"):
+            launches()
+    assert trace.counts(off) == {}
+    assert trace.counts(b) == {f"select.tier{n}": 1, f"backward.tier{n}": 2}

@@ -30,7 +30,8 @@
 // The design: one warp a problem, four problems a block, and no
 // block-wide barrier at all; each warp runs its own T* steps. Lane c < m
 // holds column c of the u-block, lane m the Qu column, lane m + 1 + j
-// column j of the x-block (m + 1 + n <= 21 lanes):
+// column j of the x-block (m + 1 + n <= 21 lanes; 18 for the lander's
+// (14, 3)):
 // - the lanes of the x- and u-columns form Vxx [A | B] a column each, then
 //   A' (Vxx A) + Qs and B' (Vxx B) + R (Qxx, Quu), the x-lanes B' (Vxx A)
 //   (Qux) and lx + A' Vx, the Qu lane lu + B' Vx; the per-warp shared
@@ -73,8 +74,9 @@ namespace {
 
 using namespace warpmat;
 
-constexpr int NMAX = 12;
+constexpr int NMAX = 12;  // any shape at run time: n <= 12, m <= 8
 constexpr int MMAX = 8;
+constexpr int NWIDE = 14, MWIDE = 3;  // the 6-DoF lander's (n, m), compiled alone past NMAX
 constexpr int WPB = 4;  // warps, hence problems, a block
 
 // inputs of one step in the storage type Fp (double, or float on the float32
@@ -359,19 +361,23 @@ template <typename Fp>
 int backward(const void* A, const void* Bm, const void* lx, const void* lu, const void* Qs, const void* QfeT,
              const void* eT_ok, const void* step_ok, const void* Qf, const void* R, const void* T_star,
              const void* lm, void* kappa, void* K, void* ok, int B, int N, int n, int m, void* stream) {
-  if (n < 1 || n > NMAX || m < 1 || m > MMAX) return (int)cudaErrorInvalidValue;
+  const bool wide = n == NWIDE && m == MWIDE;
+  if (n < 1 || (n > NMAX && !wide) || m < 1 || m > MMAX) return (int)cudaErrorInvalidValue;
   if (B > 0) {
     cudaStream_t s = (cudaStream_t)stream;
     // the registry's shapes with n known to the compiler: (n, m) = (2, 1)
     // double integrator, (4, 1) cart-pole, segway, ballbot (m at run time,
-    // see the head of the file), (4, 2) PointMass, (12, 4) quadrotor; any
-    // other shape at run time, in arrays of the bounds
+    // see the head of the file), (4, 2) PointMass, (12, 4) quadrotor, (14, 3)
+    // the 6-DoF lander (45 KB of shared memory a block at float64); any other
+    // shape at run time, in arrays of the bounds (ops/cuda_backward.py::tier,
+    // the same rule)
 #define BW_LAUNCH(NT, MT, EXN, EXM) \
   launch<Fp, NT, MT, EXN, EXM>(A, Bm, lx, lu, Qs, QfeT, eT_ok, step_ok, Qf, R, T_star, lm, kappa, K, ok, B, N, n, m, s)
     if (n == 2 && m == 1) BW_LAUNCH(2, 1, true, false);
     else if (n == 4 && m == 1) BW_LAUNCH(4, 1, true, false);
     else if (n == 4 && m == 2) BW_LAUNCH(4, 2, true, true);
     else if (n == 12 && m == 4) BW_LAUNCH(12, 4, true, true);
+    else if (wide) BW_LAUNCH(NWIDE, MWIDE, true, true);
     else BW_LAUNCH(NMAX, MMAX, false, false);
 #undef BW_LAUNCH
   }

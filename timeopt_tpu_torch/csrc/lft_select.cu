@@ -59,16 +59,24 @@
 // warp walking latency chains (pivot shuffle, division, update; dot
 // products in index order) at 64 registers, and the query warp paces the
 // pipeline; the kernel stays ~55x above its bound.
+//
+// Size tiers. The shared memory of a block is sized for the largest n of
+// its tier, so each tier is its own instantiation: the registry's, n <= 12
+// (p <= 13; n <= 4 takes a narrower register tile of the same layout), 8
+// blocks an SM, and the wide tier, n <= 14 (p <= 15: the 6-DoF lander),
+// ~35 KB a block, 6 blocks an SM and <= 80 registers a thread (at B = 1024
+// ~1.3 waves). One warp still holds a compose sweep (2p <= 30 columns) and
+// a query's [K | FEt'] (n + p <= 29), which would hold up to n = 15.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int NMAX = 12;
+constexpr int NMAX = 12;  // the registry's tier
 constexpr int PMAX = NMAX + 1;
+constexpr int NWIDE = 14;  // the wide tier
 constexpr int MMAX = 8;
-constexpr int PP = PMAX * PMAX;
 constexpr int WARP = 32;
 constexpr int THREADS = 4 * WARP;  // element, compose A, compose B, query
 constexpr int RING = 2;            // slots of the element ring and of the carry ring
@@ -109,37 +117,46 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(K) : "memory");
 }
 
+// The tier of an instantiation whose register tiles hold PM rows: the
+// largest n its shared memory takes, and its blocks an SM.
+__host__ __device__ constexpr int tier_n(int PM) { return PM <= PMAX ? NMAX : NWIDE; }
+__host__ __device__ constexpr int tier_blocks(int PM) { return PM <= PMAX ? 8 : 6; }
+
 // raw inputs of one step in the storage type Fp (double, or float on the
 // float32 path, converted to double where they are read); `zero` stands in
-// for the missing row n of A_left
-template <typename Fp>
+// for the missing row n of A_left. NB: the tier's n bound.
+template <typename Fp, int NB>
 struct Stage {
-  Fp A[NMAX * NMAX], B[NMAX * MMAX], vecs[4 * NMAX], scal[4], zero[NMAX];
+  Fp A[NB * NB], B[NB * MMAX], vecs[4 * NB], scal[4], zero[NB];
 };
+template <int NB>
 struct Elem {  // the element of one step; E = blkdiag(iQ, 0) + inv_s u u' is rebuilt from u
-  double F[PP], G[PP], u[PMAX], et[NMAX], inv_s;
+  double F[(NB + 1) * (NB + 1)], G[(NB + 1) * (NB + 1)], u[NB + 1], et[NB], inv_s;
 };
+template <int NB>
 struct Carry {  // a prefix (Ebar, Fbar, Gbar) and the e~ of its last step
-  double E[PP], F[PP], G[PP], et[NMAX];
+  double E[(NB + 1) * (NB + 1)], F[(NB + 1) * (NB + 1)], G[(NB + 1) * (NB + 1)], et[NB];
 };
+template <int NB>
 struct Smem {
   uint64_t elem_full[RING], elem_free[RING], carry_full[RING], carry_free[RING];
-  double iQ[NMAX * NMAX], W0[NMAX * NMAX], Ri[MMAX * MMAX];
-  double BR[NMAX * MMAX], DAt[NMAX * PMAX], q[NMAX], v[PMAX];  // element scratch
-  Elem elem[RING];
-  Carry carry[RING];
-  double QX[PP], QS[PP];  // query scratch: K^-1 FEt' and X0
+  double iQ[NB * NB], W0[NB * NB], Ri[MMAX * MMAX];
+  double BR[NB * MMAX], DAt[NB * (NB + 1)], q[NB], v[NB + 1];  // element scratch
+  Elem<NB> elem[RING];
+  Carry<NB> carry[RING];
+  double QX[(NB + 1) * (NB + 1)], QS[(NB + 1) * (NB + 1)];  // query scratch: K^-1 FEt' and X0
 };
 
 // A_aug = [[A, atil/s_k], [0, s_{k+1}/s_k]], entry (i, j)
-template <typename Fp>
-__device__ __forceinline__ double aug(const Stage<Fp>& st, int n, double inv_sk, double s_kp1, int i, int j) {
+template <typename Fp, int NB>
+__device__ __forceinline__ double aug(const Stage<Fp, NB>& st, int n, double inv_sk, double s_kp1, int i, int j) {
   if (i < n) return (j < n) ? st.A[i * n + j] : st.vecs[2 * n + i] * inv_sk;
   return (j < n) ? 0.0 : s_kp1 * inv_sk;
 }
 
 // E_k (i, j) of the element in slot el
-__device__ __forceinline__ double elem_E(const Smem& S, const Elem& el, int n, int i, int j) {
+template <int NB>
+__device__ __forceinline__ double elem_E(const Smem<NB>& S, const Elem<NB>& el, int n, int i, int j) {
   const double ui = el.u[i] * el.inv_s;
   return ((i < n && j < n) ? S.iQ[i * n + j] : 0.0) + ui * el.u[j];
 }
@@ -155,8 +172,8 @@ __device__ __forceinline__ void sym_inplace(double* M, int p, int lane) {
   }
 }
 
-template <typename Fp>
-__device__ void load_stage(Stage<Fp>& st, const Fp* A, const Fp* Bm, const Fp* vecs, const Fp* scal, size_t bk,
+template <typename Fp, int NB>
+__device__ void load_stage(Stage<Fp, NB>& st, const Fp* A, const Fp* Bm, const Fp* vecs, const Fp* scal, size_t bk,
                            int n, int m, int lane) {
   for (int i = lane; i < n * n; i += WARP) cp_async_el(&st.A[i], A + bk * n * n + i);
   for (int i = lane; i < n * m; i += WARP) cp_async_el(&st.B[i], Bm + bk * n * m + i);
@@ -166,8 +183,9 @@ __device__ void load_stage(Stage<Fp>& st, const Fp* A, const Fp* Bm, const Fp* v
 }
 
 // ---- element warp: the arrow element of one step into slot el
-template <typename Fp>
-__device__ void build_element(Smem& S, const Stage<Fp>& st, Elem& el, int n, int m, double jitter, int lane) {
+template <typename Fp, int NB>
+__device__ void build_element(Smem<NB>& S, const Stage<Fp, NB>& st, Elem<NB>& el, int n, int m, double jitter,
+                              int lane) {
   const int p = n + 1, pp = p * p;
   const double corner = st.scal[0], inv_sk = st.scal[1], s_kp1 = st.scal[2], inv_skp1 = st.scal[3];
   // B R^-1, q = Qe/s_k, e~
@@ -232,13 +250,13 @@ __device__ void build_element(Smem& S, const Stage<Fp>& st, Elem& el, int n, int
 
 // ---- compose warps: carry nc = carry pc o element el (k > 0), one right
 // block each. Both sweep [sym(E_k + Gbar) + jitter I | R] with lane j
-// holding column j (2p <= 26 columns): R = Fbar' for warp A, R = F_k for
+// holding column j (2p <= 30 columns): R = Fbar' for warp A, R = F_k for
 // warp B. The left block's sweep is the same arithmetic in both warps, so
 // each right block comes out as one sweep of [left | Fbar' | F_k] gives it.
 // The pivot column i < p sits in lane i and reaches every lane by shuffle,
 // row by row before that row is updated.
-template <int PM>
-__device__ void sweep(const Smem& S, const Elem& el, const Carry& pc, bool right_is_Fbar, int n,
+template <int PM, int NB = tier_n(PM)>
+__device__ void sweep(const Smem<NB>& S, const Elem<NB>& el, const Carry<NB>& pc, bool right_is_Fbar, int n,
                       double jitter, int lane, double (&M)[PM]) {
   const int p = n + 1;
   const int j = lane;
@@ -288,9 +306,9 @@ __device__ __forceinline__ int share_column(const double (&M)[PM], double (&X)[P
 }
 
 // warp A: Ebar - Fbar (W Fbar') -> nc.E
-template <int PM>
-__device__ __noinline__ void compose_E(const Smem& S, const Elem& el, const Carry& pc, Carry& nc, int n, double jitter,
-                          int lane) {
+template <int PM, int NB = tier_n(PM)>
+__device__ __noinline__ void compose_E(const Smem<NB>& S, const Elem<NB>& el, const Carry<NB>& pc, Carry<NB>& nc, int n,
+                                       double jitter, int lane) {
   const int p = n + 1;
   double M[PM], X[PM];
   sweep<PM>(S, el, pc, true, n, jitter, lane, M);
@@ -310,9 +328,9 @@ __device__ __noinline__ void compose_E(const Smem& S, const Elem& el, const Carr
 }
 
 // warp B: Fbar (W F_k) -> nc.F;  G_k - F_k' (W F_k) -> nc.G
-template <int PM>
-__device__ __noinline__ void compose_FG(const Smem& S, const Elem& el, const Carry& pc, Carry& nc, int n, double jitter,
-                           int lane) {
+template <int PM, int NB = tier_n(PM)>
+__device__ __noinline__ void compose_FG(const Smem<NB>& S, const Elem<NB>& el, const Carry<NB>& pc, Carry<NB>& nc,
+                                        int n, double jitter, int lane) {
   const int p = n + 1;
   double M[PM], X[PM];
   sweep<PM>(S, el, pc, false, n, jitter, lane, M);
@@ -340,14 +358,14 @@ __device__ __noinline__ void compose_FG(const Smem& S, const Elem& el, const Car
 // ---- query warp: J of the prefix in slot cc (W0 form)
 // K = W0 + G11 + e~ g' + g e~' + g22 e~ e~',  FEt = Fbar[:, :n] + Fbar[:, n] e~'
 // X0 = Ebar - FEt K^-1 FEt';  J = 0.5 / (last pivot of sym(X0) + jitter I)
-template <int PM>
-__device__ __noinline__ double query(Smem& S, const Carry& cc, int n, double jitter, int lane) {
+template <int PM, int NB = tier_n(PM)>
+__device__ __noinline__ double query(Smem<NB>& S, const Carry<NB>& cc, int n, double jitter, int lane) {
   constexpr int NM = PM - 1;
   const int p = n + 1, ld = n + p;
   const double* cG = cc.G;
   const double* cF = cc.F;
   const double* et = cc.et;
-  // [K | FEt'], lane j holds column j (ld <= 25)
+  // [K | FEt'], lane j holds column j (ld <= 29)
   double M[NM];
   const int j = lane;
 #pragma unroll
@@ -432,15 +450,17 @@ __device__ __forceinline__ unsigned prev_parity(int k) { return (unsigned)(k / R
 
 // Fp: the storage type of the step inputs and of J (double, or float on the
 // float32 path: one rounding, as J is stored); the k-constants iQq, R^-1
-// and W0 are double on both paths, and every operation is double.
+// and W0 are double on both paths, and every operation is double. PM: the
+// rows of the register tiles, which pick the tier.
 template <typename Fp, int PM>
-__global__ void __launch_bounds__(THREADS, 8)
+__global__ void __launch_bounds__(THREADS, tier_blocks(PM))
 lft_select_kernel(const Fp* __restrict__ A, const Fp* __restrict__ Bm, const Fp* __restrict__ vecs,
                   const Fp* __restrict__ scal, const double* __restrict__ iQq, const double* __restrict__ Rinv,
                   const double* __restrict__ W0g, Fp* __restrict__ J, int N, int n, int m, int t_min,
                   double jitter) {
-  __shared__ Smem S;
-  __shared__ Stage<Fp> stage[2];
+  constexpr int NB = tier_n(PM);
+  __shared__ Smem<NB> S;
+  __shared__ Stage<Fp, NB> stage[2];
   const int b = blockIdx.x;
   const int tid = threadIdx.x, warp = tid / WARP, lane = tid - warp * WARP;
 
@@ -449,7 +469,7 @@ lft_select_kernel(const Fp* __restrict__ A, const Fp* __restrict__ Bm, const Fp*
     S.W0[i] = W0g[(size_t)b * n * n + i];
   }
   for (int i = tid; i < m * m; i += THREADS) S.Ri[i] = Rinv[(size_t)b * m * m + i];
-  for (int i = tid; i < 2 * NMAX; i += THREADS) stage[i / NMAX].zero[i % NMAX] = 0.0;
+  for (int i = tid; i < 2 * NB; i += THREADS) stage[i / NB].zero[i % NB] = 0.0;
   if (tid == 0) {
     for (int s = 0; s < RING; ++s) {
       mbar_init(&S.elem_full[s], WARP);         // the element warp
@@ -483,8 +503,8 @@ lft_select_kernel(const Fp* __restrict__ A, const Fp* __restrict__ Bm, const Fp*
       const int s = k % RING;
       mbar_wait(&S.elem_full[s], use_parity(k));
       if (k >= RING) mbar_wait(&S.carry_free[s], prev_parity(k));
-      const Elem& el = S.elem[s];
-      Carry& nc = S.carry[s];
+      const Elem<NB>& el = S.elem[s];
+      Carry<NB>& nc = S.carry[s];
       if (k == 0) {  // the first element is the carry itself: no compose
         for (int idx = lane; idx < pp; idx += WARP) {
           const int i = idx / p, j = idx - (idx / p) * p;
@@ -541,11 +561,13 @@ template <typename Fp>
 int select_fused(const void* A, const void* Bm, const void* vecs, const void* scal, const void* iQq,
                  const void* Rinv, const void* W0, void* J, int B, int N, int n, int m, int t_min, double jitter,
                  void* stream) {
-  if (n < 1 || n > NMAX || m < 1 || m > MMAX) return (int)cudaErrorInvalidValue;
+  if (n < 1 || n > NWIDE || m < 1 || m > MMAX) return (int)cudaErrorInvalidValue;
   if (B > 0 && N > 0) {
-    // p <= 5 (n <= 4) takes the narrow instantiation
+    // p <= 5 (n <= 4) takes the narrow instantiation, n <= 12 the registry's
+    // tier, n <= 14 the wide one (ops/cuda_lft.py::tier, the same rule)
     if (n + 1 <= 5) launch<Fp, 5>(A, Bm, vecs, scal, iQq, Rinv, W0, J, B, N, n, m, t_min, jitter, (cudaStream_t)stream);
-    else launch<Fp, PMAX>(A, Bm, vecs, scal, iQq, Rinv, W0, J, B, N, n, m, t_min, jitter, (cudaStream_t)stream);
+    else if (n <= NMAX) launch<Fp, PMAX>(A, Bm, vecs, scal, iQq, Rinv, W0, J, B, N, n, m, t_min, jitter, (cudaStream_t)stream);
+    else launch<Fp, NWIDE + 1>(A, Bm, vecs, scal, iQq, Rinv, W0, J, B, N, n, m, t_min, jitter, (cudaStream_t)stream);
   }
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,7 @@
 // The Jacobians of the Euler step of a registry system along a batch of
 // trajectories, for every step k of every problem b:
 //   A_k = I + dt df/dx (x_k, u_k),   B_k = dt df/du (x_k, u_k),
-// f the system's xdot of csrc/systems.cuh (System.device_id 0..5), the very
+// f the system's xdot of csrc/systems.cuh (System.device_id 0..6), the very
 // formulas the line search (csrc/linesearch.cu) integrates.
 //
 // The port's own kernel: it replaces no TPU kernel (the JAX package leaves
@@ -100,8 +100,9 @@ int launch(const void* X, const void* U, void* A, void* Bm, int B, int N, int n,
 }
 
 // system_id (System.device_id): 0 = DoubleIntegrator, 1 = Quadrotor,
-// 2 = Cartpole, 3 = Segway, 4 = Ballbot, 5 = PointMass. Problem b's rows of
-// X and U start x_stride and u_stride elements after problem b - 1's.
+// 2 = Cartpole, 3 = Segway, 4 = Ballbot, 5 = PointMass, 6 = Rocket6DoF.
+// Problem b's rows of X and U start x_stride and u_stride elements after
+// problem b - 1's.
 template <typename Fp>
 int jacobians(const void* X, const void* U, void* A, void* Bm, int B, int N, int n, int m, long long x_stride,
               long long u_stride, int system_id, double dt, void* stream) {
@@ -120,6 +121,8 @@ int jacobians(const void* X, const void* U, void* A, void* Bm, int B, int N, int
       LIN_LAUNCH(Ballbot);
     case 5:
       LIN_LAUNCH(PointMass);
+    case 6:
+      LIN_LAUNCH(Rocket6DoF);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,6 +1,6 @@
 // The line-search kernel (csrc/linesearch_kernel.cuh) on the hand-written
-// dynamics of the six systems of the model registry (csrc/systems.cuh,
-// System.device_id 0..5), the quadrotor's trigonometry shared across the
+// dynamics of the seven systems of the model registry (csrc/systems.cuh,
+// System.device_id 0..6), the quadrotor's trigonometry shared across the
 // lanes of a rollout, and the four entries linesearch_rollout[_from][_f32]
 // with a system_id switch. A System without a device_id gets a struct
 // generated from its own Python functions instead (ops/dyngen.py), in the
@@ -74,7 +74,8 @@ __device__ __forceinline__ double xdot_lane<Quadrotor>(int i, double xi, const d
 }
 
 // system_id (System.device_id): 0 = DoubleIntegrator, 1 = Quadrotor,
-// 2 = Cartpole, 3 = Segway, 4 = Ballbot, 5 = PointMass. Each rollout of
+// 2 = Cartpole, 3 = Segway, 4 = Ballbot, 5 = PointMass, 6 = Rocket6DoF
+// (the lane group of 16, as the quadrotor's). Each rollout of
 // problem b starts at x0 + b * x0_stride.
 template <typename Fp>
 int rollout_from(const void* X, const void* U, const void* K, const void* kap, const void* T_star, const void* xg,
@@ -99,6 +100,8 @@ int rollout_from(const void* X, const void* U, const void* K, const void* kap, c
       LS_LAUNCH(Ballbot);
     case 5:
       LS_LAUNCH(PointMass);
+    case 6:
+      LS_LAUNCH(Rocket6DoF);
     default:
       return (int)cudaErrorInvalidValue;
   }

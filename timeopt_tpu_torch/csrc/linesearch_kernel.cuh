@@ -63,7 +63,7 @@
 //
 // This header holds the kernel as a template on the system S, which gives
 // n, m and static xdot(x, u, xd), guard(x, u) and extra_cost(x, u):
-// csrc/linesearch.cu instantiates it for the six hand-written systems of the
+// csrc/linesearch.cu instantiates it for the seven hand-written systems of the
 // registry (csrc/systems.cuh), ops/dyngen.py for a struct generated from a
 // System's own Python functions (built at first use).
 #pragma once
@@ -120,7 +120,7 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Lane i's component of xdot(x, u), and the guard on (x, u) (uniform over
 // the group). By default every lane evaluates the system's whole xdot (n <=
-// 4 here) and keeps its own entry.
+// 4, and the lander's 14) and keeps its own entry.
 template <class S>
 __device__ __forceinline__ double xdot_lane(int i, double, const double* x, const double* u, bool& bad) {
   double xd[S::n];

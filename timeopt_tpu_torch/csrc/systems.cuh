@@ -1,5 +1,5 @@
-// The device dynamics of the six systems of the model registry
-// (System.device_id 0..5), each with the formulas of timeopt_tpu_torch/models:
+// The device dynamics of the seven systems of the model registry
+// (System.device_id 0..6), each with the formulas of timeopt_tpu_torch/models:
 // n, m, xdot(x, u, xd), guard(x, u) and extra_cost(x, u). Two kernels run
 // them: the line search (csrc/linesearch.cu) integrates xdot in double, and
 // the Jacobian kernel (csrc/linearize.cu) differentiates the very same
@@ -175,6 +175,70 @@ struct PointMass : NoExtras {
       c += obs[i][3] * exp(-(dx * dx + dy * dy) / (2.0 * r * r));
     }
     return c;
+  }
+};
+
+// The 6-DoF powered-descent lander (models/rocket6dof.py): x = [m, r_I (3),
+// v_I (3), q_B/I (4, scalar first), omega_B (3)], u = T_B, the thrust in the
+// body frame; the formulas in the model's order, the constants' terms in
+// product form (RY * tz) as there.
+struct Rocket6DoF : NoExtras {
+  static constexpr int n = 14, m = 3;
+  static constexpr double M_DRY = 1.0, G = 1.0, ALPHA_M = 0.01;
+  static constexpr double JX = 0.01, JY = 0.01, JZ = 0.01;
+  static constexpr double INV_JX = 1.0 / 0.01, INV_JY = 1.0 / 0.01, INV_JZ = 1.0 / 0.01;
+  static constexpr double RX = -0.01, RY = 0.0, RZ = 0.0;
+  static constexpr double THRUST_EPS = 1e-6;
+
+  template <typename T>
+  __device__ static void xdot(const T* x, const T* u, T* xd) {
+    const T mass = x[0];
+    const T q0 = x[7], q1 = x[8], q2 = x[9], q3 = x[10];
+    const T wx = x[11], wy = x[12], wz = x[13];
+    const T tx = u[0], ty = u[1], tz = u[2];
+    const T tn = sqrt(tx * tx + ty * ty + tz * tz);
+    xd[0] = -ALPHA_M * tn;
+    xd[1] = x[4];
+    xd[2] = x[5];
+    xd[3] = x[6];
+    // C_I/B(q) T_B / m + g_I
+    const T ax = (1.0 - 2.0 * (q2 * q2 + q3 * q3)) * tx + 2.0 * (q1 * q2 - q0 * q3) * ty +
+                 2.0 * (q1 * q3 + q0 * q2) * tz;
+    const T ay = 2.0 * (q1 * q2 + q0 * q3) * tx + (1.0 - 2.0 * (q1 * q1 + q3 * q3)) * ty +
+                 2.0 * (q2 * q3 - q0 * q1) * tz;
+    const T az = 2.0 * (q1 * q3 - q0 * q2) * tx + 2.0 * (q2 * q3 + q0 * q1) * ty +
+                 (1.0 - 2.0 * (q1 * q1 + q2 * q2)) * tz;
+    xd[4] = ax / mass - G;
+    xd[5] = ay / mass;
+    xd[6] = az / mass;
+    // 0.5 Omega(omega) q
+    xd[7] = 0.5 * (-wx * q1 - wy * q2 - wz * q3);
+    xd[8] = 0.5 * (wx * q0 + wz * q2 - wy * q3);
+    xd[9] = 0.5 * (wy * q0 - wz * q1 + wx * q3);
+    xd[10] = 0.5 * (wz * q0 + wy * q1 - wx * q2);
+    // J^-1 (r_T x T - omega x (J omega))
+    const T mx = RY * tz - RZ * ty;
+    const T my = RZ * tx - RX * tz;
+    const T mz = RX * ty - RY * tx;
+    const T jx = JX * wx, jy = JY * wy, jz = JZ * wz;
+    const T cx = wy * jz - wz * jy;
+    const T cy = wz * jx - wx * jz;
+    const T cz = wx * jy - wy * jx;
+    xd[11] = (mx - cx) * INV_JX;
+    xd[12] = (my - cy) * INV_JY;
+    xd[13] = (mz - cz) * INV_JZ;
+  }
+
+  // a non-finite input, the mass below the dry mass, or a thrust whose
+  // norm (and so its derivative) is not defined
+  __device__ static bool guard(const double* x, const double* u) {
+    bool bad = false;
+#pragma unroll
+    for (int i = 0; i < n; ++i) bad = bad || !isfinite(x[i]);
+#pragma unroll
+    for (int j = 0; j < m; ++j) bad = bad || !isfinite(u[j]);
+    const double tn = sqrt(u[0] * u[0] + u[1] * u[1] + u[2] * u[2]);
+    return bad || (x[0] < M_DRY) || (tn < THRUST_EPS);
   }
 };
 

@@ -80,7 +80,11 @@ class System:
     None means the card runs a kernel generated from these functions themselves
     (ops/dyngen.py: traced with make_fx, built with nvcc at first use),
     which needs `step` to be `euler_step_fn` of this system's xdot, dt, n,
-    wrap_idx and guard, and raises on an op it does not take."""
+    wrap_idx and guard, and raises on an op it does not take.
+    `kernel_rollout` makes the curve methods' initial rollout one launch of
+    the line-search kernel (solver/cost.py::rollout_kernel) in place of N
+    steps of small torch ops; the systems whose benchmark answers predate
+    it keep the torch rollout."""
 
     name: str
     n: int
@@ -94,6 +98,7 @@ class System:
     sigma_x0: tuple = ()  # x0 perturbation of the benchmark trials
     sigma_xg: tuple = ()  # xg perturbation of the benchmark trials
     device_id: Optional[int] = None
+    kernel_rollout: bool = False
 
     def safe_step(self, x: torch.Tensor, u: torch.Tensor, max_state_norm: float = 1e6) -> torch.Tensor:
         """step() with divergence poisoning: a non-finite or exploding next

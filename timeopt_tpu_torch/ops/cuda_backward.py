@@ -12,6 +12,12 @@ CUDA float64 or float32 tensor it launches the kernel; any other dtype
 raises. kappa and K come out in the inputs' dtype: on float32 inputs both
 run the Riccati recursion in float64 and round the gains once, as the TPU
 kernel (df32 inside) writes them in float32.
+
+The kernel takes n <= 12 with m <= 8 at run time, and compiles the
+registry's shapes alone, the 6-DoF lander's (14, 3) among them, the one
+shape past n = 12 (`tier`); any other shape raises before a launch. A
+traced build counts each launch's tier (utils/trace.py::count,
+`backward.tier<n>`).
 """
 
 from __future__ import annotations
@@ -21,8 +27,24 @@ import ctypes
 import torch
 
 from timeopt_tpu_torch.ops import _build
+from timeopt_tpu_torch.utils import trace
 
 LAUNCHES = 0  # kernel launches since the last reset
+N_MAX, M_MAX = 12, 8  # any shape at run time
+COMPILED = ((2, 1), (4, 1), (4, 2), (12, 4), (14, 3))  # the (n, m) compiled alone in csrc/backward.cu
+
+
+def tier(n: int, m: int) -> int:
+    """The size tier of csrc/backward.cu that (n, m) takes, named by the n
+    bound of its register tiles: n for a shape compiled alone, else N_MAX
+    (the kernel's dispatch, the same rule); raises for a shape it does not
+    take, naming it and the kernel's limits."""
+    if (n, m) in COMPILED:
+        return n
+    if not (1 <= n <= N_MAX and 1 <= m <= M_MAX):
+        raise ValueError(f"backward kernel: (n, m) = ({n}, {m}); csrc/backward.cu takes n <= {N_MAX} with "
+                         f"m <= {M_MAX}, or (n, m) = (14, 3)")
+    return N_MAX
 
 
 def backward_plain(A, B, lx, lu, Qstage, QfeT, eT_ok, step_ok, Qf, R, T_star, lm):
@@ -52,6 +74,7 @@ def backward_truncated_core(A, B, lx, lu, Qstage, QfeT, eT_ok, step_ok, Qf, R, T
     ):
         _build.check(t, shape, dtype, dev, name)
     _build.check(T_star, (Bsz,), torch.int64, dev, "T_star")
+    bound = tier(n, m)
     kappa = torch.empty((Bsz, N, m), dtype=dtype, device=dev)
     K = torch.empty((Bsz, N, m, n), dtype=dtype, device=dev)
     ok = torch.empty((Bsz,), dtype=torch.bool, device=dev)
@@ -65,4 +88,5 @@ def backward_truncated_core(A, B, lx, lu, Qstage, QfeT, eT_ok, step_ok, Qf, R, T
     )
     _build.raise_on_error(rc, entry)
     LAUNCHES += 1
+    trace.count(f"backward.tier{bound}")
     return kappa, K, ok

@@ -5,7 +5,7 @@ Replaces timeopt_tpu/ops/pallas_forward.py::linesearch_lanes_df and
 csrc/linesearch_kernel.cuh, sm_90a, float64 arithmetic on float64 or
 float32 data, on a system's dynamics (xdot, guard, extra stage cost). A
 system with a `device_id` runs its hand-tuned struct of csrc/systems.cuh
-through csrc/linesearch.cu (the six registry systems; the JAX package kept PointMass off its TPU
+through csrc/linesearch.cu (the seven registry systems; the JAX package kept PointMass off its TPU
 kernel for want of a layout twin of its xdot, which this kernel does not
 need). A system without one runs a struct generated from its own Python
 functions (ops/dyngen.py: traced with make_fx, built with nvcc at its first

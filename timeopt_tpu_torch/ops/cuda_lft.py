@@ -13,6 +13,12 @@ a leading batch axis and returns J (B, N) in the inputs' dtype, unscaled
 launches the kernel, which writes +inf below T_min; any other dtype raises.
 On float32 inputs both compute in float64 and round J once, on the way
 out: the TPU kernel computes in df32 and returns float32.
+
+The kernel's shared memory is sized for the largest n of its size tier
+(`tier`): the registry's tier holds n <= 12 (n <= 4 in a narrower register
+tile), the wide tier n <= 14 (the 6-DoF lander). Past it the wrapper
+raises before any launch. A traced build counts each launch's tier
+(utils/trace.py::count, `select.tier<n>`).
 """
 
 from __future__ import annotations
@@ -23,8 +29,21 @@ import torch
 
 from timeopt_tpu_torch.ops import _build
 from timeopt_tpu_torch.ops.linalg import gj_inv, sym
+from timeopt_tpu_torch.utils import trace
 
 LAUNCHES = 0  # kernel launches since the last reset
+TIERS = (4, 12, 14)  # the n bound of each size tier of csrc/lft_select.cu
+M_MAX = 8
+
+
+def tier(n: int, m: int) -> int:
+    """The size tier of csrc/lft_select.cu that n states and m inputs
+    take, named by its n bound (the kernel's dispatch, the same rule);
+    raises past the widest, naming n, m and the kernel's limits."""
+    if not (1 <= n <= TIERS[-1] and 1 <= m <= M_MAX):
+        raise ValueError(f"fused select kernel: n = {n}, m = {m}; csrc/lft_select.cu takes 1 <= n <= {TIERS[-1]} "
+                         f"and 1 <= m <= {M_MAX}")
+    return next(t for t in TIERS if n <= t)
 
 
 def select_fused_plain(A, Bm, vecs, scal, Qq, R_inv, Lt) -> torch.Tensor:
@@ -50,6 +69,7 @@ def propagator_select_fused(A, Bm, vecs, scal, Qq, R_inv, Lt, *, t_min: int, jit
         (Lt, (Bsz, n, n), "Lt"),
     ):
         _build.check(t, shape, dtype, dev, name)
+    bound = tier(n, m)
     # k-constant inverses, computed once outside the kernel in float64 (on
     # float32 inputs too; the JAX wrapper forms them in df32): iQq =
     # (Qq + jitter I)^-1, W0 = (Lt' Lt)^-1 = (Qf + rho I)^-1, and R^-1
@@ -67,4 +87,5 @@ def propagator_select_fused(A, Bm, vecs, scal, Qq, R_inv, Lt, *, t_min: int, jit
     )
     _build.raise_on_error(rc, entry)
     LAUNCHES += 1
+    trace.count(f"select.tier{bound}")
     return J

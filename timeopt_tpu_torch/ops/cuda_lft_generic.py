@@ -25,6 +25,7 @@ import torch
 from timeopt_tpu_torch.ops import _build
 
 LAUNCHES = 0  # kernel launches since the last reset
+N_MAX, M_MAX = 12, 8  # csrc/lft_select_generic.cu's bounds
 
 
 def select_generic_plain(A_aug, B_aug, Q_aug, R_inv, C) -> torch.Tensor:
@@ -49,6 +50,9 @@ def propagator_select_generic(A_aug, B_aug, Q_aug, R_inv, C, *, t_min: int, jitt
         (Q_aug, (Bsz, N, p, p), "Q_aug"), (R_inv, (Bsz, m, m), "R_inv"), (C, (Bsz, N, n, p), "C"),
     ):
         _build.check(t, shape, dtype, dev, name)
+    if not (1 <= n <= N_MAX and 1 <= m <= M_MAX):
+        raise ValueError(f"generic select kernel: n = {n}, m = {m}; csrc/lft_select_generic.cu takes n <= {N_MAX} "
+                         f"and m <= {M_MAX}")
     J = torch.empty((Bsz, N), dtype=dtype, device=dev)
     entry = "lft_select_generic" if dtype == torch.float64 else "lft_select_generic_f32"
     fn = _build.bind(_build.load("lft_select_generic"), entry, 6, [ctypes.c_int] * 5 + [ctypes.c_double])

@@ -28,6 +28,7 @@ import torch
 from timeopt_tpu_torch.ops import _build
 
 LAUNCHES = 0  # kernel launches since the last reset
+N_MAX = 12  # csrc/lft_query.cu's bound
 
 
 def lft_query_plain(E, F, G, C, *, jitter: float = 1e-9, levels: int):
@@ -61,6 +62,8 @@ def lft_query(E, F, G, C, *, jitter: float = 1e-9, levels: int):
         (G, (Bsz, N, p, p), torch.float64, "G"), (C, (Bsz, N, n, p), dtype, "C"),
     ):
         _build.check(t, shape, dt, dev, name)
+    if not 1 <= n <= N_MAX:
+        raise ValueError(f"terminal query kernel: n = {n}; csrc/lft_query.cu takes n <= {N_MAX}")
     J = torch.empty((Bsz, N), dtype=dtype, device=dev)
     entry = "lft_query" if dtype == torch.float64 else "lft_query_f32"
     fn = _build.bind(_build.load("lft_query"), entry, 5, [ctypes.c_int] * 4 + [ctypes.c_double])

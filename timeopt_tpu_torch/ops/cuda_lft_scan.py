@@ -30,6 +30,7 @@ import torch
 from timeopt_tpu_torch.ops import _build
 
 LAUNCHES = 0  # kernel launches since the last reset
+N_MAX = 12  # csrc/lft_scan.cu's bound (p = n + 1 <= 13)
 
 
 def lft_scan_plain(A_aug, BRB, Q_aug, *, jitter: float = 1e-9, levels: int):
@@ -57,6 +58,8 @@ def lft_scan(A_aug, BRB, Q_aug, *, jitter: float = 1e-9, levels: int):
     dtype, dev = A_aug.dtype, A_aug.device
     for t, name in ((A_aug, "A_aug"), (BRB, "BRB"), (Q_aug, "Q_aug")):
         _build.check(t, (Bsz, N, p, p), dtype, dev, name)
+    if not 1 <= p - 1 <= N_MAX:
+        raise ValueError(f"LFT prefix scan kernel: n = {p - 1}; csrc/lft_scan.cu takes n <= {N_MAX}")
     E, F, G = (torch.empty((Bsz, N, p, p), dtype=torch.float64, device=dev) for _ in range(3))
     entry = "lft_scan" if dtype == torch.float64 else "lft_scan_f32"
     fn = _build.bind(_build.load("lft_scan"), entry, 6, [ctypes.c_int] * 4 + [ctypes.c_double])

@@ -144,8 +144,8 @@ def backward(T_star, N: int, n: int, m: int, itemsize: int = F64) -> dict:
 
 # sine and cosine each count 1; per step, beyond the state update
 XDOT_FLOPS = {"DoubleIntegrator": 0, "Quadrotor": 70, "Cartpole_SwingUp": 25, "Segway_Balance": 6,
-              "Ballbot_Balance": 25, "PointMass_Navigation": 0}
-GUARD_FLOPS = {"Quadrotor": 2 * 12 + 6}
+              "Ballbot_Balance": 25, "PointMass_Navigation": 0, "Rocket6DoF": 116}
+GUARD_FLOPS = {"Quadrotor": 2 * 12 + 6, "Rocket6DoF": 6 + 2}  # the lander's: ||T|| and the two bounds
 EXTRA_COST_FLOPS = {"PointMass_Navigation": 3 * 11}
 
 

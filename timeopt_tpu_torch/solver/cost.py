@@ -6,7 +6,8 @@ from __future__ import annotations
 
 import torch
 
-from timeopt_tpu_torch.models.base import Problem, System
+from timeopt_tpu_torch.models.base import Problem, System, _nan_where
+from timeopt_tpu_torch.ops import cuda_forward
 from timeopt_tpu_torch.ops.wrap import wrap_error
 from timeopt_tpu_torch.utils import trace
 
@@ -23,6 +24,34 @@ def rollout(system: System, prob: Problem, x0: torch.Tensor, U: torch.Tensor) ->
     for k in range(U.shape[1]):
         xs.append(system.safe_step(xs[-1], U[:, k]))
     return torch.stack(xs, dim=1)
+
+
+def rollout_kernel(system: System, prob: Problem, x0: torch.Tensor, U: torch.Tensor,
+                   max_state_norm: float = 1e6) -> torch.Tensor:
+    """rollout() as one launch of the line-search kernel (#5,
+    ops/cuda_forward.py; its plain version off the card): one alpha from
+    x0 at T* = 0, where every control keeps U_k and the gains, reference
+    rows and cost go unused. The kernel takes the raw step, so safe_step's
+    poisoning follows on the stored states: from the first non-finite
+    state or one of norm above max_state_norm on, every state is NaN (the
+    norm of a float32 state is taken of its rounding)."""
+    Bsz, N, m = U.shape
+    z = dict(dtype=U.dtype, device=U.device)
+    X = torch.zeros((Bsz, N + 1, system.n), **z)
+    K = torch.zeros((Bsz, N, m, system.n), **z)
+    kappa = torch.zeros((Bsz, N, m), **z)
+    T0 = torch.zeros(Bsz, dtype=torch.int64, device=U.device)
+    Xs, _, _ = cuda_forward.linesearch(system, prob, X, U, K, kappa, T0, (0.0,), x_start=x0)
+    X, nxt = Xs[:, 0], Xs[:, 0, 1:]
+    bad = (~torch.isfinite(nxt).all(dim=-1)) | (torch.linalg.vector_norm(nxt.double(), dim=-1) > max_state_norm)
+    bad = bad.to(torch.int32).cumsum(dim=1) > 0
+    return torch.cat([X[:, :1], nxt + _nan_where(bad[..., None], nxt)], dim=1)
+
+
+def initial_rollout(system: System, prob: Problem, x0: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
+    """The curve methods' initial rollout: rollout_kernel where the system
+    asks for it (`System.kernel_rollout`), else rollout."""
+    return (rollout_kernel if system.kernel_rollout else rollout)(system, prob, x0, U)
 
 
 def extra_cost_terms(system: System, X: torch.Tensor, U: torch.Tensor):

@@ -39,7 +39,7 @@ from timeopt_tpu_torch.solver.augmented import (
     build_terminal_factors,
 )
 from timeopt_tpu_torch.solver.backward import backward_truncated
-from timeopt_tpu_torch.solver.cost import argmin_T, rollout
+from timeopt_tpu_torch.solver.cost import argmin_T, initial_rollout
 from timeopt_tpu_torch.solver.forward import forward_linesearch
 from timeopt_tpu_torch.solver.horizon import (
     bruteforce_J_curve,
@@ -271,7 +271,7 @@ def curve_init(system: System, opts: SolveOptions, prob: Problem, U_init: torch.
     """The curve methods' init body: the initial rollout of U_init, the
     state's initial values, then the warm start as iteration 0."""
     with trace.phase("init.rollout"):
-        st["X"].copy_(rollout(system, prob, prob.x0, U_init))
+        st["X"].copy_(initial_rollout(system, prob, prob.x0, U_init))
     st["U"].copy_(U_init)
     st["lm"].fill_(opts.lm_init)
     st["T_bar"].zero_()

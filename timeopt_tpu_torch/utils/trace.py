@@ -1,7 +1,7 @@
 """The port's tracing: spans and counters recorded where the work happens,
 kept in memory, read on one clock.
 
-Three kinds of record:
+Four kinds of record:
 
 - **device phase stamps.** A traced program (solver/compiled.py: one built
   while tracing is on) stamps each boundary of the phases of its init and
@@ -30,6 +30,14 @@ Three kinds of record:
   build's tree. The recorder lists them only while tracing is on, so an
   untraced process keeps no more than its programs do. A traced build
   also makes each body phase of its warm-up a build span.
+- **counts of a traced build** (`count`): kept in the args of the
+  innermost build span open when they are made (read with `counts`),
+  beside its `build.kernels` spans. The kernels' wrappers count there the
+  size tier that each select and backward launch binds (`select.tier<n>`,
+  `backward.tier<n>`: ops/cuda_lft.py::tier, ops/cuda_backward.py::tier),
+  once for each launch the build's warm-up and captures place. Counted
+  only while tracing is on; off, one flag test. A replay of a captured
+  graph runs no Python and counts nothing.
 
 Tracing is off by default and on inside `recording()`. A program's cache
 key holds whether tracing is on, so a program built with tracing off
@@ -151,6 +159,30 @@ def build_span(name: str, **args) -> Span:
     """A host span of a build, measured whether tracing is on or not (the
     recorder lists it while tracing is on)."""
     return Span(name, "build", args)
+
+
+def count(name: str) -> None:
+    """One more `name` in the args' "counts" of the innermost build span
+    open in this thread, while tracing is on (a traced build); else, or
+    outside any build, nothing."""
+    if not _ON:
+        return
+    for s in reversed(_open()):
+        if s.kind == "build":
+            c = s.args.setdefault("counts", {})
+            c[name] = c.get(name, 0) + 1
+            return
+
+
+def counts(span: Span) -> dict:
+    """The counts of a build span and of every span under it, summed."""
+    out, todo = {}, [span]
+    while todo:
+        s = todo.pop()
+        todo += s.children
+        for k, v in s.args.get("counts", {}).items():
+            out[k] = out.get(k, 0) + v
+    return out
 
 
 def _open() -> list:
