@@ -34,8 +34,10 @@ are dropped between phases, and a `[time]` line follows each phase:
    csrc/linesearch_kernel.cuh on a struct traced from a System's own xdot,
    guard and extra cost) of the six registry systems' device_id=None twins
    and of the unicycle, one nvcc each, all started together, their nvcc
-   seconds and registers printed, and the scan's and query's blocks
-   resident per SM;
+   seconds and registers printed, the fused select's shuffles per
+   instantiation from its SASS (those compiled for a diverged warp, inside
+   WARPSYNC.COLLECTIVE ... ENDCOLLECTIVE, apart), and the scan's, query's
+   and fused select's blocks resident per SM;
 3. kernels vs plain: each kernel against its plain PyTorch version on the
    card, on inputs from a real iterate, with the stated tolerances, and
    timed (median of CUDA-event timings after warm-up): the fused select,
@@ -231,6 +233,8 @@ against new in turns old, new, new, old, on that kernel's rows (AB_ROWS),
 prints the largest difference between their outputs and whether they are
 bitwise equal, then times one B=1024 solve with each version's kernels,
 and fails unless old and new are bitwise equal on every row (phase_ab).
+The fused select's rows cover each of its size tiers (ab_lft_select), and
+its SASS counts of both versions are printed.
 The line search's rows also run the new kernel through its start-state
 entry (start states X[:, 0], as a view of X and as a copy) against the old
 kernel's ordinary entry. Where the old sources have a kernel's float32
@@ -245,6 +249,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -598,6 +603,41 @@ def ptxas_lines(report: str) -> str:
     return " | ".join(lines)
 
 
+def select_sass(sass: str) -> dict:
+    """Per lft_select_kernel instantiation in the text of `cuobjdump -sass`
+    ("double 13": the storage type and the register tile's rows): its SHFL
+    instructions, those inside WARPSYNC.COLLECTIVE ... ENDCOLLECTIVE
+    sequences (a shuffle the compiler could not prove the whole warp
+    reaches, compiled again for a diverged warp behind a BRA.DIV), and the
+    sequences."""
+    out = {}
+    for fn, body in zip(*[iter(re.split(r"Function : (\S+)", sass)[1:])] * 2):
+        inst = re.search(r"lft_select_kernelI([df])Li(\d+)E", fn)
+        if inst is None:
+            continue
+        shfl = coll = seqs = 0
+        inside = False
+        for line in body.splitlines():
+            if "ENDCOLLECTIVE" in line:
+                inside = False
+            elif "COLLECTIVE" in line:
+                inside, seqs = True, seqs + 1
+            elif "SHFL" in line:
+                shfl += 1
+                coll += inside
+        out[f"{dict(d='double', f='float')[inst[1]]} {inst[2]}"] = dict(shfl=shfl, collective_shfl=coll,
+                                                                      collective_sequences=seqs)
+    return out
+
+
+def select_sass_line(lib_path: str) -> str:
+    """select_sass of a built library, on one line."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True, check=True).stdout
+    return "; ".join(f"<{k}> SHFL {v['shfl']}, in collective sequences {v['collective_shfl']} "
+                     f"({v['collective_sequences']} sequences)" for k, v in sorted(select_sass(sass).items()))
+
+
 def phase_build():
     """The six kernels of csrc/ and the generated line searches of the six
     registry systems' device_id=None twins and of the unicycle
@@ -617,6 +657,8 @@ def phase_build():
     for name in list(KERNELS) + ["loop_graph", LINEARIZE[0]]:
         secs, report = _build.build_info(name)
         log(f"[build] {name}: nvcc {secs:.1f} s | " + ptxas_lines(report))
+        if name == "lft_select":
+            log("[build] lft_select sass: " + select_sass_line(_build.load(name)._name))
     for system in generated:
         name, secs, report = dyngen.build_info(system)
         GENERATED_BUILD_S[system.name] = secs
@@ -626,8 +668,9 @@ def phase_build():
 
 def residency() -> None:
     """Blocks an SM holds at once of the scan kernel (two problems a block)
-    at each p and of the query kernel (one warp a block) at each n, float64
-    and float32 instantiations, as the built kernels report them (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
+    at each p, of the query kernel (one warp a block) at each n and of the
+    fused select (one problem a block) at each size tier, float64 and
+    float32 instantiations, as the built kernels report them (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
     from their registers and shared memory): the scan's B=1024 quadrotor
     problems run in one wave if 2 x blocks x SMs >= 1,024."""
     import ctypes
@@ -646,6 +689,10 @@ def residency() -> None:
             + f"; at p=13 {2 * s[13] * sms} problems at once on {sms} SMs (quadrotor B={B_FULL})")
         log(f"[build] lft_query {tag} blocks an SM (one warp each): "
             + ", ".join(f"n={n} {query(n)}" for n in (2, 4, 12, 3)))
+        select = getattr(_build.load("lft_select"), f"lft_select_blocks_per_sm{suffix}")
+        select.argtypes, select.restype = [ctypes.c_int], ctypes.c_int
+        log(f"[build] lft_select {tag} blocks an SM (one problem each): "
+            + ", ".join(f"n={n} (tier {n}) {select(n)}" for n in (4, 12, 14)))
 
 
 def check_select(J_k, J_p, s, probs, bound, label: str, inf_below: bool = True,
@@ -956,6 +1003,7 @@ def backward_args(system, probs, X, U, A, Bj, T, lm_init: float) -> list:
 # random_select_args), --ab against the earlier kernel bit for bit.
 OFF_REGISTRY_BACKWARD = ((3, 1), (6, 5))  # (n, m)
 OFF_REGISTRY_SELECT = ((4, 1), (9, 3))  # (p, m)
+OFF_REGISTRY_FUSED = ((7, 3),)  # (n, m): the fused select's registry tier below its p = 13 tile
 B_OFF, N_OFF = 37, 48  # a batch that leaves the last block of either kernel partial
 
 
@@ -1003,6 +1051,37 @@ def random_select_args(p: int, m: int, B: int, N: int, device, seed: int = SEED)
                        axis=-1)
     f = [A, Bm, _spd(rng, p, (B, N), 0.5), _spd(rng, m, (B,), 0.5), C]
     return [torch.as_tensor(x, device=device) for x in f]
+
+
+def random_fused_args(n: int, m: int, B: int, N: int, device, seed: int = SEED, negated: bool = False) -> list:
+    """The fused select's inputs from a seed, laid out as build_fused_inputs
+    lays them out (A, Bm, vecs, scal, Qq, R_inv, Lt): A = I + 0.05 N(0, 1),
+    Bm = 0.3 N(0, 1), e, e_next and a~ 0.1 N(0, 1), Qq and R_inv positive
+    definite, Qe = Qq e and the corner e'Qq e + 2w (w = 0.05) as a
+    stationary cost gives them, scales exp(0.05 N(0, 1)), Lt = chol(Qf)'.
+    `negated`: rows 0 and n - 2 of A and column 0 of Bm exactly zero, the
+    stage cost negated (-Qq, -R_inv, -Qq e, -(e'Qq e + 2w)) and Qf scaled
+    by 100 (W0 = Qf^-1 small beside the negated blocks): each element and
+    prefix is then its positive twin's negative, as well conditioned, and
+    the sweeps meet exact zeros inside their matrices and negative pivots."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    A = np.eye(n) + 0.05 * rng.standard_normal((B, N, n, n))
+    Bm = 0.3 * rng.standard_normal((B, N, n, m))
+    e, en, at = (0.1 * rng.standard_normal((B, N, n)) for _ in range(3))
+    Qq, R_inv, Qf = _spd(rng, n, (B,), 0.5), _spd(rng, m, (B,), 0.5), _spd(rng, n, (B,), 1.0)
+    Qe = np.einsum("bij,bkj->bki", Qq, e)
+    corner = np.einsum("bki,bki->bk", e, Qe) + 2 * 0.05
+    if negated:
+        A[..., [0, n - 2], :] = 0.0
+        Bm[..., 0] = 0.0
+        Qq, R_inv, Qe, corner, Qf = -Qq, -R_inv, -Qe, -corner, 100.0 * Qf
+    s = np.exp(0.05 * rng.standard_normal((B, N + 1)))
+    scal = np.stack([corner, 1.0 / s[:, :N], s[:, 1:], 1.0 / s[:, 1:]], axis=-1)
+    Lt = np.linalg.cholesky(Qf).swapaxes(-1, -2)
+    f = [A, Bm, np.stack([e, en, at, Qe], axis=2), scal, Qq, R_inv, Lt]
+    return [torch.as_tensor(np.ascontiguousarray(x), device=device) for x in f]
 
 
 def random_rung2_args(p: int, B: int, N: int, device, seed: int = SEED) -> tuple:
@@ -1644,6 +1723,29 @@ def witness_lander_select(system, probs, X, U, A, Bj, J_k, J_p, s, label: str, n
     require(bool(tied.all()), f"{label}: kernel argmin not tied to the witness's on {int((~tied).sum())} problems")
 
 
+def hold_lander_select(system, probs, X, U, A, Bj, J_k, J_p, s, label: str, f32: bool) -> tuple:
+    """The lander's select kernel J_k against its plain version J_p, as
+    phase 3 (c) holds it: in float32 within F32_REL; in float64 the argmin
+    equal or tied within 1e-9 and J held to a long-double witness
+    (witness_lander_select), since at N = 200 the plain version's explicit
+    inverses lose digits past the quadrotor's 1e-9. (max abs err, the plain
+    version's T*), as check_select."""
+    import torch
+    from timeopt_tpu_torch.solver.cost import argmin_T
+
+    if f32:
+        return check_select(J_k, J_p, s, probs, ("rel", F32_REL), label, tie=F32_REL)
+    err, T_p = check_select(J_k, J_p, s, probs, None, label,
+                            ungated="the argmin below, and the long-double witness next")
+    T_k = argmin_T(s[:, :1] ** 2 * J_k, probs.T_min, probs.T_max)
+    rb = torch.arange(J_k.shape[0], device=J_k.device)
+    require(bool(((T_k == T_p) | ((J_p[rb, T_k - 1] - J_p[rb, T_p - 1]).abs()
+                                  <= 1e-9 * J_p[rb, T_p - 1].abs())).all()),
+            f"{label}: argmin T differs from the plain version's beyond a 1e-9 tie")
+    witness_lander_select(system, probs, X, U, A, Bj, J_k, J_p, s, label)
+    return err, T_p
+
+
 def phase_lander(device) -> dict:
     """Phase 3 (c): the 6-DoF lander (LANDER, n = 14, m = 3) at the size of
     the benchmark cell rocket6dof-prop-b1024 (B=1024, N=200, T in [40,
@@ -1667,7 +1769,6 @@ def phase_lander(device) -> dict:
     from timeopt_tpu_torch.models import get_system
     from timeopt_tpu_torch.ops import cuda_backward, cuda_forward, cuda_lft, work
     from timeopt_tpu_torch.solver import linearize as lin
-    from timeopt_tpu_torch.solver.cost import argmin_T
     from timeopt_tpu_torch.solver.ilqr import SolveOptions
 
     system, mk = get_system(LANDER)
@@ -1688,18 +1789,7 @@ def phase_lander(device) -> dict:
         kernel, plain, s = select_pair(system, probs, opts, X, U, A, Bj)
         J_k, J_p = kernel(), plain()
         torch.cuda.synchronize()
-        label = f"lft_select wide tier ({where})"
-        if f32:
-            err, T_p = check_select(J_k, J_p, s, probs, ("rel", F32_REL), label, tie=F32_REL)
-        else:
-            err, T_p = check_select(J_k, J_p, s, probs, None, label,
-                                    ungated="the argmin below, and the long-double witness next")
-            T_k = argmin_T(s[:, :1] ** 2 * J_k, probs.T_min, probs.T_max)
-            rb = torch.arange(B_FULL, device=device)
-            require(bool(((T_k == T_p) | ((J_p[rb, T_k - 1] - J_p[rb, T_p - 1]).abs()
-                                          <= 1e-9 * J_p[rb, T_p - 1].abs())).all()),
-                    f"{label}: argmin T differs from the plain version's beyond a 1e-9 tie")
-            witness_lander_select(system, probs, X, U, A, Bj, J_k, J_p, s, label)
+        err, T_p = hold_lander_select(system, probs, X, U, A, Bj, J_k, J_p, s, f"lft_select wide tier ({where})", f32)
         rows["lft_select"] = dict(max_abs_err=err, ms=cuda_ms(kernel, reps=5), ms_back_to_back=device_ms(kernel),
                                   plain_ms=cuda_ms(plain, reps=3),
                                   **work.select_fused(B_FULL, probs.N, system.n, system.m, probs.T_min, size))
@@ -3771,18 +3861,52 @@ class ABRun:
 
 
 def ab_lft_select(ab: ABRun) -> list:
-    """The quadrotor at B=1024, also held against the plain version."""
-    system, probs, X, U, A, Bj, kernel, plain, s, _ = ab.setup("Quadrotor", B_FULL)
-    J_o, J_n = ab.both(kernel)
-    check_select(J_n, plain(), s, probs, SELECT_BOUND["Quadrotor"], f"ab: new lft_select vs plain (Quadrotor B={B_FULL})")
-    rows = [ab.row("lft_select", "Quadrotor", (B_FULL, probs.N), kernel, ((J_o,), (J_n,)))]
+    """Every size tier the kernel instantiates, float64 and float32 where
+    the old sources have the float32 entry: the quadrotor at B=1024 (n = 12,
+    the registry's tier) and the lander at its cell's size (LANDER, B=1024,
+    N=200, the wide tier), each also held against the plain version as
+    phases 3 and 3 (c) hold them; every registry system of the fused select
+    at B=128 (n <= 4 the narrow tier); and random inputs of OFF_REGISTRY_FUSED
+    (a run-time n below the register tile's rows), plain and negated
+    (random_fused_args), held against the plain version at rtol 1e-9."""
+    import types
+
+    import torch
+    from timeopt_tpu_torch.ops import cuda_lft
+
     f32 = ab.f32("lft_select", "lft_select_fused_f32")
-    if f32 is not None:
-        system, probs, X, U, A, Bj, kernel, plain, s, _ = ab.setup("Quadrotor", B_FULL, f32)
+    rows = []
+    for case, dtype in [("Quadrotor", None), (LANDER, None)] + ([("Quadrotor", f32), (LANDER, f32)] if f32 else []):
+        system, probs, X, U, A, Bj, kernel, plain, s, _ = ab.setup(case, B_FULL, dtype)
         J_o, J_n = ab.both(kernel)
-        check_select(J_n, plain(), s, probs, F32_SELECT_BOUND["Quadrotor"], "ab: new lft_select float32 vs plain",
-                     tie=F32_REL)
-        rows.append(ab.row("lft_select", "Quadrotor float32", (B_FULL, probs.N), kernel, ((J_o,), (J_n,))))
+        tag = "" if dtype is None else " float32"
+        label = f"ab: new lft_select{tag} vs plain ({case} B={B_FULL} N={probs.N})"
+        if case == LANDER:
+            hold_lander_select(system, probs, X, U, A, Bj, J_n, plain(), s, label, dtype is not None)
+        elif dtype is None:
+            check_select(J_n, plain(), s, probs, SELECT_BOUND[case], label)
+        else:
+            check_select(J_n, plain(), s, probs, F32_SELECT_BOUND[case], label, tie=F32_REL)
+        rows.append(ab.row("lft_select", case + tag, (B_FULL, probs.N), kernel, ((J_o,), (J_n,))))
+    for case, Bsz in ab.every:
+        system, probs, X, U, A, Bj, kernel, plain, s, _ = ab.setup(case, Bsz)
+        if system.extra_cost is not None:  # the generic select's
+            continue
+        J_o, J_n = ab.both(kernel)
+        check_select(J_n, plain(), s, probs, SELECT_BOUND[case], f"ab: new lft_select vs plain ({case} B={Bsz})")
+        rows.append(ab.row("lft_select", f"{case} (n = {system.n}, tier {cuda_lft.tier(system.n, system.m)})",
+                           (Bsz, probs.N), kernel, ((J_o,), (J_n,))))
+    for n, m in OFF_REGISTRY_FUSED:  # the run-time-size path of the registry's tier
+        for negated in (False, True):
+            args = random_fused_args(n, m, B_OFF, N_OFF, ab.device, negated=negated)
+            fn = lambda: cuda_lft.propagator_select_fused(*args, t_min=1)  # noqa: E731
+            J_o, J_n = ab.both(fn)
+            what = f"random n={n} m={m}" + (" negated" if negated else "")
+            probs = types.SimpleNamespace(T_min=1, T_max=N_OFF)
+            s = torch.ones((B_OFF, N_OFF + 1), dtype=torch.float64, device=ab.device)
+            check_select(J_n, cuda_lft.select_fused_plain(*args), s, probs, ("rel", 1e-9),
+                         f"ab: new lft_select vs plain ({what})")
+            rows.append(ab.row("lft_select", what, (B_OFF, N_OFF), fn, ((J_o,), (J_n,))))
     return rows
 
 
@@ -4011,6 +4135,8 @@ def phase_ab(device, old: str) -> list:
             report = _build.build_info(name, csrc)[1]
             lines = [ln.split("ptxas info    : ")[-1] for ln in report.splitlines() if "registers" in ln or "spill" in ln]
             log(f"[ab] {tag} {name}: " + " | ".join(lines))
+            if name == "lft_select":
+                log(f"[ab] {tag} lft_select sass: " + select_sass_line(_build.load(name, csrc)._name))
     residency()
 
     ab = ABRun(device, old)

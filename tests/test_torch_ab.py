@@ -3,7 +3,9 @@
 `changed_kernels(old, new, names)` compares two csrc/ directories kernel
 by kernel: the .cu and every header it includes (transitively, as read in
 either directory). These tests need no card: they build directories of
-sources and compare them.
+sources and compare them. The build lines' count of the fused select's
+shuffles compiled for a diverged warp reads `cuobjdump -sass` text; its
+parser is held here to a piece of such text.
 """
 
 from __future__ import annotations
@@ -69,14 +71,14 @@ def test_changed_kernels_skips_a_kernel_the_old_tree_lacks(tmp_path):
 
 def test_kernel_sources_follow_includes():
     assert cs.kernel_sources("backward", CSRC) == {"backward.cu", "warpmat.cuh"}
-    assert cs.kernel_sources("lft_select", CSRC) == {"lft_select.cu"}
+    assert cs.kernel_sources("lft_select", CSRC) == {"lft_select.cu", "warpmat.cuh"}
     assert cs.kernel_sources("linesearch", CSRC) == {"linesearch.cu", "linesearch_kernel.cuh", "smallmat.cuh",
                                                      "systems.cuh"}
     assert cs.kernel_sources("linearize", CSRC) == {"linearize.cu", "dual.cuh", "systems.cuh"}
 
 
 @pytest.mark.parametrize("header,expected", [
-    ("warpmat.cuh", ["lft_select_generic", "backward", "lft_scan", "lft_query"]),
+    ("warpmat.cuh", ["lft_select", "lft_select_generic", "backward", "lft_scan", "lft_query"]),
     ("smallmat.cuh", ["linesearch"]),
     ("linesearch_kernel.cuh", ["linesearch"]),
     ("systems.cuh", ["linesearch"]),  # the registry's dynamics, which the line search integrates
@@ -98,3 +100,32 @@ def test_every_kernel_has_ab_rows():
     table's order."""
     assert list(cs.AB_ROWS) == list(cs.KERNELS)
     assert all(callable(f) for f in cs.AB_ROWS.values())
+
+
+SASS = """
+		Function : _ZN46_GLOBAL__N__352c886d_13_lft_select_cu_95b7c4d117lft_select_kernelIfLi15EEEvPKT_S3_S3_S3_PKdS5_S5_PS1_iiiid
+        /*11050*/                   BRA.DIV UR4, 0x1a2d0 ;
+        /*11060*/                   SHFL.IDX PT, R5, R9, RZ, 0x1f ;
+        /*1a2d0*/                   WARPSYNC.COLLECTIVE R32, 0x1a300 ;
+        /*1a2e0*/                   SHFL.IDX P0, R5, R9, RZ, 0x1f ;
+        /*1a2f0*/                   ENDCOLLECTIVE ;
+        /*1a300*/                   WARPSYNC.COLLECTIVE R32, 0x1a320 ;
+        /*1a310*/                   ENDCOLLECTIVE ;
+		Function : _ZN46_GLOBAL__N__352c886d_13_lft_select_cu_95b7c4d117lft_select_kernelIdLi5EEEvPKT_S3_S3_S3_PKdS5_S5_PS1_iiiid
+        /*0100*/                   SHFL.IDX PT, R5, R9, RZ, 0x1f ;
+        /*0110*/                   SHFL.BFLY PT, R6, R9, 0x1, 0x1f ;
+		Function : _ZN46_GLOBAL__N__352c886d_13_lft_scan_cu_95b7c4d117lft_scan_kernelIdLi13ELi2ELb1EEEvPKT_
+        /*0100*/                   WARPSYNC.COLLECTIVE R32, 0x0130 ;
+        /*0110*/                   SHFL.IDX P0, R5, R9, RZ, 0x1f ;
+        /*0120*/                   ENDCOLLECTIVE ;
+"""
+
+
+def test_select_sass_counts_collective_shuffles():
+    """Each lft_select_kernel instantiation's SHFL, those between a
+    WARPSYNC.COLLECTIVE and its ENDCOLLECTIVE, and the sequences; another
+    kernel's function is left out."""
+    assert cs.select_sass(SASS) == {
+        "float 15": dict(shfl=2, collective_shfl=1, collective_sequences=2),
+        "double 5": dict(shfl=2, collective_shfl=0, collective_sequences=0),
+    }

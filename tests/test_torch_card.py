@@ -51,6 +51,11 @@ backward, line-search, float32 and Jacobian tests above at their
 tolerances, and a traced lander build counts the wide tier. Its initial
 rollout, one launch of the line-search kernel, is held to rollout's torch
 steps at the line search's tolerances.
+
+The fused select's sweeps divide a zero by x * pv (warpmat.cuh quot): at
+each of its size tiers it is also held, at the select's rtol 1e-9, on
+random step inputs with exact zeros inside the matrices and negative
+pivots (chip_smoke.random_fused_args).
 """
 
 from __future__ import annotations
@@ -406,6 +411,29 @@ def test_select_kernel_edges_match_plain(dev, case, B, N, t_min, noise):
     J_p = cuda_lft.select_fused_plain(*args)
     assert torch.isinf(J_k[:, : t_min - 1]).all()
     _close(J_k[:, t_min - 1 :], J_p[:, t_min - 1 :], 1e-9, 0.0)
+
+
+@pytest.mark.parametrize("n,m", [(4, 2), (12, 4), (14, 3)])  # p = 5, 13, 15: the narrow, registry and wide tiers
+def test_select_kernel_on_exact_zeros_and_negative_pivots(dev, n, m):
+    """The select's sweeps where zeros skip the division (x * pv for a zero
+    x, the same bits) at every size tier: random step inputs with zero rows
+    of A, a zero column of B and the stage cost negated, so that every
+    compose pivot is negative and the zero quotients carry a sign
+    (chip_smoke.random_fused_args), against the plain version within
+    chip_smoke's SELECT_BOUND of the quadrotor, with the same argmin."""
+    cs = _chip_smoke()
+    B, N = 5, 33
+    args = cs.random_fused_args(n, m, B, N, dev, negated=True)
+    A, Bm, Qq = args[0], args[1], args[4]
+    assert cuda_lft.tier(n, m) == n
+    assert bool((A[..., 0, :] == 0).all() and (A[..., n - 2, :] == 0).all() and (Bm[..., 0] == 0).all())
+    assert torch.linalg.eigvalsh(Qq).max().item() < 0
+    J_k = cuda_lft.propagator_select_fused(*args, t_min=1)
+    J_p = cuda_lft.select_fused_plain(*args)
+    kind, rtol = cs.SELECT_BOUND["Quadrotor"]
+    assert kind == "rel"
+    _close(J_k, J_p, rtol, 0.0)
+    assert torch.equal(argmin_T(J_k, 1, N), argmin_T(J_p, 1, N))
 
 
 @pytest.mark.parametrize("case,B,alphas,poison", [

@@ -57,8 +57,20 @@
 //
 // What holds it back now (chip_smoke.py --ab, PERF.md): each role is one
 // warp walking latency chains (pivot shuffle, division, update; dot
-// products in index order) at 64 registers, and the query warp paces the
-// pipeline; the kernel stays ~55x above its bound.
+// products in index order) at 64 registers; compose warp B (two products
+// after its sweep) paces the pipeline, the query warp close behind, and
+// the kernel stays far above its bound.
+//
+// Two things the sweeps' speed turned on (the scan's, PERF.md section 6),
+// both kept here without a change of bits: a float64 division of zero
+// leaves the division's fast path, and every pivot divides zeros (the
+// lanes past the matrix's edge, the eliminated entries), so the sweeps
+// divide by warpmat.cuh's quot (x * pv for a zero x: the same value and
+// sign); a shuffle in code that the compiler cannot prove the whole warp
+// reaches (a branch on the thread index, a loop whose exit hangs on a
+// barrier's spin) is compiled for a diverged warp at several
+// instructions, so the roles branch on a shuffled warp index and a
+// __syncwarp follows each barrier wait.
 //
 // Size tiers. The shared memory of a block is sized for the largest n of
 // its tier, so each tier is its own instantiation: the registry's, n <= 12
@@ -71,51 +83,18 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "warpmat.cuh"
+
 namespace {
+
+using namespace warpmat;
 
 constexpr int NMAX = 12;  // the registry's tier
 constexpr int PMAX = NMAX + 1;
 constexpr int NWIDE = 14;  // the wide tier
 constexpr int MMAX = 8;
-constexpr int WARP = 32;
 constexpr int THREADS = 4 * WARP;  // element, compose A, compose B, query
 constexpr int RING = 2;            // slots of the element ring and of the carry ring
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-// mbarriers in shared memory: every thread of a producing warp arrives
-// (release), a consuming warp waits for the phase of its step (acquire).
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  uint64_t state;
-  asm volatile("mbarrier.arrive.shared.b64 %0, [%1];" : "=l"(state) : "r"(smem_addr(bar)) : "memory");
-  (void)state;
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  unsigned done;
-  do {
-    asm volatile("{ .reg .pred p; mbarrier.try_wait.parity.shared.b64 p, [%1], %2; selp.u32 %0, 1, 0, p; }" : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void cp_async8(double* dst, const double* src) {
-  const unsigned d = smem_addr(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(d), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_el(double* dst, const double* src) { cp_async8(dst, src); }
-__device__ __forceinline__ void cp_async_el(float* dst, const float* src) {
-  const unsigned d = smem_addr(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
-template <int K>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(K) : "memory");
-}
 
 // The tier of an instantiation whose register tiles hold PM rows: the
 // largest n its shared memory takes, and its blocks an SM.
@@ -159,17 +138,6 @@ template <int NB>
 __device__ __forceinline__ double elem_E(const Smem<NB>& S, const Elem<NB>& el, int n, int i, int j) {
   const double ui = el.u[i] * el.inv_s;
   return ((i < n && j < n) ? S.iQ[i * n + j] : 0.0) + ui * el.u[j];
-}
-
-// M (p x p, row-major) <- sym(M), in place: one lane per pair i <= j.
-__device__ __forceinline__ void sym_inplace(double* M, int p, int lane) {
-  for (int idx = lane; idx < p * p; idx += WARP) {
-    const int i = idx / p, j = idx - (idx / p) * p;
-    if (i > j) continue;
-    const double s = 0.5 * (M[idx] + M[j * p + i]);
-    M[idx] = s;
-    M[j * p + i] = s;
-  }
 }
 
 template <typename Fp, int NB>
@@ -254,10 +222,11 @@ __device__ void build_element(Smem<NB>& S, const Stage<Fp, NB>& st, Elem<NB>& el
 // warp B. The left block's sweep is the same arithmetic in both warps, so
 // each right block comes out as one sweep of [left | Fbar' | F_k] gives it.
 // The pivot column i < p sits in lane i and reaches every lane by shuffle,
-// row by row before that row is updated.
+// row by row before that row is updated (warpmat.cuh gj_sweep, zeros
+// through quot).
 template <int PM, int NB = tier_n(PM)>
 __device__ void sweep(const Smem<NB>& S, const Elem<NB>& el, const Carry<NB>& pc, bool right_is_Fbar, int n,
-                      double jitter, int lane, double (&M)[PM]) {
+                      double jitter, int lane, double (&M)[1][PM]) {
   const int p = n + 1;
   const int j = lane;
 #pragma unroll
@@ -270,22 +239,9 @@ __device__ void sweep(const Smem<NB>& S, const Elem<NB>& el, const Carry<NB>& pc
       else
         x = right_is_Fbar ? pc.F[(j - p) * p + i] : el.F[i * p + (j - p)];
     }
-    M[i] = x;
+    M[0][i] = x;
   }
-#pragma unroll
-  for (int i = 0; i < PM; ++i) {
-    if (i < p) {
-      const double pv = __shfl_sync(0xffffffffu, M[i], i);
-      const double r = M[i] / pv;
-#pragma unroll
-      for (int q = 0; q < PM; ++q) {
-        if (q < p) {
-          const double c = __shfl_sync(0xffffffffu, M[q], i);
-          M[q] = (q == i) ? r : M[q] - c * r;
-        }
-      }
-    }
-  }
+  gj_sweep<PM, 1, true>(M, p, lane);
 }
 
 // After the sweep lane p + j holds column j of the right block. Every lane
@@ -298,7 +254,7 @@ __device__ __forceinline__ int share_column(const double (&M)[PM], double (&X)[P
                                             int& hi) {
   const int src = lane < p ? p + lane : lane;
 #pragma unroll
-  for (int l = 0; l < PM; ++l) X[l] = __shfl_sync(0xffffffffu, M[l], src);
+  for (int l = 0; l < PM; ++l) X[l] = __shfl_sync(FULL, M[l], src);
   const int half = (p + 1) / 2;
   j = src - p;
   hi = lane < p ? p : half;
@@ -310,10 +266,10 @@ template <int PM, int NB = tier_n(PM)>
 __device__ __noinline__ void compose_E(const Smem<NB>& S, const Elem<NB>& el, const Carry<NB>& pc, Carry<NB>& nc, int n,
                                        double jitter, int lane) {
   const int p = n + 1;
-  double M[PM], X[PM];
+  double M[1][PM], X[PM];
   sweep<PM>(S, el, pc, true, n, jitter, lane, M);
   int j, hi;
-  const int lo = share_column<PM>(M, X, p, lane, j, hi);
+  const int lo = share_column<PM>(M[0], X, p, lane, j, hi);
   if (lane < 2 * p) {
     for (int i = lo; i < hi; ++i) {
       double a = 0.0;
@@ -332,10 +288,10 @@ template <int PM, int NB = tier_n(PM)>
 __device__ __noinline__ void compose_FG(const Smem<NB>& S, const Elem<NB>& el, const Carry<NB>& pc, Carry<NB>& nc,
                                         int n, double jitter, int lane) {
   const int p = n + 1;
-  double M[PM], X[PM];
+  double M[1][PM], X[PM];
   sweep<PM>(S, el, pc, false, n, jitter, lane, M);
   int j, hi;
-  const int lo = share_column<PM>(M, X, p, lane, j, hi);
+  const int lo = share_column<PM>(M[0], X, p, lane, j, hi);
   if (lane < 2 * p) {
     for (int i = lo; i < hi; ++i) {
       double f = 0.0, g = 0.0;
@@ -366,7 +322,7 @@ __device__ __noinline__ double query(Smem<NB>& S, const Carry<NB>& cc, int n, do
   const double* cF = cc.F;
   const double* et = cc.et;
   // [K | FEt'], lane j holds column j (ld <= 29)
-  double M[NM];
+  double M[1][NM];
   const int j = lane;
 #pragma unroll
   for (int i = 0; i < NM; ++i) {
@@ -381,28 +337,15 @@ __device__ __noinline__ double query(Smem<NB>& S, const Carry<NB>& cc, int n, do
         x = cF[r * p + i] + cF[r * p + n] * et[i];
       }
     }
-    M[i] = x;
+    M[0][i] = x;
   }
-#pragma unroll
-  for (int i = 0; i < NM; ++i) {
-    if (i < n) {
-      const double pv = __shfl_sync(0xffffffffu, M[i], i);
-      const double r = M[i] / pv;
-#pragma unroll
-      for (int q = 0; q < NM; ++q) {
-        if (q < n) {
-          const double c = __shfl_sync(0xffffffffu, M[q], i);
-          M[q] = (q == i) ? r : M[q] - c * r;
-        }
-      }
-    }
-  }
+  gj_sweep<NM, 1, true>(M, n, lane);
   // Ebar - FEt (K^-1 FEt') -> QS, the right block through shared memory so
   // that every lane takes a share of the p^2 sums
   if (j >= n && j < ld) {
 #pragma unroll
     for (int l = 0; l < NM; ++l)
-      if (l < n) S.QX[l * p + (j - n)] = M[l];
+      if (l < n) S.QX[l * p + (j - n)] = M[0][l];
   }
   __syncwarp();
   for (int idx = lane; idx < p * p; idx += WARP) {
@@ -419,34 +362,10 @@ __device__ __noinline__ double query(Smem<NB>& S, const Carry<NB>& cc, int n, do
 #pragma unroll
   for (int i = 0; i < PM; ++i)
     X[i] = (i < p && j < p) ? 0.5 * (S.QS[i * p + j] + S.QS[j * p + i]) + (i == j ? jitter : 0.0) : 0.0;
-#pragma unroll
-  for (int i = 0; i < PM - 1; ++i) {
-    if (i < p - 1) {
-      const double pv = __shfl_sync(0xffffffffu, X[i], i);
-      const double r = X[i] / pv;
-#pragma unroll
-      for (int q = i + 1; q < PM; ++q) {
-        if (q < p) {
-          const double c = __shfl_sync(0xffffffffu, X[q], i);
-          X[q] = X[q] - c * r;
-        }
-      }
-    }
-  }
-  double last = 0.0;
-#pragma unroll
-  for (int q = 0; q < PM; ++q)
-    if (q == p - 1) last = X[q];
-  last = __shfl_sync(0xffffffffu, last, p - 1);
+  const double last = last_pivot<PM, true>(X, p);
   __syncwarp();  // QS is read by every lane before the next query writes it
   return 0.5 / last;
 }
-
-// The u-th completion of a slot's barrier has parity u & 1. Step k uses
-// slot k % RING for the (k / RING)-th time; it waits for the "full" phase of
-// its own use and for the "free" phase of the use before (k >= RING).
-__device__ __forceinline__ unsigned use_parity(int k) { return (unsigned)(k / RING) & 1u; }
-__device__ __forceinline__ unsigned prev_parity(int k) { return (unsigned)(k / RING - 1) & 1u; }
 
 // Fp: the storage type of the step inputs and of J (double, or float on the
 // float32 path: one rounding, as J is stored); the k-constants iQq, R^-1
@@ -462,7 +381,10 @@ lft_select_kernel(const Fp* __restrict__ A, const Fp* __restrict__ Bm, const Fp*
   __shared__ Smem<NB> S;
   __shared__ Stage<Fp, NB> stage[2];
   const int b = blockIdx.x;
-  const int tid = threadIdx.x, warp = tid / WARP, lane = tid - warp * WARP;
+  // the warp's index through a shuffle, which the compiler knows every lane
+  // shares: a branch on the thread index (the roles below) would have it
+  // compile every shuffle in the branch for a diverged warp
+  const int tid = threadIdx.x, lane = tid % WARP, warp = __shfl_sync(FULL, tid / WARP, 0);
 
   for (int i = tid; i < n * n; i += THREADS) {
     S.iQ[i] = iQq[(size_t)b * n * n + i];
@@ -491,7 +413,10 @@ lft_select_kernel(const Fp* __restrict__ A, const Fp* __restrict__ Bm, const Fp*
       }
       __syncwarp();
       const int e = k % RING;
-      if (k >= RING) mbar_wait(&S.elem_free[e], prev_parity(k));
+      if (k >= RING) {
+        mbar_wait(&S.elem_free[e], prev_parity(k, RING));
+        __syncwarp();
+      }
       build_element(S, stage[k & 1], S.elem[e], n, m, jitter, lane);
       __syncwarp();
       mbar_arrive(&S.elem_full[e]);
@@ -501,8 +426,12 @@ lft_select_kernel(const Fp* __restrict__ A, const Fp* __restrict__ Bm, const Fp*
     const int p = n + 1, pp = p * p;
     for (int k = 0; k < N; ++k) {
       const int s = k % RING;
-      mbar_wait(&S.elem_full[s], use_parity(k));
-      if (k >= RING) mbar_wait(&S.carry_free[s], prev_parity(k));
+      mbar_wait(&S.elem_full[s], use_parity(k, RING));
+      __syncwarp();
+      if (k >= RING) {
+        mbar_wait(&S.carry_free[s], prev_parity(k, RING));
+        __syncwarp();
+      }
       const Elem<NB>& el = S.elem[s];
       Carry<NB>& nc = S.carry[s];
       if (k == 0) {  // the first element is the carry itself: no compose
@@ -520,7 +449,8 @@ lft_select_kernel(const Fp* __restrict__ A, const Fp* __restrict__ Bm, const Fp*
       } else {
         const int ps = (k - 1) % RING;
         if (is_A) {
-          mbar_wait(&S.carry_full[ps], use_parity(k - 1));  // warp B's Fbar, Gbar of step k-1
+          mbar_wait(&S.carry_full[ps], use_parity(k - 1, RING));  // warp B's Fbar, Gbar of step k-1
+          __syncwarp();
           compose_E<PM>(S, el, S.carry[ps], nc, n, jitter, lane);
         } else {
           compose_FG<PM>(S, el, S.carry[ps], nc, n, jitter, lane);
@@ -534,7 +464,8 @@ lft_select_kernel(const Fp* __restrict__ A, const Fp* __restrict__ Bm, const Fp*
   } else {  // query warp: J of step k off the chain
     for (int k = 0; k < N; ++k) {
       const int s = k % RING;
-      mbar_wait(&S.carry_full[s], use_parity(k));
+      mbar_wait(&S.carry_full[s], use_parity(k, RING));
+      __syncwarp();
       const size_t bk = (size_t)b * N + k;
       if (k + 1 < t_min) {
         if (lane == 0) J[bk] = INFINITY;
@@ -546,6 +477,23 @@ lft_select_kernel(const Fp* __restrict__ A, const Fp* __restrict__ Bm, const Fp*
       if (k + RING < N) mbar_arrive(&S.carry_free[s]);
     }
   }
+}
+
+template <typename Fp, int PM>
+int blocks_per_sm() {
+  int b = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, lft_select_kernel<Fp, PM>, THREADS, 0);
+  return b;
+}
+
+// Blocks an SM holds at once of the instantiation that n states take (the
+// dispatch of select_fused), from its registers and shared memory.
+template <typename Fp>
+int select_blocks_per_sm(int n) {
+  if (n < 1 || n > NWIDE) return -1;
+  if (n + 1 <= 5) return blocks_per_sm<Fp, 5>();
+  if (n <= NMAX) return blocks_per_sm<Fp, PMAX>();
+  return blocks_per_sm<Fp, NWIDE + 1>();
 }
 
 template <typename Fp, int PM>
@@ -573,6 +521,9 @@ int select_fused(const void* A, const void* Bm, const void* vecs, const void* sc
 }
 
 }  // namespace
+
+extern "C" int lft_select_blocks_per_sm(int n) { return select_blocks_per_sm<double>(n); }
+extern "C" int lft_select_blocks_per_sm_f32(int n) { return select_blocks_per_sm<float>(n); }
 
 // float64 step inputs and J
 extern "C" int lft_select_fused(const void* A, const void* Bm, const void* vecs,

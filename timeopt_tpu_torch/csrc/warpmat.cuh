@@ -1,5 +1,7 @@
-// Warp-level float64 helpers for tiny matrices, shared by the generic
-// select (lft_select_generic.cu) and the backward pass (backward.cu).
+// Warp-level float64 helpers for tiny matrices, shared by the fused and
+// the generic select (lft_select.cu, lft_select_generic.cu), the prefix
+// scan and the query (lft_scan.cu, lft_query.cu) and the backward pass
+// (backward.cu).
 //
 // A matrix under elimination lives in registers: lane j holds column j
 // (and, with two columns a lane, column j + 32), one row per array entry.
@@ -117,13 +119,14 @@ __device__ __forceinline__ double gj_sweep(double (&M)[CPL][R], int r, int lane)
 // column j lane j holds (r <= R): forward elimination only, which gives
 // every entry the last pivot depends on the same updates as a full
 // Gauss-Jordan sweep, hence the same bits. Every lane gets the value.
-template <int R>
+// ZQ: the row's divisions by quot, as in gj_sweep.
+template <int R, bool ZQ = false>
 __device__ __forceinline__ double last_pivot(double (&X)[R], int r) {
 #pragma unroll
   for (int i = 0; i < R - 1; ++i) {
     if (i < r - 1) {
       const double pv = __shfl_sync(FULL, X[i], i);
-      const double row = X[i] / pv;
+      const double row = ZQ ? quot(X[i], pv) : X[i] / pv;
 #pragma unroll
       for (int q = i + 1; q < R; ++q) {
         if (q < r) {
