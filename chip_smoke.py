@@ -354,10 +354,9 @@ REFERENCE_MISSES = {"PointMass_Navigation": (39, 42, 57, 66, 81, 112)}
 #   other five);
 # - the chain against the generic select kernel (csrc/lft_select_generic.cu,
 #   gated on its own above and by phase 4) on the same blocks, CHAIN_BOUND:
-#   the scan takes that kernel's element and compose sweeps in the same
-#   order and its J the same last-pivot value, so the two agree bitwise
-#   (reading 0 on all six systems at levels 1 and 2); a change of either
-#   kernel's operation order must re-read this bound against long double;
+#   both kernels run the one element and compose of csrc/lft_chain.cuh and
+#   the query takes the same last-pivot value, so the two agree bitwise by
+#   construction (reading 0 on all six systems at levels 1 and 2);
 # - the chain against the chain of plain versions, SCAN_QUERY_BOUND, where
 #   that holds: the scan kernel eliminates where the plain scan (the JAX
 #   algorithm) forms explicit inverses. On the quadrotor's first iterate the

@@ -75,10 +75,13 @@ def test_kernel_sources_follow_includes():
     assert cs.kernel_sources("linesearch", CSRC) == {"linesearch.cu", "linesearch_kernel.cuh", "smallmat.cuh",
                                                      "systems.cuh"}
     assert cs.kernel_sources("linearize", CSRC) == {"linearize.cu", "dual.cuh", "systems.cuh"}
+    for name in ("lft_select_generic", "lft_scan"):  # the chain both run
+        assert cs.kernel_sources(name, CSRC) == {f"{name}.cu", "lft_chain.cuh", "warpmat.cuh"}
 
 
 @pytest.mark.parametrize("header,expected", [
     ("warpmat.cuh", ["lft_select", "lft_select_generic", "backward", "lft_scan", "lft_query"]),
+    ("lft_chain.cuh", ["lft_select_generic", "lft_scan"]),  # the LFT chain's element, compose and size rule
     ("smallmat.cuh", ["linesearch"]),
     ("linesearch_kernel.cuh", ["linesearch"]),
     ("systems.cuh", ["linesearch"]),  # the registry's dynamics, which the line search integrates

@@ -14,17 +14,14 @@
 // whose Hessian makes Q_aug vary with k, so the k-constant arrow element and
 // W0 query of the fused kernel (lft_select.cu) do not apply.
 //
-// Per problem and per step k, with p = n + 1:
-//   element  E = (sym(Q_aug,k) + jitter I)^-1,  F = E A',  G = sym(A F + B R^-1 B')
-//   compose  onto the prefix carry (Ebar, Fbar, Gbar) with
-//            W = (sym(E_k + Gbar) + jitter I)^-1 never formed
+// Per problem and per step k, with p = n + 1, the element and the compose
+// of lft_chain.cuh (B R^-1 B' from B R^-1 and B, no jitter ladder), then
 //   query    (k+1 >= T_min) S = sym(I + C Gbar C'),  Y = S^-1 C Fbar',
 //            X0 = sym(Ebar - Fbar C' Y),  J = 0.5 ((X0 + jitter I)^-1)[p-1, p-1]
 //            read off the last pivot of the elimination; +inf below T_min.
-// J is unscaled (the caller multiplies by s_0^2). No elimination pivots, as
-// in the plain version (solver/horizon.py::select_generic_plain) and the JAX
-// reference: Q_aug may be indefinite near an obstacle, and the result must
-// be the same function, not a better-conditioned one.
+// J is unscaled (the caller multiplies by s_0^2), pivot-free as the chain
+// (solver/horizon.py::select_generic_plain): Q_aug may be indefinite near
+// an obstacle.
 //
 // Bound on the H100 (chip_smoke.py's count, timeopt_tpu_torch/ops/work.py):
 // at PointMass's p = 5, m = 2, B = 1024, N = 220 a step reads 1.1 KB of
@@ -36,32 +33,21 @@
 // inputs at the step's head, and ran element, compose and query in series.
 //
 // The design takes the chain apart, as lft_select.cu does. Each problem
-// has four warps (two problems a block at the registry's p = 3 and 5,
-// one at any other p <= 13):
+// has four warps (two problems a block at one column a lane, p = 3 and 5;
+// one at two, any other p <= 13; the chain's size rule):
 // - the element warp loads step k+1's Q_aug, A_aug and B_aug with
 //   cp.async while it builds step k's element (E, F, G: it does not
 //   depend on the carry) into a ring of two slots;
-// - the compose warp alone is on the chain: it sweeps
-//   [sym(E_k + Gbar) + jitter I | Fbar' | F_k] by Gauss-Jordan in
-//   registers (csrc/warpmat.cuh: lane j holds column j at p = 3 and 5,
-//   two columns a lane otherwise; the pivot column broadcast by
-//   __shfl_sync, no barrier per pivot), forms the three p x p products
-//   (with one column a lane the left block's lanes, idle after the sweep,
-//   take G_k - F_k' (W F_k)) and
-//   writes the new carry into a ring of four slots;
+// - the compose warp alone is on the chain: it composes the element onto
+//   the carry (with one column a lane the left block's lanes, idle after
+//   the sweep, take G_k - F_k' (W F_k)) and writes the new carry into a
+//   ring of four slots;
 // - two query warps take the even and the odd steps, each loading its
 //   steps' C with cp.async one step ahead, and run the C-form query off
 //   the chain; the last sweep eliminates forward only, which gives the last
 //   pivot the same bits as the full sweep.
 // Warps hand slots over with mbarriers ("full" and "free" per slot), and
-// no block-wide barrier runs inside the step loops. Every entry keeps the
-// arithmetic and the operation order of the earlier kernel (each division
-// by the pivot, each M - col * row update, each inner sum in index order,
-// each symmetrization with its operands in the same order), so J is equal
-// to it bit for bit; only the schedule differs. The additions that join two
-// sums are written __dadd_rn / __dsub_rn: with compile-time sizes the
-// compiler could otherwise fuse a one-term sum's product into them, which
-// the earlier kernel (runtime sizes) never did.
+// no block-wide barrier runs inside the step loops.
 //
 // What holds it back now (PERF.md section 6): at PointMass B = 1024 the
 // kernel runs 1.30 ms against the earlier kernel's 3.79 (bound 0.048 ms).
@@ -73,30 +59,21 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "warpmat.cuh"
+#include "lft_chain.cuh"
 
 namespace {
 
-using namespace warpmat;
+using namespace lft_chain;
 
-constexpr int NMAX = 12;
-constexpr int PMAX = NMAX + 1;
+constexpr int NMAX = PMAX - 1;
 constexpr int MMAX = 8;
 constexpr int NQ = 2;           // query warps: step k goes to warp k % NQ
 constexpr int ROLES = 2 + NQ;   // element, compose, queries
 constexpr int RE = 2;           // element ring
 constexpr int RC = 2 * NQ;      // carry ring; a multiple of NQ, so a slot always feeds the same query warp
 
-// raw inputs of one step in the storage type Fp (double, or float on the
-// float32 path, converted to double where they are read)
 template <typename Fp, int PM>
-struct Stage {
-  Fp Q[PM * PM], A[PM * PM], B[PM * MMAX];
-};
-template <int PM>
-struct Mats {  // an element (E, F, G) or a prefix carry (Ebar, Fbar, Gbar)
-  double E[PM * PM], F[PM * PM], G[PM * PM];
-};
+using StageB = Stage<Fp, PM, PM * MMAX>;  // Q_aug, A_aug and B_aug
 template <typename Fp, int PM>
 struct QueryScratch {  // one query warp's C ring (storage type) and products
   Fp C[2][(PM - 1) * PM];
@@ -106,14 +83,14 @@ template <typename Fp, int PM>
 struct Problem {
   uint64_t elem_full[RE], elem_free[RE], carry_full[RC], carry_free[RC];
   double Ri[MMAX * MMAX], BR[PM * MMAX];
-  Stage<Fp, PM> stage[2];
+  StageB<Fp, PM> stage[2];
   Mats<PM> elem[RE], carry[RC];
   QueryScratch<Fp, PM> qs[NQ];
 };
 
 template <typename Fp, int PM>
-__device__ __forceinline__ void load_stage(Stage<Fp, PM>& st, const Fp* Ag, const Fp* Bg, const Fp* Qg, size_t bk, int p,
-                                           int m, int lane) {
+__device__ __forceinline__ void load_stage(StageB<Fp, PM>& st, const Fp* Ag, const Fp* Bg, const Fp* Qg, size_t bk,
+                                           int p, int m, int lane) {
   const int pp = p * p;
   for (int i = lane; i < pp; i += WARP) {
     cp_async_el(&st.Q[i], Qg + bk * pp + i);
@@ -123,9 +100,10 @@ __device__ __forceinline__ void load_stage(Stage<Fp, PM>& st, const Fp* Ag, cons
   cp_async_commit();
 }
 
-// ---- element warp: step k's element from its staged inputs
+// ---- element warp: step k's element from its staged inputs, B R^-1 B'
+// from B R^-1 (formed here) and B
 template <typename Fp, int PM, int CPL, bool EXACT>
-__device__ __noinline__ void build_element(Problem<Fp, PM>& P, const Stage<Fp, PM>& st, Mats<PM>& el, int n, int m,
+__device__ __noinline__ void build_element(Problem<Fp, PM>& P, const StageB<Fp, PM>& st, Mats<PM>& el, int n, int m,
                                            double jitter, int lane) {
   const int p = EXACT ? PM : n + 1;
   // B R^-1 (p x m)
@@ -135,170 +113,15 @@ __device__ __noinline__ void build_element(Problem<Fp, PM>& P, const Stage<Fp, P
     for (int l = 0; l < m; ++l) sum += st.B[i * m + l] * P.Ri[l * m + j];
     P.BR[idx] = sum;
   }
-  // [sym(Q) + jitter I | A' | I] -> [I | Q^-1 A' | Q^-1] = [I | F | E]
-  double M[CPL][PM];
-#pragma unroll
-  for (int s = 0; s < CPL; ++s) {
-    const int col = lane + WARP * s;
-#pragma unroll
-    for (int i = 0; i < PM; ++i) {
-      double x = 0.0;
-      if (i < p && col < 3 * p) {
-        if (col < p) x = 0.5 * ((double)st.Q[i * p + col] + (double)st.Q[col * p + i]) + (i == col ? jitter : 0.0);
-        else if (col < 2 * p) x = st.A[(col - p) * p + i];
-        else x = (i == col - 2 * p) ? 1.0 : 0.0;
-      }
-      M[s][i] = x;
-    }
-  }
-  gj_sweep<PM, CPL>(M, p, lane);
-  __syncwarp();  // B R^-1
-  // F and E out of the right blocks; the lane of F's column j forms
-  // column j of A F + B R^-1 B' (G before its symmetrization)
-#pragma unroll
-  for (int s = 0; s < CPL; ++s) {
-    const int col = lane + WARP * s;
-    if (col >= p && col < 2 * p) {
-      const int j = col - p;
-#pragma unroll
-      for (int i = 0; i < PM; ++i)
-        if (i < p) el.F[i * p + j] = M[s][i];
-      double g[PM], brb[PM];
-#pragma unroll
-      for (int i = 0; i < PM; ++i) g[i] = brb[i] = 0.0;
-#pragma unroll
-      for (int l = 0; l < PM; ++l) {
-        if (l < p) {
-          const double f = M[s][l];
-#pragma unroll
-          for (int i = 0; i < PM; ++i)
-            if (i < p) g[i] += st.A[i * p + l] * f;
-        }
-      }
-      for (int l = 0; l < m; ++l) {
-        const double bj = st.B[j * m + l];
-#pragma unroll
-        for (int i = 0; i < PM; ++i)
-          if (i < p) brb[i] += P.BR[i * m + l] * bj;
-      }
-#pragma unroll
-      for (int i = 0; i < PM; ++i)
-        if (i < p) el.G[i * p + j] = __dadd_rn(g[i], brb[i]);
-    } else if (col >= 2 * p && col < 3 * p) {
-      const int j = col - 2 * p;
-#pragma unroll
-      for (int i = 0; i < PM; ++i)
-        if (i < p) el.E[i * p + j] = M[s][i];
-    }
-  }
-  __syncwarp();
-  sym_inplace(el.G, p, lane);
+  using Z = Size<PM, CPL, EXACT>;
+  element<Z, false, false>(st, el, p, 1, jitter, lane, BRBFromFactors<Z, Fp>{st.B, P.BR, p, m});
 }
 
 // ---- compose warp: carry nc = carry pc o element el (k > 0)
 template <int PM, int CPL, bool EXACT>
 __device__ __noinline__ void compose(const Mats<PM>& el, const Mats<PM>& pc, Mats<PM>& nc, int n, double jitter,
                                      int lane) {
-  const int p = EXACT ? PM : n + 1;
-  // [sym(E_k + Gbar) + jitter I | Fbar' | F_k] -> [I | W Fbar' | W F_k]
-  double M[CPL][PM];
-#pragma unroll
-  for (int s = 0; s < CPL; ++s) {
-    const int col = lane + WARP * s;
-#pragma unroll
-    for (int i = 0; i < PM; ++i) {
-      double x = 0.0;
-      if (i < p && col < 3 * p) {
-        if (col < p)
-          x = 0.5 * ((el.E[i * p + col] + pc.G[i * p + col]) + (el.E[col * p + i] + pc.G[col * p + i])) +
-              (i == col ? jitter : 0.0);
-        else if (col < 2 * p) x = pc.F[(col - p) * p + i];
-        else x = el.F[i * p + (col - 2 * p)];
-      }
-      M[s][i] = x;
-    }
-  }
-  gj_sweep<PM, CPL>(M, p, lane);
-  // with one column a lane, lane j < p takes a copy of column j of W F_k
-  double Y[PM];
-  if constexpr (CPL == 1) {
-    const int src = lane < p ? lane + 2 * p : lane;
-#pragma unroll
-    for (int l = 0; l < PM; ++l) Y[l] = __shfl_sync(FULL, M[0][l], src);
-  }
-  // Ebar - Fbar (W Fbar') -> nc.E;  Fbar (W F_k) -> nc.F;  G_k - F_k' (W F_k) -> nc.G.
-  // Every sum runs over l in order; the loop over l is outside, so each l
-  // feeds p independent sums.
-#pragma unroll
-  for (int s = 0; s < CPL; ++s) {
-    const int col = lane + WARP * s;
-    if (col >= p && col < 2 * p) {
-      const int j = col - p;
-      double a[PM];
-#pragma unroll
-      for (int i = 0; i < PM; ++i) a[i] = 0.0;
-#pragma unroll
-      for (int l = 0; l < PM; ++l) {
-        if (l < p) {
-          const double x = M[s][l];
-#pragma unroll
-          for (int i = 0; i < PM; ++i)
-            if (i < p) a[i] += pc.F[i * p + l] * x;
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < PM; ++i)
-        if (i < p) nc.E[i * p + j] = __dsub_rn(pc.E[i * p + j], a[i]);
-    } else if (col >= 2 * p && col < 3 * p) {
-      const int j = col - 2 * p;
-      double f[PM], g[PM];
-#pragma unroll
-      for (int i = 0; i < PM; ++i) f[i] = g[i] = 0.0;
-#pragma unroll
-      for (int l = 0; l < PM; ++l) {
-        if (l < p) {
-          const double x = M[s][l];
-#pragma unroll
-          for (int i = 0; i < PM; ++i) {
-            if (i < p) {
-              f[i] += pc.F[i * p + l] * x;
-              if constexpr (CPL > 1) g[i] += el.F[l * p + i] * x;
-            }
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < PM; ++i) {
-        if (i < p) {
-          nc.F[i * p + j] = f[i];
-          if constexpr (CPL > 1) nc.G[i * p + j] = __dsub_rn(el.G[i * p + j], g[i]);
-        }
-      }
-    }
-  }
-  if constexpr (CPL == 1) {
-    if (lane < p) {
-      const int j = lane;
-      double g[PM];
-#pragma unroll
-      for (int i = 0; i < PM; ++i) g[i] = 0.0;
-#pragma unroll
-      for (int l = 0; l < PM; ++l) {
-        if (l < p) {
-          const double y = Y[l];
-#pragma unroll
-          for (int i = 0; i < PM; ++i)
-            if (i < p) g[i] += el.F[l * p + i] * y;
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < PM; ++i)
-        if (i < p) nc.G[i * p + j] = __dsub_rn(el.G[i * p + j], g[i]);
-    }
-  }
-  __syncwarp();
-  sym_inplace(nc.E, p, lane);
-  sym_inplace(nc.G, p, lane);
+  lft_chain::compose<Size<PM, CPL, EXACT>, false, false, false>(el, pc, nc, n + 1, 1, jitter, lane);
 }
 
 // ---- query warp: J of the prefix cc with the terminal factor C (C form)
@@ -501,14 +324,13 @@ int select_generic(const void* A, const void* B, const void* Q, const void* Rinv
                    int N, int n, int m, int t_min, double jitter, void* stream) {
   if (n < 1 || n > NMAX || m < 1 || m > MMAX) return (int)cudaErrorInvalidValue;
   if (Bsz > 0 && N > 0) {
-    // the registry's p = 3 (double integrator) and p = 5 (PointMass,
-    // cart-pole, segway, ballbot) as compile-time sizes, one column a lane
-    // and two problems a block; any other p <= 13 at run time, two columns
-    // a lane (3p > 32 from p = 11 on) and one problem a block
-    cudaStream_t s = (cudaStream_t)stream;
-    if (n + 1 == 3) launch<Fp, 3, 1, 2, true>(A, B, Q, Rinv, C, J, Bsz, N, n, m, t_min, jitter, s);
-    else if (n + 1 == 5) launch<Fp, 5, 1, 2, true>(A, B, Q, Rinv, C, J, Bsz, N, n, m, t_min, jitter, s);
-    else launch<Fp, PMAX, 2, 1, false>(A, B, Q, Rinv, C, J, Bsz, N, n, m, t_min, jitter, s);
+    // the chain's size rule (lft_chain.cuh); two problems a block at one
+    // column a lane, one at two
+    with_size(n + 1, [&](auto z) {
+      using Z = decltype(z);
+      launch<Fp, Z::PM, Z::CPL, Z::CPL == 1 ? 2 : 1, Z::EXACT>(A, B, Q, Rinv, C, J, Bsz, N, n, m, t_min, jitter,
+                                                               (cudaStream_t)stream);
+    });
   }
   return (int)cudaGetLastError();
 }

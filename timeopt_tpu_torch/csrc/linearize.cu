@@ -99,34 +99,15 @@ int launch(const void* X, const void* U, void* A, void* Bm, int B, int N, int n,
   return (int)cudaGetLastError();
 }
 
-// system_id (System.device_id): 0 = DoubleIntegrator, 1 = Quadrotor,
-// 2 = Cartpole, 3 = Segway, 4 = Ballbot, 5 = PointMass, 6 = Rocket6DoF.
-// Problem b's rows of X and U start x_stride and u_stride elements after
-// problem b - 1's.
+// The registry's struct of system_id (systems.cuh::with_system). Problem
+// b's rows of X and U start x_stride and u_stride elements after problem
+// b - 1's.
 template <typename Fp>
 int jacobians(const void* X, const void* U, void* A, void* Bm, int B, int N, int n, int m, long long x_stride,
               long long u_stride, int system_id, double dt, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-#define LIN_LAUNCH(SYS) return launch<SYS, Fp>(X, U, A, Bm, B, N, n, m, x_stride, u_stride, dt, s)
-  switch (system_id) {
-    case 0:
-      LIN_LAUNCH(DoubleIntegrator);
-    case 1:
-      LIN_LAUNCH(Quadrotor);
-    case 2:
-      LIN_LAUNCH(Cartpole);
-    case 3:
-      LIN_LAUNCH(Segway);
-    case 4:
-      LIN_LAUNCH(Ballbot);
-    case 5:
-      LIN_LAUNCH(PointMass);
-    case 6:
-      LIN_LAUNCH(Rocket6DoF);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef LIN_LAUNCH
+  return with_system(system_id, [&](auto sys) {
+    return launch<decltype(sys), Fp>(X, U, A, Bm, B, N, n, m, x_stride, u_stride, dt, (cudaStream_t)stream);
+  });
 }
 
 }  // namespace

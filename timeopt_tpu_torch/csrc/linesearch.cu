@@ -2,7 +2,7 @@
 // dynamics of the seven systems of the model registry (csrc/systems.cuh,
 // System.device_id 0..6), the quadrotor's trigonometry shared across the
 // lanes of a rollout, and the four entries linesearch_rollout[_from][_f32]
-// with a system_id switch. A System without a device_id gets a struct
+// dispatching on system_id. A System without a device_id gets a struct
 // generated from its own Python functions instead (ops/dyngen.py), in the
 // same kernel template.
 #include "linesearch_kernel.cuh"
@@ -73,39 +73,19 @@ __device__ __forceinline__ double xdot_lane<Quadrotor>(int i, double xi, const d
   return r;
 }
 
-// system_id (System.device_id): 0 = DoubleIntegrator, 1 = Quadrotor,
-// 2 = Cartpole, 3 = Segway, 4 = Ballbot, 5 = PointMass, 6 = Rocket6DoF
-// (the lane group of 16, as the quadrotor's). Each rollout of
-// problem b starts at x0 + b * x0_stride.
+// The registry's struct of system_id (systems.cuh::with_system); the lander
+// takes the lane group of 16, as the quadrotor. Each rollout of problem b
+// starts at x0 + b * x0_stride.
 template <typename Fp>
 int rollout_from(const void* X, const void* U, const void* K, const void* kap, const void* T_star, const void* xg,
                  const void* u_ref, const void* Q, const void* R, const void* Qf, const void* w,
                  const void* wrap_mask, const void* alphas, void* Xs, void* Us, void* Js, const void* x0, int B,
                  int N, int n, int m, int A, int system_id, double dt, int state_wrap_bits, long long x0_stride,
                  void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-#define LS_LAUNCH(SYS)                                                                          \
-  return launch<SYS, Fp>(X, U, K, kap, T_star, xg, u_ref, Q, R, Qf, w, wrap_mask, alphas, Xs, Us, Js, \
-                     x0, x0_stride, B, N, n, m, A, dt, state_wrap_bits, s)
-  switch (system_id) {
-    case 0:
-      LS_LAUNCH(DoubleIntegrator);
-    case 1:
-      LS_LAUNCH(Quadrotor);
-    case 2:
-      LS_LAUNCH(Cartpole);
-    case 3:
-      LS_LAUNCH(Segway);
-    case 4:
-      LS_LAUNCH(Ballbot);
-    case 5:
-      LS_LAUNCH(PointMass);
-    case 6:
-      LS_LAUNCH(Rocket6DoF);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef LS_LAUNCH
+  return with_system(system_id, [&](auto sys) {
+    return launch<decltype(sys), Fp>(X, U, K, kap, T_star, xg, u_ref, Q, R, Qf, w, wrap_mask, alphas, Xs, Us, Js, x0,
+                                     x0_stride, B, N, n, m, A, dt, state_wrap_bits, (cudaStream_t)stream);
+  });
 }
 
 }  // namespace

@@ -242,4 +242,26 @@ struct Rocket6DoF : NoExtras {
   }
 };
 
+#ifdef __CUDACC__  // the kernels' dispatch (the structs above also build on the host)
+
+// f(S{}) for the struct S of system_id (System.device_id):
+// 0 = DoubleIntegrator, 1 = Quadrotor, 2 = Cartpole, 3 = Segway,
+// 4 = Ballbot, 5 = PointMass, 6 = Rocket6DoF; cudaErrorInvalidValue for any
+// other id. A system on the device is one struct above and one case here.
+template <class F>
+int with_system(int system_id, F&& f) {
+  switch (system_id) {
+    case 0: return f(DoubleIntegrator{});
+    case 1: return f(Quadrotor{});
+    case 2: return f(Cartpole{});
+    case 3: return f(Segway{});
+    case 4: return f(Ballbot{});
+    case 5: return f(PointMass{});
+    case 6: return f(Rocket6DoF{});
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+#endif  // __CUDACC__
+
 }  // namespace

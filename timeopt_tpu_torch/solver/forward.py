@@ -69,12 +69,6 @@ def select_first_improving(X, U, Xs, Us, Js, J_old) -> LinesearchResult:
     return LinesearchResult(X=Xn, U=Un, J=Jn, accepted=accepted)
 
 
-def _linesearch_impl(system, prob, X, U, K, kappa, T_star, J_old, alphas) -> LinesearchResult:
-    """Plain all-alphas evaluation plus the first-improving selection."""
-    Xs, Us, Js = linesearch_plain(system, prob, X, U, K, kappa, T_star, alphas)
-    return select_first_improving(X, U, Xs, Us, Js, J_old)
-
-
 def forward_linesearch(
     system: System,
     prob: Problem,
